@@ -1,0 +1,530 @@
+"""One configured engine, compiled schedules — the uniform front door.
+
+The paper's claim is a uniform architecture: one configurable engine runs
+every conv and deconv layer of 2D and 3D DCNNs from a per-layer schedule
+decided at compile time.  In the port:
+
+  * ``EngineConfig`` — the engine's configuration, decided once: method,
+    storage dtype, shared-memory budget, channel-tile overrides, telemetry,
+    and the ``device`` it runs on (``"cuda"`` unless the caller asks for
+    the CPU, where the kernels' plain versions run).
+  * ``UniformEngine`` — ``engine.conv``/``engine.deconv`` run both
+    directions on the hand-written Hopper kernels, and a geometry-keyed
+    plan cache makes the tile planner run once per layer geometry.
+  * ``compile_network(layers, engine)`` — a ``UniformLayer`` chain or a
+    ``UniformGraph`` becomes (a) an eager callable running every node on
+    the engine and (b) a ``ScheduleReport`` of the per-layer plans.
+
+``engine.conv`` is a correlation (channels-last, no kernel flip):
+``y[n, o, co] = sum_{k, ci} x[n, o*S + k*dil - lo, ci] * w[k, ci, co]``;
+``engine.deconv`` is the paper's Eq. (1) transposed convolution with an
+optional border crop.  Only the ``"pallas"`` method (the JAX package's
+name for its kernel path) is ported; the XLA-lowered flavours and the mesh,
+quantization and tuned-plan paths come with later ROADMAP items.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Sequence
+
+import torch
+
+from repro_torch.core import networks as _networks
+from repro_torch.core import tiling as _tiling
+from repro_torch.core.functional import (  # noqa: F401 (re-export)
+    METHODS,
+    PORTED_METHODS,
+    conv_output_shape,
+    insertion_sparsity,
+)
+from repro_torch.kernels import common as _kcommon
+
+# where each reference method not ported yet will come from
+_PENDING = {m: "ROADMAP open item 2 (the XLA-lowered reference flavours)"
+            for m in METHODS if m not in PORTED_METHODS}
+
+
+class EngineError(Exception):
+    """Base of the engine's typed failure surface."""
+
+
+class ScheduleError(EngineError, ValueError):
+    """A schedule could not be built or applied: broken layer chains,
+    mismatched weight trees, a plan over budget, ..."""
+
+
+class VmemBudgetError(ScheduleError):
+    """The planned block exceeds the shared-memory budget (raised only under
+    ``EngineConfig(strict_vmem=True)``).  The name is the JAX package's; on
+    Hopper the budget is shared memory per block, not VMEM."""
+
+    def __init__(self, msg: str, plan: "_tiling.DeconvTilePlan" = None):
+        super().__init__(msg)
+        self.plan = plan
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """The uniform engine's compile-time configuration.
+
+    ``method`` must be ``"pallas"`` (the hand kernels); any other
+    reference method name raises a typed error naming the ROADMAP item
+    that adds it.  ``preferred_element_type`` is the storage dtype of
+    every op output (``None``: the input's dtype); accumulation is f32
+    regardless.  ``max_tile_bytes`` overrides the per-block shared-memory
+    budget; ``block_ci``/``block_co`` pin the kernels' tiles;
+    ``strict_vmem`` turns an over-budget plan into a ``VmemBudgetError``.
+    ``telemetry`` (a ``repro_torch.obs.Telemetry``) records plan-cache and
+    compile instruments.  ``device`` is where the engine runs: ``"cuda"``
+    by default; ``"cpu"`` runs the kernels' plain versions.
+    """
+    method: str = "pallas"
+    preferred_element_type: Any = None
+    max_tile_bytes: int | None = None
+    block_ci: int | None = None
+    block_co: int | None = None
+    strict_vmem: bool = False
+    telemetry: Any = None
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        if self.method not in METHODS:
+            raise ValueError(f"unknown method {self.method!r}; expected one "
+                             f"of {METHODS}")
+        if self.method in _PENDING:
+            raise EngineError(f"method {self.method!r} is not ported yet: "
+                              f"{_PENDING[self.method]}")
+        pet = self.preferred_element_type
+        if pet is not None and pet not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"preferred_element_type must be float32 or "
+                             f"bfloat16, got {pet!r}")
+        object.__setattr__(self, "device", torch.device(self.device))
+
+    @property
+    def smem_budget(self) -> int:
+        return self.max_tile_bytes or _tiling.SMEM_BUDGET
+
+
+class UniformEngine:
+    """The configured engine: both op directions + a compiled plan cache.
+
+        engine = UniformEngine(method="pallas")          # on the card
+        y = engine.deconv(x, w, stride=2, padding=((0, 1), (0, 1)))
+        h = engine.conv(y, w2, stride=2, padding=1)
+
+    Constructing an engine for ``"cuda"`` with no CUDA device raises: the
+    engine never carries on quietly on the CPU.
+    """
+
+    def __init__(self, config: EngineConfig | str | None = None, **overrides):
+        if config is None:
+            config = EngineConfig(**overrides)
+        elif isinstance(config, str):
+            config = EngineConfig(method=config, **overrides)
+        elif overrides:
+            config = dataclasses.replace(config, **overrides)
+        if not isinstance(config, EngineConfig):
+            raise TypeError(f"expected EngineConfig | method name, got "
+                            f"{config!r}")
+        if config.device.type == "cuda" and not torch.cuda.is_available():
+            raise EngineError("no CUDA device is available; pass "
+                              "device='cpu' to run the kernels' plain "
+                              "versions on the CPU")
+        if config.device.type not in ("cuda", "cpu"):
+            raise EngineError(f"unsupported device {config.device}")
+        self.config = config
+        self.device = config.device
+        self._plans: dict[tuple, _tiling.DeconvTilePlan] = {}
+
+    def __repr__(self):
+        return (f"UniformEngine({self.config!r}, "
+                f"cached_plans={len(self._plans)})")
+
+    @property
+    def plan_cache(self) -> dict:
+        """Read-only view of the geometry-keyed schedule cache."""
+        return dict(self._plans)
+
+    def plan(self, mode: str, in_spatial, kernel, stride, cin: int, cout: int,
+             *, groups: int = 1, dilation=None, in_dtype_bytes: int = 4,
+             w_dtype_bytes: int | None = None) -> _tiling.DeconvTilePlan:
+        """The engine's only path to the tile planner — geometry-memoized."""
+        dilation = (tuple(dilation) if dilation is not None
+                    else (1,) * len(tuple(in_spatial)))
+        w_bytes = (int(in_dtype_bytes) if w_dtype_bytes is None
+                   else int(w_dtype_bytes))
+        key = (mode, tuple(in_spatial), tuple(kernel), tuple(stride),
+               int(cin), int(cout), int(groups), dilation,
+               int(in_dtype_bytes), w_bytes)
+        plan = self._plans.get(key)
+        tel = self.config.telemetry
+        if plan is None:
+            cfg = self.config
+            t0 = time.perf_counter()
+            plan = self._plans[key] = _tiling.plan_uniform_tiles(
+                int(cin), int(cout), mode=mode, smem_budget=cfg.smem_budget,
+                block_ci=cfg.block_ci, block_co=cfg.block_co, groups=groups,
+                in_dtype_bytes=in_dtype_bytes, w_dtype_bytes=w_bytes)
+            if tel is not None:
+                tel.registry.counter("engine_plan_cache_misses_total").inc()
+                tel.registry.histogram("engine_plan_seconds").observe(
+                    time.perf_counter() - t0)
+        elif tel is not None:
+            tel.registry.counter("engine_plan_cache_hits_total").inc()
+        if self.config.strict_vmem and plan.overflows:
+            raise VmemBudgetError(
+                f"{mode} {tuple(in_spatial)}x{cin}->{cout}: plan "
+                f"{plan.describe()} exceeds the {plan.smem_budget}-byte "
+                f"shared-memory budget", plan)
+        return plan
+
+    # -- the two op directions ---------------------------------------------
+
+    def deconv(self, x: torch.Tensor, w: torch.Tensor, stride, padding=0, *,
+               dilation=1, groups: int = 1, bias: torch.Tensor | None = None,
+               activation: str = "none", alpha: float = 0.2,
+               w_scale: torch.Tensor | None = None) -> torch.Tensor:
+        """Transposed convolution (Eq. (1) + border crop) on the deconv
+        kernel, epilogue fused."""
+        from repro_torch.kernels.deconv import ops as _dops  # lazy: cycle
+        return _dops.deconv(x, w, stride, padding, dilation=dilation,
+                            groups=groups, bias=bias, activation=activation,
+                            alpha=alpha, w_scale=w_scale, engine=self)
+
+    def conv(self, x: torch.Tensor, w: torch.Tensor, stride=1, padding=0, *,
+             dilation=1, groups: int = 1, bias: torch.Tensor | None = None,
+             activation: str = "none", alpha: float = 0.2,
+             w_scale: torch.Tensor | None = None) -> torch.Tensor:
+        """Forward strided convolution on the conv kernel, epilogue fused."""
+        from repro_torch.kernels.conv import ops as _cops  # lazy: cycle
+        return _cops.conv(x, w, stride, padding, dilation=dilation,
+                          groups=groups, bias=bias, activation=activation,
+                          alpha=alpha, w_scale=w_scale, engine=self)
+
+    def __call__(self, layer: _networks.UniformLayer, x: torch.Tensor,
+                 w: torch.Tensor, b: torch.Tensor | None = None, *,
+                 w_scale: torch.Tensor | None = None) -> torch.Tensor:
+        """Run one ``UniformLayer`` (op-dispatched, epilogue fused)."""
+        op = self.deconv if layer.op == "deconv" else self.conv
+        epi = layer.epilogue
+        return op(x, w, layer.stride, layer.padding,
+                  dilation=layer.dilation, groups=layer.groups, bias=b,
+                  activation=epi.activation, alpha=epi.alpha,
+                  w_scale=w_scale)
+
+
+# ---------------------------------------------------------------------------
+# Default engines.
+# ---------------------------------------------------------------------------
+
+_DEFAULT_ENGINES: dict[EngineConfig, UniformEngine] = {}
+
+
+def default_engine(config: EngineConfig | None = None,
+                   **overrides) -> UniformEngine:
+    """Memoized engine per ``EngineConfig``, so callers that pass no engine
+    share one plan cache per configuration."""
+    if config is None:
+        config = EngineConfig(**overrides)
+    elif overrides:
+        config = dataclasses.replace(config, **overrides)
+    engine = _DEFAULT_ENGINES.get(config)
+    if engine is None:
+        engine = _DEFAULT_ENGINES[config] = UniformEngine(config)
+    return engine
+
+
+def as_engine(engine, default_method: str = "pallas") -> UniformEngine:
+    """Coerce ``UniformEngine | EngineConfig | method-name | None``."""
+    if engine is None:
+        return default_engine(method=default_method)
+    if isinstance(engine, UniformEngine):
+        return engine
+    if isinstance(engine, EngineConfig):
+        return default_engine(engine)
+    if isinstance(engine, str):
+        return default_engine(method=engine)
+    raise TypeError(f"expected UniformEngine | EngineConfig | method name, "
+                    f"got {engine!r}")
+
+
+# ---------------------------------------------------------------------------
+# Compiled schedules — the paper's per-layer mapping tables, as data.
+# ---------------------------------------------------------------------------
+
+def _lift_geometry(layer: _networks.UniformLayer):
+    """Mirror ``kernels.common.lift_3d`` on the layer GEOMETRY."""
+    sp, k, s = layer.in_spatial, layer.kernel, layer.stride
+    rank = layer.rank
+    return (_kcommon.lift_tuple3(sp, rank), _kcommon.lift_tuple3(k, rank),
+            _kcommon.lift_tuple3(s, rank),
+            _kcommon.lift_padding(layer.padding, rank),
+            _kcommon.lift_tuple3(layer.dilation, rank))
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSchedule:
+    """One row of the compiled schedule — the per-layer mapping decision.
+
+    Merge nodes get rows too (``op`` is the merge kind, ``plan`` is None,
+    zero blocks), so the report lists every node the callable executes.
+    """
+    name: str
+    op: str                            # "deconv" | "conv" | "concat" | "add"
+    in_spatial: tuple[int, ...]
+    out_spatial: tuple[int, ...]
+    cin: int
+    cout: int
+    kernel: tuple[int, ...]
+    stride: tuple[int, ...]
+    plan: _tiling.DeconvTilePlan | None
+    blocks: int                        # CUDA blocks of the forward launch
+    smem_bytes: int                    # modeled shared memory per block
+    macs: int                          # valid MACs at the schedule's batch
+    sparsity: float                    # zeros an OOM engine would read
+    groups: int = 1
+    dilation: tuple[int, ...] = ()
+    epilogue: str = "-"
+    dtype: str = "float32"
+
+    def describe(self) -> str:
+        plan = self.plan.describe() if self.plan is not None else "merge"
+        return (f"{self.name:<18s} {self.op:<6s} "
+                f"{'x'.join(map(str, self.in_spatial)):>11s}x{self.cin:<4d}-> "
+                f"{'x'.join(map(str, self.out_spatial)):>11s}x{self.cout:<4d} "
+                f"g{self.groups:<3d} "
+                f"d{'x'.join(map(str, self.dilation)):<5s} "
+                f"ep:{self.epilogue:<10s} {self.dtype:<9s} "
+                f"{plan:<32s} blocks{self.blocks:>7d} "
+                f"zeros{self.sparsity:.0%}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduleReport:
+    """The whole network's compiled schedule at batch ``batch``."""
+    engine: EngineConfig
+    layers: tuple[LayerSchedule, ...]
+    batch: int = 1
+
+    @property
+    def blocks(self) -> int:
+        return sum(l.blocks for l in self.layers)
+
+    @property
+    def macs(self) -> int:
+        return sum(l.macs for l in self.layers)
+
+    @property
+    def peak_smem_bytes(self) -> int:
+        return max(l.smem_bytes for l in self.layers)
+
+    @property
+    def unique_plans(self) -> int:
+        return len({l.plan for l in self.layers if l.plan is not None})
+
+    @property
+    def kernel_launches(self) -> int:
+        """Hand-kernel launches per forward: one per layer node."""
+        return sum(l.plan is not None for l in self.layers)
+
+    def describe(self) -> str:
+        head = (f"schedule[{self.engine.method}@{self.engine.device}] "
+                f"batch={self.batch} layers={len(self.layers)} "
+                f"plans={self.unique_plans} blocks={self.blocks} "
+                f"macs={self.macs} peak_smem={self.peak_smem_bytes}")
+        return "\n".join([head] + ["  " + l.describe() for l in self.layers])
+
+
+def _schedule_layer(layer: _networks.UniformLayer, engine: UniformEngine,
+                    batch: int, dtype: torch.dtype) -> LayerSchedule:
+    g = layer.groups
+    sp3, k3, s3, p3, dil3 = _lift_geometry(layer)
+    nbytes = torch.empty((), dtype=dtype).element_size()
+    plan = engine.plan(layer.op, sp3, k3, s3, layer.cin, layer.cout,
+                       groups=g, dilation=dil3, in_dtype_bytes=nbytes,
+                       w_dtype_bytes=nbytes)
+    if layer.op == "deconv":
+        q = tuple(i + m - 1 for i, m in
+                  zip(sp3, _kcommon.phase_geometry(k3, s3, dil3)))
+        blocks = _tiling.grid_blocks(plan, batch * math.prod(q), layer.cout,
+                                     g, phases=math.prod(s3))
+        sparsity = insertion_sparsity(layer.in_spatial, layer.kernel,
+                                      layer.stride)
+    else:
+        blocks = _tiling.grid_blocks(
+            plan, batch * math.prod(layer.out_spatial), layer.cout, g)
+        sparsity = 0.0
+    return LayerSchedule(
+        name=layer.name, op=layer.op, in_spatial=layer.in_spatial,
+        out_spatial=layer.out_spatial, cin=layer.cin, cout=layer.cout,
+        kernel=layer.kernel, stride=layer.stride, plan=plan, blocks=blocks,
+        smem_bytes=plan.step_smem_bytes, macs=batch * layer.valid_macs,
+        sparsity=sparsity, groups=g, dilation=layer.dilation,
+        epilogue=layer.epilogue.describe(), dtype=_dtype_name(dtype))
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _schedule_merge(node: _networks.MergeNode, graph: _networks.UniformGraph,
+                    dtype: torch.dtype) -> LayerSchedule:
+    sp, cout = graph.node_shape(node.name)
+    cin = sum(graph.node_shape(p)[1] for p in graph.edges[node.name])
+    return LayerSchedule(
+        name=node.name, op=node.kind, in_spatial=sp, out_spatial=sp,
+        cin=cin, cout=cout, kernel=(), stride=(), plan=None, blocks=0,
+        smem_bytes=0, macs=0, sparsity=0.0, dtype=_dtype_name(dtype))
+
+
+def _layer_wb(entry, layer: _networks.UniformLayer):
+    """Split one weight-tree entry into (w, bias-or-None)."""
+    if isinstance(entry, dict):
+        if "w_q" in entry:
+            raise NotImplementedError(
+                f"layer {layer.name!r}: quantized weight entries are the "
+                f"quantization slice's work (ROADMAP open item 10)")
+        w, b = entry["w"], entry.get("b")
+    else:
+        w, b = entry, None
+    if layer.epilogue.bias and b is None:
+        raise ScheduleError(f"layer {layer.name!r} declares a fused bias but "
+                            f"its weight entry carries none (expected "
+                            f"{{'w', 'b'}})")
+    return w, b
+
+
+def _run_layer(engine: UniformEngine, layer, entry, h: torch.Tensor):
+    w, b = _layer_wb(entry, layer)
+    kw = dict(device=h.device, dtype=h.dtype)
+    return engine(layer, h, w.to(**kw), None if b is None else b.to(**kw))
+
+
+def _graph_apply_fn(graph: _networks.UniformGraph, engine: UniformEngine):
+    """The compiled DAG walk: one engine call per layer node (epilogue
+    fused), one concat/add per merge node, intermediates dropped as soon
+    as their last consumer has run."""
+    last_use: dict[str, str] = {}
+    for name in graph.order:
+        for p in graph.edges[name]:
+            last_use[p] = name
+    layer_names = [l.name for l in graph.layers]
+    # the storage-dtype contract: with no preferred_element_type every node
+    # emits its input's dtype, so a bf16 graph stays bf16 end to end
+    keep_dtype = engine.config.preferred_element_type is None
+
+    def apply(ws, x):
+        missing = [n for n in layer_names if n not in ws]
+        if missing:
+            raise ScheduleError(f"graph weights missing entries for {missing}")
+        vals: dict[str, torch.Tensor] = {graph.INPUT: x.to(engine.device)}
+        for name in graph.order:
+            nd = graph.nodes[name]
+            ins = [vals[p] for p in graph.edges[name]]
+            if isinstance(nd, _networks.MergeNode):
+                if nd.kind == "concat":
+                    vals[name] = torch.cat(ins, dim=-1)
+                else:
+                    out = ins[0]
+                    for v in ins[1:]:
+                        out = out + v
+                    vals[name] = out
+            else:
+                h = ins[0]
+                out = _run_layer(engine, nd, ws[name], h)
+                vals[name] = out.to(h.dtype) if keep_dtype else out
+            for p in graph.edges[name]:
+                if last_use[p] == name and p != graph.output:
+                    vals.pop(p, None)
+        return vals[graph.output]
+
+    return apply
+
+
+def compile_network(layers: Sequence[_networks.UniformLayer]
+                    | _networks.UniformGraph,
+                    engine: UniformEngine | EngineConfig | str,
+                    *, batch: int = 1, dtype: torch.dtype = torch.float32,
+                    ) -> tuple[Callable, ScheduleReport]:
+    """Compile a ``UniformLayer`` chain OR a ``UniformGraph`` DAG onto one
+    configured engine.
+
+    Returns ``(apply, report)``: ``apply(ws, x)`` runs every node on the
+    engine in schedule order (``x`` moves to the engine's device; weights
+    should already live there), and ``report`` is the per-node
+    ``ScheduleReport`` for a batch-``batch`` forward in ``dtype`` — every
+    plan it lists is resident in the engine's cache, so ``apply`` never
+    re-runs the planner.
+
+    For a chain, ``ws`` is the per-layer weight list (each
+    ``[*K, Cin/groups, Cout]``, or ``{"w", "b"}``).  For a graph, ``ws`` is
+    a dict keyed by layer name (``init_network_weights`` builds it).
+    Merge nodes own no weights; epilogues run inside the kernels.
+    """
+    engine = engine if isinstance(engine, UniformEngine) else as_engine(engine)
+    tel = engine.config.telemetry
+    t0 = time.perf_counter()
+    if isinstance(layers, _networks.UniformGraph):
+        graph = layers
+        tag = f"graph:{graph.output}"
+        rows = tuple(_schedule_layer(nd, engine, batch, dtype)
+                     if isinstance(nd, _networks.UniformLayer)
+                     else _schedule_merge(nd, graph, dtype)
+                     for nd in (graph.nodes[n] for n in graph.order))
+        apply = _graph_apply_fn(graph, engine)
+    else:
+        chain = tuple(layers)
+        if not chain:
+            raise ScheduleError("compile_network needs at least one layer")
+        for prev, nxt in zip(chain, chain[1:]):
+            if prev.out_spatial != nxt.in_spatial or prev.cout != nxt.cin:
+                raise ScheduleError(
+                    f"layer chain breaks at {prev.name} -> {nxt.name}: "
+                    f"{prev.out_spatial}x{prev.cout} != "
+                    f"{nxt.in_spatial}x{nxt.cin}")
+        tag = f"chain:{chain[0].name}x{len(chain)}"
+        rows = tuple(_schedule_layer(l, engine, batch, dtype) for l in chain)
+
+        def apply(ws, x):
+            if len(ws) != len(chain):
+                raise ScheduleError(f"expected {len(chain)} weight entries, "
+                                    f"got {len(ws)}")
+            h = x.to(engine.device)
+            for layer, entry in zip(chain, ws):
+                h = _run_layer(engine, layer, entry, h)
+            return h
+    report = ScheduleReport(engine=engine.config, layers=rows, batch=batch)
+    if tel is not None:
+        dt = time.perf_counter() - t0
+        tel.registry.histogram("engine_compile_seconds",
+                               schedule=tag).observe(dt)
+        tel.tracer.event("compile", schedule=tag,
+                         method=engine.config.method, batch=batch,
+                         layers=len(report.layers), duration_s=dt)
+    return apply, report
+
+
+def init_network_weights(layers: Sequence[_networks.UniformLayer]
+                         | _networks.UniformGraph,
+                         generator: torch.Generator,
+                         dtype: torch.dtype = torch.float32,
+                         scale: float = 0.05):
+    """Random weights for a compiled network, on the CPU, drawn from
+    ``generator``: a per-layer ``[*K, Cin/G, Cout]`` list for a chain, or
+    the name-keyed dict ``compile_network`` expects for a graph (``{"w",
+    "b"}`` entries where the epilogue declares a bias, zero biases)."""
+    def draw(l):
+        return scale * torch.randn(l.weight_shape, generator=generator,
+                                   dtype=dtype)
+
+    if isinstance(layers, _networks.UniformGraph):
+        ws = {}
+        for l in layers.layers:
+            w = draw(l)
+            ws[l.name] = ({"w": w, "b": torch.zeros(l.cout, dtype=dtype)}
+                          if l.epilogue.bias else w)
+        return ws
+    return [draw(l) for l in layers]

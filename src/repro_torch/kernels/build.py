@@ -1,0 +1,165 @@
+"""Build and load the port's CUDA kernels (``repro_torch/csrc``).
+
+The kernels have a plain C interface and are compiled with ``nvcc`` for
+``sm_90a`` into one shared library, loaded with ``ctypes``.  Each source is
+compiled in its own ``nvcc`` process, all started together, then linked.
+The library lands in ``build/repro_torch_kernels/`` at the repository root
+(listed in ``.gitignore``) under a name that hashes the sources and flags,
+so an edited source is never served by a stale build.  Nothing is built at
+import: the first kernel launch builds, or ``chip_smoke.py`` calls
+``build()`` up front to time it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
+             / "repro_torch_kernels")
+SOURCES = ("deconv_fwd.cu", "conv_fwd.cu")
+HEADERS = ("igemm.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile the library if it is not built yet; returns its path and the
+    compiler's log (``-Xptxas -v``: registers, shared memory, spills)."""
+    lib = library_path()
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in SOURCES:
+            obj = Path(tmp) / (Path(src).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n"
+                               + "\n".join(logs))
+        tmp_lib = Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_lib),
+             *(str(obj) for _, obj, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib)
+    return lib, "\n".join(logs)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# operand type codes of igemm.cuh (DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+QUANT_ITEM = "ROADMAP open item 10 (Quantization)"
+_INT32_MAX = 2 ** 31 - 1
+
+
+def check_operands(x, w, scale, bias, out_dtype, *, co: int):
+    """Validate what both kernels take; returns the f32 scale/bias views.
+
+    Raises NotImplementedError for integer (quantized) operands and
+    TypeError/ValueError for anything else the kernels do not take.
+    """
+    for name, t in (("x", x), ("w", w)):
+        if not t.dtype.is_floating_point:
+            raise NotImplementedError(
+                f"{name} is {t.dtype}: integer operands are the "
+                f"quantization slice's work ({QUANT_ITEM})")
+        if t.dtype not in DTYPE_CODES:
+            raise TypeError(f"{name} is {t.dtype}; the kernels take "
+                            f"float32 and bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.dtype != w.dtype:
+        raise TypeError(f"x is {x.dtype} but w is {w.dtype}")
+    if out_dtype not in DTYPE_CODES:
+        raise TypeError(f"out_dtype {out_dtype} is not float32/bfloat16")
+    if w.device != x.device:
+        raise ValueError(f"x on {x.device}, w on {w.device}")
+    out = []
+    for name, v in (("scale", scale), ("bias", bias)):
+        if v is not None:
+            if v.numel() != co or v.device != x.device:
+                raise ValueError(f"{name} must hold {co} values on "
+                                 f"{x.device}, got {tuple(v.shape)} on "
+                                 f"{v.device}")
+            v = v.reshape(co).to(torch.float32).contiguous()
+        out.append(v)
+    return tuple(out)
+
+
+def geom_array(vals) -> ctypes.Array:
+    """Pack the igemm.cuh ``Geom`` fields (25 ints) for the C call."""
+    vals = [int(v) for v in vals]
+    if len(vals) != 25 or any(not 0 <= v <= _INT32_MAX for v in vals):
+        raise ValueError(f"bad kernel geometry {vals}")
+    n, pd, ph, pw = vals[0], vals[16], vals[17], vals[18]
+    if n * pd * ph * pw > _INT32_MAX:
+        raise ValueError(f"{n * pd * ph * pw} output rows exceed the "
+                         f"kernels' 32-bit row index")
+    return (ctypes.c_int * 25)(*vals)
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def stream_of(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use), argtypes declared."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    geom = ctypes.POINTER(ctypes.c_int)
+    lib.repro_deconv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, geom, _I,
+                                     ctypes.c_float, _I, _I, _I, _P]
+    lib.repro_deconv_fwd.restype = _I
+    lib.repro_conv_fwd.argtypes = [_P, _P, _P, _P, _P, geom, _I,
+                                   ctypes.c_float, _I, _I, _I, _P]
+    lib.repro_conv_fwd.restype = _I
+    return lib

@@ -1,0 +1,85 @@
+"""Wrapper of the hand-written Hopper conv kernel (``csrc/conv_fwd.cu``).
+
+It replaces the JAX package's TPU kernel ``conv_pallas_3d``.  Each CUDA
+block owns a tile of output positions and a block of output channels and
+sums every tap in f32 registers, reading the input through masked loads in
+place of a host-side pad; see the note at the top of the source.
+``launches`` counts the kernel launches made through this wrapper, and
+nothing else.
+
+On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
+tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.tiling import KERNEL_TILES
+from repro_torch.kernels import build as _build
+from repro_torch.kernels import common as _common
+from repro_torch.kernels.conv import ref as _ref
+
+launches = 0
+
+
+def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
+             dilation=(1, 1, 1), groups: int = 1, pad_lo=(0, 0, 0),
+             out_spatial, scale: torch.Tensor | None = None,
+             bias: torch.Tensor | None = None, activation: str = "none",
+             alpha: float = 0.2, out_dtype: torch.dtype | None = None,
+             block_co: int = 64) -> torch.Tensor:
+    """Strided correlation on the canonical rank-3 layout.
+
+    x: [N, D, H, W, Ci] (unpadded); w: [prod(K), Ci/G, Co] in kernel-element
+    order.  ``y[o] = act(scale * sum_k x[o*S + k*dil - lo] w[k] + bias)``
+    over ``out_spatial`` output positions, reads outside x being zero,
+    cast to ``out_dtype`` (default x's).
+    """
+    global launches
+    kernel, stride = tuple(kernel), tuple(stride)
+    dilation, pad_lo = tuple(dilation), tuple(pad_lo)
+    out_spatial = tuple(out_spatial)
+    if x.dim() != 5 or w.dim() != 3:
+        raise ValueError(f"expected x [N,D,H,W,Ci] and w [taps,Ci/G,Co], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    n, d, h, wd, ci = x.shape
+    co = w.shape[-1]
+    if (ci % groups or co % groups or w.shape[1] != ci // groups
+            or w.shape[0] != math.prod(kernel)):
+        raise ValueError(f"w {tuple(w.shape)} does not fit Ci={ci}, "
+                         f"groups={groups}, kernel={kernel}")
+    if activation not in _common.ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if any(o < 1 for o in out_spatial) or any(lo < 0 for lo in pad_lo):
+        raise ValueError(f"bad conv extent {out_spatial} / pad {pad_lo}")
+    out_dtype = out_dtype or x.dtype
+    scale32, bias32 = _build.check_operands(x, w, scale, bias, out_dtype,
+                                            co=co)
+    if x.device.type == "cpu":
+        return _ref.conv_fwd_plain(
+            x, w, kernel=kernel, stride=stride, dilation=dilation,
+            groups=groups, pad_lo=pad_lo, out_spatial=out_spatial,
+            scale=scale, bias=bias, activation=activation, alpha=alpha,
+            out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no conv kernel for device {x.device}")
+    if block_co not in KERNEL_TILES:
+        raise ValueError(f"block_co {block_co} not in {sorted(KERNEL_TILES)}")
+    lib = _build.library()
+    y = torch.empty((n, *out_spatial, co), dtype=out_dtype, device=x.device)
+    geom = _build.geom_array((n, d, h, wd, ci, co, groups, *kernel, *stride,
+                              *dilation, *out_spatial, *out_spatial,
+                              *pad_lo))
+    err = lib.repro_conv_fwd(
+        _build.ptr(x), _build.ptr(w), _build.ptr(scale32),
+        _build.ptr(bias32), _build.ptr(y), geom,
+        _common.ACTIVATION_CODES[activation], float(alpha),
+        _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype],
+        block_co, _build.stream_of(x))
+    if err:
+        raise RuntimeError(f"conv kernel launch failed (cudaError {err})")
+    launches += 1
+    return y
