@@ -7,24 +7,44 @@ Phases, any failure of which exits non-zero before the result line:
 
   1. device — require CUDA, print versions and the card's name and power
      limit, force IEEE f32 (TF32 off) in cuBLAS and cuDNN;
-  2. build — compile both CUDA kernels from ``src/repro_torch/csrc``;
-  3. kernels against their plain versions — every distinct layer geometry
-     of full-width DCGAN and V-Net at the served batch, in f32 and bf16,
+  2. build — compile the three CUDA kernels from ``src/repro_torch/csrc``
+     (one ``nvcc`` per source, all started together);
+  3. kernels against their plain versions — every distinct forward
+     geometry of full-width DCGAN and V-Net, served (batch 4) and trained
+     (DCGAN generator and discriminator at batch 64), in f32 and bf16,
      plus groups, dilation, rank 1, K=5/S=1 and scale+leaky_relu cases;
+     then the backward: dw and both dx routes at every training geometry
+     (DCGAN generator and discriminator at batch 64, V-Net at batch 4),
+     f32 and bf16 operands, against the plain versions summed in float64,
+     and a conv's dx over input rows no tap reads (exactly zero there);
   4. serve — a ``DcnnServer`` answers 8 DCGAN seeds and 4 V-Net volumes at
      full width through the kernels (launch counts checked per batch), and
      one request of each model is held against the port's CPU run;
-  5. times — each kernel at each main-path layer shape (CUDA events) beside
-     its plain version, one cuDNN call computing the same function, and
-     the bound; then one served batch of each model end to end.
+     train — ``Trainer`` runs 3 DCGAN steps (batch 64) and 2 V-Net steps
+     (batch 4, 128x128x64), the last after a resume from a checkpoint in a
+     temporary directory; losses finite, launches per step exactly those
+     ``launch.steps.train_step_launches`` derives from the graphs; one
+     DCGAN step's gradients (batch 4) held against the port's CPU run,
+     and again against a CPU run fed the card's forward outputs, with the
+     relu/leaky_relu mask flips between card and CPU counted;
+  5. times — each kernel at every call shape the main path gave it (CUDA
+     events; the serve and train runs record each wrapper's calls by
+     shape) beside its plain version, one cuDNN call computing the same
+     function (``convolution_backward`` with one output's mask set for
+     dw and dx), and the bound; one served batch of each model end to
+     end, and whole train steps.
 
-The line before the last is the ``{"kernels": [...]}`` summary and the last
-line is ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes
+The line before the last is the ``{"kernels": [...]}`` summary: each
+kernel's ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums
+over exactly the launches its ``launches`` counts (each call shape's time
+times the calls of that shape).  The last line is ``{"ok": true,
+"device": {...}}``.  ``--json PATH`` also writes
 every check and per-layer time to PATH.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -46,6 +66,28 @@ PEAK_BYTES = 3.35e12
 # bf16 rounding step (2^-8 relative), so 1e-2
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 SERVE_TOL = 1e-4                 # card vs CPU run of the port, f32
+# backward kernels vs a float64 plain version on the same inputs: f32
+# operands with random zero-mean data, sums of up to ~50 K products per
+# slice of the dw reduction (error ~ 6e-8 x sqrt(products), ~1.4e-5), so
+# 1e-4; bf16 outputs may differ by one bf16 rounding step, so 1e-2
+BACKWARD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# one DCGAN train step's gradients on the card vs the port's CPU run,
+# relative to each leaf's max.  f32 sums in another order through 8
+# layers agree to ~1e-6, so 1e-4 (GRAD_TOL_EXACT) holds every leaf when
+# the CPU run is fed the card's forward outputs, and, in a free CPU run,
+# every leaf no relu mask of the generator reaches (its last deconv, the
+# discriminator).  In a free run a relu mask flips where a pre-activation
+# lies within rounding of 0 (the batch-4 generator has ~900 K of them),
+# and one flipped element moves its share of one channel's weight
+# gradient, about 1/sqrt(1024 positions) of those entries and up to
+# ~1e-2 of the leaf's max; the leaves such a flip reaches (the
+# projection and the relu deconvs) are held at 2e-2.  A wrong index,
+# layout or lost partial sum moves a leaf by O(1)
+GRAD_TOL = 2e-2
+GRAD_TOL_EXACT = 1e-4
+# the steps the train phase runs, the last of them after a resume (the
+# batches are the configs': 64 for DCGAN, 4 for V-Net)
+TRAIN_STEPS = {"dcgan": 3, "v-net": 2}
 
 DCGAN_CHANS = (1024, 512, 256, 128, 3)
 VNET_CHANS = (16, 32, 64, 128, 256)
@@ -76,6 +118,8 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch import tree
+    from repro_torch.configs import get_config
     from repro_torch.core import networks as nets
     from repro_torch.core.engine import (
         UniformEngine,
@@ -88,6 +132,9 @@ def main() -> int:
     from repro_torch.kernels.deconv import kernel as dk
     from repro_torch.kernels.deconv import ops as dops
     from repro_torch.kernels.deconv import ref as dref
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import dcnn
+    from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime.dcnn_server import (
         DcnnServer,
         ServeRequest,
@@ -176,17 +223,42 @@ def main() -> int:
     dcgan_layers = dcgan_gen_spec(chans=DCGAN_CHANS).graph_for(None).layers
     vnet_layers = nets.vnet_graph(in_spatial=VNET_SPATIAL,
                                   chans=VNET_CHANS).layers
-    main_layers = [("dcgan", l) for l in dcgan_layers] + \
-        [("vnet", l) for l in vnet_layers]
+    train_cfgs = {arch: get_config(arch) for arch in TRAIN_STEPS}
+    # every training geometry: the DCGAN generator and discriminator at
+    # batch 64, V-Net at batch 4
+    train_layers = [(name, l, cfg.dcnn_batch)
+                    for cfg in train_cfgs.values()
+                    for name, graph in ST.train_graphs(cfg).items()
+                    for l in graph.layers]
+
+    def distinct(layers):
+        """(model, layer, batch) triples, one per layer geometry."""
+        seen, out = set(), []
+        for model, l, batch in layers:
+            key = (l.op, l.in_spatial, l.cin, l.weight_shape, l.stride,
+                   l.padding, l.dilation, l.groups, l.epilogue, batch)
+            if key not in seen:
+                seen.add(key)
+                out.append((model, l, batch))
+        return out
+
+    # every forward geometry of the main path, served (batch 4) and
+    # trained (V-Net trains at the served shapes)
+    main_layers = distinct([("dcgan", l, BATCH) for l in dcgan_layers]
+                           + [("vnet", l, BATCH) for l in vnet_layers]
+                           + train_layers)
 
     # -- 3. kernels against their plain versions ------------------------------
     phase("kernels vs plain versions")
-    max_abs = {"deconv": 0.0, "conv": 0.0}
+    # each kernel's worst f32 error against its plain version
+    max_abs = {"deconv_fwd": 0.0, "conv_fwd": 0.0, "deconv_dw": 0.0,
+               "deconv_dx": 0.0}
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        for model, layer in main_layers:
-            cases.append((f"{model}:{layer.name}", layer.op, dtype,
-                          lambda l=layer, d=dtype: layer_operands(l, d)))
+        for model, layer, batch in main_layers:
+            cases.append((f"{model}:{layer.name}:b{batch}", layer.op, dtype,
+                          lambda l=layer, d=dtype, n=batch:
+                          layer_operands(l, d, n)))
         extra = [
             ("groups2+dil2+scale+leaky", "deconv", (6, 7, 5), 16,
              (3, 3, 3, 8, 24), 2, 1, 2, 2),
@@ -225,9 +297,152 @@ def main() -> int:
               f"vs plain {ref.shape} {ref.dtype}")
         check(rel <= TOL[dname], f"{tag}/{op}/{dname}: relative error "
               f"{rel:.3g} above {TOL[dname]}")
-        max_abs[op] = max(max_abs[op], err)
+        if dtype == torch.float32:
+            max_abs[f"{op}_fwd"] = max(max_abs[f"{op}_fwd"], err)
         del got, ref, args
     torch.cuda.empty_cache()
+
+    # -- 3b. backward kernels against their plain versions -------------------
+    phase("backward kernels vs plain versions")
+    train_layers = distinct(train_layers)
+
+    def backward_operands(layer, batch, dtype):
+        """Random x, w, dy at the layer's training shapes and the
+        backward's exact kernel arguments ((a, b, kwargs) for dx, dw)."""
+        x = rand((batch, *layer.in_spatial, layer.cin), dtype)
+        w = rand(layer.weight_shape, dtype,
+                 1.0 / math.sqrt(math.prod(layer.weight_shape[:-1])))
+        dy = rand((batch, *layer.out_spatial, layer.cout), dtype)
+        make = (dops.deconv_backward_args if layer.op == "deconv"
+                else cops.conv_backward_args)
+        dx_args, dw_args = make(x, w, dy, layer.stride, layer.padding,
+                                dilation=layer.dilation,
+                                groups=layer.groups, engine=engine)
+        return x, w, dy, dx_args, dw_args
+
+    # backward route -> (kernel wrapper, plain version, its tile kwargs)
+    BACKWARD = {
+        ("deconv", "dx"): (dk.deconv_dx, cref.conv_fwd_plain,
+                           ("block_co",)),
+        ("conv", "dx"): (dk.deconv_fwd, dref.deconv_fwd_plain,
+                         ("block_co",)),
+        ("deconv", "dw"): (dk.deconv_dw, dref.deconv_dw_plain,
+                           ("block_a", "splits")),
+        ("conv", "dw"): (dk.deconv_dw, dref.deconv_dw_plain,
+                         ("block_a", "splits")),
+    }
+
+    def run_backward(op, which, args):
+        a, b, kw = args
+        return BACKWARD[(op, which)][0](a, b, **kw)
+
+    def run_backward_plain(op, which, args, dtype=None):
+        a, b, kw = args
+        tiles = BACKWARD[(op, which)][2]
+        kw = {k: v for k, v in kw.items() if k not in tiles}
+        if dtype is not None:
+            a, b, kw = a.to(dtype), b.to(dtype), dict(kw, out_dtype=dtype)
+        return BACKWARD[(op, which)][1](a, b, **kw)
+
+    # the wrapper whose launch computes each backward route
+    BACKWARD_KERNEL = {("deconv", "dx"): "deconv_dx",
+                       ("conv", "dx"): "deconv_fwd",
+                       ("deconv", "dw"): "deconv_dw",
+                       ("conv", "dw"): "deconv_dw"}
+    detail["backward_checks"] = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for model, layer, batch in train_layers:
+            _, _, _, dx_args, dw_args = backward_operands(layer, batch,
+                                                          dtype)
+            for which, args in (("dx", dx_args), ("dw", dw_args)):
+                got = run_backward(layer.op, which, args)
+                torch.cuda.synchronize()
+                # the yardstick sums in float64 (the same bf16-rounded
+                # inputs for bf16), so its own rounding is not charged
+                ref = run_backward_plain(layer.op, which, args,
+                                         torch.float64)
+                err = float((got.double() - ref).abs().max())
+                mag = float(ref.abs().max())
+                rel = err / mag if mag else err
+                tol = BACKWARD_TOL[dname]
+                row = {"check": f"{model}:{layer.name}", "op": layer.op,
+                       "grad": which, "dtype": dname, "batch": batch,
+                       "shape": list(got.shape), "max_abs_err": err,
+                       "rel_err": rel, "tol": tol}
+                print(json.dumps(row))
+                detail["backward_checks"].append(row)
+                check(got.shape == ref.shape and got.dtype == dtype,
+                      f"{row['check']}/{which}/{dname}: kernel output "
+                      f"{got.shape} {got.dtype} vs plain {ref.shape}")
+                check(rel <= tol, f"{row['check']}/{which}/{dname}: "
+                      f"relative error {rel:.3g} above {tol}")
+                if dtype == torch.float32:
+                    kname = BACKWARD_KERNEL[(layer.op, which)]
+                    max_abs[kname] = max(max_abs[kname], err)
+                    if kname == "deconv_dx":    # it runs on conv_fwd
+                        max_abs["conv_fwd"] = max(max_abs["conv_fwd"], err)
+                del got, ref
+            del dx_args, dw_args
+    # a conv's dx over input rows no tap reads: conv k3 s2 pad 0 on an
+    # extent of 8 reads rows 0..6, so row 7 of each dim gets exactly zero
+    # from the deconv kernel's widened phase grid
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        x = rand((2, 8, 8, 8, 16), dtype)
+        w = rand((3, 3, 3, 16, 24), dtype, 1.0 / math.sqrt(27 * 16))
+        dy = rand((2, 3, 3, 3, 24), dtype)
+        dx_args, dw_args = cops.conv_backward_args(x, w, dy, 2, 0,
+                                                   engine=engine)
+        for which, args in (("dx", dx_args), ("dw", dw_args)):
+            got = run_backward("conv", which, args)
+            torch.cuda.synchronize()
+            ref = run_backward_plain("conv", which, args, torch.float64)
+            err = float((got.double() - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            row = {"check": "conv_k3s2p0_extent8", "op": "conv",
+                   "grad": which, "dtype": dname, "shape": list(got.shape),
+                   "max_abs_err": err, "rel_err": rel,
+                   "tol": BACKWARD_TOL[dname]}
+            if which == "dx":
+                row["uncovered_max_abs"] = max(
+                    float(got[:, 7].abs().max()),
+                    float(got[:, :, 7].abs().max()),
+                    float(got[:, :, :, 7].abs().max()))
+                check(row["uncovered_max_abs"] == 0.0,
+                      f"conv dx: rows no tap reads hold "
+                      f"{row['uncovered_max_abs']}, not 0")
+            print(json.dumps(row))
+            detail["backward_checks"].append(row)
+            check(rel <= BACKWARD_TOL[dname], f"conv k3s2p0 {which}/"
+                  f"{dname}: relative error {rel:.3g}")
+    torch.cuda.empty_cache()
+
+    # the main path's calls of each wrapper by call shape, recorded while
+    # the serve and train runs below are on, so that each kernel's times
+    # cover exactly the launches it counts
+    recorded: dict = {}
+    recording = [False]
+
+    def signature(kname, a, b, kw):
+        return (kname, tuple(a.shape), a.dtype, tuple(b.shape), b.dtype,
+                tuple(sorted((k, (tuple(v.shape), v.dtype)
+                              if torch.is_tensor(v) else v)
+                             for k, v in kw.items())))
+
+    def recorder(mod, kname):
+        real = getattr(mod, kname)
+
+        def wrapped(a, b, **kw):
+            if recording[0] and a.is_cuda:
+                key = signature(kname, a, b, kw)
+                recorded[key] = recorded.get(key, 0) + 1
+            return real(a, b, **kw)
+        setattr(mod, kname, wrapped)
+
+    for mod, kname in ((dk, "deconv_fwd"), (ck, "conv_fwd"),
+                       (dk, "deconv_dw"), (dk, "deconv_dx")):
+        recorder(mod, kname)
 
     # -- 4. serve -------------------------------------------------------------
     phase("serve")
@@ -245,6 +460,7 @@ def main() -> int:
     for r in reqs:
         server.submit(r)
     dk.launches = ck.launches = 0           # the main path's run starts
+    recording[0] = True
     results, steps = [], []
     t_serve = time.perf_counter()
     while server.queue.depth:
@@ -263,6 +479,7 @@ def main() -> int:
         results.extend(got)
     serve_s = time.perf_counter() - t_serve
     launches = {"deconv": dk.launches, "conv": ck.launches}
+    recording[0] = False
     print(json.dumps({"main_path_launches": launches,
                       "serve_s": serve_s}))
     check(launches == {"deconv": 12, "conv": 10},
@@ -303,6 +520,208 @@ def main() -> int:
                           "tol": SERVE_TOL}))
         check(rel <= SERVE_TOL, f"{req.model}: card vs CPU relative error "
               f"{rel:.3g} above {SERVE_TOL}")
+
+    # -- 4b. train --------------------------------------------------------------
+    phase("train")
+    import tempfile
+
+    from repro_torch.data import DcnnBatches, VolumeBatches
+    from repro_torch.runtime.train_loop import Trainer, TrainLoopConfig
+
+    def counts():
+        return {"deconv_fwd": dk.launches, "conv_fwd": ck.launches,
+                "deconv_dw": dk.dw_launches, "deconv_dx": dk.dx_launches}
+
+    def zero_counts():
+        dk.launches = ck.launches = dk.dw_launches = dk.dx_launches = 0
+
+    def train_setup(arch, device, eng, batch=None, seed=0):
+        cfg = train_cfgs[arch]
+        if batch is not None:
+            cfg = dataclasses.replace(cfg, dcnn_batch=batch)
+        opt = AdamWConfig()
+        params = ST.real_params(cfg, torch.Generator().manual_seed(seed),
+                                device)
+        if arch == "v-net":
+            state = adamw_init(params, opt)
+            step = ST.make_vnet_train_step(cfg, opt, eng)
+        else:
+            state = (adamw_init(params["gen"], opt),
+                     adamw_init(params["disc"], opt))
+            step = ST.make_gan_train_step(cfg, opt, eng)
+        return cfg, params, state, step
+
+    def batches(arch, cfg, device, start=0):
+        if arch == "v-net":
+            return VolumeBatches(cfg.dcnn_batch, dcnn._vnet_spatial(cfg),
+                                 start_step=start, device=device)
+        last = dcnn._scaled_layers(cfg)[-1]
+        return DcnnBatches(cfg.dcnn_batch, cfg.dcnn_z,
+                           (*last.out_spatial, last.cout), start_step=start,
+                           device=device)
+
+    detail["train"] = {}
+    train_launches = dict.fromkeys(ST.LAUNCH_COUNTERS, 0)
+    train_steps = {}
+    for arch in TRAIN_STEPS:
+        cfg, params, state, step_fn = train_setup(arch, dev, engine)
+        want = ST.train_step_launches(cfg)
+        per_step = []
+
+        def counted(p, s, b, _fn=step_fn, _log=per_step):
+            before = counts()
+            out = _fn(p, s, b)
+            torch.cuda.synchronize()
+            _log.append({k: v - before[k] for k, v in counts().items()})
+            return out
+
+        n = TRAIN_STEPS[arch]
+        with tempfile.TemporaryDirectory() as ckdir:
+            loop = TrainLoopConfig(total_steps=n - 1, checkpoint_every=1,
+                                   log_every=1, checkpoint_dir=ckdir)
+            zero_counts()               # the training path's run starts
+            recording[0] = True
+            first = Trainer(counted, params, state, batches(arch, cfg, dev),
+                            loop)
+            first.run()
+            # a second trainer resumes from the checkpoint for the last step
+            _, fresh, fresh_state, _ = train_setup(arch, dev, engine,
+                                                   seed=1)
+            second = Trainer(counted, fresh, fresh_state,
+                             batches(arch, cfg, dev, start=n - 1),
+                             dataclasses.replace(loop, total_steps=n))
+            check(second.maybe_resume() and second.step == n - 1,
+                  f"{arch}: resume found no checkpoint of step {n - 1}")
+            check(all(torch.equal(a, b) for a, b in zip(
+                tree.leaves(second.params), tree.leaves(first.params))),
+                f"{arch}: resumed params differ from the checkpointed")
+            second.run()
+            got_counts = counts()       # the training path's run ends
+            recording[0] = False
+        logs = first.metrics_log + second.metrics_log
+        print(json.dumps({"train": arch, "batch": cfg.dcnn_batch,
+                          "steps": [{k: v for k, v in r.items()}
+                                    for r in logs],
+                          "launches_per_step": per_step,
+                          "expected_per_step": want}))
+        check(second.step == n and len(logs) == n,
+              f"{arch}: ran {second.step} steps, logged {len(logs)}")
+        check(all(math.isfinite(v) for r in logs for k, v in r.items()
+                  if k.endswith("loss")), f"{arch}: a loss is not finite")
+        check(all(d == want for d in per_step),
+              f"{arch}: launches per step {per_step}, expected {want}")
+        check(got_counts == {k: n * v for k, v in want.items()},
+              f"{arch}: launches over the run {got_counts}")
+        for k in train_launches:
+            train_launches[k] += got_counts[k]
+        train_steps[arch] = step_fn
+        detail["train"][arch] = {"batch": cfg.dcnn_batch, "metrics": logs,
+                                 "launches_per_step": want}
+        del first, second, params, state, fresh, fresh_state
+    torch.cuda.empty_cache()
+    print(json.dumps({"train_launches": train_launches}))
+
+    # one DCGAN step's gradients at full width, batch 4, on the card
+    # against the port's CPU run: a free CPU run, and one whose forward
+    # kernels return the card's outputs (so both backward passes read the
+    # same relu masks); the masks' flips between card and free CPU run are
+    # counted per forward launch
+    seen, fwd_log = [], []
+    real_update = ST.adamw_update
+    real_fwd = {"deconv": dops._forward, "conv": cops._forward}
+    replay = [None]
+
+    def capture(grads, *a, **k):
+        seen.append(grads)
+        return real_update(grads, *a, **k)
+
+    def logged(op):
+        def fwd(*args):
+            y = real_fwd[op](*args)
+            i = len(fwd_log)
+            fwd_log.append((op, args[8], y.detach().cpu()))
+            if replay[0] is not None:
+                card_y = replay[0][i][2]
+                check(replay[0][i][0] == op and card_y.shape == y.shape,
+                      f"forward {i}: {op} {tuple(y.shape)} vs the card's "
+                      f"{replay[0][i][0]} {tuple(card_y.shape)}")
+                y = card_y.to(y.device, y.dtype, copy=True)
+            return y
+        return fwd
+
+    def named(t, prefix):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from named(t[k], f"{prefix}/{k}")
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                yield from named(v, f"{prefix}/{i}")
+        else:
+            yield prefix, t
+
+    ST.adamw_update = capture
+    dops._forward, cops._forward = logged("deconv"), logged("conv")
+    try:
+        grads, logs = {}, {}
+        for run, eng in (("cuda", engine), ("cpu", cpu),
+                         ("cpu_card_fwd", cpu)):
+            seen.clear()
+            fwd_log.clear()
+            replay[0] = logs["cuda"] if run == "cpu_card_fwd" else None
+            cfg4, p4, s4, fn4 = train_setup("dcgan", "cpu", eng, batch=4,
+                                            seed=2)
+            b4 = batches("dcgan", cfg4, "cpu").make_batch(0)
+            if run == "cuda":
+                p4, s4, b4 = (tree.tree_map(lambda t: t.to(dev), v)
+                              for v in (p4, s4, b4))
+            fn4(p4, s4, b4)
+            grads[run] = {n: t.detach().cpu() for who, g in
+                          zip(("gen", "disc"), seen)
+                          for n, t in named(g, who)}
+            logs[run] = list(fwd_log)
+    finally:
+        ST.adamw_update = real_update
+        dops._forward, cops._forward = real_fwd["deconv"], real_fwd["conv"]
+        replay[0] = None
+    # relu/leaky_relu masks that differ between the card and the free CPU
+    # run, per forward launch (y > 0 exactly where the pre-activation is)
+    flips = [{"op": op, "activation": act, "elements": yc.numel(),
+              "flips": int(((yc > 0) != (yp > 0)).sum())}
+             for (op, act, yc), (_, _, yp) in zip(logs["cuda"], logs["cpu"])
+             if act in ("relu", "leaky_relu")]
+    # a flip in a generator relu reaches the projection and every deconv
+    # up to the last relu one; the last deconv (tanh) and the
+    # discriminator (trained on real data only) are out of its reach
+    gen_graph = ST.train_graphs(train_cfgs["dcgan"])["gen"].layers
+    last_relu = max(i for i, l in enumerate(gen_graph)
+                    if l.epilogue.activation == "relu")
+    reach = ("gen/proj",) + tuple(f"gen/deconvs/{i}/"
+                                  for i in range(last_relu + 1))
+    parity = {}
+    for run in ("cpu", "cpu_card_fwd"):
+        rows = {}
+        for n, ref in grads[run].items():
+            got = grads["cuda"][n]
+            rel = (float((got - ref).abs().max())
+                   / (float(ref.abs().max()) or 1.0))
+            loose = run == "cpu" and n.startswith(reach)
+            rows[n] = {"rel_err": rel,
+                       "tol": GRAD_TOL if loose else GRAD_TOL_EXACT}
+        parity[run] = rows
+    detail["train"]["dcgan_grad_parity"] = parity
+    detail["train"]["dcgan_relu_flips"] = flips
+    print(json.dumps({"grad_parity": "dcgan", "batch": 4,
+                      "leaves": len(grads["cpu"]), "mask_flips": flips,
+                      "runs": parity}))
+    check(len(logs["cuda"]) == len(logs["cpu"]) == len(logs["cpu_card_fwd"])
+          > 0, "the three runs launched different forwards")
+    for run, rows in parity.items():
+        check(len(rows) == len(grads["cuda"]) > 0,
+              f"{run}: {len(rows)} gradient leaves")
+        for n, r in rows.items():
+            check(r["rel_err"] <= r["tol"], f"dcgan gradient {n}, card vs "
+                  f"{run}: relative error {r['rel_err']:.3g} above "
+                  f"{r['tol']}")
 
     # -- 5. times -------------------------------------------------------------
     phase("times")
@@ -347,37 +766,51 @@ def main() -> int:
         return lambda: fn(xl, wl, b, stride=layer.stride, padding=pad,
                           dilation=layer.dilation)
 
-    totals = {op: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                   "library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
-              for op in KERNELS}
+    # each kernel's totals over the main path's launches: every call
+    # shape's times, weighted by the calls of that shape it recorded
+    totals = {k: {"launches": 0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "library_ms": 0.0, "ops_ms": 0.0,
+                  "bytes_ms": 0.0} for k in max_abs}
+    timed = set()
+
+    def account(row, keys, ops_ms, bytes_ms):
+        row["launches"] = {}
+        for key in keys:
+            if key in timed:        # a shape two layers share counts once
+                continue
+            n = recorded.get(key, 0)
+            timed.add(key)
+            row["launches"][key[0]] = n
+            tot = totals[key[0]]
+            tot["launches"] += n
+            for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[f] += n * row[f]
+            tot["ops_ms" if ops_ms >= bytes_ms else "bytes_ms"] += \
+                n * row["bound_ms"]
+
     detail["layers"] = []
-    for model, layer in main_layers:
-        x, w, b, args = layer_operands(layer, torch.float32)
+    for model, layer, batch in main_layers:
+        x, w, b, args = layer_operands(layer, torch.float32, batch)
         y = run_kernel(layer.op, args)
         kms = per_call_ms(lambda: run_kernel(layer.op, args), 10)
         pms = per_call_ms(lambda: run_plain(layer.op, args), 2, groups=3)
         lms = per_call_ms(library_call(layer, x, w, b), 10)
         nbytes = sum(t.numel() * t.element_size()
                      for t in (x, w, y) + ((b,) if b is not None else ()))
-        flops = 2 * BATCH * layer.valid_macs
+        flops = 2 * batch * layer.valid_macs
         ops_ms = 1e3 * flops / PEAK_FLOPS["float32"]
         bytes_ms = 1e3 * nbytes / PEAK_BYTES
         row = {"layer": f"{model}:{layer.name}", "op": layer.op,
-               "batch": BATCH, "in": list(x.shape), "out": list(y.shape),
-               "launches_per_batch": 1, "ms": kms, "plain_ms": pms,
+               "batch": batch, "in": list(x.shape), "out": list(y.shape),
+               "ms": kms, "plain_ms": pms,
                "library_ms": lms, "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "tflops": flops / kms / 1e9}
+        account(row, [signature(f"{layer.op}_fwd", *args[:3])], ops_ms,
+                bytes_ms)
         print(json.dumps(row))
         detail["layers"].append(row)
-        tot = totals[layer.op]
-        tot["ms"] += kms
-        tot["plain_ms"] += pms
-        tot["library_ms"] += lms
-        tot["bound_ms"] += row["bound_ms"]
-        tot["ops_ms" if ops_ms >= bytes_ms else "bytes_ms"] += \
-            row["bound_ms"]
         del x, w, b, args, y
     torch.cuda.empty_cache()
 
@@ -397,22 +830,125 @@ def main() -> int:
                           "seconds": lat,
                           "median_ms": 1e3 * statistics.median(lat)}))
 
+    def library_backward(layer, x, w, dy, which):
+        """One cuDNN ``convolution_backward`` computing the same dw or dx
+        (only that output's mask set), channels-last, layouts prepared
+        outside the timed region; the deconv's dy is zero-padded back to
+        the Eq. (1) extent its crop removed."""
+        r = layer.rank
+        fmt = torch.channels_last if r == 2 else torch.channels_last_3d
+        to_nc = (0, r + 1, *range(1, r + 1))
+        if layer.op == "deconv":
+            pads = [0, 0]
+            for lo, hi in reversed(layer.padding):
+                pads += [lo, hi]
+            dy = F.pad(dy, pads)
+            wl = w.permute(r, r + 1, *range(r)).contiguous(
+                memory_format=fmt)
+            padding, transposed = [0] * r, True
+        else:
+            wl = w.permute(r + 1, r, *range(r)).contiguous(
+                memory_format=fmt)
+            check(all(lo == hi for lo, hi in layer.padding), "symmetric pad")
+            padding, transposed = [lo for lo, _ in layer.padding], False
+        xl, dyl = x.permute(*to_nc), dy.contiguous().permute(*to_nc)
+        mask = [which == "dx", which == "dw", False]
+        return lambda: torch.ops.aten.convolution_backward(
+            dyl, xl, wl, None, list(layer.stride), padding,
+            list(layer.dilation), transposed, [0] * r, layer.groups, mask)
+
+    # backward kernels at every training geometry (batch 64 / 4), f32
+    detail["backward_layers"] = []
+    for model, layer, batch in train_layers:
+        x, w, dy, dx_args, dw_args = backward_operands(layer, batch,
+                                                       torch.float32)
+        for which, args in (("dw", dw_args), ("dx", dx_args)):
+            kname = BACKWARD_KERNEL[(layer.op, which)]
+            out = run_backward(layer.op, which, args)
+            kms = per_call_ms(lambda: run_backward(layer.op, which, args),
+                              5, groups=3)
+            pms = per_call_ms(
+                lambda: run_backward_plain(layer.op, which, args), 1,
+                groups=3)
+            lms = per_call_ms(library_backward(layer, x, w, dy, which), 5,
+                              groups=3)
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in ((x, dy, out) if which == "dw"
+                                   else (dy, w, out)))
+            flops = 2 * batch * layer.valid_macs
+            ops_ms = 1e3 * flops / PEAK_FLOPS["float32"]
+            bytes_ms = 1e3 * nbytes / PEAK_BYTES
+            row = {"layer": f"{model}:{layer.name}", "op": layer.op,
+                   "grad": which, "kernel": kname, "batch": batch,
+                   "ms": kms, "plain_ms": pms,
+                   "library_ms": lms, "bound_ms": max(ops_ms, bytes_ms),
+                   "bound_by": ("operations" if ops_ms >= bytes_ms
+                                else "bytes"),
+                   "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                   "tflops": flops / kms / 1e9}
+            keys = [signature(kname, *args)]
+            if kname == "deconv_dx":            # its launch is conv_fwd's
+                keys.append(signature("conv_fwd", *args))
+            account(row, keys, ops_ms, bytes_ms)
+            print(json.dumps(row))
+            detail["backward_layers"].append(row)
+            del out
+        del x, w, dy, dx_args, dw_args
+    torch.cuda.empty_cache()
+    untimed = set(recorded) - timed
+    check(not untimed, f"main-path calls of no timed shape: {untimed}")
+
+    # whole train steps (host clock around the step and a synchronize)
+    detail["train_step_ms"] = {}
+    for arch in ("dcgan", "v-net"):
+        cfg, params, state, step_fn = train_setup(arch, dev, engine)
+        batch = batches(arch, cfg, dev)
+        ms = []
+        for _ in range(4):
+            b = batch.next()
+            t0 = time.perf_counter()
+            params, state, _ = step_fn(params, state, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        batch.close()
+        detail["train_step_ms"][arch] = ms
+        print(json.dumps({"train_step": arch, "batch": cfg.dcnn_batch,
+                          "ms": ms, "median_ms_after_first":
+                          statistics.median(ms[1:])}))
+        del params, state
+    torch.cuda.empty_cache()
+
+    run_launches = {
+        "deconv_fwd": {"serve": launches["deconv"],
+                       "train": train_launches["deconv_fwd"]},
+        "conv_fwd": {"serve": launches["conv"],
+                     "train": train_launches["conv_fwd"]},
+        "deconv_dw": {"train": train_launches["deconv_dw"]},
+        "deconv_dx": {"train": train_launches["deconv_dx"]}}
     summary = {"kernels": [
         {"name": "deconv_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/deconv_fwd.cu",
-         "replaces": "src/repro/kernels/deconv/kernel.py:180",
-         "launches": launches["deconv"],
-         "max_abs_err": max_abs["deconv"]},
+         "replaces": "src/repro/kernels/deconv/kernel.py:180"},
         {"name": "conv_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/conv_fwd.cu",
-         "replaces": "src/repro/kernels/conv/kernel.py:146",
-         "launches": launches["conv"],
-         "max_abs_err": max_abs["conv"]},
+         "replaces": "src/repro/kernels/conv/kernel.py:146"},
+        {"name": "deconv_dw", "route": "cuda",
+         "source": "src/repro_torch/csrc/deconv_dw.cu",
+         "replaces": "src/repro/kernels/deconv/kernel.py:443"},
+        {"name": "deconv_dx", "route": "cuda",
+         "source": "src/repro_torch/csrc/conv_fwd.cu",
+         "wrapper": "src/repro_torch/kernels/deconv/kernel.py::deconv_dx",
+         "replaces": "src/repro/kernels/deconv/kernel.py:330"},
     ]}
-    for entry, op in zip(summary["kernels"], ("deconv", "conv")):
-        tot = totals[op]
-        entry.update(ms=tot["ms"], plain_ms=tot["plain_ms"],
-                     bound_ms=tot["bound_ms"],
+    for entry in summary["kernels"]:
+        k = entry["name"]
+        tot = totals[k]
+        n = sum(run_launches[k].values())
+        check(tot["launches"] == n, f"{k}: timed call shapes cover "
+              f"{tot['launches']} launches of the {n} counted")
+        entry.update(launches=n, launches_by_path=run_launches[k],
+                     max_abs_err=max_abs[k], ms=tot["ms"],
+                     plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
                      bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                                else "bytes"),
                      library_ms=tot["library_ms"])

@@ -5,7 +5,9 @@ name-keyed dicts of bare arrays or ``{"w", "b"}`` entries for graphs,
 lists for chains), so crossing over is a structural map.  The JAX side
 hands over ``jax.tree_util.tree_map(np.asarray, weights)``; this module
 turns it into tensors on a device and refuses any entry whose shape does
-not match its layer.
+not match its layer.  ``params_from_numpy`` does the same for a model's
+training tree (``{"gen", "disc"}`` or ``{"vnet"}``) and
+``adamw_state_from_numpy`` for its AdamW state.
 """
 
 from __future__ import annotations
@@ -13,8 +15,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tree as _tree
 from repro_torch.core import networks as _networks
 from repro_torch.core.engine import ScheduleError
+from repro_torch.launch.steps import _init_ws
+from repro_torch.optim.adamw import AdamWState, QTensor
 
 
 class WeightShapeError(ScheduleError):
@@ -83,4 +88,61 @@ def weights_from_numpy(tree, device, dtype: torch.dtype | None = None, *,
 
     out = convert(tree)
     check_weights(network, out)
+    return out
+
+
+def _tree_from_numpy(node, device, dtype):
+    """Nested dicts/lists/NamedTuples of arrays -> the same of tensors
+    (NamedTuples of the JAX package become the port's by field names)."""
+    if isinstance(node, dict):
+        return {k: _tree_from_numpy(v, device, dtype) for k, v in node.items()}
+    if hasattr(node, "_fields"):
+        kids = {f: _tree_from_numpy(getattr(node, f), device, dtype)
+                for f in node._fields}
+        kind = {("q", "scale"): QTensor,
+                ("step", "m", "v"): AdamWState}.get(tuple(node._fields))
+        if kind is None:
+            raise WeightShapeError(f"unknown tree node {type(node).__name__}"
+                                   f"{node._fields}")
+        return kind(**kids)
+    if isinstance(node, (list, tuple)):
+        return type(node)(_tree_from_numpy(v, device, dtype) for v in node)
+    return _tensor(node, device, dtype)
+
+
+def _shapes(node):
+    if isinstance(node, dict):
+        return {k: _shapes(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_shapes(v) for v in node]
+    return tuple(node.shape)
+
+
+def _check_like(got, want, what: str) -> None:
+    if _shapes(got) != _shapes(want):
+        raise WeightShapeError(f"{what} do not match the model: "
+                               f"{_shapes(got)} != {_shapes(want)}")
+
+
+def params_from_numpy(tree, device, dtype: torch.dtype | None = None, *,
+                      cfg):
+    """A model's training tree from the JAX package (``{"gen", "disc"}`` or
+    ``{"vnet"}``, as numpy arrays) -> tensors on ``device``, checked leaf
+    for leaf against the shapes ``launch.steps.real_params(cfg, ...)``
+    gives."""
+    out = _tree_from_numpy(tree, device, dtype)
+    _check_like(out, _init_ws(cfg, None, device="meta"), "params")
+    return out
+
+
+def adamw_state_from_numpy(state, device, *, params):
+    """An ``AdamWState`` of the JAX package (as numpy arrays, f32 or 8-bit
+    ``QTensor`` moments) -> the port's, on ``device``; its moments are
+    checked against ``params``."""
+    out = _tree_from_numpy(state, device, None)
+    for name in ("m", "v"):
+        moments = _tree.tree_map(
+            lambda m: m.q if isinstance(m, QTensor) else m,
+            getattr(out, name), is_leaf=lambda x: isinstance(x, QTensor))
+        _check_like(moments, params, f"AdamW moments {name}")
     return out

@@ -150,24 +150,53 @@ class UniformEngine:
 
     def plan(self, mode: str, in_spatial, kernel, stride, cin: int, cout: int,
              *, groups: int = 1, dilation=None, in_dtype_bytes: int = 4,
-             w_dtype_bytes: int | None = None) -> _tiling.DeconvTilePlan:
-        """The engine's only path to the tile planner — geometry-memoized."""
+             w_dtype_bytes: int | None = None, backward: bool = False,
+             rows: int | None = None):
+        """The engine's only path to the tile planner — geometry-memoized.
+
+        ``backward=True`` plans the layer's backward instead (a
+        ``BackwardPlan``: the dx launch on the other forward kernel and the
+        dw kernel), keyed apart from the forward as the JAX package keys
+        it.  ``rows`` is then the dw reduction's length — the batch times
+        the positions of the unstrided operand (x for a deconv, dy for a
+        conv) — which sets the split of the reduction.
+        """
         dilation = (tuple(dilation) if dilation is not None
                     else (1,) * len(tuple(in_spatial)))
         w_bytes = (int(in_dtype_bytes) if w_dtype_bytes is None
                    else int(w_dtype_bytes))
+        if backward and rows is None:
+            raise ValueError("a backward plan needs the dw reduction's rows")
         key = (mode, tuple(in_spatial), tuple(kernel), tuple(stride),
                int(cin), int(cout), int(groups), dilation,
                int(in_dtype_bytes), w_bytes)
+        if backward:
+            key += (True, int(rows))
         plan = self._plans.get(key)
         tel = self.config.telemetry
         if plan is None:
             cfg = self.config
             t0 = time.perf_counter()
-            plan = self._plans[key] = _tiling.plan_uniform_tiles(
-                int(cin), int(cout), mode=mode, smem_budget=cfg.smem_budget,
-                block_ci=cfg.block_ci, block_co=cfg.block_co, groups=groups,
-                in_dtype_bytes=in_dtype_bytes, w_dtype_bytes=w_bytes)
+            if backward:
+                # dx: the other forward kernel, channel roles swapped
+                dx = _tiling.plan_uniform_tiles(
+                    int(cout), int(cin),
+                    mode="conv" if mode == "deconv" else "deconv",
+                    smem_budget=cfg.smem_budget, groups=groups,
+                    in_dtype_bytes=in_dtype_bytes,
+                    w_dtype_bytes=in_dtype_bytes)
+                a, b = (cin, cout) if mode == "deconv" else (cout, cin)
+                dw = _tiling.plan_dw_tiles(
+                    int(a), int(b), math.prod(kernel), int(rows),
+                    groups=groups)
+                plan = _tiling.BackwardPlan(dx=dx, dw=dw)
+            else:
+                plan = _tiling.plan_uniform_tiles(
+                    int(cin), int(cout), mode=mode,
+                    smem_budget=cfg.smem_budget, block_ci=cfg.block_ci,
+                    block_co=cfg.block_co, groups=groups,
+                    in_dtype_bytes=in_dtype_bytes, w_dtype_bytes=w_bytes)
+            self._plans[key] = plan
             if tel is not None:
                 tel.registry.counter("engine_plan_cache_misses_total").inc()
                 tel.registry.histogram("engine_plan_seconds").observe(

@@ -259,6 +259,10 @@ BENCHMARKS = {
 }
 
 
+def benchmark_layers(name: str) -> list[UniformLayer]:
+    return BENCHMARKS[name]()
+
+
 # -- DAG networks -----------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)

@@ -9,6 +9,13 @@ what the budget bounds is the static shared memory of one block, counted at
 the operands' true widths, against the 227 KB an sm_90 block may use.
 Plans differ from the TPU's by design: there is no leading-dim tile and no
 halo, because no block carries anything to another.
+
+The backward adds the dw kernel (``csrc/deconv_dw.cu``), a GEMM whose
+reduction runs over every input position: its plan picks the tile of the
+unstrided operand's channels (``block_a``) and how many row splits the
+reduction takes so that small-output, long-reduction layers still fill the
+card; a second pass sums the splits in a fixed order.  ``BackwardPlan``
+pairs it with the dx launch's forward-kernel plan.
 """
 
 from __future__ import annotations
@@ -107,3 +114,95 @@ def grid_blocks(plan: DeconvTilePlan, rows: int, cout: int, groups: int,
     deconv, whose rows are per-phase positions)."""
     co_tiles = -(-(cout // groups) // plan.block_co)
     return -(-rows // plan.block_m) * co_tiles * groups * phases
+
+
+# -- the dw kernel (csrc/deconv_dw.cu) ----------------------------------------
+
+# block_a -> block_c: the instantiated tiles of the dw kernel.
+# Keep in step with csrc/deconv_dw.cu (launch_dw_typed).
+DW_TILES = {16: 128, 32: 128, 64: 64}
+DW_BLOCK_K = 16
+# the split of the reduction aims at this many blocks (4 per SM of 132)
+# and gives no split fewer than DW_MIN_ROWS rows
+DW_TARGET_BLOCKS = 4 * 132
+DW_MIN_ROWS = 512
+
+
+def dw_step_bytes(block_a: int, block_k: int, block_c: int,
+                  dtype_bytes: int = 4) -> int:
+    """Static shared memory of one dw block: the A stage ``[block_k]
+    [block_a]`` and the gathered B stage ``[block_k][block_c]``, both at
+    the operands' width, four int32 coordinates per staged row and four
+    per column."""
+    return (block_k * (block_a + block_c) * dtype_bytes
+            + 4 * block_k * 4 + 4 * block_c * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class DwTilePlan:
+    """One layer's tile decision for the dw kernel: ``block_a`` channels
+    of the unstrided operand A per block (the kernel pairs each with its
+    ``DW_TILES`` column tile), and the reduction cut into ``splits``
+    slices of ``rows_per_split`` rows, each its own block, summed
+    afterwards in a fixed order."""
+    block_a: int
+    splits: int
+    rows_per_split: int
+
+
+def plan_dw_tiles(a_channels: int, b_channels: int, taps: int, rows: int, *,
+                  groups: int = 1) -> DwTilePlan:
+    """Pick the dw kernel's tile and the split of its reduction.
+
+    ``a_channels``/``b_channels`` are the operands' total channels (A is
+    indexed by the reduction position, B gathered at each tap), ``taps``
+    is prod(K) and ``rows`` the positions summed over (batch included).
+    ``block_a`` is the smallest tile covering A's per-group channels (64
+    past that).  The split fills ``DW_TARGET_BLOCKS`` blocks when the
+    output alone gives fewer, without cutting slices below
+    ``DW_MIN_ROWS`` rows.
+    """
+    if a_channels % groups or b_channels % groups:
+        raise ValueError(f"groups={groups} must divide {a_channels} and "
+                         f"{b_channels}")
+    if rows < 1 or taps < 1:
+        raise ValueError(f"dw over {rows} rows and {taps} taps")
+    ag, bg = a_channels // groups, b_channels // groups
+    block_a = next((b for b in sorted(DW_TILES) if b >= ag), max(DW_TILES))
+    out_blocks = (groups * -(-ag // block_a)
+                  * -(-(taps * bg) // DW_TILES[block_a]))
+    splits, per = split_rows(rows, min(-(-DW_TARGET_BLOCKS // out_blocks),
+                                       max(1, rows // DW_MIN_ROWS)))
+    return DwTilePlan(block_a=block_a, splits=splits, rows_per_split=per)
+
+
+def split_rows(rows: int, splits: int) -> tuple[int, int]:
+    """``(splits, rows_per_split)`` for cutting ``rows`` into at most
+    ``splits`` slices of whole ``DW_BLOCK_K``-row stages (at most 65,535:
+    the slices are a grid dimension)."""
+    splits = max(1, min(int(splits), rows, 65535))
+    per = -(-rows // splits)
+    per = -(-per // DW_BLOCK_K) * DW_BLOCK_K
+    return -(-rows // per), per
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """One layer's backward: the dx launch runs the OTHER forward kernel
+    (conv's dx on the deconv kernel and the reverse) with the channel
+    roles swapped, planned as that kernel; dw runs the dw kernel, whose
+    instantiated tiles all fit the budget (``dw_step_bytes``)."""
+    dx: DeconvTilePlan
+    dw: DwTilePlan
+
+    @property
+    def overflows(self) -> bool:
+        return self.dx.overflows
+
+    @property
+    def smem_budget(self) -> int:
+        return self.dx.smem_budget
+
+    def describe(self) -> str:
+        return (f"dx:{self.dx.describe()} dw:a{self.dw.block_a}"
+                f"_split{self.dw.splits}x{self.dw.rows_per_split}")

@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("deconv_fwd.cu", "conv_fwd.cu")
+SOURCES = ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu")
 HEADERS = ("igemm.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -130,16 +130,18 @@ def check_operands(x, w, scale, bias, out_dtype, *, co: int):
     return tuple(out)
 
 
-def geom_array(vals) -> ctypes.Array:
-    """Pack the igemm.cuh ``Geom`` fields (25 ints) for the C call."""
+def geom_array(vals, fields: int = 25) -> ctypes.Array:
+    """Pack a kernel's geometry struct for the C call: igemm.cuh's ``Geom``
+    (25 ints) or deconv_dw.cu's ``DwGeom`` (``fields=24``)."""
     vals = [int(v) for v in vals]
-    if len(vals) != 25 or any(not 0 <= v <= _INT32_MAX for v in vals):
+    if len(vals) != fields or any(not 0 <= v <= _INT32_MAX for v in vals):
         raise ValueError(f"bad kernel geometry {vals}")
-    n, pd, ph, pw = vals[0], vals[16], vals[17], vals[18]
-    if n * pd * ph * pw > _INT32_MAX:
-        raise ValueError(f"{n * pd * ph * pw} output rows exceed the "
-                         f"kernels' 32-bit row index")
-    return (ctypes.c_int * 25)(*vals)
+    if fields == 25:
+        n, pd, ph, pw = vals[0], vals[16], vals[17], vals[18]
+        if n * pd * ph * pw > _INT32_MAX:
+            raise ValueError(f"{n * pd * ph * pw} output rows exceed the "
+                             f"kernels' 32-bit row index")
+    return (ctypes.c_int * fields)(*vals)
 
 
 def ptr(t) -> int | None:
@@ -162,4 +164,7 @@ def library() -> ctypes.CDLL:
     lib.repro_conv_fwd.argtypes = [_P, _P, _P, _P, _P, geom, _I,
                                    ctypes.c_float, _I, _I, _I, _P]
     lib.repro_conv_fwd.restype = _I
+    lib.repro_deconv_dw.argtypes = [_P, _P, _P, _P, geom, _I, _I, _I, _I,
+                                    _P]
+    lib.repro_deconv_dw.restype = _I
     return lib

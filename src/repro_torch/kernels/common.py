@@ -11,7 +11,9 @@ and conv kernels and their plain versions cannot drift:
     taps number exactly prod(K) (the IOM valid-MAC count),
   * ``phase_major_tap_index`` — the weight order that lands each phase's
     taps contiguously, so one phase's weights are ONE [taps*Cin, Cout]
-    matrix for the deconv kernel's implicit GEMM.
+    matrix for the deconv kernel's implicit GEMM,
+  * ``activation_grad_from_output`` and ``regroup_for_dx`` — what the two
+    ops' backward passes share.
 
 Everything here is pure Python or plain tensor code.
 """
@@ -25,6 +27,7 @@ import math
 import torch
 
 from repro_torch.core.functional import _canon
+from repro_torch.kernels.build import QUANT_ITEM
 
 
 def canon_dilation(dilation, rank):
@@ -188,6 +191,33 @@ def apply_epilogue(y, bias, activation, alpha=0.2, scale=None):
     return y
 
 
+def activation_grad_from_output(y, activation, alpha=0.2):
+    """d(act)/d(pre-activation) computed from the *output* y = act(pre).
+
+    relu and leaky_relu keep the sign of the pre-activation and
+    tanh' = 1 - y^2, so the saved output is the only residual a fused
+    epilogue needs.  Returns None for the identity.
+    """
+    if activation == "relu":
+        return (y > 0).to(y.dtype)
+    if activation == "leaky_relu":
+        return torch.where(y > 0, torch.ones_like(y),
+                           torch.full_like(y, alpha))
+    if activation == "tanh":
+        return (1 - y * y).to(y.dtype)
+    return None
+
+
+def regroup_for_dx(w_flat, groups):
+    """[taps, Ci/G, Co] -> [taps, Co/G, Ci]: the weights of an op's dx,
+    which contracts Co within each group and produces all of Ci
+    (``w[t, i, g*Cog + c]`` lands at ``[t, c, g*Cig + i]``)."""
+    taps, cig, co = w_flat.shape
+    cog = co // groups
+    return (w_flat.reshape(taps, cig, groups, cog).permute(0, 3, 2, 1)
+            .reshape(taps, cog, groups * cig).contiguous())
+
+
 # -- Host-side canonicalisation shared by both ops layers --------------------
 
 def lift_tuple3(vals, rank, fill=1):
@@ -211,15 +241,25 @@ def lift_3d(x, w, stride):
     """
     rank = x.dim() - 2
     stride = _canon(stride, rank)
+    x3 = lift_activation(x)
     if rank == 3:
-        return x, w, tuple(stride), ()
+        return x3, w, tuple(stride), ()
     if rank == 2:
-        x3 = x.reshape(x.shape[0], x.shape[1], 1, x.shape[2], x.shape[3])
         w3 = w.reshape(w.shape[0], 1, w.shape[1], w.shape[2], w.shape[3])
         return x3, w3, (stride[0], 1, stride[1]), (2,)
-    x3 = x.reshape(x.shape[0], 1, 1, x.shape[1], x.shape[2])
     w3 = w.reshape(1, 1, *w.shape)
     return x3, w3, (1, 1, stride[0]), (1, 2)
+
+
+def lift_activation(t):
+    """[N, *spatial, C] -> the rank-3 layout ``lift_3d`` gives x (a view
+    of a contiguous tensor)."""
+    rank = t.dim() - 2
+    if rank == 3:
+        return t
+    if rank == 2:
+        return t.reshape(t.shape[0], t.shape[1], 1, t.shape[2], t.shape[3])
+    return t.reshape(t.shape[0], 1, 1, t.shape[1], t.shape[2])
 
 
 def lift_padding(pads, rank):
@@ -243,3 +283,100 @@ def scale_vector(w_scale, co):
         return None
     s = w_scale.reshape(-1).to(torch.float32)
     return s.expand(co) if s.numel() == 1 else s
+
+
+# -- What both ops' backward passes share -------------------------------------
+
+def wants_grad(*tensors) -> bool:
+    """Whether an op call must record its autograd ``Function``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def check_float_backward(x, w):
+    """The backward runs on float operands only: int8 activations or
+    weights are the quantization slice's work."""
+    for name, t in (("activations", x), ("weights", w)):
+        if not t.dtype.is_floating_point:
+            raise NotImplementedError(
+                f"backward through int8 {name} ({t.dtype}) is not ported: "
+                f"{QUANT_ITEM}")
+
+
+def peel_epilogue(dy, y, bias, activation, alpha, need_db):
+    """Undo the fused epilogue on the cotangent: the activation gradient
+    from the saved output, then ``db`` as a sum over every non-channel
+    axis (None unless ``need_db``)."""
+    grad = activation_grad_from_output(y, activation, alpha)
+    if grad is not None:
+        dy = dy * grad
+    db = (dy.sum(dim=tuple(range(dy.dim() - 1))).to(bias.dtype)
+          if need_db and bias is not None else None)
+    return dy, db
+
+
+def dequantized(w, w_scale):
+    """The weights the backward contracts with: ``w * w_scale`` in f32 when
+    the forward fused a scale (it commutes with the contractions)."""
+    if w_scale is None:
+        return w
+    return w.to(torch.float32) * w_scale.to(torch.float32)
+
+
+def fold_scale(dw, w, w_scale):
+    """Chain the dequantized weights' gradient ``dw`` back to the stored
+    weights and the scale: ``(dw * w_scale, sum(w * dw))``, the scale's
+    gradient summed per output channel (or over everything for a scalar
+    scale)."""
+    if w_scale is None:
+        return dw, None
+    full = w.to(torch.float32) * dw
+    if w_scale.dim() == 0:
+        dscale = full.sum()
+    else:
+        dscale = full.sum(dim=tuple(range(full.dim() - 1))).reshape(
+            w_scale.shape)
+    return (dw * w_scale).to(w.dtype), dscale.to(w_scale.dtype)
+
+
+def op_forward(ctx, forward, x, w, b, w_scale, *args):
+    """The forward both ops' autograd ``Function``s run: ``forward(x, w,
+    b, w_scale, *args)`` with ``args`` = (stride, padding, dilation,
+    groups, activation, alpha, engine).  The activation gradient is
+    recoverable from the output, so y is the only extra residual, and
+    only when an activation is fused."""
+    y = forward(x, w, b, w_scale, *args)
+    ctx.save_for_backward(x, w, b, w_scale, y if args[4] != "none" else None)
+    ctx.args = args
+    return y
+
+
+def op_backward(ctx, dy, backward_args, dx_kernel, dw_kernel):
+    """The backward both ops' autograd ``Function``s run: peel the fused
+    epilogue, contract with the dequantized weights, launch dx only when
+    x wants a gradient and dw when w or the scale does, then fold the
+    scale back.  ``backward_args`` gives the launches' arguments
+    (``deconv_backward_args`` / ``conv_backward_args``), built only for
+    the launches that follow; ``ctx`` holds ``(x, w, bias, w_scale, y)``
+    and the op's non-tensor arguments.  Returns the Function's gradients
+    (x, w, bias, w_scale, then None for the seven non-tensor
+    arguments)."""
+    x, w, b, w_scale, y = ctx.saved_tensors
+    stride, padding, dilation, groups, activation, alpha, engine = ctx.args
+    need_x, need_w, need_b, need_s = ctx.needs_input_grad[:4]
+    check_float_backward(x, w)
+    dy, db = peel_epilogue(dy, y, b, activation, alpha, need_b)
+    dx = dw = dscale = None
+    if not (need_x or need_w or need_s):
+        return (dx, dw, db, dscale) + (None,) * 7
+    dx_args, dw_args = backward_args(
+        x, dequantized(w, w_scale), dy, stride, padding, dilation=dilation,
+        groups=groups, engine=engine, dx=need_x, dw=need_w or need_s)
+    if need_x:
+        a, b_, kw = dx_args
+        dx = dx_kernel(a, b_, **kw).reshape(x.shape)
+    if need_w or need_s:
+        a, b_, kw = dw_args
+        dw, dscale = fold_scale(dw_kernel(a, b_, **kw).reshape(w.shape), w,
+                                w_scale)
+    return (dx, dw, db, dscale) + (None,) * 7

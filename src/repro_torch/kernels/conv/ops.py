@@ -8,9 +8,16 @@ kernel-element order, so the weights go in as a reshape of
 ``[*K, Cin/G, Cout]``, no gather.  Every call runs against a
 ``repro_torch.core.engine.UniformEngine`` whose geometry-keyed plan cache
 picks the kernel's channel tile once per layer geometry.
+
+When a gradient is wanted the op runs as ``_ConvFn``, whose backward
+closes the adjoint loop on the hand kernels: dx is the deconv kernel on dy
+with the channel roles swapped, cropped by the pad to x's extent (rows no
+tap reads come out zero), and dw is the dw kernel with (x, dy) swapped.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -18,6 +25,7 @@ from repro_torch.core.functional import _canon, canon_padding, \
     conv_output_shape
 from repro_torch.kernels import common as _common
 from repro_torch.kernels.conv import kernel as _k
+from repro_torch.kernels.deconv import kernel as _dk
 
 
 def conv_kernel_args(x, w, stride=1, padding=0, *, dilation=1,
@@ -64,6 +72,81 @@ def conv_kernel_args(x, w, stride=1, padding=0, *, dilation=1,
     return x3, w_flat, kwargs, shape
 
 
+def _forward(x, w, b, w_scale, stride, padding, dilation, groups,
+             activation, alpha, engine):
+    x3, w_flat, kwargs, shape = conv_kernel_args(
+        x, w, stride, padding, dilation=dilation, groups=groups, bias=b,
+        w_scale=w_scale, activation=activation, alpha=alpha, engine=engine)
+    return _k.conv_fwd(x3, w_flat, **kwargs).reshape(shape)
+
+
+class _ConvFn(torch.autograd.Function):
+    """The conv with its backward on the hand kernels (JAX
+    ``conv/ops.py``'s custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, w_scale, *args):
+        return _common.op_forward(ctx, _forward, x, w, b, w_scale, *args)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _common.op_backward(ctx, dy, conv_backward_args,
+                                   _dk.deconv_fwd, _dk.deconv_dw)
+
+
+def conv_backward_args(x, w, dy, stride=1, padding=0, *, dilation=1,
+                       groups: int = 1, engine=None, dx: bool = True,
+                       dw: bool = True):
+    """Everything the conv's backward hands its two kernel wrappers:
+    ``(dx_args, dw_args)``, each ``(a, b, kwargs)``, so that
+    ``deconv.kernel.deconv_fwd(a, b, **kwargs)`` of dx_args is dx (in x's
+    lifted shape) and ``deconv.kernel.deconv_dw(a, b, **kwargs)`` of
+    dw_args is dw ([prod(K), Cin/G, Cout]); either is None when
+    ``dx``/``dw`` does not ask for it.  ``dy`` is the cotangent of the
+    pre-activation output, ``w`` the (dequantized) weights.
+    ``chip_smoke.py`` feeds the kernels and their plain versions the exact
+    main-path inputs through it."""
+    rank = x.dim() - 2
+    pads3 = _common.lift_padding(canon_padding(padding, rank), rank)
+    dil3 = _common.lift_tuple3(_common.canon_dilation(dilation, rank), rank)
+    x3, w3, stride3, _ = _common.lift_3d(x.contiguous(), w,
+                                         _canon(stride, rank))
+    dy3 = _common.lift_activation(dy.contiguous())
+    kernel3 = tuple(w3.shape[:3])
+    ci, co = x3.shape[-1], w3.shape[-1]
+    pad_lo = tuple(lo for lo, _ in pads3)
+    plan = engine.plan("conv", x3.shape[1:4], kernel3, stride3, ci, co,
+                       groups=groups, dilation=dil3,
+                       in_dtype_bytes=x3.element_size(), backward=True,
+                       rows=dy3.shape[0] * math.prod(dy3.shape[1:4]))
+    geometry = dict(kernel=kernel3, stride=stride3, dilation=dil3,
+                    groups=groups)
+    dx_args = dw_args = None
+    if dx:
+        # the deconv kernel on dy, contracting Co within each group and
+        # producing all of Ci (weights phase-major, as that kernel reads
+        # them), cropped by the pad to x's extent: rows no tap reads get
+        # zero
+        w_dx = _common.regroup_for_dx(w3.reshape(-1, ci // groups, co),
+                                      groups)
+        w_dx = _common.phase_major_weights(
+            w_dx.reshape(*kernel3, co // groups, ci), kernel3, stride3,
+            dil3).to(dy3.dtype)
+        dx_args = (dy3, w_dx, dict(geometry, crop_lo=pad_lo,
+                                    out_spatial=tuple(x3.shape[1:4]),
+                                    out_dtype=x.dtype,
+                                    block_co=plan.dx.block_co))
+    if dw:
+        # (x, dy) swapped, dy the unstrided operand; the transposed store
+        # lands the weights' [taps, Ci/G, Co] layout
+        dw_args = (dy3.to(x3.dtype), x3, dict(geometry, lo=pad_lo,
+                                               transpose=True,
+                                               out_dtype=w.dtype,
+                                               block_a=plan.dw.block_a,
+                                               splits=plan.dw.splits))
+    return dx_args, dw_args
+
+
 def conv(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0, *,
          dilation=1, groups: int = 1, bias: torch.Tensor | None = None,
          w_scale: torch.Tensor | None = None, activation: str = "none",
@@ -76,9 +159,13 @@ def conv(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0, *,
     output extent ``(I + lo + hi - (K-1)*dilation - 1) // S + 1``.
     ``w_scale``, ``bias`` and ``activation`` fuse into the kernel's
     epilogue; the output dtype is the engine's ``preferred_element_type``,
-    else x's.
+    else x's.  Differentiable in x, w, bias and w_scale.
     """
-    x3, w_flat, kwargs, shape = conv_kernel_args(
-        x, w, stride, padding, dilation=dilation, groups=groups, bias=bias,
-        w_scale=w_scale, activation=activation, alpha=alpha, engine=engine)
-    return _k.conv_fwd(x3, w_flat, **kwargs).reshape(shape)
+    if engine is None:
+        from repro_torch.core.engine import default_engine
+        engine = default_engine(method="pallas")
+    args = (x, w, bias, w_scale, stride, padding, dilation, groups,
+            activation, float(alpha), engine)
+    if _common.wants_grad(x, w, bias, w_scale):
+        return _ConvFn.apply(*args)
+    return _forward(*args)

@@ -21,21 +21,23 @@ def conv_fwd_plain(x, w, *, kernel, stride, dilation, groups, pad_lo,
                    out_spatial, scale=None, bias=None, activation="none",
                    alpha=0.2, out_dtype=None):
     """x [N, D, H, W, Ci], w [prod(K), Ci/G, Co] in kernel-element order ->
-    y [N, *out_spatial, Co]: ``y[o] = sum_k x[o*S + k*dil - lo] w[k]``."""
+    y [N, *out_spatial, Co]: ``y[o] = sum_k x[o*S + k*dil - lo] w[k]``.
+    Sums in f32, or in float64 for float64 inputs."""
     n, ci = x.shape[0], x.shape[-1]
     co = w.shape[-1]
     cig, cog = ci // groups, co // groups
     # the padded window every output reads: [-lo, (O-1)*S + (K-1)*dil - lo]
     need = tuple((o - 1) * s + (k - 1) * dl + 1 for o, s, k, dl in
                  zip(out_spatial, stride, kernel, dilation))
-    xp = x.new_zeros((n, *need, ci), dtype=torch.float32)
+    acc_dtype = torch.promote_types(x.dtype, torch.float32)
+    xp = x.new_zeros((n, *need, ci), dtype=acc_dtype)
     keep = tuple(max(0, min(i, nd - lo))
                  for i, nd, lo in zip(x.shape[1:4], need, pad_lo))
     xp[:, pad_lo[0]:pad_lo[0] + keep[0], pad_lo[1]:pad_lo[1] + keep[1],
        pad_lo[2]:pad_lo[2] + keep[2]] = \
-        x[:, :keep[0], :keep[1], :keep[2]].to(torch.float32)
+        x[:, :keep[0], :keep[1], :keep[2]].to(acc_dtype)
     xp = xp.reshape(n, *need, groups, cig)
-    y = x.new_zeros((n, *out_spatial, groups, cog), dtype=torch.float32)
+    y = x.new_zeros((n, *out_spatial, groups, cog), dtype=acc_dtype)
     for t, k in enumerate(itertools.product(*(range(kk) for kk in kernel))):
         win = xp[:, k[0] * dilation[0]:k[0] * dilation[0] + need[0]
                  - (kernel[0] - 1) * dilation[0]:stride[0],
@@ -43,7 +45,7 @@ def conv_fwd_plain(x, w, *, kernel, stride, dilation, groups, pad_lo,
                  - (kernel[1] - 1) * dilation[1]:stride[1],
                  k[2] * dilation[2]:k[2] * dilation[2] + need[2]
                  - (kernel[2] - 1) * dilation[2]:stride[2]]
-        wk = w[t].to(torch.float32).reshape(cig, groups, cog)
+        wk = w[t].to(acc_dtype).reshape(cig, groups, cog)
         y += torch.einsum("ndhwgc,cgo->ndhwgo", win, wk)
     y = _common.apply_epilogue(y.reshape(n, *out_spatial, co), bias,
                                activation, alpha, scale)

@@ -1,13 +1,22 @@
-"""Wrapper of the hand-written Hopper deconv kernel (``csrc/deconv_fwd.cu``).
+"""Wrappers of the deconv subsystem's hand-written Hopper kernels.
 
-It replaces the JAX package's TPU kernel ``deconv_pallas_3d``.  The kernel
-gathers: each CUDA block owns one output phase, a tile of phase positions
-and a block of output channels, and sums every tap of its phase in f32
-registers; see the note at the top of the source.  ``launches`` counts the
-kernel launches made through this wrapper, and nothing else.
+``deconv_fwd`` wraps ``csrc/deconv_fwd.cu``, which replaces the JAX
+package's TPU kernel ``deconv_pallas_3d``.  The kernel gathers: each CUDA
+block owns one output phase, a tile of phase positions and a block of
+output channels, and sums every tap of its phase in f32 registers; see the
+note at the top of the source.
 
-On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
-tensor it launches the kernel or raises.
+``deconv_dw`` wraps ``csrc/deconv_dw.cu``, which replaces
+``deconv_dw_pallas_3d``: the weight gradient of the deconv and, with its
+operands swapped, of the conv.  ``deconv_dx`` replaces
+``deconv_dx_pallas_3d`` as the JAX package wrote it, a channel-role swap
+over the conv kernel (``conv.kernel.conv_fwd``).
+
+``launches``, ``dw_launches`` and ``dx_launches`` count the calls of each
+wrapper that launched its kernel on the card, and nothing else (a
+``deconv_dx`` call also counts one ``conv_fwd`` launch).  On a CPU tensor
+each wrapper runs the plain version (``ref.py``); on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -17,12 +26,14 @@ import math
 import torch
 
 from repro_torch.core.functional import deconv_output_shape
-from repro_torch.core.tiling import KERNEL_TILES
+from repro_torch.core.tiling import DW_TILES, KERNEL_TILES, split_rows
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import common as _common
 from repro_torch.kernels.deconv import ref as _ref
 
 launches = 0
+dw_launches = 0
+dx_launches = 0
 
 
 def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
@@ -38,6 +49,8 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     extent with ``crop_lo`` rows removed in front of each dim, cut to
     ``out_spatial`` (default: the rest of the extent), then
     ``act(acc * scale + bias)`` cast to ``out_dtype`` (default x's).
+    The window may reach past the Eq. (1) extent (a conv's dx over input
+    rows no tap reads); rows there hold the epilogue of a zero sum.
     ``block_co`` picks the kernel's output-channel tile (the planner's).
     """
     global launches
@@ -58,10 +71,9 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     if out_spatial is None:
         out_spatial = tuple(f - lo for f, lo in zip(full, crop_lo))
     out_spatial = tuple(out_spatial)
-    if any(lo < 0 or o < 1 or lo + o > f
-           for lo, o, f in zip(crop_lo, out_spatial, full)):
-        raise ValueError(f"crop {crop_lo} / extent {out_spatial} does not "
-                         f"fit the Eq. (1) extent {full}")
+    if any(lo < 0 or o < 1 for lo, o in zip(crop_lo, out_spatial)):
+        raise ValueError(f"crop {crop_lo} / extent {out_spatial} is not a "
+                         f"window of the Eq. (1) extent {full}")
     out_dtype = out_dtype or x.dtype
     scale32, bias32 = _build.check_operands(x, w_taps, scale, bias,
                                             out_dtype, co=co)
@@ -76,9 +88,8 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     if block_co not in KERNEL_TILES:
         raise ValueError(f"block_co {block_co} not in {sorted(KERNEL_TILES)}")
     lib = _build.library()
-    q = tuple(i + m - 1 for i, m in
-              zip((d, h, wd), _common.phase_geometry(kernel, stride,
-                                                     dilation)))
+    q = _ref.phase_rows((d, h, wd), kernel, stride, dilation, crop_lo,
+                        out_spatial)
     taps = _common.tap_table(kernel, stride, dilation, x.device)
     y = torch.empty((n, *out_spatial, co), dtype=out_dtype, device=x.device)
     geom = _build.geom_array((n, d, h, wd, ci, co, groups, *kernel, *stride,
@@ -93,3 +104,89 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
         raise RuntimeError(f"deconv kernel launch failed (cudaError {err})")
     launches += 1
     return y
+
+
+def deconv_dw(a: torch.Tensor, b: torch.Tensor, *, kernel, stride,
+              dilation=(1, 1, 1), groups: int = 1, lo=(0, 0, 0),
+              transpose: bool = False, out_dtype: torch.dtype | None = None,
+              block_a: int = 64, splits: int = 1) -> torch.Tensor:
+    """Weight gradient on the canonical rank-3 layout.
+
+    ``out[t, i, g*Bg + j] = sum_p a[p, g*Ag + i] * b[p*S + k_t*dil - lo,
+    g*Bg + j]`` over every position p of a (batch included), reads of b
+    outside its extent zero, taps in kernel-element order.  a: [N, D, H,
+    W, Ac]; b: [N, *, *, *, Bc] of a's dtype.  Returns [prod(K), Ac/G, Bc]
+    in ``out_dtype`` (default a's), or [prod(K), Bc/G, Ac] stored
+    ``[t, j, g*Ag + i]`` when ``transpose``.  The deconv's dw is
+    ``(a, b) = (x, dy)`` with ``lo`` its crop; the conv's is
+    ``(dy, x)`` with ``lo`` its pad and ``transpose``.  ``block_a`` and
+    ``splits`` are the planner's (``tiling.plan_dw_tiles``).
+    """
+    global dw_launches
+    kernel, stride = tuple(kernel), tuple(stride)
+    dilation, lo = tuple(dilation), tuple(lo)
+    if a.dim() != 5 or b.dim() != 5 or a.shape[0] != b.shape[0]:
+        raise ValueError(f"expected a [N,D,H,W,Ac] and b [N,*,*,*,Bc], got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    ac, bc = a.shape[-1], b.shape[-1]
+    if ac % groups or bc % groups:
+        raise ValueError(f"groups={groups} must divide {ac} and {bc}")
+    if any(v < 0 for v in lo):
+        raise ValueError(f"negative offset {lo}")
+    out_dtype = out_dtype or a.dtype
+    _build.check_operands(a, b, None, None, out_dtype, co=bc)
+    if a.device.type == "cpu":
+        return _ref.deconv_dw_plain(
+            a, b, kernel=kernel, stride=stride, dilation=dilation,
+            groups=groups, lo=lo, transpose=transpose, out_dtype=out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"no dw kernel for device {a.device}")
+    if block_a not in DW_TILES:
+        raise ValueError(f"block_a {block_a} not in {sorted(DW_TILES)}")
+    n = a.shape[0]
+    rows = n * math.prod(a.shape[1:4])
+    splits, per = split_rows(rows, splits)
+    taps = math.prod(kernel)
+    shape = ((taps, bc // groups, ac) if transpose
+             else (taps, ac // groups, bc))
+    out = torch.empty(shape, dtype=out_dtype, device=a.device)
+    work = (torch.empty(splits * out.numel(), dtype=torch.float32,
+                        device=a.device) if splits > 1 else None)
+    geom = _build.geom_array((n, *a.shape[1:4], ac, *b.shape[1:4], bc,
+                              groups, *kernel, *stride, *dilation, *lo, per,
+                              int(bool(transpose))), fields=24)
+    lib = _build.library()
+    err = lib.repro_deconv_dw(
+        _build.ptr(a), _build.ptr(b), _build.ptr(out), _build.ptr(work),
+        geom, splits, block_a, _build.DTYPE_CODES[a.dtype],
+        _build.DTYPE_CODES[out_dtype], _build.stream_of(a))
+    if err:
+        raise RuntimeError(f"dw kernel launch failed (cudaError {err})")
+    dw_launches += 1
+    return out
+
+
+def deconv_dx(dy: torch.Tensor, w_dx: torch.Tensor, *, kernel, stride,
+              dilation=(1, 1, 1), groups: int = 1, pad_lo=(0, 0, 0),
+              out_spatial, out_dtype: torch.dtype | None = None,
+              block_co: int = 64) -> torch.Tensor:
+    """The deconv's input gradient: the conv kernel with the channel roles
+    swapped, ``dx[i] = sum_k dy[i*S + k*dil - lo] w[k]^T``.
+
+    dy: [N, *out, Co], the cotangent of the cropped output; w_dx:
+    [prod(K), Co/G, Ci] in kernel-element order (``common.regroup_for_dx``
+    of the forward's weights), so the conv contracts Co within each group
+    and produces all of Ci.  The crop's ``lo`` is the conv's ``pad_lo``
+    and ``out_spatial`` is x's extent; reads of dy outside its extent are
+    zero.  ``block_co`` tiles Ci (the dx plan's).  The arguments are
+    ``conv.kernel.conv_fwd``'s, and so is the plain version.
+    """
+    global dx_launches
+    from repro_torch.kernels.conv import kernel as _conv_k  # cycle-free
+    dx = _conv_k.conv_fwd(dy, w_dx, kernel=kernel, stride=stride,
+                          dilation=dilation, groups=groups, pad_lo=pad_lo,
+                          out_spatial=out_spatial, out_dtype=out_dtype,
+                          block_co=block_co)
+    if dy.device.type == "cuda":
+        dx_launches += 1
+    return dx

@@ -1,0 +1,165 @@
+"""DCNN train-step builders (the DCNN part of JAX ``launch/steps.py``).
+
+``make_gan_train_step`` and ``make_vnet_train_step`` return
+``step(params, opt_state, batch) -> (params, opt_state, metrics)``, the
+contract ``runtime.train_loop.Trainer`` drives.  Every conv and deconv of
+a step, forward and backward, runs on the engine's hand kernels through
+the ops' autograd ``Function``s; the losses, the z-projection, the
+discriminator head and AdamW are plain tensor code.
+
+``train_step_launches`` derives from the model graphs how many times each
+hand-kernel wrapper launches in one step, so a run on the card can check
+that the step went through the kernels and nowhere else.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import tree as _tree
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import networks
+from repro_torch.models import dcnn as D
+from repro_torch.optim import AdamWConfig, adamw_update
+
+
+# the hand-kernel wrappers whose launches a train step counts
+LAUNCH_COUNTERS = ("deconv_fwd", "conv_fwd", "deconv_dw", "deconv_dx")
+
+
+def _init_ws(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+    if cfg.family != "dcnn":
+        raise NotImplementedError(f"{cfg.family!r} models are ROADMAP item "
+                                  f"15 (the LM stack)")
+    if cfg.dcnn == "v_net":
+        return {"vnet": D.init_vnet(cfg, generator, device)}
+    return {"gen": D.init_generator(cfg, generator, device),
+            "disc": D.init_discriminator(cfg, generator, device)}
+
+
+def real_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda"):
+    """The model's parameter tree on ``device``, drawn from ``generator``
+    and cast to ``cfg.master_dtype``."""
+    dt = getattr(torch, cfg.master_dtype)
+    return _tree.tree_map(lambda v: v.to(dt),
+                          _init_ws(cfg, generator, device))
+
+
+def _wanting_grad(tree):
+    """Fresh leaves of ``tree`` that record gradients (the caller's tensors
+    are left as they are)."""
+    return _tree.tree_map(lambda t: t.detach().requires_grad_(True), tree)
+
+
+def _grads(loss, tree):
+    leaves = _tree.leaves(tree)
+    return _tree.unflatten(tree, torch.autograd.grad(loss, leaves))
+
+
+def make_gan_train_step(cfg: ModelConfig, opt: AdamWConfig, engine=None):
+    """One GAN step: the generator's and the discriminator's gradients,
+    then an AdamW update of each.
+
+    The losses and gradients are the JAX step's: the generator's from
+    ``g_loss`` with the discriminator held fixed, the discriminator's from
+    ``d_loss`` with the generator held fixed, and (as there) the fake
+    logits enter ``d_loss`` through a stop-gradient, so only the real
+    half gives the discriminator a gradient.  Unlike the JAX step, which
+    runs the whole ``gan_losses`` once per gradient, the generator forward
+    and the discriminator's pass over the fakes run once and serve both
+    losses; per step that is one generator forward and two discriminator
+    forwards (fake, real).  ``train_step_launches`` counts the kernel
+    launches this gives.
+    """
+    engine = D._engine(engine)
+
+    def train_step(params, opt_state, batch):
+        gen_p, disc_p = params["gen"], params["disc"]
+        gen_s, disc_s = opt_state
+        with torch.enable_grad():
+            gp = _wanting_grad(gen_p)
+            fake = D.generator_forward(gp, cfg, batch["z"], engine)
+            d_fake = D.discriminator_forward(
+                _tree.tree_map(torch.Tensor.detach, disc_p), cfg, fake,
+                engine)
+            g_loss = D.bce(d_fake, torch.ones_like(d_fake))
+            g_grads = _grads(g_loss, gp)
+            dp = _wanting_grad(disc_p)
+            d_real = D.discriminator_forward(dp, cfg, batch["real"], engine)
+            d_fake = d_fake.detach()
+            d_loss = 0.5 * (D.bce(d_real, torch.ones_like(d_real))
+                            + D.bce(d_fake, torch.zeros_like(d_fake)))
+            d_grads = _grads(d_loss, dp)
+        new_gen, gen_s = adamw_update(g_grads, gen_s, gen_p, opt)
+        new_disc, disc_s = adamw_update(d_grads, disc_s, disc_p, opt)
+        return ({"gen": new_gen, "disc": new_disc}, (gen_s, disc_s),
+                {"g_loss": g_loss.detach(), "d_loss": d_loss.detach()})
+    return train_step
+
+
+def make_vnet_train_step(cfg: ModelConfig, opt: AdamWConfig, engine=None):
+    """One V-Net step: dice + cross-entropy, its gradient, AdamW."""
+    engine = D._engine(engine)
+
+    def train_step(params, opt_state, batch):
+        with torch.enable_grad():
+            p = _wanting_grad(params)
+            logits = D.vnet_forward(p["vnet"], cfg, batch["vol"], engine)
+            loss = D.dice_loss(logits, batch["labels"])
+            grads = _grads(loss, p)
+        new_p, new_s = adamw_update(grads, opt_state, params, opt)
+        return new_p, new_s, {"loss": loss.detach()}
+    return train_step
+
+
+def _graph_launches(graph, input_needs_grad: bool):
+    """Launches of one forward+backward of ``graph`` per wrapper: the
+    forward kernel of each layer, its dw, and its dx when its input needs
+    a gradient (every layer's but the first, whose input needs one only
+    when ``input_needs_grad``).  ``deconv_fwd`` also runs each conv's dx
+    and ``conv_fwd`` each deconv's (``deconv_dx``)."""
+    n = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    needs = {graph.INPUT: input_needs_grad}
+    for name in graph.order:
+        preds = graph.edges[name]
+        nd = graph.nodes[name]
+        if isinstance(nd, networks.MergeNode):
+            needs[name] = any(needs[p] for p in preds)
+            continue
+        needs[name] = True                  # its weights want a gradient
+        n[f"{nd.op}_fwd"] += 1
+        n["deconv_dw"] += 1
+        if needs[preds[0]]:
+            n["conv_fwd" if nd.op == "deconv" else "deconv_fwd"] += 1
+            n["deconv_dx"] += nd.op == "deconv"
+    return n
+
+
+def train_graphs(cfg: ModelConfig) -> dict[str, networks.UniformGraph]:
+    """The conv/deconv graphs one train step of ``cfg`` runs: ``vnet``
+    for V-Net, ``gen`` and ``disc`` for a GAN."""
+    if cfg.dcnn == "v_net":
+        chans = D._vnet_chans(cfg)
+        return {"vnet": D._vnet_graph_cached(
+            D._vnet_spatial(cfg), tuple(co for _, co in chans),
+            chans[0][0])}
+    return {"gen": D._generator_graph(cfg.dcnn, cfg.dcnn_reduced),
+            "disc": D._discriminator_graph(cfg.dcnn, cfg.dcnn_reduced)}
+
+
+def train_step_launches(cfg: ModelConfig) -> dict[str, int]:
+    """Hand-kernel launches of one train step, per wrapper (``deconv_fwd``,
+    ``conv_fwd``, ``deconv_dw``, ``deconv_dx``), derived from the graphs."""
+    graphs = train_graphs(cfg)
+    if "vnet" in graphs:
+        return _graph_launches(graphs["vnet"], input_needs_grad=False)
+    gen = _graph_launches(graphs["gen"], input_needs_grad=True)
+    # the pass over the fakes: forward and dx only (weights held fixed)
+    fake = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    for l in graphs["disc"].layers:
+        fake[f"{l.op}_fwd"] += 1
+        fake["deconv_fwd" if l.op == "conv" else "conv_fwd"] += 1
+        fake["deconv_dx"] += l.op == "deconv"
+    real = _graph_launches(graphs["disc"], input_needs_grad=False)
+    return {k: gen[k] + fake[k] + real[k] for k in LAUNCH_COUNTERS}
