@@ -8,15 +8,22 @@ Phases, any failure of which exits non-zero before the result line:
   1. device — require CUDA, print versions and the card's name and power
      limit, force IEEE f32 (TF32 off) in cuBLAS and cuDNN;
   2. build — compile the three CUDA kernels from ``src/repro_torch/csrc``
-     (one ``nvcc`` per source, all started together);
+     (one ``nvcc`` per source and per variant of the forward block, all
+     started together); the forward kernels must report no spill stores;
   3. kernels against their plain versions — every distinct forward
      geometry of full-width DCGAN and V-Net, served (batch 4) and trained
      (DCGAN generator and discriminator at batch 64), in f32 and bf16,
      plus groups, dilation, rank 1, K=5/S=1 and scale+leaky_relu cases;
-     then the backward: dw and both dx routes at every training geometry
-     (DCGAN generator and discriminator at batch 64, V-Net at batch 4),
-     f32 and bf16 operands, against the plain versions summed in float64,
-     and a conv's dx over input rows no tap reads (exactly zero there);
+     then the forward block's code paths, each in f32 and bf16, run twice
+     for the same bits: a geometry split by the planner and forced
+     unsplit, scalar copies (Ci 1, 3, 6; Co 2, 3), ragged rows and
+     channel tiles, groups whose Cig is not a multiple of 4, forced
+     splits; then the backward: dw and both dx routes at every training
+     geometry (DCGAN generator and discriminator at batch 64, V-Net at
+     batch 4), f32 and bf16 operands, against the plain versions summed
+     in float64,
+     and a conv's dx over input rows no tap reads (exactly zero there),
+     also with its reduction forced into slices;
   4. serve — a ``DcnnServer`` answers 8 DCGAN seeds and 4 V-Net volumes at
      full width through the kernels (launch counts checked per batch), and
      one request of each model is held against the port's CPU run;
@@ -31,8 +38,10 @@ Phases, any failure of which exits non-zero before the result line:
      events; the serve and train runs record each wrapper's calls by
      shape) beside its plain version, one cuDNN call computing the same
      function (``convolution_backward`` with one output's mask set for
-     dw and dx), and the bound; one served batch of each model end to
-     end, and whole train steps.
+     dw and dx), and the bound, with each launch's tile, reduction
+     slices and share of the bound (and, for the forwards, the wrapper's
+     host time per call); one served batch of each model end to end, and
+     whole train steps.
 
 The line before the last is the ``{"kernels": [...]}`` summary: each
 kernel's ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums
@@ -121,6 +130,7 @@ def main() -> int:
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.core import networks as nets
+    from repro_torch.core import tiling
     from repro_torch.core.engine import (
         UniformEngine,
         compile_network,
@@ -172,7 +182,22 @@ def main() -> int:
     detail["ptxas"] = {"kernels": len(regs), "max_registers": max(regs,
                                                                   default=0),
                        "spill_store_bytes": spills}
+    # per source: the forward kernels (igemm.cuh) must not spill
+    for src_log in log.split("== ")[1:]:     # one per nvcc process
+        src = src_log.split()[0]
+        src_regs = [int(m) for m in re.findall(r"Used (\d+) registers",
+                                               src_log)]
+        row = detail["ptxas"].setdefault(src, {
+            "kernels": 0, "max_registers": 0, "spill_store_bytes": 0})
+        row["kernels"] += len(src_regs)
+        row["max_registers"] = max([row["max_registers"], *src_regs])
+        row["spill_store_bytes"] += sum(int(m) for m in re.findall(
+            r"(\d+) bytes spill stores", src_log))
     print(f"build_s {detail['build_s']:.1f} ptxas {detail['ptxas']}")
+    for src in ("deconv_fwd.cu", "conv_fwd.cu"):
+        if src in detail["ptxas"]:      # absent when the build was cached
+            check(detail["ptxas"][src]["spill_store_bytes"] == 0,
+                  f"{src}: ptxas reports spill stores")
 
     # -- helpers --------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -302,6 +327,115 @@ def main() -> int:
         del got, ref, args
     torch.cuda.empty_cache()
 
+    # -- 3a. the forward block's code paths -----------------------------------
+    # each case in f32 and bf16, run twice (the same bits both times) and
+    # held against the plain version at TOL: one geometry split by the
+    # planner and forced unsplit (the two sum in different orders, so they
+    # need not agree bit for bit with each other), scalar copies (Ci 1, 3,
+    # 6; Co 2, 3), ragged rows and channel tiles, groups whose Cig is not a
+    # multiple of 4, and forced splits of shallow-grid shapes.  The
+    # wrappers call tiling.launch_split per launch; it is wrapped here to
+    # record each launch's slices, and to force them in these cases only
+    phase("forward kernel paths")
+    real_split = tiling.launch_split
+    split_log, force = [], [None]
+
+    def logged_split(*a, **k):
+        out = (force[0] or real_split)(*a, **k)
+        split_log.append(out[0])
+        return out
+
+    def forced(n):
+        """launch_split giving about n slices to every launch (1: none)."""
+        def f(plan, rows, depth, cout, groups, phases=1):
+            if n == 1:
+                return tiling.split_reduction(1 << 30, depth, 1)
+            return tiling.split_reduction(1, depth, n, phases)
+        return f
+
+    tiling.launch_split = logged_split
+    dpad2, dpad3 = ((0, 1),) * 2, ((0, 1),) * 3
+    # (tag, op, in_spatial, cin, w_shape, stride, padding, groups, batch,
+    #  slices forced: None = the planner's; whether the run must split,
+    #  None: either)
+    path_cases = [
+        ("dcgan:deconv1:planner", "deconv", (4, 4), 1024,
+         (3, 3, 1024, 512), 2, dpad2, 1, 4, None, True),
+        ("dcgan:deconv1:unsplit", "deconv", (4, 4), 1024,
+         (3, 3, 1024, 512), 2, dpad2, 1, 4, 1, False),
+        ("vnet:enc5:planner", "conv", (16, 16, 8), 128,
+         (3, 3, 3, 128, 256), 2, 1, 1, 4, None, True),
+        ("vnet:enc5:unsplit", "conv", (16, 16, 8), 128,
+         (3, 3, 3, 128, 256), 2, 1, 1, 4, 1, False),
+        ("scalar:ci1", "conv", (20, 18, 9), 1, (3, 3, 3, 1, 16), 1, 1, 1,
+         2, None, None),
+        ("scalar:ci3", "conv", (33, 31), 3, (3, 3, 3, 8), 2, 1, 1, 3, None,
+         None),
+        ("scalar:ci6", "deconv", (9, 11, 7), 6, (3, 3, 3, 6, 16), 2, dpad3,
+         1, 2, None, None),
+        ("scalar:co2", "conv", (21, 19, 10), 16, (1, 1, 1, 16, 2), 1, 0, 1,
+         2, None, None),
+        ("scalar:co3", "deconv", (17, 15), 128, (3, 3, 128, 3), 2, dpad2,
+         1, 3, None, None),
+        ("scalar:co3:split", "deconv", (17, 15), 128, (3, 3, 128, 3), 2,
+         dpad2, 1, 3, 4, True),
+        ("ragged:co24", "conv", (13, 11, 7), 32, (3, 3, 3, 32, 24), 1, 1,
+         1, 3, None, None),
+        ("ragged:co48", "deconv", (7, 9, 5), 24, (3, 3, 3, 24, 48), 2,
+         dpad3, 1, 3, None, None),
+        ("ragged:co80", "conv", (9, 7, 6), 64, (3, 3, 3, 64, 80), 2, 1, 1,
+         3, None, None),
+        ("ragged:co80:split", "conv", (9, 7, 6), 64, (3, 3, 3, 64, 80), 2,
+         1, 1, 3, 3, True),
+        ("groups2:cig6", "conv", (11, 9, 8), 12, (3, 3, 3, 6, 20), 1, 1, 2,
+         2, None, None),
+        ("groups3:cig6", "deconv", (7, 6, 5), 18, (3, 3, 3, 6, 30), 2,
+         dpad3, 3, 2, None, None),
+        ("groups2:cig10:split", "conv", (11, 9, 8), 20, (3, 3, 3, 10, 28),
+         1, 1, 2, 2, 2, True),
+    ]
+    detail["path_checks"] = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for (tag, op, sp, cin, ws, st, pad, g, batch, n_split,
+             must_split) in path_cases:
+            force[0] = None if n_split is None else forced(n_split)
+            _, _, _, args = operands(op, sp, cin, ws, dtype, st, pad,
+                                     groups=g, scale=True,
+                                     activation="leaky_relu", alpha=0.1,
+                                     batch=batch)
+            split_log.clear()
+            got = run_kernel(op, args)
+            again = run_kernel(op, args)
+            torch.cuda.synchronize()
+            force[0] = None
+            ref = run_plain(op, args)
+            err = float((got.float() - ref.float()).abs().max())
+            mag = float(ref.float().abs().max())
+            rel = err / mag if mag else err
+            row = {"check": tag, "op": op, "dtype": dname,
+                   "shape": list(got.shape), "splits": split_log[0],
+                   "block_co": args[2]["block_co"],
+                   "repeat_equal": bool(torch.equal(got, again)),
+                   "max_abs_err": err, "rel_err": rel, "tol": TOL[dname]}
+            print(json.dumps(row))
+            detail["path_checks"].append(row)
+            check(len(split_log) == 2 and split_log[0] == split_log[1],
+                  f"{tag}/{dname}: launches split {split_log}")
+            check(must_split is None or (split_log[0] > 1) == must_split,
+                  f"{tag}/{dname}: {split_log[0]} slices")
+            check(row["repeat_equal"], f"{tag}/{dname}: a repeated launch "
+                  f"gave other bits")
+            check(got.shape == ref.shape and got.dtype == ref.dtype,
+                  f"{tag}/{dname}: {got.shape} {got.dtype} vs plain "
+                  f"{ref.shape} {ref.dtype}")
+            check(rel <= TOL[dname], f"{tag}/{dname}: relative error "
+                  f"{rel:.3g} above {TOL[dname]}")
+            if dtype == torch.float32:
+                max_abs[f"{op}_fwd"] = max(max_abs[f"{op}_fwd"], err)
+            del got, again, ref, args
+    torch.cuda.empty_cache()
+
     # -- 3b. backward kernels against their plain versions -------------------
     phase("backward kernels vs plain versions")
     train_layers = distinct(train_layers)
@@ -387,21 +521,38 @@ def main() -> int:
     # a conv's dx over input rows no tap reads: conv k3 s2 pad 0 on an
     # extent of 8 reads rows 0..6, so row 7 of each dim gets exactly zero
     # from the deconv kernel's widened phase grid
-    for dtype in (torch.float32, torch.bfloat16):
+    # (and again with 64 output channels, the dx's reduction forced into
+    # four slices: the widened phase grid under a split)
+    for dtype, cout, n_split in ((torch.float32, 24, None),
+                                 (torch.bfloat16, 24, None),
+                                 (torch.float32, 64, 4),
+                                 (torch.bfloat16, 64, 4)):
         dname = str(dtype).split(".")[-1]
         x = rand((2, 8, 8, 8, 16), dtype)
-        w = rand((3, 3, 3, 16, 24), dtype, 1.0 / math.sqrt(27 * 16))
-        dy = rand((2, 3, 3, 3, 24), dtype)
+        w = rand((3, 3, 3, 16, cout), dtype, 1.0 / math.sqrt(27 * 16))
+        dy = rand((2, 3, 3, 3, cout), dtype)
         dx_args, dw_args = cops.conv_backward_args(x, w, dy, 2, 0,
                                                    engine=engine)
         for which, args in (("dx", dx_args), ("dw", dw_args)):
+            force[0] = (forced(n_split) if n_split and which == "dx"
+                        else None)
+            split_log.clear()
             got = run_backward("conv", which, args)
             torch.cuda.synchronize()
+            force[0] = None
+            if n_split and which == "dx":
+                again = run_backward("conv", which, args)
+                check(split_log[0] > 1 and torch.equal(got, again),
+                      f"conv dx split {split_log}: repeat differs or no "
+                      f"split")
             ref = run_backward_plain("conv", which, args, torch.float64)
             err = float((got.double() - ref).abs().max())
             rel = err / float(ref.abs().max())
-            row = {"check": "conv_k3s2p0_extent8", "op": "conv",
+            tag = "conv_k3s2p0_extent8" + (f"_co{cout}_split" if n_split
+                                            else "")
+            row = {"check": tag, "op": "conv",
                    "grad": which, "dtype": dname, "shape": list(got.shape),
+                   "splits": split_log[0] if which == "dx" else None,
                    "max_abs_err": err, "rel_err": rel,
                    "tol": BACKWARD_TOL[dname]}
             if which == "dx":
@@ -766,6 +917,10 @@ def main() -> int:
         return lambda: fn(xl, wl, b, stride=layer.stride, padding=pad,
                           dilation=layer.dilation)
 
+    def tile_name(block_co):
+        """rows x output channels of a forward kernel's block."""
+        return f"{tiling.KERNEL_TILES[block_co].block_m}x{block_co}"
+
     # each kernel's totals over the main path's launches: every call
     # shape's times, weighted by the calls of that shape it recorded
     totals = {k: {"launches": 0, "ms": 0.0, "plain_ms": 0.0,
@@ -791,8 +946,18 @@ def main() -> int:
     detail["layers"] = []
     for model, layer, batch in main_layers:
         x, w, b, args = layer_operands(layer, torch.float32, batch)
+        split_log.clear()
         y = run_kernel(layer.op, args)
+        splits = split_log[0]
         kms = per_call_ms(lambda: run_kernel(layer.op, args), 10)
+        # the wrapper's host time per call (enqueue, no synchronize): where
+        # it exceeds the kernel's, back-to-back launches time the host
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            run_kernel(layer.op, args)
+        hms = 1e3 * (time.perf_counter() - t0) / 20
+        torch.cuda.synchronize()
         pms = per_call_ms(lambda: run_plain(layer.op, args), 2, groups=3)
         lms = per_call_ms(library_call(layer, x, w, b), 10)
         nbytes = sum(t.numel() * t.element_size()
@@ -805,6 +970,8 @@ def main() -> int:
                "ms": kms, "plain_ms": pms,
                "library_ms": lms, "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "share": max(ops_ms, bytes_ms) / kms, "host_ms": hms,
+               "tile": tile_name(args[2]["block_co"]), "splits": splits,
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "tflops": flops / kms / 1e9}
         account(row, [signature(f"{layer.op}_fwd", *args[:3])], ops_ms,
@@ -864,7 +1031,12 @@ def main() -> int:
                                                        torch.float32)
         for which, args in (("dw", dw_args), ("dx", dx_args)):
             kname = BACKWARD_KERNEL[(layer.op, which)]
+            split_log.clear()
             out = run_backward(layer.op, which, args)
+            kw = args[2]
+            tile = (tile_name(kw["block_co"]) if which == "dx"
+                    else f"a{kw['block_a']}")
+            splits = split_log[0] if which == "dx" else kw["splits"]
             kms = per_call_ms(lambda: run_backward(layer.op, which, args),
                               5, groups=3)
             pms = per_call_ms(
@@ -884,6 +1056,8 @@ def main() -> int:
                    "library_ms": lms, "bound_ms": max(ops_ms, bytes_ms),
                    "bound_by": ("operations" if ops_ms >= bytes_ms
                                 else "bytes"),
+                   "share": max(ops_ms, bytes_ms) / kms, "tile": tile,
+                   "splits": splits,
                    "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                    "tflops": flops / kms / 1e9}
             keys = [signature(kname, *args)]

@@ -311,6 +311,7 @@ class LayerSchedule:
     stride: tuple[int, ...]
     plan: _tiling.DeconvTilePlan | None
     blocks: int                        # CUDA blocks of the forward launch
+                                       # (its reduction slices counted)
     smem_bytes: int                    # modeled shared memory per block
     macs: int                          # valid MACs at the schedule's batch
     sparsity: float                    # zeros an OOM engine would read
@@ -318,9 +319,12 @@ class LayerSchedule:
     dilation: tuple[int, ...] = ()
     epilogue: str = "-"
     dtype: str = "float32"
+    splits: int = 1                    # slices of the forward's reduction
 
     def describe(self) -> str:
         plan = self.plan.describe() if self.plan is not None else "merge"
+        if self.splits > 1:
+            plan += f"_split{self.splits}"
         return (f"{self.name:<18s} {self.op:<6s} "
                 f"{'x'.join(map(str, self.in_spatial)):>11s}x{self.cin:<4d}-> "
                 f"{'x'.join(map(str, self.out_spatial)):>11s}x{self.cout:<4d} "
@@ -376,23 +380,27 @@ def _schedule_layer(layer: _networks.UniformLayer, engine: UniformEngine,
                        groups=g, dilation=dil3, in_dtype_bytes=nbytes,
                        w_dtype_bytes=nbytes)
     if layer.op == "deconv":
-        q = tuple(i + m - 1 for i, m in
-                  zip(sp3, _kcommon.phase_geometry(k3, s3, dil3)))
-        blocks = _tiling.grid_blocks(plan, batch * math.prod(q), layer.cout,
-                                     g, phases=math.prod(s3))
+        mt = _kcommon.phase_geometry(k3, s3, dil3)
+        q = tuple(i + m - 1 for i, m in zip(sp3, mt))
+        rows, phases = batch * math.prod(q), math.prod(s3)
+        depth = math.prod(mt) * (layer.cin // g)
         sparsity = insertion_sparsity(layer.in_spatial, layer.kernel,
                                       layer.stride)
     else:
-        blocks = _tiling.grid_blocks(
-            plan, batch * math.prod(layer.out_spatial), layer.cout, g)
+        rows, phases = batch * math.prod(layer.out_spatial), 1
+        depth = math.prod(k3) * (layer.cin // g)
         sparsity = 0.0
+    splits, _ = _tiling.launch_split(plan, rows, depth, layer.cout, g,
+                                     phases)
+    blocks = _tiling.grid_blocks(plan, rows, layer.cout, g, phases, splits)
     return LayerSchedule(
         name=layer.name, op=layer.op, in_spatial=layer.in_spatial,
         out_spatial=layer.out_spatial, cin=layer.cin, cout=layer.cout,
         kernel=layer.kernel, stride=layer.stride, plan=plan, blocks=blocks,
         smem_bytes=plan.step_smem_bytes, macs=batch * layer.valid_macs,
         sparsity=sparsity, groups=g, dilation=layer.dilation,
-        epilogue=layer.epilogue.describe(), dtype=_dtype_name(dtype))
+        epilogue=layer.epilogue.describe(), dtype=_dtype_name(dtype),
+        splits=splits)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

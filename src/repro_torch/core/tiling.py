@@ -2,13 +2,18 @@
 
 The JAX package's planner sized a TPU grid step against 8 MiB of VMEM,
 charging every float at 2 bytes.  The CUDA kernels here (``csrc/igemm.cuh``)
-are implicit GEMMs with a fixed 128-row tile and a 16-deep (tap, channel)
-stage; what a layer decides is the output-channel tile ``block_co`` (16, 32
-or 64, the smallest that covers the layer's per-group output channels), and
-what the budget bounds is the static shared memory of one block, counted at
-the operands' true widths, against the 227 KB an sm_90 block may use.
-Plans differ from the TPU's by design: there is no leading-dim tile and no
-halo, because no block carries anything to another.
+are implicit GEMMs whose block stages the gathered input and the weights
+through a ring of shared-memory stages (64 bytes of each row's (tap,
+channel) pairs per stage: 16 f32 or 32 bf16 pairs).  What a layer decides
+is the output-channel tile ``block_co`` (16, 32, 64 or 128, the smallest
+that covers the layer's per-group output channels), which fixes the
+block's rows, threads and stages (``KERNEL_TILES``); what the budget
+bounds is the dynamic shared memory of one block, counted at the operands'
+true widths, against the 227 KB an sm_90 block may use.  Per launch,
+``launch_split`` cuts the reduction into slices when the output alone
+gives the card less than a wave of blocks.  Plans differ from the TPU's by
+design: there is no leading-dim tile and no halo, because no block carries
+anything to another.
 
 The backward adds the dw kernel (``csrc/deconv_dw.cu``), a GEMM whose
 reduction runs over every input position: its plan picks the tile of the
@@ -21,24 +26,70 @@ pairs it with the dx launch's forward-kernel plan.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 # the most shared memory one sm_90 block may use (227 KB)
 SMEM_BUDGET = 232448
+# an H100 SXM: its SMs, the shared memory of one SM (228 KB, of which each
+# resident block holds 1 KB for the system), its registers and threads
+SMS = 132
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
+REGISTERS_PER_SM = 65536
+THREADS_PER_SM = 2048
+# registers a thread of the forward kernels is taken to hold when counting
+# the blocks an SM keeps resident (ptxas reports the real count)
+TILE_REGISTERS = 128
 
-# The instantiated tile shapes of csrc/igemm.cuh: rows per block, (tap,
-# channel) pairs per stage, and threads per block for each block_co.
-BLOCK_M = 128
-BLOCK_CI = 16
-KERNEL_TILES = {16: 128, 32: 128, 64: 256}
+
+@dataclasses.dataclass(frozen=True)
+class KernelTile:
+    """One instantiated tile of ``csrc/igemm.cuh``: ``block_m`` rows x
+    ``block_co`` output channels per block, ``tm`` x ``tn`` f32 sums per
+    thread, ``k_bytes`` of each row's (tap, channel) pairs per stage and
+    ``stages`` stages in the shared-memory ring."""
+    block_m: int
+    block_co: int
+    tm: int
+    tn: int
+    k_bytes: int
+    stages: int
+
+    @property
+    def threads(self) -> int:
+        return (self.block_m // self.tm) * (self.block_co // self.tn)
+
+    def block_ci(self, in_dtype_bytes: int) -> int:
+        """(tap, channel) pairs per stage at this operand width."""
+        return max(1, self.k_bytes // in_dtype_bytes)
+
+
+# block_co -> tile; keep in step with csrc/igemm.cuh (Tile16 ... Tile128).
+# Up to 32 channels per group a thread owns all of its rows' channels, and
+# the narrow tiles take two deep stages (more blocks per SM); each shape
+# was the fastest of those timed on an H100 (PERF.md).
+KERNEL_TILES = {t.block_co: t for t in (
+    KernelTile(256, 16, 2, 16, 64, 2), KernelTile(256, 32, 2, 32, 64, 2),
+    KernelTile(128, 64, 8, 8, 64, 4), KernelTile(128, 128, 8, 8, 64, 4))}
+# the pad after each staged row of the gathered operand (bytes)
+A_PAD_BYTES = 16
+# taps whose input offsets a block keeps in shared memory (16 bytes each)
+MAX_TAPS = 128
+# the split reduction: slices are whole stages at either width (up to 32
+# pairs a stage) and at least SPLIT_MIN_K pairs deep; phases x slices form
+# the grid's z
+SPLIT_UNIT = 32
+SPLIT_MIN_K = 128
+GRID_Z_LIMIT = 65535
 
 
 @dataclasses.dataclass(frozen=True)
 class DeconvTilePlan:
     """One layer's tile decision for the conv or deconv kernel.
 
-    ``step_smem_bytes`` is the modeled static shared memory of one block
-    (operand stages plus the per-row coordinate table); ``overflows`` says
-    it exceeds ``smem_budget``.
+    ``step_smem_bytes`` is the modeled dynamic shared memory of one block
+    (``stages`` operand stages plus the per-row coordinate table);
+    ``overflows`` says it exceeds ``smem_budget``.
     """
     block_m: int
     block_ci: int
@@ -46,6 +97,7 @@ class DeconvTilePlan:
     threads: int
     step_smem_bytes: int
     smem_budget: int
+    stages: int
 
     @property
     def overflows(self) -> bool:
@@ -58,40 +110,43 @@ class DeconvTilePlan:
 
 def step_byte_model(*, in_dtype_bytes: int = 4,
                     w_dtype_bytes: int | None = None):
-    """``step_bytes(block_m, block_ci, block_co)``: static shared memory of
-    one block — the A stage ``[block_ci][block_m + 1]`` at the activation
-    width, the B stage ``[block_ci][block_co]`` at the weight width, and
-    four int32 coordinates per row."""
+    """``step_bytes(block_m, block_ci, block_co, stages)``: dynamic shared
+    memory of one block — ``stages`` times the A stage ``[block_m]
+    [block_ci]`` at the activation width plus an ``A_PAD_BYTES`` pad per
+    row and the B stage ``[block_ci][block_co]`` at the weight width, four
+    int32 coordinates per row and four per tap of the ``MAX_TAPS``-entry
+    tap table."""
     w_bytes = in_dtype_bytes if w_dtype_bytes is None else w_dtype_bytes
 
-    def step_bytes(block_m: int, block_ci: int, block_co: int) -> int:
-        return (block_ci * (block_m + 1) * in_dtype_bytes
-                + block_ci * block_co * w_bytes
-                + 4 * block_m * 4)
+    def step_bytes(block_m: int, block_ci: int, block_co: int,
+                   stages: int) -> int:
+        return (stages * (block_m * (block_ci * in_dtype_bytes + A_PAD_BYTES)
+                          + block_ci * block_co * w_bytes)
+                + 4 * block_m * 4 + 4 * MAX_TAPS * 4)
 
     return step_bytes
 
 
+@functools.lru_cache(maxsize=1024)
 def plan_uniform_tiles(cin: int, cout: int, *, mode: str = "deconv",
                        smem_budget: int = SMEM_BUDGET,
                        block_ci: int | None = None,
                        block_co: int | None = None,
                        groups: int = 1, in_dtype_bytes: int = 4,
                        w_dtype_bytes: int | None = None) -> DeconvTilePlan:
-    """Pick the output-channel tile for one layer and model its smem.
+    """Pick the output-channel tile for one layer and model its smem
+    (memoised: a pure function of its arguments).
 
     ``block_co`` defaults to the smallest instantiated tile that covers the
-    per-group output channels (64 past that); explicit ``block_ci`` /
-    ``block_co`` must name an instantiated tile.
+    per-group output channels (the widest past that); explicit ``block_ci``
+    / ``block_co`` must name an instantiated tile (``block_ci`` is fixed by
+    the tile and the operand width: ``KernelTile.block_ci``).
     """
     if mode not in ("deconv", "conv"):
         raise ValueError(f"unknown mode {mode!r}; expected 'deconv'|'conv'")
     if cin % groups or cout % groups:
         raise ValueError(f"groups={groups} must divide cin={cin}, "
                          f"cout={cout}")
-    if block_ci is not None and block_ci != BLOCK_CI:
-        raise ValueError(f"block_ci={block_ci}: the kernels are built with "
-                         f"{BLOCK_CI} (tap, channel) pairs per stage")
     if block_co is None:
         cog = cout // groups
         block_co = next((b for b in sorted(KERNEL_TILES) if b >= cog),
@@ -99,21 +154,75 @@ def plan_uniform_tiles(cin: int, cout: int, *, mode: str = "deconv",
     elif block_co not in KERNEL_TILES:
         raise ValueError(f"block_co={block_co}: the kernels are built for "
                          f"{sorted(KERNEL_TILES)}")
+    tile = KERNEL_TILES[block_co]
+    # (the wrappers refuse operand types the kernels do not take)
+    pairs = tile.block_ci(in_dtype_bytes)
+    if block_ci is not None and block_ci != pairs:
+        raise ValueError(f"block_ci={block_ci}: the {block_co}-channel tile "
+                         f"stages {pairs} (tap, channel) pairs of "
+                         f"{in_dtype_bytes}-byte operands per stage")
     step = step_byte_model(in_dtype_bytes=in_dtype_bytes,
                            w_dtype_bytes=w_dtype_bytes)
-    return DeconvTilePlan(block_m=BLOCK_M, block_ci=BLOCK_CI,
-                          block_co=block_co, threads=KERNEL_TILES[block_co],
-                          step_smem_bytes=step(BLOCK_M, BLOCK_CI, block_co),
-                          smem_budget=smem_budget)
+    return DeconvTilePlan(block_m=tile.block_m, block_ci=pairs,
+                          block_co=block_co, threads=tile.threads,
+                          step_smem_bytes=step(tile.block_m, pairs,
+                                               block_co, tile.stages),
+                          smem_budget=smem_budget, stages=tile.stages)
+
+
+def resident_blocks(plan: DeconvTilePlan) -> int:
+    """Blocks of ``plan`` one SM keeps resident: the least of what its
+    shared memory, threads and registers (at ``TILE_REGISTERS`` a
+    thread) allow."""
+    return max(1, min(
+        SMEM_PER_SM // (plan.step_smem_bytes + SMEM_RESERVED_PER_BLOCK),
+        THREADS_PER_SM // plan.threads,
+        REGISTERS_PER_SM // (plan.threads * TILE_REGISTERS), 32))
 
 
 def grid_blocks(plan: DeconvTilePlan, rows: int, cout: int, groups: int,
-                phases: int = 1) -> int:
-    """CUDA blocks one launch runs: row tiles x per-group channel tiles x
-    groups x phases (``rows`` counts the batch; ``phases`` is S^d for the
-    deconv, whose rows are per-phase positions)."""
+                phases: int = 1, splits: int = 1) -> int:
+    """CUDA blocks of one launch's main pass: row tiles x per-group channel
+    tiles x groups x phases x reduction slices (``rows`` counts the batch;
+    ``phases`` is S^d for the deconv, whose rows are per-phase
+    positions)."""
     co_tiles = -(-(cout // groups) // plan.block_co)
-    return -(-rows // plan.block_m) * co_tiles * groups * phases
+    return -(-rows // plan.block_m) * co_tiles * groups * phases * splits
+
+
+def split_reduction(blocks: int, depth: int, wave: int,
+                    z_other: int = 1) -> tuple[int, int]:
+    """``(splits, k_per_split)``: cut a reduction of ``depth`` (tap,
+    channel) pairs into slices when the launch's ``blocks`` fall short of
+    one ``wave``.
+
+    One slice (``k_per_split`` = ``depth`` rounded up to ``SPLIT_UNIT``)
+    when the grid fills the wave; otherwise about ``wave // blocks``
+    slices of at least ``SPLIT_MIN_K`` pairs, whole ``SPLIT_UNIT``s each,
+    none empty, their count within the grid's z limit beside ``z_other``
+    (the deconv's phases).  Pure and deterministic.
+    """
+    depth = max(int(depth), 1)
+    whole = -(-depth // SPLIT_UNIT) * SPLIT_UNIT
+    want = min(wave // max(int(blocks), 1), depth // SPLIT_MIN_K,
+               GRID_Z_LIMIT // max(int(z_other), 1))
+    if want <= 1:
+        return 1, whole
+    per = -(-depth // want)
+    per = -(-per // SPLIT_UNIT) * SPLIT_UNIT
+    return -(-depth // per), per
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_split(plan: DeconvTilePlan, rows: int, depth: int, cout: int,
+                 groups: int, phases: int = 1) -> tuple[int, int]:
+    """The split of one launch from its real shapes: ``rows`` (batch
+    included), the deepest phase's reduction ``depth`` and the grid the
+    plan gives, against one wave of ``SMS`` x ``resident_blocks``.  Pure,
+    so memoised: the wrappers call it (and ``plan_uniform_tiles``) on
+    every launch."""
+    return split_reduction(grid_blocks(plan, rows, cout, groups, phases),
+                           depth, SMS * resident_blocks(plan), phases)
 
 
 # -- the dw kernel (csrc/deconv_dw.cu) ----------------------------------------

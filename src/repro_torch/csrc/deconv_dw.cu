@@ -187,16 +187,14 @@ dw_kernel(const T* __restrict__ A, const T* __restrict__ B,
   }
 }
 
-// Sum the row slices in slice order (a fixed order: the result repeats bit
-// for bit) and cast.
+// Sum the row slices in slice order (igemm.cuh's slice_sum, which the
+// forward kernels' split reduction shares) and cast.
 template <typename U>
 __global__ void dw_reduce(const float* __restrict__ partial,
                           U* __restrict__ out, int64_t n, int splits) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[(int64_t)z * n + i];
-  out[i] = from_f32<U>(s);
+  out[i] = from_f32<U>(slice_sum(partial, n, splits, i));
 }
 
 template <typename T, typename U>

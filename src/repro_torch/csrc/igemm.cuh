@@ -18,10 +18,39 @@
 //     kernel-element order, and A[o, (k, ci)] = x[o*S + k*dil - lo, ci]
 //     (zero in the padding).  Weights are [prod(K) * Cin/G, Cout].
 //
-// Each block owns a disjoint BM x BN output tile and computes all of it:
-// no carry between blocks, no atomics, so results repeat bit for bit.
-// Operands are staged in shared memory in their own type (f32 or bf16) and
-// accumulated in f32 registers with plain FMA (IEEE f32, no TF32).
+// What bounds it on an H100: in IEEE f32 on CUDA cores (67 TFLOP/s, no
+// TF32) the full-width layers are bound by operations, so the block is
+// built to keep the FMA pipes fed:
+//
+//   * a ring of shared-memory stages (two for the narrow tiles, four for
+//     the wide ones, 64 bytes of each row's pairs per stage) filled with
+//     cp.async: 16-byte copies of 4 f32 / 8 bf16 consecutive channels,
+//     which skip L1 (.cg), where the layer's per-group channels allow, else
+//     4-byte f32 copies or 2-byte bf16 loads (the VEC template flag, picked
+//     by the wrapper).  A source size of 0 zero-fills what the masks drop:
+//     padding, rows past the end, pairs past the slice.  One barrier per
+//     stage; the next stages load while this one computes.
+//   * register tiles sized to the layer: where a group has <= 32 output
+//     channels a thread owns all of them for two rows (32 or 64 sums) and
+//     a block takes 256 rows; wider groups take 128 x 64 or 128 x 128
+//     tiles of 8 x 8 sums a thread.  A is staged row-major with a 16-byte
+//     pad (rows 80 bytes apart, so eight neighbouring rows hit eight
+//     different bank quads) and read as 16-byte vectors along the
+//     reduction; B is read as 16-byte vectors every thread of a warp
+//     shares (a broadcast).  That is 4-16 FMAs per shared load.
+//   * a split reduction for grids short of one wave: blockIdx.z carries
+//     (phase, slice); each slice stores its f32 partial sums to a
+//     workspace, and igemm_reduce sums the slices in slice order, then runs
+//     the epilogue and the cropped store.  No atomics: a launch repeats bit
+//     for bit.
+//
+// What still bounds it: the gathers re-read each input element once per
+// tap from L2 (27 times on a 3x3x3 layer), and a 16-channel group reuses
+// each staged input element only 16 times; the narrow merge layers reach
+// about 40 % of the f32 peak.
+//
+// No block waits on another.  Sums are f32 with plain FMA (no TF32);
+// operands are staged in their own type (f32 or bf16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,8 +72,10 @@ struct Geom {
                                // positions q; conv: output positions o)
   int Od, Oh, Ow;              // output tensor extent (after the crop)
   int lod, loh, low;           // deconv: crop lo; conv: pad lo
+  int splits;                  // slices of the (tap, channel) reduction
+  int k_per_split;             // pairs per slice, a multiple of 32
 };
-constexpr int GEOM_FIELDS = 25;
+constexpr int GEOM_FIELDS = 27;
 static_assert(sizeof(Geom) == GEOM_FIELDS * sizeof(int), "Geom is packed");
 
 struct Epi {
@@ -77,23 +108,171 @@ __device__ __forceinline__ float epilogue(float v, const Epi& e, int co) {
   return v;
 }
 
-// BM output rows x BN output channels per block, BK (tap, channel) pairs
-// per shared-memory stage, TM x TN accumulators per thread.
-template <typename T, typename U, int BM, int BN, int BK, int TM, int TN,
-          bool DECONV>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-             const int* __restrict__ taps, Epi ep, U* __restrict__ y,
-             Geom g) {
-  constexpr int THREADS = (BM / TM) * (BN / TN);
-  constexpr int A_STEP = THREADS / BK;   // rows one pass of A loads covers
-  constexpr int B_STEP = THREADS / BN;   // k rows one pass of B loads covers
-  static_assert(THREADS % BK == 0 && BM % A_STEP == 0, "A tiling");
-  static_assert(THREADS % BN == 0 && BK % B_STEP == 0, "B tiling");
+__device__ __forceinline__ void store_out(void* y, int out_bf16, int64_t i,
+                                          float v) {
+  if (out_bf16) static_cast<__nv_bfloat16*>(y)[i] = __float2bfloat16(v);
+  else static_cast<float*>(y)[i] = v;
+}
 
-  __shared__ T As[BK][BM + 1];  // +1: the kk-major stores hit distinct banks
-  __shared__ T Bs[BK][BN];
-  __shared__ int rowN[BM], rowD[BM], rowH[BM], rowW[BM];
+// The slices' partial sums of element i, added in slice order (a fixed
+// order: the result repeats bit for bit).  partial is [splits][n].
+__device__ __forceinline__ float slice_sum(const float* __restrict__ partial,
+                                           int64_t n, int splits, int64_t i) {
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += partial[(int64_t)z * n + i];
+  return s;
+}
+
+// -- asynchronous copies ---------------------------------------------------
+
+// Copy BYTES from global to shared memory, or zero-fill them when !valid
+// (source size 0: nothing is read).  cp.async has no 2-byte form, so the
+// bf16 scalar variant loads and stores synchronously.
+template <int BYTES>
+__device__ __forceinline__ void copy_async(void* smem, const void* gmem,
+                                           bool valid) {
+  if constexpr (BYTES == 2) {
+    *static_cast<uint16_t*>(smem) =
+        valid ? *static_cast<const uint16_t*>(gmem) : (uint16_t)0;
+  } else {
+    static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async size");
+    const unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    const int src_bytes = valid ? BYTES : 0;
+    // 16-byte copies skip L1 (.cg): the staged operands live in shared
+    // memory, and allocating them in L1 too measured slower
+    if constexpr (BYTES == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       dst), "l"(gmem), "r"(src_bytes));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                       dst), "l"(gmem), "n"(BYTES), "r"(src_bytes));
+  }
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// -- 16-byte shared reads ---------------------------------------------------
+
+// Element k of a 16-byte vector of T, as f32.
+template <typename T>
+__device__ __forceinline__ float lane_f32(const uint4& v, int k);
+template <>
+__device__ __forceinline__ float lane_f32<float>(const uint4& v, int k) {
+  const unsigned u = k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+  return __uint_as_float(u);
+}
+template <>
+__device__ __forceinline__ float lane_f32<__nv_bfloat16>(const uint4& v,
+                                                         int k) {
+  const int q = k >> 1;
+  const unsigned u = q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+  return __uint_as_float((k & 1) ? (u & 0xffff0000u) : (u << 16));
+}
+
+// N consecutive values of T from 16-byte aligned shared memory, as f32.
+template <typename T, int N>
+__device__ __forceinline__ void load_row(float (&out)[N], const T* src) {
+  constexpr int PER = 16 / sizeof(T);
+  static_assert(N % PER == 0, "row of whole 16-byte vectors");
+#pragma unroll
+  for (int v = 0; v < N / PER; ++v) {
+    const uint4 raw = reinterpret_cast<const uint4*>(src)[v];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) out[v * PER + k] = lane_f32<T>(raw, k);
+  }
+}
+
+// -- tiles -----------------------------------------------------------------
+
+// BM rows x BN output channels per block, TM x TN sums per thread, KB
+// bytes of each row's (tap, channel) pairs per stage, ST stages in the
+// ring.  Keep in step with repro_torch/core/tiling.py::KERNEL_TILES.
+template <int BM_, int BN_, int TM_, int TN_, int KB_, int ST_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_;
+  static constexpr int KB = KB_, ST = ST_;
+  static constexpr int THREADS = (BM / TM) * (BN / TN);
+};
+// The narrow tiles take 256 rows in two deep stages (more resident blocks
+// per SM hide the gathers' latency); the wide ones four.  Each shape was
+// the fastest of those timed on an H100 (PERF.md).
+using Tile16 = Tile<256, 16, 2, 16, 64, 2>;
+using Tile32 = Tile<256, 32, 2, 32, 64, 2>;
+using Tile64 = Tile<128, 64, 8, 8, 64, 4>;
+using Tile128 = Tile<128, 128, 8, 8, 64, 4>;
+
+constexpr int APAD = 16;         // pad after each staged A row, bytes
+constexpr int MAX_TAPS = 128;    // taps a block's shared tap table holds
+
+// Dynamic shared memory of one block: the A and B rings, the row table and
+// the tap table.  Keep in step with tiling.py::step_byte_model.
+template <class TL>
+constexpr int smem_bytes() {
+  return TL::ST * (TL::BM * (TL::KB + APAD) + TL::KB * TL::BN) +
+         16 * TL::BM + 16 * MAX_TAPS;
+}
+
+// Flat element offset of output row m's channel 0, or false when the row
+// falls outside the (cropped) output.
+template <bool DECONV>
+__device__ __forceinline__ bool out_offset(const Geom& g, int m, int pd,
+                                           int ph, int pw, int64_t& out) {
+  int t = m;
+  int ow = t % g.Pw; t /= g.Pw;
+  int oh = t % g.Ph; t /= g.Ph;
+  int od = t % g.Pd;
+  const int n = t / g.Pd;
+  if (DECONV) {
+    od = od * g.Sd + pd - g.lod;
+    oh = oh * g.Sh + ph - g.loh;
+    ow = ow * g.Sw + pw - g.low;
+    if ((unsigned)od >= (unsigned)g.Od || (unsigned)oh >= (unsigned)g.Oh ||
+        (unsigned)ow >= (unsigned)g.Ow)
+      return false;
+  }
+  out = ((((int64_t)n * g.Od + od) * g.Oh + oh) * g.Ow + ow) * g.Co;
+  return true;
+}
+
+// blockIdx: x = row tile, y = group x channel tile, z = phase x slice.
+// With partial != nullptr the block stores its slice's raw f32 sums at
+// partial[((slice * phases + p) * rows + m) * Co + c]; else the epilogue's
+// result in y (f32, or bf16 when out_bf16).
+template <typename T, class TL, bool VEC, bool DECONV>
+__global__ void __launch_bounds__(TL::THREADS)
+igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+             const int* __restrict__ taps, Epi ep, void* __restrict__ y,
+             int out_bf16, float* __restrict__ partial, Geom g) {
+  constexpr int BM = TL::BM, BN = TL::BN, TM = TL::TM, TN = TL::TN;
+  constexpr int THREADS = TL::THREADS, STAGES = TL::ST;
+  constexpr int BK = TL::KB / sizeof(T);          // pairs per stage
+  constexpr int APITCH = (TL::KB + APAD) / sizeof(T);
+  constexpr int V = VEC ? 16 / sizeof(T) : 1;     // elements per copy
+  constexpr int CB = V * sizeof(T);               // bytes per copy
+  constexpr int A_CH = BK / V;                    // copies per A row
+  constexpr int A_ROWS = THREADS / A_CH;          // rows one pass covers
+  constexpr int B_CH = BN / V;                    // copies per B row
+  constexpr int B_COPIES = BK * B_CH;             // copies per B stage
+  constexpr int KV = 16 / sizeof(T);              // pairs per 16-byte read
+  // the scalar variants' many small copies stay a loop (build time)
+  constexpr int A_UNROLL = VEC ? BM / A_ROWS : 4;
+  static_assert(THREADS % A_CH == 0 && BM % A_ROWS == 0, "A copies");
+  static_assert(BK % KV == 0 && BN % TN == 0 && BM % TM == 0 && TN % 4 == 0,
+                "tiling");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* As = reinterpret_cast<T*>(smem);                  // [STAGES][BM][APITCH]
+  T* Bs = As + STAGES * BM * APITCH;                   // [STAGES][BK][BN]
+  int4* rowtab = reinterpret_cast<int4*>(Bs + STAGES * BK * BN);  // [BM]
+  int4* taptab = rowtab + BM;                                  // [MAX_TAPS]
 
   const int tid = threadIdx.x;
   const int Cig = g.Ci / g.G, Cog = g.Co / g.G;
@@ -102,11 +281,12 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int co0 = (blockIdx.y % co_tiles) * BN;          // within the group
   const int rows = g.N * g.Pd * g.Ph * g.Pw;
   const int m0 = blockIdx.x * BM;
+  const int slice = blockIdx.z % g.splits;
+  const int p = blockIdx.z / g.splits;
 
   int pd = 0, ph = 0, pw = 0, tap0 = 0, ntaps;
   const int* tapm = taps;
   if (DECONV) {
-    const int p = blockIdx.z;
     pw = p % g.Sw;
     ph = (p / g.Sw) % g.Sh;
     pd = p / (g.Sw * g.Sh);
@@ -116,50 +296,34 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   } else {
     ntaps = g.Kd * g.Kh * g.Kw;
   }
-  const int Ktot = ntaps * Cig;
+  const int depth = ntaps * Cig;
+  const int kb = slice * g.k_per_split;
+  const int ke = min(depth, kb + g.k_per_split);
+  const int nst = ke > kb ? (ke - kb + BK - 1) / BK : 0;
 
-  // per-row input base coordinates (rowN < 0 marks rows past the end)
+  // per-row input position of tap offset 0 and its coordinates; rows past
+  // the end get coordinates every tap reads out of bounds
   for (int r = tid; r < BM; r += THREADS) {
     const int m = m0 + r;
+    int4 e = make_int4(0, -(1 << 29), 0, 0);
     if (m < rows) {
       int t = m;
       const int qw = t % g.Pw; t /= g.Pw;
       const int qh = t % g.Ph; t /= g.Ph;
       const int qd = t % g.Pd;
-      rowN[r] = t / g.Pd;
-      if (DECONV) {
-        rowD[r] = qd; rowH[r] = qh; rowW[r] = qw;
-      } else {
-        rowD[r] = qd * g.Sd - g.lod;
-        rowH[r] = qh * g.Sh - g.loh;
-        rowW[r] = qw * g.Sw - g.low;
+      const int n = t / g.Pd;
+      int bd = qd, bh = qh, bw = qw;
+      if (!DECONV) {
+        bd = qd * g.Sd - g.lod;
+        bh = qh * g.Sh - g.loh;
+        bw = qw * g.Sw - g.low;
       }
-    } else {
-      rowN[r] = -1;
+      e = make_int4(((n * g.D + bd) * g.H + bh) * g.W + bw, bd, bh, bw);
     }
+    rowtab[r] = e;
   }
-  __syncthreads();
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int a_k = tid % BK, a_r = tid / BK;
-  const int b_n = tid % BN, b_k = tid / BN;
-  const int64_t ci_base = (int64_t)grp * Cig;
-  const int64_t w_row0 = (int64_t)tap0 * Cig;
-  const int co_b = co0 + b_n;
-  const T zero = from_f32<T>(0.f);
-
-  for (int k0 = 0; k0 < Ktot; k0 += BK) {
-    // A: this thread's column kk is fixed for the stage; decode it once
-    const int kk = k0 + a_k;
-    const bool k_ok = kk < Ktot;
-    const int t = k_ok ? kk / Cig : 0;
-    const int ci = kk - t * Cig;
+  // per-tap input offset (flat position delta) and coordinate deltas
+  auto tap_entry = [&](int t) {
     int dd, dh, dw;
     if (DECONV) {
       const int* mm = tapm + 3 * (tap0 + t);
@@ -168,129 +332,299 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int kw = t % g.Kw, kh = (t / g.Kw) % g.Kh, kd = t / (g.Kw * g.Kh);
       dd = kd * g.dd; dh = kh * g.dh; dw = kw * g.dw;
     }
+    return make_int4((dd * g.H + dh) * g.W + dw, dd, dh, dw);
+  };
+  for (int t = tid; t < ntaps && t < MAX_TAPS; t += THREADS)
+    taptab[t] = tap_entry(t);
+  __syncthreads();
+
+  // this thread's A copy column: pair kk = k0 + ca*V of every stage, at
+  // tap a_t and channel a_ci, advanced one stage at a time
+  const int ca = tid % A_CH, ra = tid / A_CH;
+  int a_t, a_ci;
+  {
+    const int kk = kb + ca * V;
+    a_t = kk / Cig;
+    a_ci = kk - a_t * Cig;
+  }
+  int a_tcur = -1;
+  int4 a_tap = make_int4(0, 0, 0, 0);   // a_tcur's offsets (taptab entry)
+  const int64_t ci_base = (int64_t)grp * Cig;
+  const int64_t co_base = (int64_t)grp * Cog;
+  const int64_t w_row0 = (int64_t)tap0 * Cig;
+
+  auto load_stage = [&](int slot, int k0) {
+    // A: BM rows x BK pairs, gathered
+    const bool k_ok = k0 + ca * V < ke;
+    if (k_ok && a_t != a_tcur) {
+      a_tcur = a_t;
+      a_tap = a_t < MAX_TAPS ? taptab[a_t] : tap_entry(a_t);
+    }
+    const int64_t coff = ci_base + a_ci;
+    T* adst = As + (slot * BM + ra) * APITCH + ca * V;
+#pragma unroll (A_UNROLL)
+    for (int j = 0; j < BM / A_ROWS; ++j) {
+      const int4 e = rowtab[ra + j * A_ROWS];
+      const int id = e.y + a_tap.y, ih = e.z + a_tap.z, iw = e.w + a_tap.w;
+      const bool ok = k_ok && (unsigned)id < (unsigned)g.D &&
+                      (unsigned)ih < (unsigned)g.H &&
+                      (unsigned)iw < (unsigned)g.W;
+      const T* src = ok ? x + (int64_t)(e.x + a_tap.x) * g.Ci + coff : x;
+      copy_async<CB>(adst + j * A_ROWS * APITCH, src, ok);
+    }
+    a_ci += BK;
+    if (a_ci >= Cig) {
+      const int q = a_ci / Cig;
+      a_t += q;
+      a_ci -= q * Cig;
+    }
+    // B: BK rows x BN channels of the plain [taps * Cig, Co] slab
+    T* bdst = Bs + slot * BK * BN;
 #pragma unroll
-    for (int i = 0; i < BM / A_STEP; ++i) {
-      const int r = a_r + i * A_STEP;
-      const int n = rowN[r];
-      T v = zero;
-      if (k_ok && n >= 0) {
-        const int id = rowD[r] + dd, ih = rowH[r] + dh, iw = rowW[r] + dw;
-        if ((unsigned)id < (unsigned)g.D && (unsigned)ih < (unsigned)g.H &&
-            (unsigned)iw < (unsigned)g.W)
-          v = x[((((int64_t)n * g.D + id) * g.H + ih) * g.W + iw) * g.Ci +
-                ci_base + ci];
+    for (int e0 = 0; e0 < B_COPIES; e0 += THREADS) {
+      const int e = e0 + tid;
+      if (B_COPIES % THREADS == 0 || e < B_COPIES) {
+        const int k = e / B_CH, c = (e - k * B_CH) * V;
+        const int co = co0 + c;
+        const bool ok = k0 + k < ke && co < Cog;
+        const T* src = ok ? w + (w_row0 + k0 + k) * g.Co + co_base + co : w;
+        copy_async<CB>(bdst + k * BN + c, src, ok);
       }
-      As[a_k][r] = v;
     }
-    // B: a plain row-major [Ktot, Co] slab starting at the phase's taps
+  };
+
+  float acc[TM][TN];
 #pragma unroll
-    for (int i = 0; i < BK / B_STEP; ++i) {
-      const int k = b_k + i * B_STEP;
-      T v = zero;
-      if (k0 + k < Ktot && co_b < Cog)
-        v = w[(w_row0 + k0 + k) * g.Co + (int64_t)grp * Cog + co_b];
-      Bs[k][b_n] = v;
-    }
-    __syncthreads();
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = to_f32(As[k][ty + i * (BM / TM)]);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = to_f32(Bs[k][tx + j * (BN / TN)]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) load_stage(s, kb + s * BK);
+    copy_commit();
   }
 
-  // epilogue on the finished f32 sums, then the store (crop folded in)
+  const int ty = tid % (BM / TM), tx = tid / (BM / TM);
+  for (int st = 0; st < nst; ++st) {
+    copy_wait<STAGES - 2>();   // stage st has landed (this thread's copies)
+    __syncthreads();           // ... everyone's; slot st-1 is free again
+    const int nxt = st + STAGES - 1;
+    if (nxt < nst) load_stage(nxt % STAGES, kb + nxt * BK);
+    copy_commit();
+    const int slot = st % STAGES;
+    const T* a_s = As + (slot * BM + ty) * APITCH;
+    const T* b_s = Bs + slot * BK * BN + tx * TN;
+#pragma unroll
+    for (int kg = 0; kg < BK; kg += KV) {
+      uint4 araw[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        araw[i] = *reinterpret_cast<const uint4*>(
+            a_s + i * (BM / TM) * APITCH + kg);
+#pragma unroll
+      for (int k = 0; k < KV; ++k) {
+        float b[TN];
+        load_row<T, TN>(b, b_s + (kg + k) * BN);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float a = lane_f32<T>(araw[i], k);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
+        }
+      }
+    }
+  }
+  copy_wait<0>();
+
+  // a slice's raw sums, or the epilogue and the store (crop folded in);
+  // four channels go in one store where every row's start is aligned
+  const int cot = co0 + tx * TN;                     // within the group
+  const bool vec_out =
+      g.Co % 4 == 0 && Cog % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(y) % (out_bf16 ? 8 : 16) == 0;
+  const int phases = DECONV ? g.Sd * g.Sh * g.Sw : 1;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int r = ty + i * (BM / TM);
-    const int m = m0 + r;
+    const int m = m0 + ty + i * (BM / TM);
     if (m >= rows) continue;
-    int t = m;
-    int ow = t % g.Pw; t /= g.Pw;
-    int oh = t % g.Ph; t /= g.Ph;
-    int od = t % g.Pd;
-    const int n = t / g.Pd;
-    if (DECONV) {
-      od = od * g.Sd + pd - g.lod;
-      oh = oh * g.Sh + ph - g.loh;
-      ow = ow * g.Sw + pw - g.low;
-      if ((unsigned)od >= (unsigned)g.Od || (unsigned)oh >= (unsigned)g.Oh ||
-          (unsigned)ow >= (unsigned)g.Ow)
-        continue;
-    }
-    const int64_t out =
-        ((((int64_t)n * g.Od + od) * g.Oh + oh) * g.Ow + ow) * g.Co;
+    if (partial) {
+      float* dst = partial +
+                   (((int64_t)slice * phases + p) * rows + m) * g.Co +
+                   co_base + cot;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int co = co0 + tx + j * (BN / TN);
-      if (co >= Cog) continue;
-      const int c = grp * Cog + co;
-      y[out + c] = from_f32<U>(epilogue(acc[i][j], ep, c));
+      for (int j = 0; j < TN; ++j)
+        if (cot + j < Cog) dst[j] = acc[i][j];
+      continue;
+    }
+    int64_t out;
+    if (!out_offset<DECONV>(g, m, pd, ph, pw, out)) continue;
+    out += co_base + cot;
+#pragma unroll
+    for (int j = 0; j < TN; j += 4) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)       // (scale/bias hold Co values)
+        v[u] = cot + j + u < Cog
+                   ? epilogue(acc[i][j + u], ep, (int)co_base + cot + j + u)
+                   : 0.f;
+      if (vec_out && cot + j + 3 < Cog) {
+        if (out_bf16) {       // four bf16 in one 8-byte store
+          __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+          __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+          uint2 pk;
+          pk.x = *reinterpret_cast<unsigned*>(&lo);
+          pk.y = *reinterpret_cast<unsigned*>(&hi);
+          *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(y) + out +
+                                    j) = pk;
+        } else {
+          *reinterpret_cast<float4*>(static_cast<float*>(y) + out + j) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (cot + j + u < Cog) store_out(y, out_bf16, out + j + u, v[u]);
+      }
     }
   }
 }
 
-// Tile shapes per output-channel block (the planner's block_co): 128 rows,
-// 16 (tap, channel) pairs per stage.  Keep in step with
-// repro_torch/core/tiling.py::KERNEL_TILES.
-template <typename T, typename U, bool DECONV>
-cudaError_t launch_typed(const void* x, const void* w, const int* taps,
-                         Epi ep, void* y, const Geom& g, int block_co,
-                         cudaStream_t stream) {
+// The split reduction's second pass: element i = (p * rows + m) * Co + c
+// sums its slices in slice order, then the epilogue and the cropped store.
+template <bool DECONV>
+__global__ void igemm_reduce(const float* __restrict__ partial, Epi ep,
+                             void* __restrict__ y, int out_bf16, Geom g) {
+  const int rows = g.N * g.Pd * g.Ph * g.Pw;
+  const int phases = DECONV ? g.Sd * g.Sh * g.Sw : 1;
+  const int64_t n = (int64_t)phases * rows * g.Co;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int c = (int)(i % g.Co);
+  const int64_t pm = i / g.Co;
+  const int m = (int)(pm % rows), p = (int)(pm / rows);
+  const float s = slice_sum(partial, n, g.splits, i);
+  const int pw = p % g.Sw, ph = (p / g.Sw) % g.Sh, pd = p / (g.Sw * g.Sh);
+  int64_t out;
+  if (!out_offset<DECONV>(g, m, pd, ph, pw, out)) return;
+  store_out(y, out_bf16, out + c, epilogue(s, ep, c));
+}
+
+template <typename T, class TL, bool VEC, bool DECONV>
+cudaError_t launch_tile(const void* x, const void* w, const int* taps,
+                        const Epi& ep, void* y, int out_bf16, float* work,
+                        const Geom& g, cudaStream_t stream) {
   const int rows = g.N * g.Pd * g.Ph * g.Pw;
   const int phases = DECONV ? g.Sd * g.Sh * g.Sw : 1;
   const int Cog = g.Co / g.G;
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  U* yt = static_cast<U*>(y);
-#define REPRO_LAUNCH(BN, TM, TN)                                           \
-  {                                                                        \
-    constexpr int BM = 128, BK = 16;                                       \
-    dim3 grid((rows + BM - 1) / BM, g.G * ((Cog + BN - 1) / BN), phases);  \
-    igemm_kernel<T, U, BM, BN, BK, TM, TN, DECONV>                         \
-        <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(xt, wt, taps, ep, yt, \
-                                                      g);                  \
-    return cudaGetLastError();                                             \
+  if (g.splits < 1 || g.k_per_split < 1 || (g.splits > 1 && !work))
+    return cudaErrorInvalidValue;
+  constexpr int smem = smem_bytes<TL>();
+  auto kernel = igemm_kernel<T, TL, VEC, DECONV>;
+  // raise the kernel's dynamic shared-memory limit once per device (the
+  // call costs more host time than a small layer's whole launch)
+  constexpr int MAX_DEVICES = 64;
+  static bool smem_set[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES || !smem_set[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) smem_set[dev] = true;
   }
+  dim3 grid((rows + TL::BM - 1) / TL::BM, g.G * ((Cog + TL::BN - 1) / TL::BN),
+            phases * g.splits);
+  kernel<<<grid, TL::THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), taps, ep, y,
+      out_bf16, g.splits > 1 ? work : nullptr, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || g.splits == 1) return err;
+  const int64_t n = (int64_t)phases * rows * g.Co;
+  igemm_reduce<DECONV><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      work, ep, y, out_bf16, g);
+  return cudaGetLastError();
+}
+
+// The tile per output-channel block (the planner's block_co).
+template <typename T, bool VEC, bool DECONV>
+cudaError_t launch_typed(const void* x, const void* w, const int* taps,
+                         const Epi& ep, void* y, int out_bf16, float* work,
+                         const Geom& g, int block_co, cudaStream_t stream) {
   switch (block_co) {
-    case 16: REPRO_LAUNCH(16, 8, 2)
-    case 32: REPRO_LAUNCH(32, 8, 4)
-    case 64: REPRO_LAUNCH(64, 8, 4)
+    case 16:
+      return launch_tile<T, Tile16, VEC, DECONV>(x, w, taps, ep, y, out_bf16,
+                                                 work, g, stream);
+    case 32:
+      return launch_tile<T, Tile32, VEC, DECONV>(x, w, taps, ep, y, out_bf16,
+                                                 work, g, stream);
+    case 64:
+      return launch_tile<T, Tile64, VEC, DECONV>(x, w, taps, ep, y, out_bf16,
+                                                 work, g, stream);
+    case 128:
+      return launch_tile<T, Tile128, VEC, DECONV>(x, w, taps, ep, y,
+                                                  out_bf16, work, g, stream);
   }
-#undef REPRO_LAUNCH
   return cudaErrorInvalidValue;
 }
 
-template <bool DECONV>
-int launch(const void* x, const void* w, const int* taps, const float* scale,
-           const float* bias, void* y, const int* geom, int act, float alpha,
-           int in_dtype, int out_dtype, int block_co, void* stream) {
+// One forward launch's arguments, as the C entry points receive them.
+struct FwdArgs {
+  const void* x;
+  const void* w;
+  const int* taps;
+  Epi ep;
+  void* y;
+  int out_bf16;
+  float* work;
   Geom g;
-  int* dst = reinterpret_cast<int*>(&g);
+  int block_co;
+  cudaStream_t stream;
+};
+
+// Unpack a C call; false for an output type the kernels do not store.
+inline bool fwd_args(FwdArgs& a, const void* x, const void* w,
+                     const int* taps, const float* scale, const float* bias,
+                     void* y, float* work, const int* geom, int act,
+                     float alpha, int out_dtype, int block_co, void* stream) {
+  if (out_dtype != DT_F32 && out_dtype != DT_BF16) return false;
+  int* dst = reinterpret_cast<int*>(&a.g);
   for (int i = 0; i < GEOM_FIELDS; ++i) dst[i] = geom[i];
-  const Epi ep{scale, bias, act, alpha};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (in_dtype == DT_F32 && out_dtype == DT_F32)
-    err = launch_typed<float, float, DECONV>(x, w, taps, ep, y, g, block_co, s);
-  else if (in_dtype == DT_F32 && out_dtype == DT_BF16)
-    err = launch_typed<float, __nv_bfloat16, DECONV>(x, w, taps, ep, y, g,
-                                                     block_co, s);
-  else if (in_dtype == DT_BF16 && out_dtype == DT_BF16)
-    err = launch_typed<__nv_bfloat16, __nv_bfloat16, DECONV>(x, w, taps, ep,
-                                                             y, g, block_co, s);
-  else if (in_dtype == DT_BF16 && out_dtype == DT_F32)
-    err = launch_typed<__nv_bfloat16, float, DECONV>(x, w, taps, ep, y, g,
-                                                     block_co, s);
-  return static_cast<int>(err);
+  a.x = x;
+  a.w = w;
+  a.taps = taps;
+  a.ep = Epi{scale, bias, act, alpha};
+  a.y = y;
+  a.out_bf16 = out_dtype == DT_BF16;
+  a.work = work;
+  a.block_co = block_co;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return true;
+}
+
+// The variant (operand type T, copy width VEC) of one launch.  The C entry
+// points compile the four variants as four objects (build.py passes
+// -DREPRO_PART=0..3, variant_part gives the number) so that nvcc builds
+// them in parallel.
+template <typename T, bool VEC, bool DECONV>
+int run_variant(const FwdArgs& a) {
+  return static_cast<int>(launch_typed<T, VEC, DECONV>(
+      a.x, a.w, a.taps, a.ep, a.y, a.out_bf16, a.work, a.g, a.block_co,
+      a.stream));
+}
+
+constexpr int variant_part(int in_dtype, int vec) {
+  return 2 * (in_dtype == DT_BF16) + (vec ? 0 : 1);
+}
+
+template <bool DECONV, int PART>
+int run_part(const FwdArgs& a) {
+  if constexpr (PART == 0) return run_variant<float, true, DECONV>(a);
+  else if constexpr (PART == 1) return run_variant<float, false, DECONV>(a);
+  else if constexpr (PART == 2)
+    return run_variant<__nv_bfloat16, true, DECONV>(a);
+  else return run_variant<__nv_bfloat16, false, DECONV>(a);
 }
 
 }  // namespace repro

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``repro_torch/csrc``).
 
 The kernels have a plain C interface and are compiled with ``nvcc`` for
-``sm_90a`` into one shared library, loaded with ``ctypes``.  Each source is
-compiled in its own ``nvcc`` process, all started together, then linked.
+``sm_90a`` into one shared library, loaded with ``ctypes``.  Each source
+(each variant of a forward source: ``PARTS``) is compiled in its own
+``nvcc`` process, all started together, then linked.
 The library lands in ``build/repro_torch_kernels/`` at the repository root
 (listed in ``.gitignore``) under a name that hashes the sources and flags,
 so an edited source is never served by a stale build.  Nothing is built at
@@ -28,6 +29,10 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 SOURCES = ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu")
 HEADERS = ("igemm.cuh",)
+# the forward sources compile once per variant of igemm.cuh's block
+# (operand type x copy width, -DREPRO_PART=k), so the variants build in
+# parallel
+PARTS = {"deconv_fwd.cu": 4, "conv_fwd.cu": 4}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,10 +50,24 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(compile_units()).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def compile_units() -> list[tuple[str, str, tuple[str, ...]]]:
+    """(source, object stem, extra nvcc flags) of every object."""
+    units = []
+    for src in SOURCES:
+        stem = Path(src).stem
+        if src in PARTS:
+            units += [(src, f"{stem}_p{k}", (f"-DREPRO_PART={k}",))
+                      for k in range(PARTS[src])]
+        else:
+            units.append((src, stem, ()))
+    return units
 
 
 def build() -> tuple[Path, str]:
@@ -61,18 +80,19 @@ def build() -> tuple[Path, str]:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for src in SOURCES:
-            obj = Path(tmp) / (Path(src).stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
+        for src, stem, flags in compile_units():
+            obj = Path(tmp) / (stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", str(CSRC / src), "-o",
+                   str(obj)]
+            procs.append((" ".join((src, *flags)), obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         logs, failed = [], []
-        for src, _, proc in procs:
+        for unit, _, proc in procs:
             out, _ = proc.communicate()
-            logs.append(f"== {src}\n{out}")
+            logs.append(f"== {unit}\n{out}")
             if proc.returncode != 0:
-                failed.append(src)
+                failed.append(unit)
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}:\n"
                                + "\n".join(logs))
@@ -130,18 +150,40 @@ def check_operands(x, w, scale, bias, out_dtype, *, co: int):
     return tuple(out)
 
 
-def geom_array(vals, fields: int = 25) -> ctypes.Array:
+def geom_array(vals, fields: int = 27) -> ctypes.Array:
     """Pack a kernel's geometry struct for the C call: igemm.cuh's ``Geom``
-    (25 ints) or deconv_dw.cu's ``DwGeom`` (``fields=24``)."""
+    (27 ints) or deconv_dw.cu's ``DwGeom`` (``fields=24``)."""
     vals = [int(v) for v in vals]
     if len(vals) != fields or any(not 0 <= v <= _INT32_MAX for v in vals):
         raise ValueError(f"bad kernel geometry {vals}")
-    if fields == 25:
+    if fields == 27:
         n, pd, ph, pw = vals[0], vals[16], vals[17], vals[18]
         if n * pd * ph * pw > _INT32_MAX:
             raise ValueError(f"{n * pd * ph * pw} output rows exceed the "
                              f"kernels' 32-bit row index")
+        # igemm.cuh indexes input positions (not elements) in 32 bits
+        if n * vals[1] * vals[2] * vals[3] > _INT32_MAX // 2:
+            raise ValueError(f"{n * vals[1] * vals[2] * vals[3]} input "
+                             f"positions exceed the kernels' 32-bit index")
     return (ctypes.c_int * fields)(*vals)
+
+
+def vector_copies(x, w, cig: int, cog: int) -> bool:
+    """Whether igemm.cuh may stage both operands with 16-byte copies: 4
+    f32 or 8 bf16 consecutive channels of one (row, tap) for x and of one
+    weight row for w, so the per-group channels must be multiples of that
+    and both base addresses 16-byte aligned."""
+    v = 16 // x.element_size()
+    return (cig % v == 0 and cog % v == 0 and x.data_ptr() % 16 == 0
+            and w.data_ptr() % 16 == 0)
+
+
+def split_workspace(splits: int, elems: int, device):
+    """The f32 partial sums of a split launch, ``splits`` x ``elems``
+    (None for an unsplit one)."""
+    if splits == 1:
+        return None
+    return torch.empty(splits * elems, dtype=torch.float32, device=device)
 
 
 def ptr(t) -> int | None:
@@ -158,11 +200,11 @@ def library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     geom = ctypes.POINTER(ctypes.c_int)
-    lib.repro_deconv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, geom, _I,
-                                     ctypes.c_float, _I, _I, _I, _P]
+    lib.repro_deconv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, geom, _I,
+                                     ctypes.c_float, _I, _I, _I, _I, _P]
     lib.repro_deconv_fwd.restype = _I
-    lib.repro_conv_fwd.argtypes = [_P, _P, _P, _P, _P, geom, _I,
-                                   ctypes.c_float, _I, _I, _I, _P]
+    lib.repro_conv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, geom, _I,
+                                   ctypes.c_float, _I, _I, _I, _I, _P]
     lib.repro_conv_fwd.restype = _I
     lib.repro_deconv_dw.argtypes = [_P, _P, _P, _P, geom, _I, _I, _I, _I,
                                     _P]

@@ -2,10 +2,13 @@
 
 It replaces the JAX package's TPU kernel ``conv_pallas_3d``.  Each CUDA
 block owns a tile of output positions and a block of output channels and
-sums every tap in f32 registers, reading the input through masked loads in
-place of a host-side pad; see the note at the top of the source.
-``launches`` counts the kernel launches made through this wrapper, and
-nothing else.
+sums every tap in f32 registers, reading the input through zero-filling
+copies in place of a host-side pad; see the note at the top of the source.
+Per launch the wrapper picks the copy width (``build.vector_copies``) and
+the split of the reduction (``tiling.launch_split``) from the real shapes;
+a split launch runs a second pass that sums the slices, and still counts
+once.  ``launches`` counts the calls that launched the kernel, and nothing
+else.
 
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises.
@@ -17,7 +20,7 @@ import math
 
 import torch
 
-from repro_torch.core.tiling import KERNEL_TILES
+from repro_torch.core import tiling as _tiling
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import common as _common
 from repro_torch.kernels.conv import ref as _ref
@@ -66,19 +69,25 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
             out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no conv kernel for device {x.device}")
-    if block_co not in KERNEL_TILES:
-        raise ValueError(f"block_co {block_co} not in {sorted(KERNEL_TILES)}")
+    plan = _tiling.plan_uniform_tiles(ci, co, mode="conv",
+                                      block_co=block_co, groups=groups,
+                                      in_dtype_bytes=x.element_size())
+    rows = n * math.prod(out_spatial)
+    splits, per = _tiling.launch_split(
+        plan, rows, math.prod(kernel) * (ci // groups), co, groups)
     lib = _build.library()
     y = torch.empty((n, *out_spatial, co), dtype=out_dtype, device=x.device)
+    work = _build.split_workspace(splits, rows * co, x.device)
     geom = _build.geom_array((n, d, h, wd, ci, co, groups, *kernel, *stride,
                               *dilation, *out_spatial, *out_spatial,
-                              *pad_lo))
+                              *pad_lo, splits, per))
     err = lib.repro_conv_fwd(
         _build.ptr(x), _build.ptr(w), _build.ptr(scale32),
-        _build.ptr(bias32), _build.ptr(y), geom,
+        _build.ptr(bias32), _build.ptr(y), _build.ptr(work), geom,
         _common.ACTIVATION_CODES[activation], float(alpha),
         _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype],
-        block_co, _build.stream_of(x))
+        block_co, int(_build.vector_copies(x, w, ci // groups, co // groups)),
+        _build.stream_of(x))
     if err:
         raise RuntimeError(f"conv kernel launch failed (cudaError {err})")
     launches += 1

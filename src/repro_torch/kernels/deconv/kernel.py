@@ -3,8 +3,11 @@
 ``deconv_fwd`` wraps ``csrc/deconv_fwd.cu``, which replaces the JAX
 package's TPU kernel ``deconv_pallas_3d``.  The kernel gathers: each CUDA
 block owns one output phase, a tile of phase positions and a block of
-output channels, and sums every tap of its phase in f32 registers; see the
-note at the top of the source.
+output channels, and sums the taps of its phase in f32 registers; see the
+note at the top of the source.  Per launch the wrapper picks the copy
+width (``build.vector_copies``) and the split of the reduction
+(``tiling.launch_split``, over the deepest phase) from the real shapes; a
+split launch runs a second pass that sums the slices, and counts once.
 
 ``deconv_dw`` wraps ``csrc/deconv_dw.cu``, which replaces
 ``deconv_dw_pallas_3d``: the weight gradient of the deconv and, with its
@@ -25,8 +28,9 @@ import math
 
 import torch
 
+from repro_torch.core import tiling as _tiling
 from repro_torch.core.functional import deconv_output_shape
-from repro_torch.core.tiling import DW_TILES, KERNEL_TILES, split_rows
+from repro_torch.core.tiling import DW_TILES, split_rows
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import common as _common
 from repro_torch.kernels.deconv import ref as _ref
@@ -85,21 +89,30 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
             out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no deconv kernel for device {x.device}")
-    if block_co not in KERNEL_TILES:
-        raise ValueError(f"block_co {block_co} not in {sorted(KERNEL_TILES)}")
-    lib = _build.library()
+    plan = _tiling.plan_uniform_tiles(ci, co, mode="deconv",
+                                      block_co=block_co, groups=groups,
+                                      in_dtype_bytes=x.element_size())
     q = _ref.phase_rows((d, h, wd), kernel, stride, dilation, crop_lo,
                         out_spatial)
+    rows, phases = n * math.prod(q), math.prod(stride)
+    depth = math.prod(_common.phase_geometry(kernel, stride, dilation)) * (
+        ci // groups)
+    splits, per = _tiling.launch_split(plan, rows, depth, co, groups, phases)
+    lib = _build.library()
     taps = _common.tap_table(kernel, stride, dilation, x.device)
     y = torch.empty((n, *out_spatial, co), dtype=out_dtype, device=x.device)
+    work = _build.split_workspace(splits, phases * rows * co, x.device)
     geom = _build.geom_array((n, d, h, wd, ci, co, groups, *kernel, *stride,
-                              *dilation, *q, *out_spatial, *crop_lo))
+                              *dilation, *q, *out_spatial, *crop_lo, splits,
+                              per))
     err = lib.repro_deconv_fwd(
         _build.ptr(x), _build.ptr(w_taps), _build.ptr(taps),
-        _build.ptr(scale32), _build.ptr(bias32), _build.ptr(y), geom,
-        _common.ACTIVATION_CODES[activation], float(alpha),
-        _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype],
-        block_co, _build.stream_of(x))
+        _build.ptr(scale32), _build.ptr(bias32), _build.ptr(y),
+        _build.ptr(work), geom, _common.ACTIVATION_CODES[activation],
+        float(alpha), _build.DTYPE_CODES[x.dtype],
+        _build.DTYPE_CODES[out_dtype], block_co,
+        int(_build.vector_copies(x, w_taps, ci // groups, co // groups)),
+        _build.stream_of(x))
     if err:
         raise RuntimeError(f"deconv kernel launch failed (cudaError {err})")
     launches += 1

@@ -121,19 +121,20 @@ def test_planner_runs_once_per_geometry(monkeypatch):
     assert len(calls) == 4 and len(eng.plan_cache) == 4
 
 
-def test_plans_pick_the_smallest_covering_channel_tile():
-    assert tiling.plan_uniform_tiles(8, 3).block_co == 16
-    assert tiling.plan_uniform_tiles(8, 32).block_co == 32
-    assert tiling.plan_uniform_tiles(8, 512).block_co == 64
-    assert tiling.plan_uniform_tiles(8, 64, groups=4).block_co == 16
-    f32 = tiling.plan_uniform_tiles(8, 64)
-    bf16 = tiling.plan_uniform_tiles(8, 64, in_dtype_bytes=2)
-    assert bf16.step_smem_bytes < f32.step_smem_bytes <= tiling.SMEM_BUDGET
-    with pytest.raises(ValueError):
-        tiling.plan_uniform_tiles(8, 64, block_co=48)
-    pinned = UniformEngine(block_co=64, **CPU)
-    assert pinned.plan("conv", (4, 4, 4), (3, 3, 3), (1, 1, 1), 8,
-                       3).block_co == 64
+@pytest.mark.parametrize("cin,cout,groups,block_co", [
+    (8, 3, 1, 16),
+    (8, 32, 1, 32),
+    (8, 48, 1, 64),
+    (8, 512, 1, 128),                 # past the widest tile: the widest
+    (8, 64, 4, 16),                   # per group: 16 channels
+])
+def test_plans_pick_the_smallest_covering_channel_tile(cin, cout, groups,
+                                                       block_co):
+    plan = tiling.plan_uniform_tiles(cin, cout, groups=groups)
+    assert plan.block_co == block_co
+    tile = tiling.KERNEL_TILES[block_co]
+    assert (plan.block_m, plan.threads) == (tile.block_m, tile.threads)
+    assert plan.step_smem_bytes <= tiling.SMEM_BUDGET
 
 
 def test_strict_budget_raises_typed():
