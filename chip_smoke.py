@@ -8,8 +8,8 @@ Phases, any failure of which exits non-zero before the result line:
   1. device — require CUDA, print versions and the card's name and power
      limit, force IEEE f32 (TF32 off) in cuBLAS and cuDNN;
   2. build — compile the three CUDA kernels from ``src/repro_torch/csrc``
-     (one ``nvcc`` per source and per variant of the forward block, all
-     started together); the forward kernels must report no spill stores;
+     (one ``nvcc`` per source and per variant of its kernels, all started
+     together); no kernel may report spill stores;
   3. kernels against their plain versions — every distinct forward
      geometry of full-width DCGAN and V-Net, served (batch 4) and trained
      (DCGAN generator and discriminator at batch 64), in f32 and bf16,
@@ -23,7 +23,11 @@ Phases, any failure of which exits non-zero before the result line:
      batch 4), f32 and bf16 operands, against the plain versions summed
      in float64,
      and a conv's dx over input rows no tap reads (exactly zero there),
-     also with its reduction forced into slices;
+     also with its reduction forced into slices; then the dw kernel's
+     code paths, each in f32 and bf16, run twice for the same bits: every
+     tile with 16-byte and scalar copies of each operand, groups, both
+     store layouts, lo at B's edges, dilation 2, stride 2 reading past
+     B's extent, forced splits of 1, 4 and 16 beside the planner's;
   4. serve — a ``DcnnServer`` answers 8 DCGAN seeds and 4 V-Net volumes at
      full width through the kernels (launch counts checked per batch), and
      one request of each model is held against the port's CPU run;
@@ -182,7 +186,7 @@ def main() -> int:
     detail["ptxas"] = {"kernels": len(regs), "max_registers": max(regs,
                                                                   default=0),
                        "spill_store_bytes": spills}
-    # per source: the forward kernels (igemm.cuh) must not spill
+    # per source: no kernel may spill
     for src_log in log.split("== ")[1:]:     # one per nvcc process
         src = src_log.split()[0]
         src_regs = [int(m) for m in re.findall(r"Used (\d+) registers",
@@ -194,7 +198,7 @@ def main() -> int:
         row["spill_store_bytes"] += sum(int(m) for m in re.findall(
             r"(\d+) bytes spill stores", src_log))
     print(f"build_s {detail['build_s']:.1f} ptxas {detail['ptxas']}")
-    for src in ("deconv_fwd.cu", "conv_fwd.cu"):
+    for src in ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu"):
         if src in detail["ptxas"]:      # absent when the build was cached
             check(detail["ptxas"][src]["spill_store_bytes"] == 0,
                   f"{src}: ptxas reports spill stores")
@@ -461,9 +465,9 @@ def main() -> int:
         ("conv", "dx"): (dk.deconv_fwd, dref.deconv_fwd_plain,
                          ("block_co",)),
         ("deconv", "dw"): (dk.deconv_dw, dref.deconv_dw_plain,
-                           ("block_a", "splits")),
+                           ("block_a", "block_c", "splits")),
         ("conv", "dw"): (dk.deconv_dw, dref.deconv_dw_plain,
-                         ("block_a", "splits")),
+                         ("block_a", "block_c", "splits")),
     }
 
     def run_backward(op, which, args):
@@ -567,6 +571,107 @@ def main() -> int:
             detail["backward_checks"].append(row)
             check(rel <= BACKWARD_TOL[dname], f"conv k3s2p0 {which}/"
                   f"{dname}: relative error {rel:.3g}")
+    torch.cuda.empty_cache()
+
+    # -- 3c. the dw kernel's code paths ---------------------------------------
+    # each case in f32 and bf16, run twice (the same bits both times) and
+    # held against the float64 plain version at BACKWARD_TOL: every tile
+    # with 16-byte and scalar copies of A and of B (Ag 2, 6, 16, 18, 32,
+    # 50, 64, 1024; Bg 1, 3, 6, 10, 16, 32), groups, both store layouts,
+    # lo at both edges of B's extent, dilation 2, stride 2 with reads past
+    # B's extent, and forced splits of 1, 4 and 16 beside the planner's
+    phase("dw kernel paths")
+    d3 = (1, 1, 1)
+    # (tag, A spatial, Ac, B spatial, Bc, kernel, stride, dilation, groups,
+    #  lo, transpose, batch, slices: None = the planner's)
+    merge4ish = ((16, 14, 10), 16, (16, 14, 10), 32, (3, 3, 3), d3, d3, 1,
+                 (1, 1, 1), True, 2)
+    dcganish = ((1, 4, 4), 1024, (1, 8, 8), 16, (1, 3, 3), (1, 2, 2), d3, 1,
+                (0, 0, 0), False, 64)
+    dw_cases = [
+        ("16x32:ag2:bg16", (24, 20, 16), 2, (24, 20, 16), 16, d3, d3, d3, 1,
+         (0, 0, 0), True, 2, None),
+        ("16x32:ag16:bg1", (20, 18, 9), 16, (20, 18, 9), 1, (3, 3, 3), d3,
+         d3, 1, (1, 1, 1), True, 2, None),
+        ("16x32:ag1024:bg3", (1, 5, 6), 1024, (1, 11, 13), 3, (1, 3, 3),
+         (1, 2, 2), d3, 1, (0, 0, 0), False, 3, None),
+        *((f"16x256:ag16:bg32{tag}", *merge4ish, n) for tag, n in (
+            ("", None), (":split1", 1), (":split4", 4), (":split16", 16))),
+        ("16x256:groups2:ag6:bg10", (7, 6, 5), 12, (7, 6, 5), 20, (3, 3, 3),
+         d3, d3, 2, (1, 1, 1), True, 2, None),
+        ("16x256:groups2:ag6:bg10:untransposed", (7, 6, 5), 12, (7, 6, 5),
+         20, (3, 3, 3), d3, d3, 2, (1, 1, 1), False, 2, None),
+        ("16x256:lo-edges", (9, 8, 7), 16, (7, 6, 5), 32, (3, 3, 3), d3, d3,
+         1, (2, 0, 1), True, 2, None),
+        ("16x256:dil2", (6, 5, 4), 16, (10, 9, 8), 16, (3, 3, 3), d3,
+         (2, 2, 2), 1, (2, 2, 2), True, 2, None),
+        ("32x256:ag32:bg16:s2-past-extent", (5, 5, 5), 32, (10, 10, 10), 16,
+         (3, 3, 3), (2, 2, 2), d3, 1, (0, 0, 0), False, 2, None),
+        ("32x256:ag18:bg6", (8, 7, 6), 18, (8, 7, 6), 6, (3, 3, 3), d3, d3,
+         1, (1, 1, 1), True, 2, None),
+        ("64x128:ag64:bg32:s2", (6, 6, 5), 64, (12, 12, 10), 32, (3, 3, 3),
+         (2, 2, 2), d3, 1, (1, 1, 1), True, 2, None),
+        ("64x128:ag50:bg3", (6, 5, 4), 50, (6, 5, 4), 3, (3, 3, 3), d3, d3,
+         1, (1, 1, 1), True, 2, None),
+        *((f"64x128:ag1024:bg16{tag}", *dcganish, n) for tag, n in (
+            ("", None), (":split1", 1), (":split4", 4), (":split16", 16))),
+    ]
+    detail["dw_path_checks"] = []
+    copies_seen: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for (tag, asp, ac, bsp, bc, kern, st, dil, g, lo, tr, batch,
+             n_split) in dw_cases:
+            a = rand((batch, *asp, ac), dtype)
+            b = rand((batch, *bsp, bc), dtype)
+            rows = batch * math.prod(asp)
+            plan = tiling.plan_dw_tiles(ac, bc, math.prod(kern), rows,
+                                        groups=g,
+                                        dtype_bytes=a.element_size())
+            want = plan.splits if n_split is None else n_split
+            splits = tiling.split_rows(rows, want)[0]  # what the wrapper runs
+            check(splits == want, f"{tag}/{dname}: {want} slices asked, "
+                  f"{splits} run")
+            geo = dict(kernel=kern, stride=st, dilation=dil, groups=g,
+                       lo=lo, transpose=tr)
+            kw = dict(geo, block_a=plan.block_a, block_c=plan.block_c,
+                      splits=want)
+            got = dk.deconv_dw(a, b, **kw)
+            again = dk.deconv_dw(a, b, **kw)
+            torch.cuda.synchronize()
+            ref = dref.deconv_dw_plain(a.double(), b.double(), **geo,
+                                       out_dtype=torch.float64)
+            err = float((got.double() - ref).abs().max())
+            mag = float(ref.abs().max())
+            rel = err / mag if mag else err
+            vec = build.dw_vector_copies(a, b, ac // g, bc // g)
+            tile = f"{plan.block_a}x{plan.block_c}"
+            copies_seen.setdefault((dname, tile), set()).add(vec)
+            row = {"check": tag, "dtype": dname, "shape": list(got.shape),
+                   "tile": tile, "splits": splits,
+                   "planner_splits": plan.splits, "vec_a": vec[0],
+                   "vec_b": vec[1],
+                   "repeat_equal": bool(torch.equal(got, again)),
+                   "max_abs_err": err, "rel_err": rel,
+                   "tol": BACKWARD_TOL[dname]}
+            print(json.dumps(row))
+            detail["dw_path_checks"].append(row)
+            check(row["repeat_equal"], f"{tag}/{dname}: a repeated dw "
+                  f"launch gave other bits")
+            check(got.shape == ref.shape and got.dtype == dtype,
+                  f"{tag}/{dname}: {got.shape} {got.dtype} vs plain "
+                  f"{ref.shape}")
+            check(rel <= BACKWARD_TOL[dname], f"{tag}/{dname}: relative "
+                  f"error {rel:.3g} above {BACKWARD_TOL[dname]}")
+            if dtype == torch.float32:
+                max_abs["deconv_dw"] = max(max_abs["deconv_dw"], err)
+            del a, b, got, again, ref
+    for dname in ("float32", "bfloat16"):
+        for ba, bc_ in tiling.DW_KERNEL_TILES:
+            seen_v = copies_seen.get((dname, f"{ba}x{bc_}"), set())
+            check({v[0] for v in seen_v} == {True, False}
+                  and {v[1] for v in seen_v} == {True, False},
+                  f"dw tile {ba}x{bc_}/{dname}: copies covered {seen_v}")
     torch.cuda.empty_cache()
 
     # the main path's calls of each wrapper by call shape, recorded while
@@ -1035,7 +1140,7 @@ def main() -> int:
             out = run_backward(layer.op, which, args)
             kw = args[2]
             tile = (tile_name(kw["block_co"]) if which == "dx"
-                    else f"a{kw['block_a']}")
+                    else f"{kw['block_a']}x{kw['block_c']}")
             splits = split_log[0] if which == "dx" else kw["splits"]
             kms = per_call_ms(lambda: run_backward(layer.op, which, args),
                               5, groups=3)

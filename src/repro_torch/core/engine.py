@@ -188,7 +188,7 @@ class UniformEngine:
                 a, b = (cin, cout) if mode == "deconv" else (cout, cin)
                 dw = _tiling.plan_dw_tiles(
                     int(a), int(b), math.prod(kernel), int(rows),
-                    groups=groups)
+                    groups=groups, dtype_bytes=int(in_dtype_bytes))
                 plan = _tiling.BackwardPlan(dx=dx, dw=dw)
             else:
                 plan = _tiling.plan_uniform_tiles(

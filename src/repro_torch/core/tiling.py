@@ -16,10 +16,12 @@ design: there is no leading-dim tile and no halo, because no block carries
 anything to another.
 
 The backward adds the dw kernel (``csrc/deconv_dw.cu``), a GEMM whose
-reduction runs over every input position: its plan picks the tile of the
-unstrided operand's channels (``block_a``) and how many row splits the
-reduction takes so that small-output, long-reduction layers still fill the
-card; a second pass sums the splits in a fixed order.  ``BackwardPlan``
+reduction runs over every input position: its plan picks the tile
+(``block_a`` channels of the unstrided operand x ``block_c`` (tap,
+channel) columns, ``DW_KERNEL_TILES``) and, from the tile's residency,
+how many row splits the reduction takes so that small-output,
+long-reduction layers still fill a wave; a second pass sums the splits
+in a fixed order.  ``BackwardPlan``
 pairs it with the dx launch's forward-kernel plan.
 """
 
@@ -170,14 +172,19 @@ def plan_uniform_tiles(cin: int, cout: int, *, mode: str = "deconv",
                           smem_budget=smem_budget, stages=tile.stages)
 
 
-def resident_blocks(plan: DeconvTilePlan) -> int:
-    """Blocks of ``plan`` one SM keeps resident: the least of what its
-    shared memory, threads and registers (at ``TILE_REGISTERS`` a
-    thread) allow."""
+def _resident(smem_bytes: int, threads: int) -> int:
+    """Blocks of ``threads`` threads and ``smem_bytes`` of dynamic shared
+    memory one SM keeps resident: the least of what its shared memory,
+    threads and registers (at ``TILE_REGISTERS`` a thread) allow."""
     return max(1, min(
-        SMEM_PER_SM // (plan.step_smem_bytes + SMEM_RESERVED_PER_BLOCK),
-        THREADS_PER_SM // plan.threads,
-        REGISTERS_PER_SM // (plan.threads * TILE_REGISTERS), 32))
+        SMEM_PER_SM // (smem_bytes + SMEM_RESERVED_PER_BLOCK),
+        THREADS_PER_SM // threads,
+        REGISTERS_PER_SM // (threads * TILE_REGISTERS), 32))
+
+
+def resident_blocks(plan: DeconvTilePlan) -> int:
+    """Blocks of ``plan`` one SM keeps resident (``_resident``)."""
+    return _resident(plan.step_smem_bytes, plan.threads)
 
 
 def grid_blocks(plan: DeconvTilePlan, rows: int, cout: int, groups: int,
@@ -227,49 +234,89 @@ def launch_split(plan: DeconvTilePlan, rows: int, depth: int, cout: int,
 
 # -- the dw kernel (csrc/deconv_dw.cu) ----------------------------------------
 
-# block_a -> block_c: the instantiated tiles of the dw kernel.
-# Keep in step with csrc/deconv_dw.cu (launch_dw_typed).
-DW_TILES = {16: 128, 32: 128, 64: 64}
-DW_BLOCK_K = 16
-# the split of the reduction aims at this many blocks (4 per SM of 132)
-# and gives no split fewer than DW_MIN_ROWS rows
-DW_TARGET_BLOCKS = 4 * 132
-DW_MIN_ROWS = 512
+# rows of the dw reduction per stage of the kernel's ring (DW_BK); slices
+# of a split are whole stages, split_reduction's units
+DW_BLOCK_ROWS = SPLIT_UNIT
+# layers of at most this many (tap, b channel) columns take the narrow
+# column tile
+DW_NARROW_COLUMNS = 32
 
 
-def dw_step_bytes(block_a: int, block_k: int, block_c: int,
-                  dtype_bytes: int = 4) -> int:
-    """Static shared memory of one dw block: the A stage ``[block_k]
-    [block_a]`` and the gathered B stage ``[block_k][block_c]``, both at
-    the operands' width, four int32 coordinates per staged row and four
-    per column."""
-    return (block_k * (block_a + block_c) * dtype_bytes
-            + 4 * block_k * 4 + 4 * block_c * 4)
+@dataclasses.dataclass(frozen=True)
+class DwKernelTile:
+    """One instantiated tile of ``csrc/deconv_dw.cu``: ``block_a``
+    channels of A x ``block_c`` (tap, b channel) columns per block, ``ta``
+    x ``tc`` f32 sums per thread, ``stages`` stages of ``DW_BLOCK_ROWS``
+    rows in the shared-memory ring."""
+    block_a: int
+    block_c: int
+    ta: int
+    tc: int
+    stages: int
+
+    @property
+    def threads(self) -> int:
+        return (self.block_a // self.ta) * (self.block_c // self.tc)
+
+    def smem_bytes(self, dtype_bytes: int) -> int:
+        """Dynamic shared memory of one block: the A ring ``[stages]
+        [rows][block_a]`` and the gathered B ring ``[stages][rows]
+        [block_c]``, both at the operands' width; nothing else."""
+        return (self.stages * DW_BLOCK_ROWS * (self.block_a + self.block_c)
+                * dtype_bytes)
+
+
+# (block_a, block_c) -> tile; keep in step with csrc/deconv_dw.cu (DwTileC
+# ... DwTile64).  A narrow A takes all of its group's channels against 256
+# columns; wider A takes 64 x 128; layers of few columns take 16 x 32.
+DW_KERNEL_TILES = {(t.block_a, t.block_c): t for t in (
+    DwKernelTile(16, 32, 2, 4, 2), DwKernelTile(16, 256, 4, 8, 2),
+    DwKernelTile(32, 256, 4, 8, 2), DwKernelTile(64, 128, 8, 8, 3))}
+
+
+def dw_tile_for(a_group: int, columns: int) -> DwKernelTile:
+    """The tile for A's per-group channels and the taps x B's per-group
+    channels: the narrow column tile up to ``DW_NARROW_COLUMNS`` columns,
+    else the smallest A width that covers the group (64 past that)."""
+    if columns <= DW_NARROW_COLUMNS:
+        return DW_KERNEL_TILES[(16, 32)]
+    if a_group <= 16:
+        return DW_KERNEL_TILES[(16, 256)]
+    if a_group <= 32:
+        return DW_KERNEL_TILES[(32, 256)]
+    return DW_KERNEL_TILES[(64, 128)]
+
+
+def dw_resident_blocks(tile: DwKernelTile, dtype_bytes: int) -> int:
+    """Blocks of ``tile`` one SM keeps resident (``_resident``)."""
+    return _resident(tile.smem_bytes(dtype_bytes), tile.threads)
 
 
 @dataclasses.dataclass(frozen=True)
 class DwTilePlan:
-    """One layer's tile decision for the dw kernel: ``block_a`` channels
-    of the unstrided operand A per block (the kernel pairs each with its
-    ``DW_TILES`` column tile), and the reduction cut into ``splits``
-    slices of ``rows_per_split`` rows, each its own block, summed
-    afterwards in a fixed order."""
+    """One layer's tile decision for the dw kernel: the tile ``block_a`` x
+    ``block_c`` (``DW_KERNEL_TILES``), the blocks of its launch, and
+    the reduction cut into ``splits`` slices of ``rows_per_split`` rows,
+    each its own block, summed afterwards in a fixed order."""
     block_a: int
+    block_c: int
     splits: int
     rows_per_split: int
+    blocks: int
 
 
 def plan_dw_tiles(a_channels: int, b_channels: int, taps: int, rows: int, *,
-                  groups: int = 1) -> DwTilePlan:
+                  groups: int = 1, dtype_bytes: int = 4) -> DwTilePlan:
     """Pick the dw kernel's tile and the split of its reduction.
 
     ``a_channels``/``b_channels`` are the operands' total channels (A is
     indexed by the reduction position, B gathered at each tap), ``taps``
-    is prod(K) and ``rows`` the positions summed over (batch included).
-    ``block_a`` is the smallest tile covering A's per-group channels (64
-    past that).  The split fills ``DW_TARGET_BLOCKS`` blocks when the
-    output alone gives fewer, without cutting slices below
-    ``DW_MIN_ROWS`` rows.
+    is prod(K), ``rows`` the positions summed over (batch included) and
+    ``dtype_bytes`` the operands' width.  The tile is ``dw_tile_for``'s;
+    when the output's blocks fall short of one wave of ``SMS`` x
+    ``dw_resident_blocks``, the rows are split as ``split_reduction``
+    splits a forward reduction: whole stages, none empty, at least
+    ``SPLIT_MIN_K`` rows a slice, within the grid's z limit.
     """
     if a_channels % groups or b_channels % groups:
         raise ValueError(f"groups={groups} must divide {a_channels} and "
@@ -277,21 +324,24 @@ def plan_dw_tiles(a_channels: int, b_channels: int, taps: int, rows: int, *,
     if rows < 1 or taps < 1:
         raise ValueError(f"dw over {rows} rows and {taps} taps")
     ag, bg = a_channels // groups, b_channels // groups
-    block_a = next((b for b in sorted(DW_TILES) if b >= ag), max(DW_TILES))
-    out_blocks = (groups * -(-ag // block_a)
-                  * -(-(taps * bg) // DW_TILES[block_a]))
-    splits, per = split_rows(rows, min(-(-DW_TARGET_BLOCKS // out_blocks),
-                                       max(1, rows // DW_MIN_ROWS)))
-    return DwTilePlan(block_a=block_a, splits=splits, rows_per_split=per)
+    tile = dw_tile_for(ag, taps * bg)
+    out_blocks = (groups * -(-ag // tile.block_a)
+                  * -(-(taps * bg) // tile.block_c))
+    want, _ = split_reduction(
+        out_blocks, rows, SMS * dw_resident_blocks(tile, dtype_bytes))
+    splits, per = split_rows(rows, want)
+    return DwTilePlan(block_a=tile.block_a, block_c=tile.block_c,
+                      splits=splits, rows_per_split=per,
+                      blocks=out_blocks * splits)
 
 
 def split_rows(rows: int, splits: int) -> tuple[int, int]:
     """``(splits, rows_per_split)`` for cutting ``rows`` into at most
-    ``splits`` slices of whole ``DW_BLOCK_K``-row stages (at most 65,535:
-    the slices are a grid dimension)."""
-    splits = max(1, min(int(splits), rows, 65535))
+    ``splits`` slices of whole ``DW_BLOCK_ROWS``-row stages, none empty
+    (at most 65,535: the slices are a grid dimension)."""
+    splits = max(1, min(int(splits), rows, GRID_Z_LIMIT))
     per = -(-rows // splits)
-    per = -(-per // DW_BLOCK_K) * DW_BLOCK_K
+    per = -(-per // DW_BLOCK_ROWS) * DW_BLOCK_ROWS
     return -(-rows // per), per
 
 
@@ -300,7 +350,7 @@ class BackwardPlan:
     """One layer's backward: the dx launch runs the OTHER forward kernel
     (conv's dx on the deconv kernel and the reverse) with the channel
     roles swapped, planned as that kernel; dw runs the dw kernel, whose
-    instantiated tiles all fit the budget (``dw_step_bytes``)."""
+    instantiated tiles all fit the budget (``DwKernelTile.smem_bytes``)."""
     dx: DeconvTilePlan
     dw: DwTilePlan
 
@@ -314,4 +364,5 @@ class BackwardPlan:
 
     def describe(self) -> str:
         return (f"dx:{self.dx.describe()} dw:a{self.dw.block_a}"
-                f"_split{self.dw.splits}x{self.dw.rows_per_split}")
+                f"_c{self.dw.block_c}_split{self.dw.splits}"
+                f"x{self.dw.rows_per_split}")

@@ -177,16 +177,32 @@ __device__ __forceinline__ float lane_f32<__nv_bfloat16>(const uint4& v,
   return __uint_as_float((k & 1) ? (u & 0xffff0000u) : (u << 16));
 }
 
-// N consecutive values of T from 16-byte aligned shared memory, as f32.
+// N consecutive values of T from shared memory, as f32: 16-byte vectors,
+// or one 8- or 4-byte read for a shorter row; src aligned to the read.
 template <typename T, int N>
-__device__ __forceinline__ void load_row(float (&out)[N], const T* src) {
+__device__ __forceinline__ void load_row(float* out, const T* src) {
   constexpr int PER = 16 / sizeof(T);
-  static_assert(N % PER == 0, "row of whole 16-byte vectors");
+  constexpr int BYTES = N * (int)sizeof(T);
+  if constexpr (BYTES >= 16) {
+    static_assert(N % PER == 0, "row of whole 16-byte vectors");
 #pragma unroll
-  for (int v = 0; v < N / PER; ++v) {
-    const uint4 raw = reinterpret_cast<const uint4*>(src)[v];
+    for (int v = 0; v < N / PER; ++v) {
+      const uint4 raw = reinterpret_cast<const uint4*>(src)[v];
 #pragma unroll
-    for (int k = 0; k < PER; ++k) out[v * PER + k] = lane_f32<T>(raw, k);
+      for (int k = 0; k < PER; ++k) out[v * PER + k] = lane_f32<T>(raw, k);
+    }
+  } else {
+    static_assert(BYTES == 8 || BYTES == 4, "an 8- or 4-byte read");
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (BYTES == 8) {
+      const uint2 u = *reinterpret_cast<const uint2*>(src);
+      raw.x = u.x;
+      raw.y = u.y;
+    } else {
+      raw.x = *reinterpret_cast<const unsigned*>(src);
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) out[k] = lane_f32<T>(raw, k);
   }
 }
 

@@ -2,7 +2,7 @@
 
 The kernels have a plain C interface and are compiled with ``nvcc`` for
 ``sm_90a`` into one shared library, loaded with ``ctypes``.  Each source
-(each variant of a forward source: ``PARTS``) is compiled in its own
+(each variant of a source: ``PARTS``) is compiled in its own
 ``nvcc`` process, all started together, then linked.
 The library lands in ``build/repro_torch_kernels/`` at the repository root
 (listed in ``.gitignore``) under a name that hashes the sources and flags,
@@ -29,10 +29,10 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 SOURCES = ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu")
 HEADERS = ("igemm.cuh",)
-# the forward sources compile once per variant of igemm.cuh's block
-# (operand type x copy width, -DREPRO_PART=k), so the variants build in
-# parallel
-PARTS = {"deconv_fwd.cu": 4, "conv_fwd.cu": 4}
+# each source compiles once per variant of its kernels (-DREPRO_PART=k),
+# so the variants build in parallel: the forward sources per operand type
+# x copy width, the dw source per operand type x A's x B's copy width
+PARTS = {"deconv_fwd.cu": 4, "conv_fwd.cu": 4, "deconv_dw.cu": 8}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -165,17 +165,34 @@ def geom_array(vals, fields: int = 27) -> ctypes.Array:
         if n * vals[1] * vals[2] * vals[3] > _INT32_MAX // 2:
             raise ValueError(f"{n * vals[1] * vals[2] * vals[3]} input "
                              f"positions exceed the kernels' 32-bit index")
+    else:
+        # deconv_dw.cu indexes A's rows and B's positions in 32 bits
+        n = vals[0]
+        for what, ext in (("A rows", vals[1:4]), ("B positions", vals[5:8])):
+            if n * ext[0] * ext[1] * ext[2] > _INT32_MAX // 2:
+                raise ValueError(f"{n * ext[0] * ext[1] * ext[2]} {what} "
+                                 f"exceed the dw kernel's 32-bit index")
     return (ctypes.c_int * fields)(*vals)
 
 
+def _vector_ok(t, channels: int) -> bool:
+    """Whether 16-byte copies (4 f32 or 8 bf16 consecutive channels) may
+    stage ``t``: its per-group ``channels`` a multiple of that, its base
+    address 16-byte aligned."""
+    return (channels % (16 // t.element_size()) == 0
+            and t.data_ptr() % 16 == 0)
+
+
 def vector_copies(x, w, cig: int, cog: int) -> bool:
-    """Whether igemm.cuh may stage both operands with 16-byte copies: 4
-    f32 or 8 bf16 consecutive channels of one (row, tap) for x and of one
-    weight row for w, so the per-group channels must be multiples of that
-    and both base addresses 16-byte aligned."""
-    v = 16 // x.element_size()
-    return (cig % v == 0 and cog % v == 0 and x.data_ptr() % 16 == 0
-            and w.data_ptr() % 16 == 0)
+    """Whether igemm.cuh may stage both operands with 16-byte copies: of
+    one (row, tap) for x and of one weight row for w."""
+    return _vector_ok(x, cig) and _vector_ok(w, cog)
+
+
+def dw_vector_copies(a, b, ag: int, bg: int) -> tuple[bool, bool]:
+    """Whether deconv_dw.cu may stage A and B with 16-byte copies, each
+    operand on its own: of one row of A, of one tap of one row of B."""
+    return _vector_ok(a, ag), _vector_ok(b, bg)
 
 
 def split_workspace(splits: int, elems: int, device):
@@ -207,6 +224,6 @@ def library() -> ctypes.CDLL:
                                    ctypes.c_float, _I, _I, _I, _I, _P]
     lib.repro_conv_fwd.restype = _I
     lib.repro_deconv_dw.argtypes = [_P, _P, _P, _P, geom, _I, _I, _I, _I,
-                                    _P]
+                                    _I, _I, _I, _P]
     lib.repro_deconv_dw.restype = _I
     return lib

@@ -143,6 +143,7 @@ def conv_backward_args(x, w, dy, stride=1, padding=0, *, dilation=1,
                                                transpose=True,
                                                out_dtype=w.dtype,
                                                block_a=plan.dw.block_a,
+                                               block_c=plan.dw.block_c,
                                                splits=plan.dw.splits))
     return dx_args, dw_args
 

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core import tiling as _tiling
 from repro_torch.core.functional import deconv_output_shape
-from repro_torch.core.tiling import DW_TILES, split_rows
+from repro_torch.core.tiling import DW_KERNEL_TILES, split_rows
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import common as _common
 from repro_torch.kernels.deconv import ref as _ref
@@ -122,7 +122,8 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
 def deconv_dw(a: torch.Tensor, b: torch.Tensor, *, kernel, stride,
               dilation=(1, 1, 1), groups: int = 1, lo=(0, 0, 0),
               transpose: bool = False, out_dtype: torch.dtype | None = None,
-              block_a: int = 64, splits: int = 1) -> torch.Tensor:
+              block_a: int = 64, block_c: int = 128,
+              splits: int = 1) -> torch.Tensor:
     """Weight gradient on the canonical rank-3 layout.
 
     ``out[t, i, g*Bg + j] = sum_p a[p, g*Ag + i] * b[p*S + k_t*dil - lo,
@@ -132,8 +133,10 @@ def deconv_dw(a: torch.Tensor, b: torch.Tensor, *, kernel, stride,
     in ``out_dtype`` (default a's), or [prod(K), Bc/G, Ac] stored
     ``[t, j, g*Ag + i]`` when ``transpose``.  The deconv's dw is
     ``(a, b) = (x, dy)`` with ``lo`` its crop; the conv's is
-    ``(dy, x)`` with ``lo`` its pad and ``transpose``.  ``block_a`` and
-    ``splits`` are the planner's (``tiling.plan_dw_tiles``).
+    ``(dy, x)`` with ``lo`` its pad and ``transpose``.  ``block_a`` x
+    ``block_c`` (the tile) and ``splits`` are the planner's
+    (``tiling.plan_dw_tiles``); the copy widths are picked here
+    (``build.dw_vector_copies``).
     """
     global dw_launches
     kernel, stride = tuple(kernel), tuple(stride)
@@ -154,8 +157,9 @@ def deconv_dw(a: torch.Tensor, b: torch.Tensor, *, kernel, stride,
             groups=groups, lo=lo, transpose=transpose, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"no dw kernel for device {a.device}")
-    if block_a not in DW_TILES:
-        raise ValueError(f"block_a {block_a} not in {sorted(DW_TILES)}")
+    if (block_a, block_c) not in DW_KERNEL_TILES:
+        raise ValueError(f"tile {block_a}x{block_c} not in "
+                         f"{sorted(DW_KERNEL_TILES)}")
     n = a.shape[0]
     rows = n * math.prod(a.shape[1:4])
     splits, per = split_rows(rows, splits)
@@ -168,11 +172,13 @@ def deconv_dw(a: torch.Tensor, b: torch.Tensor, *, kernel, stride,
     geom = _build.geom_array((n, *a.shape[1:4], ac, *b.shape[1:4], bc,
                               groups, *kernel, *stride, *dilation, *lo, per,
                               int(bool(transpose))), fields=24)
+    vec_a, vec_b = _build.dw_vector_copies(a, b, ac // groups, bc // groups)
     lib = _build.library()
     err = lib.repro_deconv_dw(
         _build.ptr(a), _build.ptr(b), _build.ptr(out), _build.ptr(work),
-        geom, splits, block_a, _build.DTYPE_CODES[a.dtype],
-        _build.DTYPE_CODES[out_dtype], _build.stream_of(a))
+        geom, splits, block_a, block_c, _build.DTYPE_CODES[a.dtype],
+        _build.DTYPE_CODES[out_dtype], int(vec_a), int(vec_b),
+        _build.stream_of(a))
     if err:
         raise RuntimeError(f"dw kernel launch failed (cudaError {err})")
     dw_launches += 1

@@ -137,6 +137,7 @@ def deconv_backward_args(x, w, dy, stride, padding=0, *, dilation=1,
         dw_args = (x3, dy3.to(x3.dtype), dict(geometry, lo=crop_lo,
                                                out_dtype=w.dtype,
                                                block_a=plan.dw.block_a,
+                                               block_c=plan.dw.block_c,
                                                splits=plan.dw.splits))
     return dx_args, dw_args
 

@@ -250,25 +250,22 @@ def test_backward_plans_are_memoized_under_a_backward_key(monkeypatch):
 
 
 def test_dw_plans_split_long_reductions_only():
-    # DCGAN deconv1 at batch 64: x [64,4,1,4,1024], dy 512 channels
-    def blocks(plan, a, b, taps):
-        return (-(-a // plan.block_a)
-                * -(-(taps * b) // tiling.DW_TILES[plan.block_a])
-                * plan.splits)
-
+    # DCGAN deconv1 at batch 64: x [64,4,4,1024], dy 512 channels; its
+    # output alone fills more than a wave of the 64 x 128 tile
     dcgan = tiling.plan_dw_tiles(1024, 512, 9, 64 * 16)
-    assert dcgan.splits == 1 and dcgan.block_a == 64
-    assert blocks(dcgan, 1024, 512, 9) >= 1000
+    assert dcgan.splits == 1 and (dcgan.block_a, dcgan.block_c) == (64, 128)
+    tile = tiling.DW_KERNEL_TILES[(64, 128)]
+    assert dcgan.blocks >= tiling.SMS * tiling.dw_resident_blocks(tile, 4)
     # V-Net merge4 at batch 4: dy 16 channels over 4.19 M rows, x 32
     merge4 = tiling.plan_dw_tiles(16, 32, 27, 4 * 128 * 128 * 64)
-    assert merge4.block_a == 16 and 10 <= merge4.splits <= 200
-    assert blocks(merge4, 16, 32, 27) >= 132
+    assert (merge4.block_a, merge4.block_c) == (16, 256)
+    assert 10 <= merge4.splits <= 200
+    assert merge4.blocks >= 132
     assert merge4.splits * merge4.rows_per_split >= 4 * 128 * 128 * 64
-    assert merge4.rows_per_split % tiling.DW_BLOCK_K == 0
+    assert merge4.rows_per_split % tiling.DW_BLOCK_ROWS == 0
     # every instantiated dw tile fits one block's shared memory
-    for block_a, block_c in tiling.DW_TILES.items():
-        assert tiling.dw_step_bytes(block_a, tiling.DW_BLOCK_K,
-                                    block_c) <= tiling.SMEM_BUDGET
+    for tile in tiling.DW_KERNEL_TILES.values():
+        assert tile.smem_bytes(4) <= tiling.SMEM_BUDGET
 
 
 def test_backward_refuses_int8_naming_the_quantization_item():

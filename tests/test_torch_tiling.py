@@ -1,9 +1,11 @@
-"""The forward kernels' planner (``repro_torch.core.tiling``).
+"""The kernels' planner (``repro_torch.core.tiling``).
 
-The tile per per-group channel width, the modelled shared memory of every
-instantiated tile at f32 and bf16, the split of the reduction
+Forward: the tile per per-group channel width, the modelled shared memory
+of every instantiated tile at f32 and bf16, the split of the reduction
 (``split_reduction`` / ``launch_split``) and the block counts the schedule
-report gives with the splits counted.  Pure Python: no kernel runs.
+report gives with the splits counted.  dw: the tile per layer shape, the
+ring's shared memory, the split filling a wave, slices covering the rows
+and the copy width per operand.  Pure Python: no kernel runs.
 """
 
 import math
@@ -132,3 +134,134 @@ def test_schedule_report_counts_the_splits():
     assert any(r.splits == 1 for r in layers)
     assert report.blocks == sum(r.blocks for r in layers)
     assert "_split" in report.describe()
+
+
+# -- the dw kernel's planner -------------------------------------------------
+
+# (A's per-group channels, taps x B's per-group channels) -> tile; the
+# V-Net head, enc1 and the image layers take the narrow column tile
+@pytest.mark.parametrize("ag,cols,tile", [
+    (2, 16, (16, 32)), (16, 27, (16, 32)), (8, 27, (16, 32)),
+    (128, 27, (16, 32)), (1024, 32, (16, 32)),
+    (16, 864, (16, 256)), (12, 72, (16, 256)), (2, 432, (16, 256)),
+    (17, 432, (32, 256)), (24, 108, (32, 256)), (32, 1728, (32, 256)),
+    (33, 864, (64, 128)), (64, 3456, (64, 128)), (1024, 4608, (64, 128)),
+])
+def test_dw_tile_per_layer_shape(ag, cols, tile):
+    got = tiling.dw_tile_for(ag, cols)
+    assert (got.block_a, got.block_c) == tile
+    taps = 27 if cols % 27 == 0 else 9 if cols % 9 == 0 else 1
+    plan = tiling.plan_dw_tiles(2 * ag, 2 * (cols // taps), taps, 4096,
+                                groups=2)
+    assert (plan.block_a, plan.block_c) == tile
+
+
+@pytest.mark.parametrize("key", sorted(tiling.DW_KERNEL_TILES))
+@pytest.mark.parametrize("nbytes", [4, 2])
+def test_every_dw_tile_fits_the_budget(key, nbytes):
+    tile = tiling.DW_KERNEL_TILES[key]
+    assert (tile.block_a, tile.block_c) == key
+    # the ring and nothing else: A [rows][block_a] and B [rows][block_c]
+    assert tile.smem_bytes(nbytes) == (tile.stages * tiling.DW_BLOCK_ROWS
+                                       * (tile.block_a + tile.block_c)
+                                       * nbytes)
+    assert tile.smem_bytes(nbytes) <= tiling.SMEM_BUDGET
+    assert tile.threads == (tile.block_a // tile.ta) * (tile.block_c
+                                                        // tile.tc)
+    assert tile.threads % 32 == 0 and tile.threads <= 1024
+    assert tiling.dw_resident_blocks(tile, nbytes) >= 1
+    # the big tiles hold 32 or 64 sums a thread
+    if tile.block_c > tiling.DW_NARROW_COLUMNS:
+        assert tile.ta * tile.tc in (32, 64)
+    # a layer of exactly the tile's width gets that tile
+    plan = tiling.plan_dw_tiles(key[0], key[1], 1, 4096,
+                                dtype_bytes=nbytes)
+    assert (plan.block_a, plan.block_c) == key
+
+
+# the full-width training layers whose output gives less than a wave:
+# (A channels, B channels, taps, rows)
+DW_SHORT_GRIDS = [
+    (16, 32, 27, 4 * 128 * 128 * 64),      # V-Net merge4
+    (32, 64, 27, 4 * 64 * 64 * 32),        # merge3
+    (32, 16, 27, 4 * 64 * 64 * 32),        # up4
+    (64, 128, 27, 4 * 32 * 32 * 16),       # merge2
+    (16, 1, 27, 4 * 128 * 128 * 64),       # enc1
+    (2, 16, 1, 4 * 128 * 128 * 64),        # head
+    (256, 128, 27, 4 * 8 * 8 * 4),         # up1
+]
+
+
+@pytest.mark.parametrize("ac,bc,taps,rows", DW_SHORT_GRIDS)
+@pytest.mark.parametrize("nbytes", [4, 2])
+def test_dw_split_fills_one_wave(ac, bc, taps, rows, nbytes):
+    plan = tiling.plan_dw_tiles(ac, bc, taps, rows, dtype_bytes=nbytes)
+    tile = tiling.DW_KERNEL_TILES[(plan.block_a, plan.block_c)]
+    wave = tiling.SMS * tiling.dw_resident_blocks(tile, nbytes)
+    out_blocks = plan.blocks // plan.splits
+    assert out_blocks < wave and plan.splits > 1
+    # within one wave, short of it by about one split's blocks (rounding
+    # the slices up to whole stages may drop a few more)
+    assert 0.95 * (wave - out_blocks) < plan.blocks <= wave
+
+
+@pytest.mark.parametrize("ac,bc,taps,rows,groups", [
+    *((ac, bc, taps, rows, 1) for ac, bc, taps, rows in DW_SHORT_GRIDS),
+    (1024, 512, 9, 64 * 16, 1), (48, 24, 9, 64 * 16, 1),
+    (12, 20, 27, 2 * 7 * 6 * 5, 2), (8, 3, 9, 64 * 32 * 32, 1),
+    (16, 32, 27, 33, 1), (16, 32, 27, 1, 1),
+])
+@pytest.mark.parametrize("nbytes", [4, 2])
+def test_dw_slices_cover_the_rows(ac, bc, taps, rows, groups, nbytes):
+    plan = tiling.plan_dw_tiles(ac, bc, taps, rows, groups=groups,
+                                dtype_bytes=nbytes)
+    splits, per = plan.splits, plan.rows_per_split
+    # the wrapper cuts the rows from the plan's count the same way
+    assert tiling.split_rows(rows, splits) == (splits, per)
+    assert per % tiling.DW_BLOCK_ROWS == 0                  # whole stages
+    slices = [(s * per, min((s + 1) * per, rows)) for s in range(splits)]
+    assert slices[0][0] == 0 and slices[-1][1] == rows
+    assert all(lo < hi for lo, hi in slices)                # none empty
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    assert splits <= tiling.GRID_Z_LIMIT
+    if splits > 1:
+        assert per >= tiling.SPLIT_MIN_K
+
+
+@pytest.mark.parametrize("rows,asked", [
+    (4096, 1), (4096, 4), (1024, 16), (100, 4), (1 << 24, 1 << 20),
+])
+def test_dw_split_rows_keeps_whole_stages_within_the_z_limit(rows, asked):
+    splits, per = tiling.split_rows(rows, asked)
+    assert 1 <= splits <= min(asked, tiling.GRID_Z_LIMIT)
+    assert per % tiling.DW_BLOCK_ROWS == 0
+    assert (splits - 1) * per < rows <= splits * per
+    if asked <= tiling.GRID_Z_LIMIT and rows >= asked * 32:
+        assert splits == asked
+
+
+@pytest.mark.parametrize("dtype,ag,bg,want", [
+    (torch.float32, 16, 32, (True, True)),
+    (torch.float32, 2, 16, (False, True)),
+    (torch.float32, 16, 1, (True, False)),
+    (torch.float32, 6, 10, (False, False)),
+    (torch.bfloat16, 16, 32, (True, True)),
+    (torch.bfloat16, 12, 8, (False, True)),
+    (torch.bfloat16, 24, 12, (True, False)),
+])
+def test_dw_copy_width_per_operand(dtype, ag, bg, want):
+    from repro_torch.kernels import build
+    a = torch.zeros(64, 2 * ag, dtype=dtype)
+    b = torch.zeros(64, 2 * bg, dtype=dtype)
+    assert build.dw_vector_copies(a, b, ag, bg) == want
+    # a base address off the 16-byte grid takes the scalar copies
+    shifted = torch.zeros(64 * 2 * ag + 1, dtype=dtype)[1:]
+    assert build.dw_vector_copies(shifted, b, ag, bg) == (False, want[1])
+
+
+def test_backward_plan_names_the_dw_tile():
+    eng = UniformEngine(**CPU)
+    plan = eng.plan("conv", (128, 128, 64), (3, 3, 3), (1, 1, 1), 32, 16,
+                    backward=True, rows=4 * 128 * 128 * 64)
+    assert (plan.dw.block_a, plan.dw.block_c) == (16, 256)
+    assert f"dw:a16_c256_split{plan.dw.splits}x" in plan.describe()
