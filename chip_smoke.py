@@ -28,31 +28,52 @@ Phases, any failure of which exits non-zero before the result line:
      tile with 16-byte and scalar copies of each operand, groups, both
      store layouts, lo at B's edges, dilation 2, stride 2 reading past
      B's extent, forced splits of 1, 4 and 16 beside the planner's;
+     then the int8 operands of the forward kernels: every distinct
+     geometry of the quantized serving path with int8 weights beside f32
+     activations and with int8 activations and weights (bf16 activations
+     beside int8 weights at the DCGAN layers), and the block's code paths
+     (16-byte and scalar copies, forced and no splits, groups, dilation,
+     scale + leaky_relu), each launch run twice for the same bits and
+     held against the plain version summed in float64;
   4. serve — a ``DcnnServer`` answers 8 DCGAN seeds and 4 V-Net volumes at
      full width through the kernels (launch counts checked per batch), and
      one request of each model is held against the port's CPU run;
+     serve (quantized) — the same requests again under
+     ``Precision(weight_quant="int8")`` and with ``act_quant="int8"``,
+     weights from ``quant.quantize_weights``, launch counts and each
+     launch's operand types checked per batch, one request of each model
+     held against the port's CPU run of its served batch (with int8
+     activations that is a CPU run fed the card's int8 activations; a
+     free CPU run is reported with its rounding-tie flips per layer),
+     every output reported against the f32 one;
      train — ``Trainer`` runs 3 DCGAN steps (batch 64) and 2 V-Net steps
      (batch 4, 128x128x64), the last after a resume from a checkpoint in a
      temporary directory; losses finite, launches per step exactly those
      ``launch.steps.train_step_launches`` derives from the graphs; one
      DCGAN step's gradients (batch 4) held against the port's CPU run,
      and again against a CPU run fed the card's forward outputs, with the
-     relu/leaky_relu mask flips between card and CPU counted;
+     relu/leaky_relu mask flips between card and CPU counted; one DCGAN
+     generator step through int8 weights (``{"w_q", "scale"}`` entries,
+     the scales trained) at batch 4, its launches those of a train step,
+     its gradients held against the port's CPU run;
   5. times — each kernel at every call shape the main path gave it (CUDA
      events; the serve and train runs record each wrapper's calls by
      shape) beside its plain version, one cuDNN call computing the same
      function (``convolution_backward`` with one output's mask set for
      dw and dx), and the bound, with each launch's tile, reduction
      slices and share of the bound (and, for the forwards, the wrapper's
-     host time per call); one served batch of each model end to end, and
-     whole train steps.
+     host time per call); the int8 launches at every quantized call shape
+     the same way, their library time cuDNN's on the dequantized f32
+     operands and their bound the int8 tensor-core rate; one served batch
+     of each model end to end under each policy, and whole train steps.
 
 The line before the last is the ``{"kernels": [...]}`` summary: each
 kernel's ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums
 over exactly the launches its ``launches`` counts (each call shape's time
-times the calls of that shape).  The last line is ``{"ok": true,
-"device": {...}}``.  ``--json PATH`` also writes
-every check and per-layer time to PATH.
+times the calls of that shape); ``deconv_fwd_int8`` and ``conv_fwd_int8``
+are the forward kernels' int8 launches of the quantized serving runs.
+The last line is ``{"ok": true, "device": {...}}``.  ``--json PATH``
+also writes every check and per-layer time to PATH.
 """
 
 from __future__ import annotations
@@ -73,12 +94,27 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): IEEE f32 on CUDA cores, bf16 tensor
 # cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the dense int8 tensor-core rate: the bound of the int8 launches (their
+# sums run as f32 FMAs on CUDA cores; the int8 route is untried)
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain version, max|diff| / max|plain|: f32 sums in another
 # order (1e-4, the reference's tolerance); bf16 output may differ by one
 # bf16 rounding step (2^-8 relative), so 1e-2
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 SERVE_TOL = 1e-4                 # card vs CPU run of the port, f32
+# int8 activations, card vs CPU run of the port: each layer's input is
+# quantized per tensor, and its f32 values differ between card and CPU in
+# the last bits (sums in another order), so a value within rounding of a
+# .5 tie of x / scale lands one quantum (1/127 of the input's absmax)
+# apart.  A flip moves every output it reaches by a share of a quantum,
+# which flips more values in the next layer: through V-Net's 14 layers a
+# free CPU run's int8 activations drift from the card's by whole quanta
+# and its output by as much as quantization itself moves it.  So the free
+# run is reported, with its flips counted per layer, and the CPU run fed
+# the card's int8 activations (each layer's sums, scales and epilogue
+# recomputed on the CPU) is held at SERVE_TOL
+
 # backward kernels vs a float64 plain version on the same inputs: f32
 # operands with random zero-mean data, sums of up to ~50 K products per
 # slice of the dw reduction (error ~ 6e-8 x sqrt(products), ~1.4e-5), so
@@ -131,11 +167,12 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch import tree
+    from repro_torch import quant, tree
     from repro_torch.configs import get_config
     from repro_torch.core import networks as nets
     from repro_torch.core import tiling
     from repro_torch.core.engine import (
+        EngineConfig,
         UniformEngine,
         compile_network,
     )
@@ -197,6 +234,11 @@ def main() -> int:
         row["max_registers"] = max([row["max_registers"], *src_regs])
         row["spill_store_bytes"] += sum(int(m) for m in re.findall(
             r"(\d+) bytes spill stores", src_log))
+        # per object: the forward parts 4-9 are the int8 variants
+        unit = " ".join(src_log.split("\n", 1)[0].split())
+        detail["ptxas"].setdefault("units", {})[unit] = {
+            "kernels": len(src_regs),
+            "max_registers": max(src_regs, default=0)}
     print(f"build_s {detail['build_s']:.1f} ptxas {detail['ptxas']}")
     for src in ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu"):
         if src in detail["ptxas"]:      # absent when the build was cached
@@ -281,7 +323,8 @@ def main() -> int:
     phase("kernels vs plain versions")
     # each kernel's worst f32 error against its plain version
     max_abs = {"deconv_fwd": 0.0, "conv_fwd": 0.0, "deconv_dw": 0.0,
-               "deconv_dx": 0.0}
+               "deconv_dx": 0.0, "deconv_fwd_int8": 0.0,
+               "conv_fwd_int8": 0.0}
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for model, layer, batch in main_layers:
@@ -438,6 +481,160 @@ def main() -> int:
             if dtype == torch.float32:
                 max_abs[f"{op}_fwd"] = max(max_abs[f"{op}_fwd"], err)
             del got, again, ref, args
+    torch.cuda.empty_cache()
+
+    # -- 3q. int8 operands against their plain versions ----------------------
+    # (x, w) operand pairs: int8 weights beside f32 activations (w:int8),
+    # int8 activations and weights (w:int8+a:int8), int8 weights beside
+    # bf16 activations; held against the plain version summed in float64
+    # (int8 and bf16 values are exact there) at TOL of the output's type
+    phase("int8 kernels vs plain versions")
+    Q_PAIRS = {"w8": "float32/int8", "w8a8": "int8/int8",
+               "bf16w8": "bfloat16/int8"}
+
+    def q_operands(op, in_spatial, cin, w_shape, pair, stride, padding,
+                   dilation=1, groups=1, bias=True, activation="none",
+                   alpha=0.2, batch=BATCH):
+        """Random main-path operands under a quantized pair: the kernel's
+        x and w, the dequant scale (the activations' per-tensor scale
+        folded in, as the engine folds it), the wrapper arguments and the
+        dequantized f32 x and w (cuDNN's operands)."""
+        xf = rand((batch, *in_spatial, cin), torch.float32)
+        wf = rand(w_shape, torch.float32,
+                  1.0 / math.sqrt(math.prod(w_shape[:-1])))
+        b = rand((w_shape[-1],), torch.float32, 0.1) if bias else None
+        qw = quant.quantize_tensor(wf)
+        w, s = qw["w_q"], qw["scale"]
+        x, x_deq = xf, xf
+        if pair == "w8a8":
+            sx = quant.absmax_scale(xf)
+            x = quant.quantize_q8(xf, sx)
+            x_deq, s = quant.dequantize_int8(x, sx), s * sx
+        elif pair == "bf16w8":
+            x = xf.to(torch.bfloat16)
+            x_deq = x.float()
+        args = KERNELS[op][0](x, w, stride, padding, dilation=dilation,
+                              groups=groups, bias=b, w_scale=s,
+                              activation=activation, alpha=alpha,
+                              engine=engine)
+        return {"x": x, "w": w, "b": b, "args": args, "x_deq": x_deq,
+                "w_deq": quant.dequantize_int8(w, qw["scale"])}
+
+    def q_layer_operands(layer, pair, batch=BATCH):
+        epi = layer.epilogue
+        return q_operands(layer.op, layer.in_spatial, layer.cin,
+                          layer.weight_shape, pair, layer.stride,
+                          layer.padding, layer.dilation, layer.groups,
+                          bias=epi.bias, activation=epi.activation,
+                          alpha=epi.alpha, batch=batch)
+
+    def run_plain64(op, args):
+        x3, wk, kw, _ = args
+        kw = {k: v for k, v in kw.items() if k != "block_co"}
+        return KERNELS[op][2](x3.double(), wk.double(),
+                              **dict(kw, out_dtype=torch.float64))
+
+    # every distinct geometry of the quantized serving path (batch 4)
+    q_layers = distinct([("dcgan", l, BATCH) for l in dcgan_layers]
+                        + [("vnet", l, BATCH) for l in vnet_layers])
+    # the block's code paths under int8: (tag, op, in_spatial, cin,
+    # w_shape, stride, padding, dilation, groups, batch, slices forced:
+    # None = the planner's, whether the run must split: None = either)
+    q_path_cases = [
+        ("dcgan:deconv1:planner", "deconv", (4, 4), 1024,
+         (3, 3, 1024, 512), 2, dpad2, 1, 1, 4, None, True),
+        ("dcgan:deconv1:unsplit", "deconv", (4, 4), 1024,
+         (3, 3, 1024, 512), 2, dpad2, 1, 1, 4, 1, False),
+        ("vnet:enc5:planner", "conv", (16, 16, 8), 128,
+         (3, 3, 3, 128, 256), 2, 1, 1, 1, 4, None, True),
+        ("vnet:enc5:unsplit", "conv", (16, 16, 8), 128,
+         (3, 3, 3, 128, 256), 2, 1, 1, 1, 4, 1, False),
+        ("scalar:ci1", "conv", (20, 18, 9), 1, (3, 3, 3, 1, 16), 1, 1, 1,
+         1, 2, None, None),
+        ("scalar:ci6", "deconv", (9, 11, 7), 6, (3, 3, 3, 6, 16), 2, dpad3,
+         1, 1, 2, None, None),
+        ("scalar:co3:split", "deconv", (17, 15), 128, (3, 3, 128, 3), 2,
+         dpad2, 1, 1, 3, 4, True),
+        ("ragged:co48", "deconv", (7, 9, 5), 32, (3, 3, 3, 32, 48), 2,
+         dpad3, 1, 1, 3, None, None),
+        ("groups2:cig16", "conv", (11, 9, 8), 32, (3, 3, 3, 16, 64), 1, 1,
+         1, 2, 2, None, None),
+        ("groups2:cig16:split", "conv", (11, 9, 8), 32, (3, 3, 3, 16, 64),
+         1, 1, 1, 2, 2, 3, True),
+        ("groups2:dil2", "deconv", (7, 6, 5), 32, (3, 3, 3, 16, 32), 2,
+         dpad3, 2, 2, 2, None, None),
+        ("dil2", "conv", (13, 11, 9), 16, (3, 3, 3, 16, 32), 1, 2, 2, 1,
+         2, None, None),
+    ]
+    q_cases = [(f"{model}:{layer.name}:b{batch}", layer.op, pair,
+                lambda l=layer, p=pair, n=batch: q_layer_operands(l, p, n),
+                None, None)
+               for model, layer, batch in q_layers
+               for pair in (("w8", "w8a8", "bf16w8") if model == "dcgan"
+                            else ("w8", "w8a8"))]
+    q_cases += [(tag, op, pair,
+                 lambda op=op, sp=sp, cin=cin, ws=ws, st=st, pad=pad,
+                 dil=dil, g=g, p=pair, n=batch: q_operands(
+                     op, sp, cin, ws, p, st, pad, dil, g,
+                     activation="leaky_relu", alpha=0.1, batch=n),
+                 n_split, must_split)
+                for (tag, op, sp, cin, ws, st, pad, dil, g, batch, n_split,
+                     must_split) in q_path_cases
+                for pair in ("w8", "w8a8")]
+    detail["int8_checks"] = []
+    q_copies = {}
+    for tag, op, pair, make, n_split, must_split in q_cases:
+        ops = make()
+        x3, wk, kw, _ = ops["args"]
+        mod = dk if op == "deconv" else ck
+        before = dict(mod.operand_launches)
+        force[0] = None if n_split is None else forced(n_split)
+        split_log.clear()
+        got = run_kernel(op, ops["args"])
+        again = run_kernel(op, ops["args"])
+        torch.cuda.synchronize()
+        force[0] = None
+        ref = run_plain64(op, ops["args"])
+        err = float((got.double() - ref).abs().max())
+        mag = float(ref.abs().max())
+        rel = err / mag if mag else err
+        oname = str(got.dtype).split(".")[-1]
+        codes = {k: v - before.get(k, 0)
+                 for k, v in mod.operand_launches.items()
+                 if v != before.get(k, 0)}
+        cig, cog = x3.shape[-1] // kw["groups"], wk.shape[-1] // kw["groups"]
+        vec = build.vector_copies(x3, wk, cig, cog)
+        q_copies.setdefault(pair, set()).add(vec)
+        row = {"check": tag, "op": op, "pair": Q_PAIRS[pair],
+               "out": oname, "shape": list(got.shape),
+               "splits": split_log[0], "block_co": kw["block_co"],
+               "vec": vec, "launches_by_operands": {
+                   "/".join(k): v for k, v in codes.items()},
+               "repeat_equal": bool(torch.equal(got, again)),
+               "max_abs_err": err, "rel_err": rel, "tol": TOL[oname]}
+        print(json.dumps(row))
+        detail["int8_checks"].append(row)
+        check(codes == {tuple(Q_PAIRS[pair].split("/")): 2},
+              f"{tag}/{pair}: launches by operand types {codes}")
+        check(len(split_log) == 2 and split_log[0] == split_log[1],
+              f"{tag}/{pair}: launches split {split_log}")
+        check(must_split is None or (split_log[0] > 1) == must_split,
+              f"{tag}/{pair}: {split_log[0]} slices")
+        check(row["repeat_equal"], f"{tag}/{pair}: a repeated launch gave "
+              f"other bits")
+        want_out = (torch.bfloat16 if pair == "bf16w8" else torch.float32)
+        check(got.shape == ref.shape and got.dtype == want_out,
+              f"{tag}/{pair}: {got.shape} {got.dtype} vs plain {ref.shape}")
+        check(rel <= TOL[oname], f"{tag}/{pair}: relative error {rel:.3g} "
+              f"above {TOL[oname]}")
+        if oname == "float32":
+            k = f"{op}_fwd_int8"
+            max_abs[k] = max(max_abs[k], err)
+        del ops, got, again, ref
+    for pair in ("w8", "w8a8"):
+        check(q_copies.get(pair) == {True, False},
+              f"{pair}: 16-byte and scalar copies not both run: "
+              f"{q_copies.get(pair)}")
     torch.cuda.empty_cache()
 
     # -- 3b. backward kernels against their plain versions -------------------
@@ -691,7 +888,9 @@ def main() -> int:
 
         def wrapped(a, b, **kw):
             if recording[0] and a.is_cuda:
-                key = signature(kname, a, b, kw)
+                # int8 weights' launches are the int8 entries' own
+                key = signature(kname + "_int8" * (b.dtype == torch.int8),
+                                a, b, kw)
                 recorded[key] = recorded.get(key, 0) + 1
             return real(a, b, **kw)
         setattr(mod, kname, wrapped)
@@ -776,6 +975,188 @@ def main() -> int:
                           "tol": SERVE_TOL}))
         check(rel <= SERVE_TOL, f"{req.model}: card vs CPU relative error "
               f"{rel:.3g} above {SERVE_TOL}")
+
+    # -- 4q. serve, quantized -------------------------------------------------
+    # the f32 serve's requests again, through the same entry points under
+    # each policy: weights from quant.quantize_weights, an engine configured
+    # with the policy.  Launch counts per batch as in f32, every launch an
+    # int8 one of the policy's operand types
+    phase("serve (quantized)")
+    POLICIES = {
+        "w:int8": quant.Precision(weight_quant="int8"),
+        "w:int8+a:int8": quant.Precision(weight_quant="int8",
+                                         act_quant="int8")}
+    WANT_PAIR = {"w:int8": ("float32", "int8"),
+                 "w:int8+a:int8": ("int8", "int8")}
+    # the int8 activations every quantize_q8 call of a run produced, and
+    # (replay) the card's, handed to a CPU run in their place
+    from repro_torch.quant import qint8
+    real_q8 = qint8.quantize_q8
+    q8_log, q8_replay = [], [None]
+
+    def logged_q8(x, scale):
+        q = real_q8(x, scale)
+        i = len(q8_log)
+        q8_log.append(q.detach().cpu())
+        if q8_replay[0] is not None:
+            card_q = q8_replay[0][i]
+            check(card_q.shape == q.shape, f"activation quantization {i}: "
+                  f"{tuple(q.shape)} vs the card's {tuple(card_q.shape)}")
+            q = card_q.to(q.device)
+        return q
+
+    q_servers, q_batches = {}, {}
+    q_launches = {"deconv": 0, "conv": 0}
+    detail["serve_quant"] = {}
+    f32_out = {r_.id: by_id[r_.id].output for r_ in reqs}
+    for pol, prec in POLICIES.items():
+        q_specs = [
+            dcgan_gen_spec(chans=DCGAN_CHANS, weights=quant.quantize_weights(
+                dict(gen_spec.weights), prec)),
+            vnet_spec(chans=VNET_CHANS, base_spatial=VNET_SPATIAL,
+                      weights=quant.quantize_weights(dict(vol_spec.weights),
+                                                     prec))]
+        srv = DcnnServer(q_specs, max_batch=BATCH, engine=UniformEngine(
+            EngineConfig(precision=prec)))
+        q_servers[pol] = srv
+        qreqs = [ServeRequest(r_.model, r_.x) for r_ in reqs]
+        for r_ in qreqs:
+            srv.submit(r_)
+        dk.launches = ck.launches = 0       # this path's run starts
+        dk.operand_launches.clear()
+        ck.operand_launches.clear()
+        recording[0] = True
+        qres, qsteps = [], []
+        t_serve = time.perf_counter()
+        while srv.queue.depth:
+            before = (dk.launches, ck.launches,
+                      dict(dk.operand_launches), dict(ck.operand_launches))
+            got = srv.step()
+            delta = (dk.launches - before[0], ck.launches - before[1])
+            codes = {}
+            for mod, prev in ((dk, before[2]), (ck, before[3])):
+                for k_, v_ in mod.operand_launches.items():
+                    if v_ != prev.get(k_, 0):
+                        codes[k_] = codes.get(k_, 0) + v_ - prev.get(k_, 0)
+            models = {r_.model for r_ in got}
+            qsteps.append({"models": sorted(models), "requests": len(got),
+                           "ids": [r_.id for r_ in got],
+                           "deconv_launches": delta[0],
+                           "conv_launches": delta[1],
+                           "launches_by_operands": {
+                               "/".join(k_): v_ for k_, v_ in codes.items()}})
+            print(json.dumps({"served_batch": qsteps[-1], "policy": pol}))
+            check(len(models) == 1, f"{pol}: one batch served {models}")
+            want = (4, 0) if models == {"dcgan_gen"} else (4, 10)
+            check(delta == want, f"{pol}: {models} batch launched (deconv, "
+                  f"conv) = {delta}, expected {want}")
+            check(codes == {WANT_PAIR[pol]: sum(delta)},
+                  f"{pol}: launches by operand types {codes}, expected "
+                  f"{sum(delta)} of {WANT_PAIR[pol]}")
+            qres.extend(got)
+        serve_s = time.perf_counter() - t_serve
+        recording[0] = False
+        got_l = {"deconv": dk.launches, "conv": ck.launches}
+        check(got_l == {"deconv": 12, "conv": 10},
+              f"{pol}: launches {got_l}")
+        for k_ in q_launches:
+            q_launches[k_] += got_l[k_]
+        qby = {r_.id: r_ for r_ in qres}
+        qby_req = {r_.id: r_ for r_ in qreqs}
+        check(sorted(qby) == [r_.id for r_ in qreqs],
+              f"{pol}: a request went missing")
+        # against the f32 outputs, reported: at full width the seeded DCGAN
+        # generator's tanh output lies 11.7 % of max |y| from f32 under
+        # w:int8 in the JAX package too (same weights), so the reference's
+        # 5 %, stated for its small test networks, bounds nothing here; the
+        # check is the parity with the port's CPU run below
+        vs_f32 = {}
+        for r_, rf in zip(qreqs, reqs):
+            res = qby[r_.id]
+            check(res.ok, f"{pol}: request {r_.id} failed: {res.error!r}")
+            check(res.output.shape == f32_out[rf.id].shape,
+                  f"{pol}: request {r_.id} shape {res.output.shape}")
+            check(bool(np.isfinite(res.output).all()),
+                  f"{pol}: request {r_.id} output not finite")
+            rel = (float(np.abs(res.output - f32_out[rf.id]).max())
+                   / float(np.abs(f32_out[rf.id]).max()))
+            vs_f32[r_.model] = max(vs_f32.get(r_.model, 0.0), rel)
+        print(json.dumps({"quant_vs_f32": pol, "rel_err": vs_f32}))
+        # the batches the server formed (queue order, BATCH at a time per
+        # bucket), for the CPU runs: with int8 activations a request's
+        # output depends on its batch (the scale is per tensor)
+        q_batches[pol] = [st["ids"] for st in qsteps]
+        detail["serve_quant"][pol] = {"batches": qsteps, "serve_s": serve_s,
+                                      "launches": got_l, "vs_f32": vs_f32}
+        # one request of each model against the port's CPU run of its
+        # served batch
+        cpu_q = UniformEngine(EngineConfig(precision=prec, device="cpu"))
+        parity = {}
+        for held in (qreqs[0], qreqs[-1]):
+            ids = next(b_ for b_ in q_batches[pol] if held.id in b_)
+            spec = srv.specs[held.model]
+            bsp = held._bucket_sp
+            xb = np.zeros((len(ids), *bsp, spec.cin), np.float32)
+            for row_, i_ in enumerate(ids):
+                xb[row_] = pad_to(qby_req[i_].x, bsp)
+            row = ids.index(held.id)
+            apply, _ = compile_network(spec.graph_for(bsp), cpu_q,
+                                       batch=len(ids))
+            card_out = qby[held.id].output
+            crop = (row,) + tuple(slice(0, d) for d in card_out.shape)
+            runs = {}
+            # the card's int8 activations of this batch, for the replay
+            card_q = None
+            if prec.act_quant == "int8":
+                cuda_apply, _ = compile_network(spec.graph_for(bsp),
+                                                srv.engine, batch=len(ids))
+                q8_log.clear()
+                qint8.quantize_q8 = logged_q8
+                try:
+                    with torch.inference_mode():
+                        again = cuda_apply(srv._weights(held.model),
+                                           torch.from_numpy(xb))
+                        torch.cuda.synchronize()
+                    check(np.array_equal(again.float().cpu().numpy()[crop],
+                                         card_out),
+                          f"{pol}/{held.model}: the batch re-run on the "
+                          f"card differs from the served one")
+                    card_q = list(q8_log)
+                finally:
+                    qint8.quantize_q8 = real_q8
+            for run in (("free", "card_int8") if card_q else ("free",)):
+                q8_log.clear()
+                q8_replay[0] = card_q if run == "card_int8" else None
+                qint8.quantize_q8 = logged_q8
+                t0 = time.perf_counter()
+                try:
+                    with torch.inference_mode():
+                        ref = apply(spec.weights, torch.from_numpy(xb))
+                finally:
+                    qint8.quantize_q8 = real_q8
+                    q8_replay[0] = None
+                ref = ref.numpy()[crop]
+                err = float(np.abs(card_out - ref).max())
+                rel = err / float(np.abs(ref).max())
+                tol = None if run == "free" and card_q else SERVE_TOL
+                runs[run] = {"max_abs_err": err, "rel_err": rel, "tol": tol,
+                             "cpu_s": time.perf_counter() - t0}
+                if card_q and run == "free":
+                    runs[run]["int8_flips"] = [
+                        int((a_ != b_).sum()) for a_, b_ in
+                        zip(card_q, q8_log)]
+                    runs[run]["int8_elements"] = [a_.numel()
+                                                  for a_ in card_q]
+            parity[held.model] = runs
+            print(json.dumps({"cpu_parity": held.model, "policy": pol,
+                              "bucket": list(bsp), "batch": len(ids),
+                              "row": row, "runs": runs}))
+            for run, r_ in runs.items():
+                check(r_["tol"] is None or r_["rel_err"] <= r_["tol"],
+                      f"{pol}/{held.model}/{run}: card vs CPU relative "
+                      f"error {r_['rel_err']:.3g} above {r_['tol']}")
+        detail["serve_quant"][pol]["cpu_parity"] = parity
+    print(json.dumps({"quant_launches": q_launches}))
 
     # -- 4b. train --------------------------------------------------------------
     phase("train")
@@ -979,6 +1360,97 @@ def main() -> int:
                   f"{run}: relative error {r['rel_err']:.3g} above "
                   f"{r['tol']}")
 
+    # one DCGAN generator step through int8 weights at full width, batch 4:
+    # the generator's deconvs on {"w_q", "scale", "b"} entries (quantized
+    # once, on the CPU), the gradient half of make_gan_train_step with the
+    # scales, biases and projection trained (the int8 weights take none).
+    # Its launches are a train step's; its gradients (dscale, db, and dx
+    # through the projection's) are held against the port's CPU run as the
+    # f32 step's are
+    phase("train (int8 weights)")
+    cfg_q, p_q, _, _ = train_setup("dcgan", "cpu", cpu, batch=4, seed=3)
+    batch_q = batches("dcgan", cfg_q, "cpu").make_batch(0)
+    gen_q = {"proj": p_q["gen"]["proj"],
+             "deconvs": [dict(quant.quantize_tensor(e_["w"]), b=e_["b"])
+                         for e_ in p_q["gen"]["deconvs"]]}
+
+    def q_gen_step(gen_p, disc_p, b_, eng):
+        """The gradients of one GAN step with an int8-weight generator, by
+        leaf name."""
+        with torch.enable_grad():
+            gp = tree.tree_map(lambda t: (t.detach().requires_grad_()
+                                          if t.is_floating_point() else t),
+                               gen_p)
+            fake = dcnn.generator_forward(gp, cfg_q, b_["z"], eng)
+            d_fake = dcnn.discriminator_forward(
+                tree.tree_map(torch.Tensor.detach, disc_p), cfg_q, fake, eng)
+            g_loss = dcnn.bce(d_fake, torch.ones_like(d_fake))
+            g_named = [(n_, t_) for n_, t_ in named(gp, "gen")
+                       if t_.requires_grad]
+            g_grads = torch.autograd.grad(g_loss, [t_ for _, t_ in g_named])
+            dp = tree.tree_map(lambda t: t.detach().requires_grad_(),
+                               disc_p)
+            d_real = dcnn.discriminator_forward(dp, cfg_q, b_["real"], eng)
+            d_loss = 0.5 * (
+                dcnn.bce(d_real, torch.ones_like(d_real))
+                + dcnn.bce(d_fake.detach(), torch.zeros_like(d_fake)))
+            d_named = list(named(dp, "disc"))
+            d_grads = torch.autograd.grad(d_loss, [t_ for _, t_ in d_named])
+        return {n_: g.detach().cpu() for (n_, _), g in
+                zip(g_named + d_named, g_grads + d_grads)}
+
+    qgrads, qlogs = {}, {}
+    want_q = ST.train_step_launches(cfg_q)
+    dops._forward, cops._forward = logged("deconv"), logged("conv")
+    try:
+        for run, eng in (("cuda", engine), ("cpu", cpu),
+                         ("cpu_card_fwd", cpu)):
+            fwd_log.clear()
+            replay[0] = qlogs["cuda"] if run == "cpu_card_fwd" else None
+            dev_ = dev if run == "cuda" else torch.device("cpu")
+            on = (lambda v: tree.tree_map(lambda t: t.to(dev_), v))
+            zero_counts()
+            qgrads[run] = q_gen_step(on(gen_q), on(p_q["disc"]),
+                                     on(batch_q), eng)
+            if run == "cuda":
+                torch.cuda.synchronize()
+                got_counts = counts()
+                print(json.dumps({"train_int8_launches": got_counts,
+                                  "expected": want_q}))
+                check(got_counts == want_q, f"int8-weight generator step "
+                      f"launched {got_counts}, expected {want_q}")
+            qlogs[run] = list(fwd_log)
+    finally:
+        dops._forward, cops._forward = real_fwd["deconv"], real_fwd["conv"]
+        replay[0] = None
+    check(all(t_.dtype == torch.int8 for e_ in gen_q["deconvs"]
+              for k_, t_ in e_.items() if k_ == "w_q"), "int8 weights")
+    check(any(n_.endswith("/scale") for n_ in qgrads["cuda"]),
+          "no scale gradient")
+    qparity = {}
+    for run in ("cpu", "cpu_card_fwd"):
+        rows = {}
+        for n_, ref in qgrads[run].items():
+            got = qgrads["cuda"][n_]
+            rel = (float((got - ref).abs().max())
+                   / (float(ref.abs().max()) or 1.0))
+            loose = run == "cpu" and n_.startswith(reach)
+            rows[n_] = {"rel_err": rel,
+                        "tol": GRAD_TOL if loose else GRAD_TOL_EXACT}
+        qparity[run] = rows
+    detail["train"]["dcgan_int8_grad_parity"] = qparity
+    print(json.dumps({"grad_parity": "dcgan_int8_weights", "batch": 4,
+                      "leaves": len(qgrads["cpu"]), "runs": qparity}))
+    for run, rows in qparity.items():
+        check(len(rows) == len(qgrads["cuda"]) > 0,
+              f"int8 weights, {run}: {len(rows)} gradient leaves")
+        for n_, r_ in rows.items():
+            check(r_["rel_err"] <= r_["tol"], f"int8-weight gradient {n_}, "
+                  f"card vs {run}: relative error {r_['rel_err']:.3g} "
+                  f"above {r_['tol']}")
+    del p_q, gen_q, qgrads, qlogs
+    torch.cuda.empty_cache()
+
     # -- 5. times -------------------------------------------------------------
     phase("times")
     print(json.dumps({"bound_peaks": {
@@ -1048,9 +1520,12 @@ def main() -> int:
             tot["ops_ms" if ops_ms >= bytes_ms else "bytes_ms"] += \
                 n * row["bound_ms"]
 
-    detail["layers"] = []
-    for model, layer, batch in main_layers:
-        x, w, b, args = layer_operands(layer, torch.float32, batch)
+    def time_forward(model, layer, batch, args, operands, lib_call, peak,
+                     kname, **extra):
+        """One forward call shape on the card: the kernel (CUDA events),
+        the wrapper's host time per call, the plain version, ``lib_call``
+        and the bound (the operations at ``peak``, or the bytes of
+        ``operands`` and the output), accounted to ``kname``'s totals."""
         split_log.clear()
         y = run_kernel(layer.op, args)
         splits = split_log[0]
@@ -1064,43 +1539,71 @@ def main() -> int:
         hms = 1e3 * (time.perf_counter() - t0) / 20
         torch.cuda.synchronize()
         pms = per_call_ms(lambda: run_plain(layer.op, args), 2, groups=3)
-        lms = per_call_ms(library_call(layer, x, w, b), 10)
+        lms = per_call_ms(lib_call, 10)
         nbytes = sum(t.numel() * t.element_size()
-                     for t in (x, w, y) + ((b,) if b is not None else ()))
+                     for t in (*operands, y) if t is not None)
         flops = 2 * batch * layer.valid_macs
-        ops_ms = 1e3 * flops / PEAK_FLOPS["float32"]
+        ops_ms = 1e3 * flops / peak
         bytes_ms = 1e3 * nbytes / PEAK_BYTES
-        row = {"layer": f"{model}:{layer.name}", "op": layer.op,
-               "batch": batch, "in": list(x.shape), "out": list(y.shape),
-               "ms": kms, "plain_ms": pms,
+        row = {"layer": f"{model}:{layer.name}", "op": layer.op, **extra,
+               "batch": batch, "in": list(operands[0].shape),
+               "out": list(y.shape), "ms": kms, "plain_ms": pms,
                "library_ms": lms, "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                "share": max(ops_ms, bytes_ms) / kms, "host_ms": hms,
                "tile": tile_name(args[2]["block_co"]), "splits": splits,
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "tflops": flops / kms / 1e9}
-        account(row, [signature(f"{layer.op}_fwd", *args[:3])], ops_ms,
-                bytes_ms)
+        account(row, [signature(kname, *args[:3])], ops_ms, bytes_ms)
         print(json.dumps(row))
-        detail["layers"].append(row)
-        del x, w, b, args, y
+        return row
+
+    detail["layers"] = []
+    for model, layer, batch in main_layers:
+        x, w, b, args = layer_operands(layer, torch.float32, batch)
+        detail["layers"].append(time_forward(
+            model, layer, batch, args, (x, w, b), library_call(layer, x, w, b),
+            PEAK_FLOPS["float32"], f"{layer.op}_fwd"))
+        del x, w, b, args
+    torch.cuda.empty_cache()
+
+    # the int8 launches at every call shape of the quantized serving path,
+    # the same way; the library time is cuDNN's on the dequantized f32
+    # operands (dequantized outside the timed region, TF32 off), the
+    # bound the int8 tensor-core rate or the bytes at their true widths
+    print(json.dumps({"bound_peaks_int8": {
+        "int8_ops": PEAK_INT8_OPS, "hbm_bytes_per_s": PEAK_BYTES,
+        "source": "H100 SXM data sheet, dense int8 tensor cores"}}))
+    detail["int8_layers"] = []
+    for model, layer, batch in q_layers:
+        for pair in ("w8", "w8a8"):
+            ops = q_layer_operands(layer, pair, batch)
+            detail["int8_layers"].append(time_forward(
+                model, layer, batch, ops["args"],
+                (ops["x"], ops["w"], ops["b"], ops["args"][2]["scale"]),
+                library_call(layer, ops["x_deq"], ops["w_deq"], ops["b"]),
+                PEAK_INT8_OPS, f"{layer.op}_fwd_int8", pair=Q_PAIRS[pair],
+                library="cuDNN on the dequantized f32 operands"))
+            del ops
     torch.cuda.empty_cache()
 
     detail["e2e"] = {}
-    for model, xs in (("dcgan_gen", seeds[:BATCH]), ("vnet", vols)):
-        lat = []
-        for _ in range(3):
-            for x in xs:
-                server.submit(ServeRequest(model, x))
-            t0 = time.perf_counter()
-            got = server.step()
-            lat.append(time.perf_counter() - t0)
-            check(len(got) == len(xs) and all(r.ok for r in got),
-                  f"{model} timing batch failed")
-        detail["e2e"][model] = {"batch": len(xs), "seconds": lat}
-        print(json.dumps({"e2e_batch": model, "batch": len(xs),
-                          "seconds": lat,
-                          "median_ms": 1e3 * statistics.median(lat)}))
+    for pol, srv in (("f32", server), *q_servers.items()):
+        for model, xs in (("dcgan_gen", seeds[:BATCH]), ("vnet", vols)):
+            lat = []
+            for _ in range(3):
+                for x in xs:
+                    srv.submit(ServeRequest(model, x))
+                t0 = time.perf_counter()
+                got = srv.step()
+                lat.append(time.perf_counter() - t0)
+                check(len(got) == len(xs) and all(r.ok for r in got),
+                      f"{pol}/{model} timing batch failed")
+            detail["e2e"].setdefault(pol, {})[model] = {"batch": len(xs),
+                                                        "seconds": lat}
+            print(json.dumps({"e2e_batch": model, "policy": pol,
+                              "batch": len(xs), "seconds": lat,
+                              "median_ms": 1e3 * statistics.median(lat)}))
 
     def library_backward(layer, x, w, dy, which):
         """One cuDNN ``convolution_backward`` computing the same dw or dx
@@ -1203,7 +1706,9 @@ def main() -> int:
         "conv_fwd": {"serve": launches["conv"],
                      "train": train_launches["conv_fwd"]},
         "deconv_dw": {"train": train_launches["deconv_dw"]},
-        "deconv_dx": {"train": train_launches["deconv_dx"]}}
+        "deconv_dx": {"train": train_launches["deconv_dx"]},
+        "deconv_fwd_int8": {"serve_quantized": q_launches["deconv"]},
+        "conv_fwd_int8": {"serve_quantized": q_launches["conv"]}}
     summary = {"kernels": [
         {"name": "deconv_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/deconv_fwd.cu",
@@ -1218,6 +1723,16 @@ def main() -> int:
          "source": "src/repro_torch/csrc/conv_fwd.cu",
          "wrapper": "src/repro_torch/kernels/deconv/kernel.py::deconv_dx",
          "replaces": "src/repro/kernels/deconv/kernel.py:330"},
+        {"name": "deconv_fwd_int8", "route": "cuda",
+         "source": "src/repro_torch/csrc/deconv_fwd.cu",
+         "replaces": "src/repro/kernels/deconv/kernel.py:180",
+         "operands": "int8 weights beside f32 or int8 activations",
+         "library": "cuDNN on the dequantized f32 operands"},
+        {"name": "conv_fwd_int8", "route": "cuda",
+         "source": "src/repro_torch/csrc/conv_fwd.cu",
+         "replaces": "src/repro/kernels/conv/kernel.py:146",
+         "operands": "int8 weights beside f32 or int8 activations",
+         "library": "cuDNN on the dequantized f32 operands"},
     ]}
     for entry in summary["kernels"]:
         k = entry["name"]

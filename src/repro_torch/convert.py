@@ -1,11 +1,12 @@
 """Carry weight trees between the JAX package and the port.
 
 The two packages share their layouts (weights ``[*K, Cin/G, Cout]``,
-name-keyed dicts of bare arrays or ``{"w", "b"}`` entries for graphs,
-lists for chains), so crossing over is a structural map.  The JAX side
-hands over ``jax.tree_util.tree_map(np.asarray, weights)``; this module
-turns it into tensors on a device and refuses any entry whose shape does
-not match its layer.  ``params_from_numpy`` does the same for a model's
+name-keyed dicts of bare arrays, ``{"w", "b"}`` or quantized ``{"w_q",
+"scale", "b"}`` entries for graphs, lists for chains), so crossing over is
+a structural map.  The JAX side hands over
+``jax.tree_util.tree_map(np.asarray, weights)``; this module turns it into
+tensors on a device and refuses any entry whose shape does not match its
+layer.  ``params_from_numpy`` does the same for a model's
 training tree (``{"gen", "disc"}`` or ``{"vnet"}``) and
 ``adamw_state_from_numpy`` for its AdamW state.
 """
@@ -36,17 +37,22 @@ def _tensor(a, device, dtype):
 
 
 def _entry_shapes(entry):
+    """(weight shape, bias shape or None, scale shape or None)."""
     if isinstance(entry, dict):
-        return tuple(entry["w"].shape), (None if entry.get("b") is None
-                                         else tuple(entry["b"].shape))
-    return tuple(entry.shape), None
+        w = entry["w_q"] if "w_q" in entry else entry["w"]
+        return tuple(w.shape), *(
+            None if entry.get(k) is None else tuple(entry[k].shape)
+            for k in ("b", "scale"))
+    return tuple(entry.shape), None, None
 
 
 def check_weights(network, ws) -> None:
     """Raise ``WeightShapeError`` unless ``ws`` fits ``network`` (a
     ``UniformGraph`` with a name-keyed dict, or a layer chain with a list):
-    every layer has an entry, each ``w`` has the layer's ``weight_shape``,
-    and each bias is ``(cout,)`` and present where the epilogue needs it."""
+    every layer has an entry, each ``w`` (or quantized ``w_q``) has the
+    layer's ``weight_shape``, each bias is ``(cout,)`` and present where
+    the epilogue needs it, and each dequant scale is per-cout or one
+    scalar."""
     if isinstance(network, _networks.UniformGraph):
         layers = network.layers
         if not isinstance(ws, dict):
@@ -63,7 +69,7 @@ def check_weights(network, ws) -> None:
                                    f"got {len(ws)}")
         entries = list(ws)
     for layer, entry in zip(layers, entries):
-        w_shape, b_shape = _entry_shapes(entry)
+        w_shape, b_shape, s_shape = _entry_shapes(entry)
         if w_shape != layer.weight_shape:
             raise WeightShapeError(
                 f"layer {layer.name!r}: weight shape {w_shape} != "
@@ -72,19 +78,25 @@ def check_weights(network, ws) -> None:
             raise WeightShapeError(
                 f"layer {layer.name!r}: bias shape {b_shape} != "
                 f"{(layer.cout,)}")
+        if s_shape not in (None, (), (1,), (layer.cout,)):
+            raise WeightShapeError(
+                f"layer {layer.name!r}: scale shape {s_shape} is neither "
+                f"{(layer.cout,)} nor a scalar")
 
 
 def weights_from_numpy(tree, device, dtype: torch.dtype | None = None, *,
                        network):
     """The JAX package's weight tree (as numpy arrays) -> the port's tree of
-    tensors on ``device`` (cast to ``dtype`` when given), checked against
-    ``network`` with ``check_weights``."""
-    def convert(node):
+    tensors on ``device`` (float weights and biases cast to ``dtype`` when
+    given; a quantized entry's ``w_q`` stays int8 and its ``scale`` f32),
+    checked against ``network`` with ``check_weights``."""
+    def convert(node, keep=False):
         if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
+            return {k: convert(v, keep or k in ("w_q", "scale"))
+                    for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [convert(v) for v in node]
-        return _tensor(node, device, dtype)
+        return _tensor(node, device, None if keep else dtype)
 
     out = convert(tree)
     check_weights(network, out)

@@ -5,7 +5,8 @@ every conv and deconv layer of 2D and 3D DCNNs from a per-layer schedule
 decided at compile time.  In the port:
 
   * ``EngineConfig`` — the engine's configuration, decided once: method,
-    storage dtype, shared-memory budget, channel-tile overrides, telemetry,
+    the numeric ``Precision`` policy (storage dtype, int8 weights and
+    activations), shared-memory budget, channel-tile overrides, telemetry,
     and the ``device`` it runs on (``"cuda"`` unless the caller asks for
     the CPU, where the kernels' plain versions run).
   * ``UniformEngine`` — ``engine.conv``/``engine.deconv`` run both
@@ -18,9 +19,14 @@ decided at compile time.  In the port:
 ``engine.conv`` is a correlation (channels-last, no kernel flip):
 ``y[n, o, co] = sum_{k, ci} x[n, o*S + k*dil - lo, ci] * w[k, ci, co]``;
 ``engine.deconv`` is the paper's Eq. (1) transposed convolution with an
-optional border crop.  Only the ``"pallas"`` method (the JAX package's
-name for its kernel path) is ported; the XLA-lowered flavours and the mesh,
-quantization and tuned-plan paths come with later ROADMAP items.
+optional border crop.  Under ``Precision(weight_quant="int8")`` int8
+weights reach the kernels as 1-byte operands with their per-cout dequant
+scale fused in the epilogue; ``act_quant="int8"`` adds a per-tensor int8
+quantization of each layer's input on the device, its scale folded into
+the weights'.  Only the ``"pallas"`` method (the JAX package's name for
+its kernel path) is ported; the XLA-lowered flavours (with their host-side
+dequantization), the mesh and the tuned-plan paths come with later
+ROADMAP items.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ from repro_torch.core.functional import (  # noqa: F401 (re-export)
     insertion_sparsity,
 )
 from repro_torch.kernels import common as _kcommon
+from repro_torch.quant import qint8 as _q8
+from repro_torch.quant.precision import Precision
 
 # where each reference method not ported yet will come from
 _PENDING = {m: "ROADMAP open item 2 (the XLA-lowered reference flavours)"
@@ -72,8 +80,13 @@ class EngineConfig:
 
     ``method`` must be ``"pallas"`` (the hand kernels); any other
     reference method name raises a typed error naming the ROADMAP item
-    that adds it.  ``preferred_element_type`` is the storage dtype of
-    every op output (``None``: the input's dtype); accumulation is f32
+    that adds it.  ``precision`` (a ``repro_torch.quant.Precision``) is the
+    engine's numeric policy: activation storage dtype, int8 weight and
+    activation quantization.  ``preferred_element_type`` is the legacy
+    spelling of its storage dtype (``None``: the input's dtype, f32 for
+    int8 inputs), normalized into an equivalent ``Precision(storage=...)``
+    at construction, so both spellings make equal configs with equal
+    hashes; naming both with different dtypes raises.  Accumulation is f32
     regardless.  ``max_tile_bytes`` overrides the per-block shared-memory
     budget; ``block_ci``/``block_co`` pin the kernels' tiles;
     ``strict_vmem`` turns an over-budget plan into a ``VmemBudgetError``.
@@ -83,6 +96,7 @@ class EngineConfig:
     """
     method: str = "pallas"
     preferred_element_type: Any = None
+    precision: Precision | None = None
     max_tile_bytes: int | None = None
     block_ci: int | None = None
     block_co: int | None = None
@@ -98,6 +112,21 @@ class EngineConfig:
             raise EngineError(f"method {self.method!r} is not ported yet: "
                               f"{_PENDING[self.method]}")
         pet = self.preferred_element_type
+        if self.precision is None:
+            # the compat shim: preferred_element_type=dt and
+            # precision=Precision(storage=dt) are the same config
+            object.__setattr__(self, "precision", Precision(storage=pet))
+        elif not isinstance(self.precision, Precision):
+            raise ValueError(f"precision must be a repro_torch.quant."
+                             f"Precision, got {self.precision!r}")
+        elif pet is not None and pet != self.precision.storage:
+            raise ValueError(
+                f"precision.storage={self.precision.storage} conflicts with "
+                f"preferred_element_type={pet}; pass precision= alone "
+                f"(preferred_element_type is the legacy spelling of "
+                f"Precision(storage=...))")
+        pet = self.precision.storage
+        object.__setattr__(self, "preferred_element_type", pet)
         if pet is not None and pet not in (torch.float32, torch.bfloat16):
             raise ValueError(f"preferred_element_type must be float32 or "
                              f"bfloat16, got {pet!r}")
@@ -212,13 +241,35 @@ class UniformEngine:
 
     # -- the two op directions ---------------------------------------------
 
+    def _act_quant(self, x: torch.Tensor, w_scale,
+                   precision: Precision | None):
+        """Dynamic per-tensor int8 activation quantization (forward only).
+
+        Under ``Precision(act_quant="int8")`` a float activation is
+        absmax-quantized on its device and its scalar scale (a 0-dim
+        device tensor, no host sync) folds into the weight dequant scale,
+        so the kernel's one epilogue multiply undoes both.  Integer inputs
+        pass through (already quantized).  Returns ``(x, w_scale)``.
+        """
+        prec = precision if precision is not None else self.config.precision
+        if prec.act_quant != "int8" or not x.dtype.is_floating_point:
+            return x, w_scale
+        s = _q8.absmax_scale(x)
+        return _q8.quantize_q8(x, s), (s if w_scale is None
+                                       else w_scale * s)
+
     def deconv(self, x: torch.Tensor, w: torch.Tensor, stride, padding=0, *,
                dilation=1, groups: int = 1, bias: torch.Tensor | None = None,
                activation: str = "none", alpha: float = 0.2,
-               w_scale: torch.Tensor | None = None) -> torch.Tensor:
+               w_scale: torch.Tensor | None = None,
+               precision: Precision | None = None) -> torch.Tensor:
         """Transposed convolution (Eq. (1) + border crop) on the deconv
-        kernel, epilogue fused."""
+        kernel, epilogue fused.  ``w_scale`` is the per-cout (or scalar)
+        dequant scale of int8 weights, applied in the kernel's epilogue
+        before the store cast; ``precision`` overrides the config's policy
+        for this call (``compile_network`` passes per-layer overrides)."""
         from repro_torch.kernels.deconv import ops as _dops  # lazy: cycle
+        x, w_scale = self._act_quant(x, w_scale, precision)
         return _dops.deconv(x, w, stride, padding, dilation=dilation,
                             groups=groups, bias=bias, activation=activation,
                             alpha=alpha, w_scale=w_scale, engine=self)
@@ -226,9 +277,12 @@ class UniformEngine:
     def conv(self, x: torch.Tensor, w: torch.Tensor, stride=1, padding=0, *,
              dilation=1, groups: int = 1, bias: torch.Tensor | None = None,
              activation: str = "none", alpha: float = 0.2,
-             w_scale: torch.Tensor | None = None) -> torch.Tensor:
-        """Forward strided convolution on the conv kernel, epilogue fused."""
+             w_scale: torch.Tensor | None = None,
+             precision: Precision | None = None) -> torch.Tensor:
+        """Forward strided convolution on the conv kernel, epilogue fused
+        (the same quantization conventions as ``deconv``)."""
         from repro_torch.kernels.conv import ops as _cops  # lazy: cycle
+        x, w_scale = self._act_quant(x, w_scale, precision)
         return _cops.conv(x, w, stride, padding, dilation=dilation,
                           groups=groups, bias=bias, activation=activation,
                           alpha=alpha, w_scale=w_scale, engine=self)
@@ -236,13 +290,14 @@ class UniformEngine:
     def __call__(self, layer: _networks.UniformLayer, x: torch.Tensor,
                  w: torch.Tensor, b: torch.Tensor | None = None, *,
                  w_scale: torch.Tensor | None = None) -> torch.Tensor:
-        """Run one ``UniformLayer`` (op-dispatched, epilogue fused)."""
+        """Run one ``UniformLayer`` (op-dispatched, epilogue fused, the
+        layer's precision override applied)."""
         op = self.deconv if layer.op == "deconv" else self.conv
         epi = layer.epilogue
         return op(x, w, layer.stride, layer.padding,
                   dilation=layer.dilation, groups=layer.groups, bias=b,
                   activation=epi.activation, alpha=epi.alpha,
-                  w_scale=w_scale)
+                  w_scale=w_scale, precision=layer.precision)
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +375,7 @@ class LayerSchedule:
     epilogue: str = "-"
     dtype: str = "float32"
     splits: int = 1                    # slices of the forward's reduction
+    precision: str = "f32"             # resolved Precision.describe()
 
     def describe(self) -> str:
         plan = self.plan.describe() if self.plan is not None else "merge"
@@ -331,6 +387,7 @@ class LayerSchedule:
                 f"g{self.groups:<3d} "
                 f"d{'x'.join(map(str, self.dilation)):<5s} "
                 f"ep:{self.epilogue:<10s} {self.dtype:<9s} "
+                f"pr:{self.precision:<13s} "
                 f"{plan:<32s} blocks{self.blocks:>7d} "
                 f"zeros{self.sparsity:.0%}")
 
@@ -375,10 +432,15 @@ def _schedule_layer(layer: _networks.UniformLayer, engine: UniformEngine,
                     batch: int, dtype: torch.dtype) -> LayerSchedule:
     g = layer.groups
     sp3, k3, s3, p3, dil3 = _lift_geometry(layer)
-    nbytes = torch.empty((), dtype=dtype).element_size()
+    # the resolved policy (the layer's override, else the config's) sets
+    # the operand widths the planner charges: 1 byte for an int8 operand,
+    # as the op will plan it at its launch
+    prec = (layer.precision if layer.precision is not None
+            else engine.config.precision)
+    a_bytes, w_bytes = prec.operand_bytes(dtype)
     plan = engine.plan(layer.op, sp3, k3, s3, layer.cin, layer.cout,
-                       groups=g, dilation=dil3, in_dtype_bytes=nbytes,
-                       w_dtype_bytes=nbytes)
+                       groups=g, dilation=dil3, in_dtype_bytes=a_bytes,
+                       w_dtype_bytes=w_bytes)
     if layer.op == "deconv":
         mt = _kcommon.phase_geometry(k3, s3, dil3)
         q = tuple(i + m - 1 for i, m in zip(sp3, mt))
@@ -400,7 +462,7 @@ def _schedule_layer(layer: _networks.UniformLayer, engine: UniformEngine,
         smem_bytes=plan.step_smem_bytes, macs=batch * layer.valid_macs,
         sparsity=sparsity, groups=g, dilation=layer.dilation,
         epilogue=layer.epilogue.describe(), dtype=_dtype_name(dtype),
-        splits=splits)
+        splits=splits, precision=prec.describe())
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -418,26 +480,32 @@ def _schedule_merge(node: _networks.MergeNode, graph: _networks.UniformGraph,
 
 
 def _layer_wb(entry, layer: _networks.UniformLayer):
-    """Split one weight-tree entry into (w, bias-or-None)."""
+    """Split one weight-tree entry into (w, bias-or-None, scale-or-None).
+
+    Quantized entries (``repro_torch.quant.quantize_weights``' output)
+    carry ``{"w_q": int8, "scale": per-cout}`` (plus ``"b"`` where the
+    epilogue declares a bias) and are accepted wherever ``{"w", "b"}``
+    is."""
     if isinstance(entry, dict):
-        if "w_q" in entry:
-            raise NotImplementedError(
-                f"layer {layer.name!r}: quantized weight entries are the "
-                f"quantization slice's work (ROADMAP open item 10)")
-        w, b = entry["w"], entry.get("b")
+        w = entry["w_q"] if "w_q" in entry else entry["w"]
+        b, s = entry.get("b"), entry.get("scale")
     else:
-        w, b = entry, None
+        w, b, s = entry, None, None
     if layer.epilogue.bias and b is None:
         raise ScheduleError(f"layer {layer.name!r} declares a fused bias but "
                             f"its weight entry carries none (expected "
                             f"{{'w', 'b'}})")
-    return w, b
+    return w, b, s
 
 
 def _run_layer(engine: UniformEngine, layer, entry, h: torch.Tensor):
-    w, b = _layer_wb(entry, layer)
+    w, b, s = _layer_wb(entry, layer)
     kw = dict(device=h.device, dtype=h.dtype)
-    return engine(layer, h, w.to(**kw), None if b is None else b.to(**kw))
+    # int8 weights stay int8 into the kernel (the cast that keeps a bf16
+    # graph bf16 would dequantize them); the scale rides along as it is
+    wv = w.to(**kw) if w.dtype.is_floating_point else w.to(h.device)
+    return engine(layer, h, wv, None if b is None else b.to(**kw),
+                  w_scale=None if s is None else s.to(h.device))
 
 
 def _graph_apply_fn(graph: _networks.UniformGraph, engine: UniformEngine):
@@ -499,6 +567,9 @@ def compile_network(layers: Sequence[_networks.UniformLayer]
     For a chain, ``ws`` is the per-layer weight list (each
     ``[*K, Cin/groups, Cout]``, or ``{"w", "b"}``).  For a graph, ``ws`` is
     a dict keyed by layer name (``init_network_weights`` builds it).
+    Either takes quantized ``{"w_q", "scale"}`` entries
+    (``repro_torch.quant.quantize_weights``); ``report``'s ``precision``
+    column shows each layer's resolved policy.
     Merge nodes own no weights; epilogues run inside the kernels.
     """
     engine = engine if isinstance(engine, UniformEngine) else as_engine(engine)

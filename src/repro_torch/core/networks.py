@@ -69,9 +69,10 @@ class UniformLayer:
     Eq. (1) extent for ``op="deconv"``, the input padding for
     ``op="conv"``.  ``groups`` splits the channel algebra into independent
     blocks; weights are ``[*K, cin/groups, cout]`` (``weight_shape``).
-    ``dilation`` spaces the kernel taps per dim.  ``precision`` is the
-    per-layer numeric override of the JAX package; the port has no
-    quantization yet, so only ``None`` is accepted.
+    ``dilation`` spaces the kernel taps per dim.  ``precision`` (a
+    ``repro_torch.quant.Precision``, or None for the engine's) overrides
+    the engine's numeric policy for this layer, e.g. a full-precision head
+    on an int8 body.
     """
     name: str
     in_spatial: tuple[int, ...]      # input spatial extent (rank 1..3)
@@ -108,9 +109,11 @@ class UniformLayer:
                 f"{self.name}: groups={self.groups} must divide "
                 f"cin={self.cin} and cout={self.cout}")
         if self.precision is not None:
-            raise ValueError(
-                f"{self.name}: per-layer precision is not ported yet "
-                f"(ROADMAP: Quantization); got {self.precision!r}")
+            from repro_torch.quant.precision import Precision  # lazy: torch
+            if not isinstance(self.precision, Precision):
+                raise ValueError(
+                    f"{self.name}: precision must be a "
+                    f"repro_torch.quant.Precision, got {self.precision!r}")
 
     @property
     def rank(self) -> int:

@@ -25,12 +25,22 @@
 // What still bounds it: the served DCGAN layers are latency-bound (tens of
 // microseconds of work per launch), and bf16 operands still run on CUDA
 // cores: the tensor-core route is later work.
+//
+// Quantized operands, as the TPU kernel takes them: int8 weights beside
+// f32 or bf16 activations, or int8 activations and weights.  The kernel
+// reads them from global memory as int8 and stages them as int8; each
+// lane becomes f32 exactly in registers and the sums stay f32 FMAs, as
+// the reference casts to f32 before its dot; the per-cout dequant scale
+// (the activations' per-tensor scale folded in) multiplies the finished
+// sum first thing in the epilogue.  Their bound is the int8 tensor-core
+// rate, which these CUDA-core sums do not approach: that route is later
+// work.
 #include "igemm.cuh"
 
-// This source is compiled once per variant (-DREPRO_PART=0..3, see
+// This source is compiled once per variant (-DREPRO_PART=0..9, see
 // igemm.cuh::variant_part); part 0 also holds the C entry point.
 #ifndef REPRO_PART
-#error "build with -DREPRO_PART=0..3"
+#error "build with -DREPRO_PART=0..9"
 #endif
 #define REPRO_CAT2(a, b) a##b
 #define REPRO_CAT(a, b) REPRO_CAT2(a, b)
@@ -43,23 +53,40 @@ int REPRO_CAT(repro_deconv_part, REPRO_PART)(const repro::FwdArgs& a) {
 int repro_deconv_part1(const repro::FwdArgs& a);
 int repro_deconv_part2(const repro::FwdArgs& a);
 int repro_deconv_part3(const repro::FwdArgs& a);
+int repro_deconv_part4(const repro::FwdArgs& a);
+int repro_deconv_part5(const repro::FwdArgs& a);
+int repro_deconv_part6(const repro::FwdArgs& a);
+int repro_deconv_part7(const repro::FwdArgs& a);
+int repro_deconv_part8(const repro::FwdArgs& a);
+int repro_deconv_part9(const repro::FwdArgs& a);
 
+// in_dtype / w_dtype: x's and the weights' DType; the pair must be one
+// igemm.cuh::pair_index knows
 extern "C" int repro_deconv_fwd(const void* x, const void* w_taps,
                                 const int* taps, const float* scale,
                                 const float* bias, void* y, float* work,
                                 const int* geom, int act, float alpha,
-                                int in_dtype, int out_dtype, int block_co,
-                                int vec, void* stream) {
+                                int in_dtype, int w_dtype, int out_dtype,
+                                int block_co, int vec, void* stream) {
   repro::FwdArgs a;
-  if (!repro::fwd_args(a, x, w_taps, taps, scale, bias, y, work, geom, act,
-                       alpha, out_dtype, block_co, stream) ||
-      (in_dtype != repro::DT_F32 && in_dtype != repro::DT_BF16))
+  const int pair = repro::pair_index(in_dtype, w_dtype);
+  if (pair < 0 || !repro::fwd_args(a, x, w_taps, taps, scale, bias, y, work,
+                                    geom, act, alpha, out_dtype, block_co,
+                                    stream))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (repro::variant_part(in_dtype, vec)) {
-    case 0: return repro_deconv_part0(a);
-    case 1: return repro_deconv_part1(a);
-    case 2: return repro_deconv_part2(a);
-    default: return repro_deconv_part3(a);
-  }
+  using Part = int (*)(const repro::FwdArgs&);
+  static const Part parts[repro::FWD_PARTS] = {
+      repro_deconv_part0,
+      repro_deconv_part1,
+      repro_deconv_part2,
+      repro_deconv_part3,
+      repro_deconv_part4,
+      repro_deconv_part5,
+      repro_deconv_part6,
+      repro_deconv_part7,
+      repro_deconv_part8,
+      repro_deconv_part9,
+  };
+  return parts[repro::variant_part(pair, vec)](a);
 }
 #endif

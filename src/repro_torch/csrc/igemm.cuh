@@ -24,11 +24,12 @@
 //
 //   * a ring of shared-memory stages (two for the narrow tiles, four for
 //     the wide ones, 64 bytes of each row's pairs per stage) filled with
-//     cp.async: 16-byte copies of 4 f32 / 8 bf16 consecutive channels,
+//     cp.async: 16-byte copies of 4 f32 / 8 bf16 / 16 int8 channels,
 //     which skip L1 (.cg), where the layer's per-group channels allow, else
-//     4-byte f32 copies or 2-byte bf16 loads (the VEC template flag, picked
-//     by the wrapper).  A source size of 0 zero-fills what the masks drop:
-//     padding, rows past the end, pairs past the slice.  One barrier per
+//     4-byte f32 copies or 2-byte bf16 / 1-byte int8 loads (the VEC
+//     template flag, picked by the wrapper).  A source size of 0
+//     zero-fills what the masks drop: padding, rows past the end, pairs
+//     past the slice.  One barrier per
 //     stage; the next stages load while this one computes.
 //   * register tiles sized to the layer: where a group has <= 32 output
 //     channels a thread owns all of them for two rows (32 or 64 sums) and
@@ -50,7 +51,19 @@
 // about 40 % of the f32 peak.
 //
 // No block waits on another.  Sums are f32 with plain FMA (no TF32);
-// operands are staged in their own type (f32 or bf16).
+// operands are staged in their own type: the activations (A, type TA) f32,
+// bf16 or int8, the weights (B, type TB) the same type or int8.  A
+// stage holds 64 bytes of each row's pairs at A's width (16 f32, 32 bf16
+// or 64 int8 pairs) and B's rows of those pairs at B's width, so int8
+// weights beside f32 activations take a quarter of B's shared memory.
+// int8 lanes become f32 exactly in registers (the sign-flipped byte as
+// the low mantissa byte of 2^23, minus 2^23 + 128: a byte permute and an
+// add, no conversion instruction); every product of |q| <= 127 values is
+// then exact in f32, and the sums round in f32, as the reference's f32
+// cast-then-dot does.  The per-cout dequant scale is the epilogue's first
+// multiply, on the finished sum (after the slices' sum when split), so it
+// is applied exactly once.  int8 dot products (dp4a, IMMA or wgmma s8
+// tensor cores) are untried.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,7 +73,7 @@
 namespace repro {
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_LEAKY = 2, ACT_TANH = 3 };
-enum DType { DT_F32 = 0, DT_BF16 = 1 };
+enum DType { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
 
 // Geometry, in the order the Python wrappers pack it (GEOM_FIELDS).
 struct Geom {
@@ -126,12 +139,15 @@ __device__ __forceinline__ float slice_sum(const float* __restrict__ partial,
 // -- asynchronous copies ---------------------------------------------------
 
 // Copy BYTES from global to shared memory, or zero-fill them when !valid
-// (source size 0: nothing is read).  cp.async has no 2-byte form, so the
-// bf16 scalar variant loads and stores synchronously.
+// (source size 0: nothing is read).  cp.async has no 1- or 2-byte form, so
+// the int8 and bf16 scalar variants load and store synchronously.
 template <int BYTES>
 __device__ __forceinline__ void copy_async(void* smem, const void* gmem,
                                            bool valid) {
-  if constexpr (BYTES == 2) {
+  if constexpr (BYTES == 1) {
+    *static_cast<int8_t*>(smem) =
+        valid ? *static_cast<const int8_t*>(gmem) : (int8_t)0;
+  } else if constexpr (BYTES == 2) {
     *static_cast<uint16_t*>(smem) =
         valid ? *static_cast<const uint16_t*>(gmem) : (uint16_t)0;
   } else {
@@ -175,6 +191,17 @@ __device__ __forceinline__ float lane_f32<__nv_bfloat16>(const uint4& v,
   const int q = k >> 1;
   const unsigned u = q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
   return __uint_as_float((k & 1) ? (u & 0xffff0000u) : (u << 16));
+}
+// exact: byte k of the vector with its sign bit flipped (q + 128, in
+// [1, 255]) becomes the low mantissa byte of 2^23, then 2^23 + 128 comes
+// off again
+template <>
+__device__ __forceinline__ float lane_f32<int8_t>(const uint4& v, int k) {
+  const int q = k >> 2;
+  const unsigned u = q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+  const unsigned b =
+      __byte_perm(u ^ 0x80808080u, 0x4B000000u, 0x7540u | (unsigned)(k & 3));
+  return __uint_as_float(b) - 8388736.f;
 }
 
 // N consecutive values of T from shared memory, as f32: 16-byte vectors,
@@ -228,11 +255,13 @@ using Tile128 = Tile<128, 128, 8, 8, 64, 4>;
 constexpr int APAD = 16;         // pad after each staged A row, bytes
 constexpr int MAX_TAPS = 128;    // taps a block's shared tap table holds
 
-// Dynamic shared memory of one block: the A and B rings, the row table and
-// the tap table.  Keep in step with tiling.py::step_byte_model.
-template <class TL>
+// Dynamic shared memory of one block: the A and B rings (a stage of B is
+// A's KB / sizeof(TA) pairs of BN weights of TB), the row table and the tap
+// table.  Keep in step with tiling.py::step_byte_model.
+template <typename TA, typename TB, class TL>
 constexpr int smem_bytes() {
-  return TL::ST * (TL::BM * (TL::KB + APAD) + TL::KB * TL::BN) +
+  return TL::ST * (TL::BM * (TL::KB + APAD) +
+                   TL::KB / (int)sizeof(TA) * TL::BN * (int)sizeof(TB)) +
          16 * TL::BM + 16 * MAX_TAPS;
 }
 
@@ -261,32 +290,34 @@ __device__ __forceinline__ bool out_offset(const Geom& g, int m, int pd,
 // blockIdx: x = row tile, y = group x channel tile, z = phase x slice.
 // With partial != nullptr the block stores its slice's raw f32 sums at
 // partial[((slice * phases + p) * rows + m) * Co + c]; else the epilogue's
-// result in y (f32, or bf16 when out_bf16).
-template <typename T, class TL, bool VEC, bool DECONV>
+// result in y (f32, or bf16 when out_bf16).  x is TA, w is TB.
+template <typename TA, typename TB, class TL, bool VEC, bool DECONV>
 __global__ void __launch_bounds__(TL::THREADS)
-igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+igemm_kernel(const TA* __restrict__ x, const TB* __restrict__ w,
              const int* __restrict__ taps, Epi ep, void* __restrict__ y,
              int out_bf16, float* __restrict__ partial, Geom g) {
   constexpr int BM = TL::BM, BN = TL::BN, TM = TL::TM, TN = TL::TN;
   constexpr int THREADS = TL::THREADS, STAGES = TL::ST;
-  constexpr int BK = TL::KB / sizeof(T);          // pairs per stage
-  constexpr int APITCH = (TL::KB + APAD) / sizeof(T);
-  constexpr int V = VEC ? 16 / sizeof(T) : 1;     // elements per copy
-  constexpr int CB = V * sizeof(T);               // bytes per copy
-  constexpr int A_CH = BK / V;                    // copies per A row
+  constexpr int BK = TL::KB / sizeof(TA);         // pairs per stage
+  constexpr int APITCH = (TL::KB + APAD) / sizeof(TA);
+  constexpr int VA = VEC ? 16 / sizeof(TA) : 1;   // A elements per copy
+  constexpr int VB = VEC ? 16 / sizeof(TB) : 1;   // B elements per copy
+  constexpr int CA = VA * sizeof(TA);             // bytes per A copy
+  constexpr int CB = VB * sizeof(TB);             // bytes per B copy
+  constexpr int A_CH = BK / VA;                   // copies per A row
   constexpr int A_ROWS = THREADS / A_CH;          // rows one pass covers
-  constexpr int B_CH = BN / V;                    // copies per B row
+  constexpr int B_CH = BN / VB;                   // copies per B row
   constexpr int B_COPIES = BK * B_CH;             // copies per B stage
-  constexpr int KV = 16 / sizeof(T);              // pairs per 16-byte read
+  constexpr int KV = 16 / sizeof(TA);             // pairs per 16-byte read
   // the scalar variants' many small copies stay a loop (build time)
   constexpr int A_UNROLL = VEC ? BM / A_ROWS : 4;
   static_assert(THREADS % A_CH == 0 && BM % A_ROWS == 0, "A copies");
-  static_assert(BK % KV == 0 && BN % TN == 0 && BM % TM == 0 && TN % 4 == 0,
-                "tiling");
+  static_assert(BK % KV == 0 && BN % TN == 0 && BM % TM == 0 && TN % 4 == 0
+                && BN % VB == 0, "tiling");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);                  // [STAGES][BM][APITCH]
-  T* Bs = As + STAGES * BM * APITCH;                   // [STAGES][BK][BN]
+  TA* As = reinterpret_cast<TA*>(smem);                // [STAGES][BM][APITCH]
+  TB* Bs = reinterpret_cast<TB*>(As + STAGES * BM * APITCH);  // [ST][BK][BN]
   int4* rowtab = reinterpret_cast<int4*>(Bs + STAGES * BK * BN);  // [BM]
   int4* taptab = rowtab + BM;                                  // [MAX_TAPS]
 
@@ -359,7 +390,7 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int ca = tid % A_CH, ra = tid / A_CH;
   int a_t, a_ci;
   {
-    const int kk = kb + ca * V;
+    const int kk = kb + ca * VA;
     a_t = kk / Cig;
     a_ci = kk - a_t * Cig;
   }
@@ -371,13 +402,13 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   auto load_stage = [&](int slot, int k0) {
     // A: BM rows x BK pairs, gathered
-    const bool k_ok = k0 + ca * V < ke;
+    const bool k_ok = k0 + ca * VA < ke;
     if (k_ok && a_t != a_tcur) {
       a_tcur = a_t;
       a_tap = a_t < MAX_TAPS ? taptab[a_t] : tap_entry(a_t);
     }
     const int64_t coff = ci_base + a_ci;
-    T* adst = As + (slot * BM + ra) * APITCH + ca * V;
+    TA* adst = As + (slot * BM + ra) * APITCH + ca * VA;
 #pragma unroll (A_UNROLL)
     for (int j = 0; j < BM / A_ROWS; ++j) {
       const int4 e = rowtab[ra + j * A_ROWS];
@@ -385,8 +416,8 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const bool ok = k_ok && (unsigned)id < (unsigned)g.D &&
                       (unsigned)ih < (unsigned)g.H &&
                       (unsigned)iw < (unsigned)g.W;
-      const T* src = ok ? x + (int64_t)(e.x + a_tap.x) * g.Ci + coff : x;
-      copy_async<CB>(adst + j * A_ROWS * APITCH, src, ok);
+      const TA* src = ok ? x + (int64_t)(e.x + a_tap.x) * g.Ci + coff : x;
+      copy_async<CA>(adst + j * A_ROWS * APITCH, src, ok);
     }
     a_ci += BK;
     if (a_ci >= Cig) {
@@ -395,16 +426,35 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       a_ci -= q * Cig;
     }
     // B: BK rows x BN channels of the plain [taps * Cig, Co] slab
-    T* bdst = Bs + slot * BK * BN;
+    TB* bdst = Bs + slot * BK * BN;
+    if constexpr (!VEC && sizeof(TB) < sizeof(TA)) {
+      // int8 weights beside wider activations, a byte per copy: fully
+      // unrolled, the bf16-activation conv spilled (ptxas), so four at a
+      // time; every other variant keeps the full unroll below
+#pragma unroll 4
+      for (int e0 = 0; e0 < B_COPIES; e0 += THREADS) {
+        const int e = e0 + tid;
+        if (B_COPIES % THREADS == 0 || e < B_COPIES) {
+          const int k = e / B_CH, c = (e - k * B_CH) * VB;
+          const int co = co0 + c;
+          const bool ok = k0 + k < ke && co < Cog;
+          const TB* src =
+              ok ? w + (w_row0 + k0 + k) * g.Co + co_base + co : w;
+          copy_async<CB>(bdst + k * BN + c, src, ok);
+        }
+      }
+    } else {
 #pragma unroll
-    for (int e0 = 0; e0 < B_COPIES; e0 += THREADS) {
-      const int e = e0 + tid;
-      if (B_COPIES % THREADS == 0 || e < B_COPIES) {
-        const int k = e / B_CH, c = (e - k * B_CH) * V;
-        const int co = co0 + c;
-        const bool ok = k0 + k < ke && co < Cog;
-        const T* src = ok ? w + (w_row0 + k0 + k) * g.Co + co_base + co : w;
-        copy_async<CB>(bdst + k * BN + c, src, ok);
+      for (int e0 = 0; e0 < B_COPIES; e0 += THREADS) {
+        const int e = e0 + tid;
+        if (B_COPIES % THREADS == 0 || e < B_COPIES) {
+          const int k = e / B_CH, c = (e - k * B_CH) * VB;
+          const int co = co0 + c;
+          const bool ok = k0 + k < ke && co < Cog;
+          const TB* src =
+              ok ? w + (w_row0 + k0 + k) * g.Co + co_base + co : w;
+          copy_async<CB>(bdst + k * BN + c, src, ok);
+        }
       }
     }
   };
@@ -429,8 +479,8 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     if (nxt < nst) load_stage(nxt % STAGES, kb + nxt * BK);
     copy_commit();
     const int slot = st % STAGES;
-    const T* a_s = As + (slot * BM + ty) * APITCH;
-    const T* b_s = Bs + slot * BK * BN + tx * TN;
+    const TA* a_s = As + (slot * BM + ty) * APITCH;
+    const TB* b_s = Bs + slot * BK * BN + tx * TN;
 #pragma unroll
     for (int kg = 0; kg < BK; kg += KV) {
       uint4 araw[TM];
@@ -441,10 +491,10 @@ igemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
       for (int k = 0; k < KV; ++k) {
         float b[TN];
-        load_row<T, TN>(b, b_s + (kg + k) * BN);
+        load_row<TB, TN>(b, b_s + (kg + k) * BN);
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
-          const float a = lane_f32<T>(araw[i], k);
+          const float a = lane_f32<TA>(araw[i], k);
 #pragma unroll
           for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
         }
@@ -526,7 +576,7 @@ __global__ void igemm_reduce(const float* __restrict__ partial, Epi ep,
   store_out(y, out_bf16, out + c, epilogue(s, ep, c));
 }
 
-template <typename T, class TL, bool VEC, bool DECONV>
+template <typename TA, typename TB, class TL, bool VEC, bool DECONV>
 cudaError_t launch_tile(const void* x, const void* w, const int* taps,
                         const Epi& ep, void* y, int out_bf16, float* work,
                         const Geom& g, cudaStream_t stream) {
@@ -535,8 +585,8 @@ cudaError_t launch_tile(const void* x, const void* w, const int* taps,
   const int Cog = g.Co / g.G;
   if (g.splits < 1 || g.k_per_split < 1 || (g.splits > 1 && !work))
     return cudaErrorInvalidValue;
-  constexpr int smem = smem_bytes<TL>();
-  auto kernel = igemm_kernel<T, TL, VEC, DECONV>;
+  constexpr int smem = smem_bytes<TA, TB, TL>();
+  auto kernel = igemm_kernel<TA, TB, TL, VEC, DECONV>;
   // raise the kernel's dynamic shared-memory limit once per device (the
   // call costs more host time than a small layer's whole launch)
   constexpr int MAX_DEVICES = 64;
@@ -553,7 +603,7 @@ cudaError_t launch_tile(const void* x, const void* w, const int* taps,
   dim3 grid((rows + TL::BM - 1) / TL::BM, g.G * ((Cog + TL::BN - 1) / TL::BN),
             phases * g.splits);
   kernel<<<grid, TL::THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), taps, ep, y,
+      static_cast<const TA*>(x), static_cast<const TB*>(w), taps, ep, y,
       out_bf16, g.splits > 1 ? work : nullptr, g);
   err = cudaGetLastError();
   if (err != cudaSuccess || g.splits == 1) return err;
@@ -564,23 +614,27 @@ cudaError_t launch_tile(const void* x, const void* w, const int* taps,
 }
 
 // The tile per output-channel block (the planner's block_co).
-template <typename T, bool VEC, bool DECONV>
+template <typename TA, typename TB, bool VEC, bool DECONV>
 cudaError_t launch_typed(const void* x, const void* w, const int* taps,
                          const Epi& ep, void* y, int out_bf16, float* work,
                          const Geom& g, int block_co, cudaStream_t stream) {
   switch (block_co) {
     case 16:
-      return launch_tile<T, Tile16, VEC, DECONV>(x, w, taps, ep, y, out_bf16,
-                                                 work, g, stream);
+      return launch_tile<TA, TB, Tile16, VEC, DECONV>(x, w, taps, ep, y,
+                                                      out_bf16, work, g,
+                                                      stream);
     case 32:
-      return launch_tile<T, Tile32, VEC, DECONV>(x, w, taps, ep, y, out_bf16,
-                                                 work, g, stream);
+      return launch_tile<TA, TB, Tile32, VEC, DECONV>(x, w, taps, ep, y,
+                                                      out_bf16, work, g,
+                                                      stream);
     case 64:
-      return launch_tile<T, Tile64, VEC, DECONV>(x, w, taps, ep, y, out_bf16,
-                                                 work, g, stream);
+      return launch_tile<TA, TB, Tile64, VEC, DECONV>(x, w, taps, ep, y,
+                                                      out_bf16, work, g,
+                                                      stream);
     case 128:
-      return launch_tile<T, Tile128, VEC, DECONV>(x, w, taps, ep, y,
-                                                  out_bf16, work, g, stream);
+      return launch_tile<TA, TB, Tile128, VEC, DECONV>(x, w, taps, ep, y,
+                                                       out_bf16, work, g,
+                                                       stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -619,28 +673,49 @@ inline bool fwd_args(FwdArgs& a, const void* x, const void* w,
   return true;
 }
 
-// The variant (operand type T, copy width VEC) of one launch.  The C entry
-// points compile the four variants as four objects (build.py passes
-// -DREPRO_PART=0..3, variant_part gives the number) so that nvcc builds
-// them in parallel.
-template <typename T, bool VEC, bool DECONV>
+// The variant (operand types TA and TB, copy width VEC) of one launch.
+// The C entry points compile the ten variants as ten objects (build.py
+// passes -DREPRO_PART=0..9, variant_part gives the number) so that nvcc
+// builds them in parallel.
+template <typename TA, typename TB, bool VEC, bool DECONV>
 int run_variant(const FwdArgs& a) {
-  return static_cast<int>(launch_typed<T, VEC, DECONV>(
+  return static_cast<int>(launch_typed<TA, TB, VEC, DECONV>(
       a.x, a.w, a.taps, a.ep, a.y, a.out_bf16, a.work, a.g, a.block_co,
       a.stream));
 }
 
-constexpr int variant_part(int in_dtype, int vec) {
-  return 2 * (in_dtype == DT_BF16) + (vec ? 0 : 1);
+// The (x, w) operand pairs the kernels take, in part order: the float
+// pairs, then int8 weights beside f32, bf16 and int8 activations (the
+// pairs repro_torch.quant.Precision produces).
+template <int PAIR> struct PairTypes;
+template <> struct PairTypes<0> { using A = float; using B = float; };
+template <> struct PairTypes<1> {
+  using A = __nv_bfloat16;
+  using B = __nv_bfloat16;
+};
+template <> struct PairTypes<2> { using A = float; using B = int8_t; };
+template <> struct PairTypes<3> { using A = __nv_bfloat16; using B = int8_t; };
+template <> struct PairTypes<4> { using A = int8_t; using B = int8_t; };
+constexpr int FWD_PARTS = 10;
+
+// The pair's index, or -1 for a pair the kernels do not take.
+constexpr int pair_index(int x_dtype, int w_dtype) {
+  if (x_dtype == DT_F32 && w_dtype == DT_F32) return 0;
+  if (x_dtype == DT_BF16 && w_dtype == DT_BF16) return 1;
+  if (x_dtype == DT_F32 && w_dtype == DT_I8) return 2;
+  if (x_dtype == DT_BF16 && w_dtype == DT_I8) return 3;
+  if (x_dtype == DT_I8 && w_dtype == DT_I8) return 4;
+  return -1;
+}
+
+constexpr int variant_part(int pair, int vec) {
+  return 2 * pair + (vec ? 0 : 1);
 }
 
 template <bool DECONV, int PART>
 int run_part(const FwdArgs& a) {
-  if constexpr (PART == 0) return run_variant<float, true, DECONV>(a);
-  else if constexpr (PART == 1) return run_variant<float, false, DECONV>(a);
-  else if constexpr (PART == 2)
-    return run_variant<__nv_bfloat16, true, DECONV>(a);
-  else return run_variant<__nv_bfloat16, false, DECONV>(a);
+  using P = PairTypes<PART / 2>;
+  return run_variant<typename P::A, typename P::B, PART % 2 == 0, DECONV>(a);
 }
 
 }  // namespace repro

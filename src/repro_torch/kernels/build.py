@@ -30,9 +30,11 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu")
 HEADERS = ("igemm.cuh",)
 # each source compiles once per variant of its kernels (-DREPRO_PART=k),
-# so the variants build in parallel: the forward sources per operand type
-# x copy width, the dw source per operand type x A's x B's copy width
-PARTS = {"deconv_fwd.cu": 4, "conv_fwd.cu": 4, "deconv_dw.cu": 8}
+# so the variants build in parallel: the forward sources per (x, w)
+# operand pair (f32/f32, bf16/bf16, f32/int8, bf16/int8, int8/int8) x
+# copy width (igemm.cuh::variant_part), the dw source per operand type x
+# A's x B's copy width
+PARTS = {"deconv_fwd.cu": 10, "conv_fwd.cu": 10, "deconv_dw.cu": 8}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,30 +113,39 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 # operand type codes of igemm.cuh (DType)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-QUANT_ITEM = "ROADMAP open item 10 (Quantization)"
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the (x, w) operand types each kernel takes: the dw kernel floats of one
+# type; the forward kernels also int8 weights beside float or int8
+# activations, the pairs repro_torch.quant.Precision produces
+FLOAT_PAIRS = frozenset({(torch.float32, torch.float32),
+                         (torch.bfloat16, torch.bfloat16)})
+FORWARD_PAIRS = FLOAT_PAIRS | {(torch.float32, torch.int8),
+                               (torch.bfloat16, torch.int8),
+                               (torch.int8, torch.int8)}
 _INT32_MAX = 2 ** 31 - 1
 
 
-def check_operands(x, w, scale, bias, out_dtype, *, co: int):
-    """Validate what both kernels take; returns the f32 scale/bias views.
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
 
-    Raises NotImplementedError for integer (quantized) operands and
-    TypeError/ValueError for anything else the kernels do not take.
+
+def check_operands(x, w, scale, bias, out_dtype, *, co: int,
+                   pairs=FORWARD_PAIRS):
+    """Validate what a kernel takes; returns the f32 scale/bias views.
+
+    ``(x.dtype, w.dtype)`` must be one of ``pairs`` (``FORWARD_PAIRS`` for
+    the deconv and conv kernels, ``FLOAT_PAIRS`` for the dw kernel) and the
+    output float32 or bfloat16; anything else raises TypeError, a layout
+    or placement the kernels do not take ValueError.
     """
+    if (x.dtype, w.dtype) not in pairs:
+        raise TypeError(
+            f"x is {x.dtype} and w is {w.dtype}; this kernel takes (x, w) "
+            f"in {sorted((_name(a), _name(b)) for a, b in pairs)}")
     for name, t in (("x", x), ("w", w)):
-        if not t.dtype.is_floating_point:
-            raise NotImplementedError(
-                f"{name} is {t.dtype}: integer operands are the "
-                f"quantization slice's work ({QUANT_ITEM})")
-        if t.dtype not in DTYPE_CODES:
-            raise TypeError(f"{name} is {t.dtype}; the kernels take "
-                            f"float32 and bfloat16")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if x.dtype != w.dtype:
-        raise TypeError(f"x is {x.dtype} but w is {w.dtype}")
-    if out_dtype not in DTYPE_CODES:
+    if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype {out_dtype} is not float32/bfloat16")
     if w.device != x.device:
         raise ValueError(f"x on {x.device}, w on {w.device}")
@@ -148,6 +159,19 @@ def check_operands(x, w, scale, bias, out_dtype, *, co: int):
             v = v.reshape(co).to(torch.float32).contiguous()
         out.append(v)
     return tuple(out)
+
+
+def record_operands(record: dict, x, w) -> None:
+    """Count one launch in ``record`` under its ``(x, w)`` operand type
+    names (a wrapper's ``operand_launches``)."""
+    key = (_name(x.dtype), _name(w.dtype))
+    record[key] = record.get(key, 0) + 1
+
+
+def default_out_dtype(x) -> torch.dtype:
+    """The output type when the caller names none: x's for float x, f32
+    for int8 x (quantized inputs never store quantized)."""
+    return x.dtype if x.dtype.is_floating_point else torch.float32
 
 
 def geom_array(vals, fields: int = 27) -> ctypes.Array:
@@ -176,9 +200,9 @@ def geom_array(vals, fields: int = 27) -> ctypes.Array:
 
 
 def _vector_ok(t, channels: int) -> bool:
-    """Whether 16-byte copies (4 f32 or 8 bf16 consecutive channels) may
-    stage ``t``: its per-group ``channels`` a multiple of that, its base
-    address 16-byte aligned."""
+    """Whether 16-byte copies (4 f32, 8 bf16 or 16 int8 consecutive
+    channels) may stage ``t``: its per-group ``channels`` a multiple of
+    that, its base address 16-byte aligned."""
     return (channels % (16 // t.element_size()) == 0
             and t.data_ptr() % 16 == 0)
 
@@ -218,10 +242,11 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     geom = ctypes.POINTER(ctypes.c_int)
     lib.repro_deconv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, geom, _I,
-                                     ctypes.c_float, _I, _I, _I, _I, _P]
+                                     ctypes.c_float, _I, _I, _I, _I, _I,
+                                     _P]
     lib.repro_deconv_fwd.restype = _I
     lib.repro_conv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, geom, _I,
-                                   ctypes.c_float, _I, _I, _I, _I, _P]
+                                   ctypes.c_float, _I, _I, _I, _I, _I, _P]
     lib.repro_conv_fwd.restype = _I
     lib.repro_deconv_dw.argtypes = [_P, _P, _P, _P, geom, _I, _I, _I, _I,
                                     _I, _I, _I, _P]

@@ -27,7 +27,6 @@ import math
 import torch
 
 from repro_torch.core.functional import _canon
-from repro_torch.kernels.build import QUANT_ITEM
 
 
 def canon_dilation(dilation, rank):
@@ -293,14 +292,14 @@ def wants_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def check_float_backward(x, w):
-    """The backward runs on float operands only: int8 activations or
-    weights are the quantization slice's work."""
-    for name, t in (("activations", x), ("weights", w)):
-        if not t.dtype.is_floating_point:
-            raise NotImplementedError(
-                f"backward through int8 {name} ({t.dtype}) is not ported: "
-                f"{QUANT_ITEM}")
+def check_float_backward(x):
+    """The backward takes float activations only, as the reference's does:
+    int8 weights are dequantized for it (``dequantized``), quantized
+    activations raise."""
+    if not x.dtype.is_floating_point:
+        raise NotImplementedError(
+            "backward through quantized activations is not supported; "
+            "train with Precision(act_quant='none')")
 
 
 def peel_epilogue(dy, y, bias, activation, alpha, need_db):
@@ -327,7 +326,7 @@ def fold_scale(dw, w, w_scale):
     """Chain the dequantized weights' gradient ``dw`` back to the stored
     weights and the scale: ``(dw * w_scale, sum(w * dw))``, the scale's
     gradient summed per output channel (or over everything for a scalar
-    scale)."""
+    scale).  Integer (int8) weights take no gradient: None."""
     if w_scale is None:
         return dw, None
     full = w.to(torch.float32) * dw
@@ -336,7 +335,9 @@ def fold_scale(dw, w, w_scale):
     else:
         dscale = full.sum(dim=tuple(range(full.dim() - 1))).reshape(
             w_scale.shape)
-    return (dw * w_scale).to(w.dtype), dscale.to(w_scale.dtype)
+    dw_stored = ((dw * w_scale).to(w.dtype) if w.dtype.is_floating_point
+                 else None)
+    return dw_stored, dscale.to(w_scale.dtype)
 
 
 def op_forward(ctx, forward, x, w, b, w_scale, *args):
@@ -364,7 +365,7 @@ def op_backward(ctx, dy, backward_args, dx_kernel, dw_kernel):
     x, w, b, w_scale, y = ctx.saved_tensors
     stride, padding, dilation, groups, activation, alpha, engine = ctx.args
     need_x, need_w, need_b, need_s = ctx.needs_input_grad[:4]
-    check_float_backward(x, w)
+    check_float_backward(x)
     dy, db = peel_epilogue(dy, y, b, activation, alpha, need_b)
     dx = dw = dscale = None
     if not (need_x or need_w or need_s):

@@ -8,7 +8,8 @@ Per launch the wrapper picks the copy width (``build.vector_copies``) and
 the split of the reduction (``tiling.launch_split``) from the real shapes;
 a split launch runs a second pass that sums the slices, and still counts
 once.  ``launches`` counts the calls that launched the kernel, and nothing
-else.
+else; ``operand_launches`` records each launch once more by its ``(x, w)``
+operand types, e.g. ``("int8", "int8")`` under int8 activations.
 
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises.
@@ -26,6 +27,7 @@ from repro_torch.kernels import common as _common
 from repro_torch.kernels.conv import ref as _ref
 
 launches = 0
+operand_launches: dict[tuple[str, str], int] = {}
 
 
 def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
@@ -37,9 +39,11 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
     """Strided correlation on the canonical rank-3 layout.
 
     x: [N, D, H, W, Ci] (unpadded); w: [prod(K), Ci/G, Co] in kernel-element
-    order.  ``y[o] = act(scale * sum_k x[o*S + k*dil - lo] w[k] + bias)``
-    over ``out_spatial`` output positions, reads outside x being zero,
-    cast to ``out_dtype`` (default x's).
+    order; both f32, both bf16, or int8 weights beside f32, bf16 or int8 x
+    (``build.FORWARD_PAIRS``).
+    ``y[o] = act(scale * sum_k x[o*S + k*dil - lo] w[k] + bias)`` over
+    ``out_spatial`` output positions, reads outside x being zero, cast to
+    ``out_dtype`` (default x's, f32 for int8 x).
     """
     global launches
     kernel, stride = tuple(kernel), tuple(stride)
@@ -58,7 +62,7 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
         raise ValueError(f"unknown activation {activation!r}")
     if any(o < 1 for o in out_spatial) or any(lo < 0 for lo in pad_lo):
         raise ValueError(f"bad conv extent {out_spatial} / pad {pad_lo}")
-    out_dtype = out_dtype or x.dtype
+    out_dtype = out_dtype or _build.default_out_dtype(x)
     scale32, bias32 = _build.check_operands(x, w, scale, bias, out_dtype,
                                             co=co)
     if x.device.type == "cpu":
@@ -71,7 +75,8 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
         raise ValueError(f"no conv kernel for device {x.device}")
     plan = _tiling.plan_uniform_tiles(ci, co, mode="conv",
                                       block_co=block_co, groups=groups,
-                                      in_dtype_bytes=x.element_size())
+                                      in_dtype_bytes=x.element_size(),
+                                      w_dtype_bytes=w.element_size())
     rows = n * math.prod(out_spatial)
     splits, per = _tiling.launch_split(
         plan, rows, math.prod(kernel) * (ci // groups), co, groups)
@@ -85,10 +90,12 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
         _build.ptr(x), _build.ptr(w), _build.ptr(scale32),
         _build.ptr(bias32), _build.ptr(y), _build.ptr(work), geom,
         _common.ACTIVATION_CODES[activation], float(alpha),
-        _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[out_dtype],
-        block_co, int(_build.vector_copies(x, w, ci // groups, co // groups)),
+        _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[w.dtype],
+        _build.DTYPE_CODES[out_dtype], block_co,
+        int(_build.vector_copies(x, w, ci // groups, co // groups)),
         _build.stream_of(x))
     if err:
         raise RuntimeError(f"conv kernel launch failed (cudaError {err})")
     launches += 1
+    _build.record_operands(operand_launches, x, w)
     return y

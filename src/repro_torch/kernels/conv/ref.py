@@ -15,14 +15,16 @@ import itertools
 import torch
 
 from repro_torch.kernels import common as _common
+from repro_torch.kernels.build import default_out_dtype
 
 
 def conv_fwd_plain(x, w, *, kernel, stride, dilation, groups, pad_lo,
                    out_spatial, scale=None, bias=None, activation="none",
                    alpha=0.2, out_dtype=None):
     """x [N, D, H, W, Ci], w [prod(K), Ci/G, Co] in kernel-element order ->
-    y [N, *out_spatial, Co]: ``y[o] = sum_k x[o*S + k*dil - lo] w[k]``.
-    Sums in f32, or in float64 for float64 inputs."""
+    y [N, *out_spatial, Co]: ``y[o] = sum_k x[o*S + k*dil - lo] w[k]``,
+    of dtype ``out_dtype`` (default x's, f32 for int8 x).  Sums in f32
+    (int8 operands cast to f32 first), or in float64 for float64 inputs."""
     n, ci = x.shape[0], x.shape[-1]
     co = w.shape[-1]
     cig, cog = ci // groups, co // groups
@@ -49,4 +51,4 @@ def conv_fwd_plain(x, w, *, kernel, stride, dilation, groups, pad_lo,
         y += torch.einsum("ndhwgc,cgo->ndhwgo", win, wk)
     y = _common.apply_epilogue(y.reshape(n, *out_spatial, co), bias,
                                activation, alpha, scale)
-    return y.to(out_dtype or x.dtype).contiguous()
+    return y.to(out_dtype or default_out_dtype(x)).contiguous()

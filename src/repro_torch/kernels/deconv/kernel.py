@@ -17,9 +17,11 @@ over the conv kernel (``conv.kernel.conv_fwd``).
 
 ``launches``, ``dw_launches`` and ``dx_launches`` count the calls of each
 wrapper that launched its kernel on the card, and nothing else (a
-``deconv_dx`` call also counts one ``conv_fwd`` launch).  On a CPU tensor
-each wrapper runs the plain version (``ref.py``); on a CUDA tensor it
-launches the kernel or raises.
+``deconv_dx`` call also counts one ``conv_fwd`` launch).
+``operand_launches`` records each ``deconv_fwd`` launch once more by its
+``(x, w)`` operand types, e.g. ``("float32", "int8")`` for int8 weights.
+On a CPU tensor each wrapper runs the plain version (``ref.py``); on a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from repro_torch.kernels.deconv import ref as _ref
 launches = 0
 dw_launches = 0
 dx_launches = 0
+operand_launches: dict[tuple[str, str], int] = {}
 
 
 def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
@@ -49,10 +52,12 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     """Polyphase IOM deconv on the canonical rank-3 layout.
 
     x: [N, D, H, W, Ci]; w_taps: [prod(K), Ci/G, Co] in the phase-major
-    order of ``common.phase_major_tap_index``.  The output is the Eq. (1)
-    extent with ``crop_lo`` rows removed in front of each dim, cut to
-    ``out_spatial`` (default: the rest of the extent), then
-    ``act(acc * scale + bias)`` cast to ``out_dtype`` (default x's).
+    order of ``common.phase_major_tap_index``; both f32, both bf16, or int8
+    weights beside f32, bf16 or int8 x (``build.FORWARD_PAIRS``).  The
+    output is the Eq. (1) extent with ``crop_lo`` rows removed in front of
+    each dim, cut to ``out_spatial`` (default: the rest of the extent),
+    then ``act(acc * scale + bias)`` cast to ``out_dtype`` (default x's,
+    f32 for int8 x); ``scale`` is the per-cout dequant scale.
     The window may reach past the Eq. (1) extent (a conv's dx over input
     rows no tap reads); rows there hold the epilogue of a zero sum.
     ``block_co`` picks the kernel's output-channel tile (the planner's).
@@ -78,7 +83,7 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     if any(lo < 0 or o < 1 for lo, o in zip(crop_lo, out_spatial)):
         raise ValueError(f"crop {crop_lo} / extent {out_spatial} is not a "
                          f"window of the Eq. (1) extent {full}")
-    out_dtype = out_dtype or x.dtype
+    out_dtype = out_dtype or _build.default_out_dtype(x)
     scale32, bias32 = _build.check_operands(x, w_taps, scale, bias,
                                             out_dtype, co=co)
     if x.device.type == "cpu":
@@ -91,7 +96,8 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
         raise ValueError(f"no deconv kernel for device {x.device}")
     plan = _tiling.plan_uniform_tiles(ci, co, mode="deconv",
                                       block_co=block_co, groups=groups,
-                                      in_dtype_bytes=x.element_size())
+                                      in_dtype_bytes=x.element_size(),
+                                      w_dtype_bytes=w_taps.element_size())
     q = _ref.phase_rows((d, h, wd), kernel, stride, dilation, crop_lo,
                         out_spatial)
     rows, phases = n * math.prod(q), math.prod(stride)
@@ -110,12 +116,14 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
         _build.ptr(scale32), _build.ptr(bias32), _build.ptr(y),
         _build.ptr(work), geom, _common.ACTIVATION_CODES[activation],
         float(alpha), _build.DTYPE_CODES[x.dtype],
-        _build.DTYPE_CODES[out_dtype], block_co,
+        _build.DTYPE_CODES[w_taps.dtype], _build.DTYPE_CODES[out_dtype],
+        block_co,
         int(_build.vector_copies(x, w_taps, ci // groups, co // groups)),
         _build.stream_of(x))
     if err:
         raise RuntimeError(f"deconv kernel launch failed (cudaError {err})")
     launches += 1
+    _build.record_operands(operand_launches, x, w_taps)
     return y
 
 
@@ -150,7 +158,8 @@ def deconv_dw(a: torch.Tensor, b: torch.Tensor, *, kernel, stride,
     if any(v < 0 for v in lo):
         raise ValueError(f"negative offset {lo}")
     out_dtype = out_dtype or a.dtype
-    _build.check_operands(a, b, None, None, out_dtype, co=bc)
+    _build.check_operands(a, b, None, None, out_dtype, co=bc,
+                          pairs=_build.FLOAT_PAIRS)
     if a.device.type == "cpu":
         return _ref.deconv_dw_plain(
             a, b, kernel=kernel, stride=stride, dilation=dilation,

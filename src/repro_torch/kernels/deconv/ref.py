@@ -20,6 +20,7 @@ import itertools
 import torch
 
 from repro_torch.kernels import common as _common
+from repro_torch.kernels.build import default_out_dtype
 
 
 def phase_rows(in_spatial, kernel, stride, dilation, crop_lo, out_spatial):
@@ -37,9 +38,9 @@ def deconv_fwd_plain(x, w_taps, *, kernel, stride, dilation, groups,
                      crop_lo, out_spatial, scale=None, bias=None,
                      activation="none", alpha=0.2, out_dtype=None):
     """x [N, D, H, W, Ci], w_taps [prod(K), Ci/G, Co] phase-major ->
-    y [N, *out_spatial, Co] of dtype ``out_dtype`` (default x's).  Sums
-    in f32, or in float64 for float64 inputs (the yardstick on the
-    card)."""
+    y [N, *out_spatial, Co] of dtype ``out_dtype`` (default x's, f32 for
+    int8 x).  Sums in f32 (int8 operands cast to f32 first), or in float64
+    for float64 inputs (the yardstick on the card)."""
     n, d, h, wd, ci = x.shape
     co = w_taps.shape[-1]
     cig, cog = ci // groups, co // groups
@@ -63,7 +64,7 @@ def deconv_fwd_plain(x, w_taps, *, kernel, stride, dilation, groups,
              crop_lo[1]:crop_lo[1] + out_spatial[1],
              crop_lo[2]:crop_lo[2] + out_spatial[2]]
     y = _common.apply_epilogue(y, bias, activation, alpha, scale)
-    return y.to(out_dtype or x.dtype).contiguous()
+    return y.to(out_dtype or default_out_dtype(x)).contiguous()
 
 
 def deconv_dw_plain(a, b, *, kernel, stride, dilation, groups, lo,

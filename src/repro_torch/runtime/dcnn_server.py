@@ -20,9 +20,13 @@ capture yet).  Every failure mode is visible and typed:
   * **stats/health surface** — queue depth, shed/expired counts, per-bucket
     latency percentiles, schedule-cache hit/miss/eviction counters.
 
+A quantized model is a ``ModelSpec`` whose weights came from
+``repro_torch.quant.quantize_weights``, served on an engine configured with
+the matching ``EngineConfig(precision=...)``, as in the JAX package.
 The JAX package's server also degrades a failing bucket to a second engine
 and injects scripted faults; both wait for ROADMAP open item 13.
-Weights move to the engine's device once per model.
+Weights move to the engine's device once per model, dtypes kept (int8
+weights stay int8).
 """
 
 from __future__ import annotations
@@ -439,6 +443,12 @@ class DcnnServer:
             engine=None, latency_s=now - t.submitted,
             bucket=self._bucket_name(t.item)) for t in tickets]
 
+    def _poisoned(self, model, t, msg: str, now: float) -> ServeResult:
+        return ServeResult(
+            id=t.item.id, model=model, ok=False, output=None,
+            error=PoisonedOutputError(msg), engine=self.method,
+            latency_s=now - t.submitted, bucket=self._bucket_name(t.item))
+
     def _serve_batch(self, model, bsp, tickets,
                      rerun_depth: int = 0) -> list[ServeResult]:
         batch = min(_next_pow2(len(tickets)), self.max_batch)
@@ -470,19 +480,20 @@ class DcnnServer:
         now = self.clock()
         if bad:
             clean = [t for i, t in enumerate(tickets) if i not in bad]
-            poisoned = [tickets[i] for i in sorted(bad)]
-            if rerun_depth >= 2:
-                poisoned, clean = poisoned + clean, []
-            for t in poisoned:
+            for i in sorted(bad):
+                t = tickets[i]
                 self.counters["quarantined"] += 1
-                results.append(ServeResult(
-                    id=t.item.id, model=model, ok=False, output=None,
-                    error=PoisonedOutputError(
-                        f"request {t.item.id}: non-finite output "
-                        f"quarantined"),
-                    engine=self.method, latency_s=now - t.submitted,
-                    bucket=self._bucket_name(t.item)))
-            if clean:
+                results.append(self._poisoned(
+                    model, t, f"request {t.item.id}: non-finite output "
+                    f"quarantined", now))
+            if clean and rerun_depth >= 2:
+                # still poisoned after two re-runs: the clean rows give up
+                # too, typed, as the reference's do
+                for t in clean:
+                    self.counters["quarantined"] += 1
+                    results.append(self._poisoned(
+                        model, t, "batch poisoned on every re-run", now))
+            elif clean:
                 self.counters["reruns"] += 1
                 results.extend(self._serve_batch(model, bsp, clean,
                                                  rerun_depth + 1))

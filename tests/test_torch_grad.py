@@ -269,11 +269,15 @@ def test_dw_plans_split_long_reductions_only():
 
 
 def test_backward_refuses_int8_naming_the_quantization_item():
+    """int8 activations have no backward, with the reference's message;
+    int8 weights do (on their dequantized values, tests/test_torch_quant.py)
+    and take no gradient of their own."""
     w = torch.randn(3, 3, 2, 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        common.check_float_backward(torch.zeros(1, dtype=torch.int8), w)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        common.check_float_backward(w, w.to(torch.int8))
+    with pytest.raises(NotImplementedError, match="quantized activations"):
+        common.check_float_backward(torch.zeros(1, dtype=torch.int8))
+    common.check_float_backward(w)
+    dw, dscale = common.fold_scale(w, w.to(torch.int8), torch.ones(2))
+    assert dw is None and dscale.shape == (2,)
 
 
 def test_w_scale_folds_into_dscale(engines):

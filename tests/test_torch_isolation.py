@@ -69,3 +69,16 @@ def test_engine_runs_on_the_card_unless_asked_for_the_cpu():
         with pytest.raises(EngineError, match="device='cpu'"):
             UniformEngine()
     assert UniformEngine(device="cpu").device.type == "cpu"
+
+
+def test_quant_package_stands_alone():
+    """``repro_torch.quant`` ports ``repro.quant`` (whose calibration pulls
+    in jax through ``repro.obs``) without importing either."""
+    code = ("import sys, repro_torch.quant as q; "
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'repro')), q.Precision.__module__)")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["[]", "repro_torch.quant.precision"]

@@ -161,8 +161,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(op):
     fn = tdeconv.deconv if op == "deconv" else tconv.conv
     x = torch.randn(1, 4, 4, 2)
     w = torch.randn(3, 3, 2, 2)
-    with pytest.raises(NotImplementedError, match="Quantization"):
-        fn(x.to(torch.int8), w.to(torch.int8), 2, 1, engine=eng)
+    # int8 activations take int8 weights only; int16 is no operand type
+    with pytest.raises(TypeError, match="int8"):
+        fn(x.to(torch.int8), w, 2, 1, engine=eng)
+    with pytest.raises(TypeError):
+        fn(x, w.to(torch.int16), 2, 1, engine=eng)
     with pytest.raises(TypeError):
         fn(x, w.to(torch.bfloat16), 2, 1, engine=eng)
     with pytest.raises(TypeError):

@@ -238,6 +238,38 @@ def test_nan_quarantine_reruns_clean_rows(specs):
     assert s["quarantined"] == 1 and s["reruns"] == 1
 
 
+def test_nan_every_rerun_terminates_typed(specs, monkeypatch):
+    """Row 0 of every run comes back NaN: each re-run quarantines its
+    poisoned row, and after the second re-run the rows still clean give
+    up with the reference's "batch poisoned on every re-run"."""
+    srv = _server(specs, max_batch=4)
+    real = srv._schedule
+
+    def poisoning(model, bsp, batch):
+        fn = real(model, bsp, batch)
+
+        def run(ws, x):
+            y = fn(ws, x).clone()
+            y[0] = float("nan")
+            return y
+        return run
+
+    monkeypatch.setattr(srv, "_schedule", poisoning)
+    for _ in range(4):
+        srv.submit(ServeRequest("vnet", _vol()))
+    res = {r.id: r for r in srv.drain()}
+    assert sorted(res) == [0, 1, 2, 3]
+    assert all(isinstance(r.error, PoisonedOutputError)
+               and r.code == "poisoned_output" for r in res.values())
+    for i in (0, 1, 2):
+        assert str(res[i].error) == (f"request {i}: non-finite output "
+                                     f"quarantined")
+    assert str(res[3].error) == "batch poisoned on every re-run"
+    s = srv.stats()
+    assert s["quarantined"] == 4 and s["reruns"] == 2
+    assert s["completed"] == 0
+
+
 def test_weights_from_numpy_refuses_wrong_shapes(jax_specs, specs):
     tree = jax.tree_util.tree_map(np.asarray, dict(jax_specs[1].weights))
     graph = specs[1].graph_for(None)
