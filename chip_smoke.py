@@ -9,7 +9,7 @@ Phases, any failure of which exits non-zero before the result line:
      limit, force IEEE f32 (TF32 off) in cuBLAS and cuDNN;
   2. build — compile the three CUDA kernels from ``src/repro_torch/csrc``
      (one ``nvcc`` per source and per variant of its kernels, all started
-     together); no kernel may report spill stores;
+     together); no object may report spill stores;
   3. kernels against their plain versions — every distinct forward
      geometry of full-width DCGAN and V-Net, served (batch 4) and trained
      (DCGAN generator and discriminator at batch 64), in f32 and bf16,
@@ -30,11 +30,13 @@ Phases, any failure of which exits non-zero before the result line:
      B's extent, forced splits of 1, 4 and 16 beside the planner's;
      then the int8 operands of the forward kernels: every distinct
      geometry of the quantized serving path with int8 weights beside f32
-     activations and with int8 activations and weights (bf16 activations
-     beside int8 weights at the DCGAN layers), and the block's code paths
-     (16-byte and scalar copies, forced and no splits, groups, dilation,
-     scale + leaky_relu), each launch run twice for the same bits and
-     held against the plain version summed in float64;
+     activations (the f32 route) and with int8 activations and weights
+     (the s8 tensor-core route, K-major weights), bf16 activations beside
+     int8 weights at the DCGAN layers, and the block's code paths
+     (16-byte and scalar copies, and the s8 route's 16-, 4- and 1-byte A
+     copies, forced and no splits, groups, dilation, scale + leaky_relu),
+     each launch run twice for the same bits and held against the plain
+     version summed in float64 (s8: within 1e-6, its sums exact);
   4. serve — a ``DcnnServer`` answers 8 DCGAN seeds and 4 V-Net volumes at
      full width through the kernels (launch counts checked per batch), and
      one request of each model is held against the port's CPU run;
@@ -64,14 +66,17 @@ Phases, any failure of which exits non-zero before the result line:
      slices and share of the bound (and, for the forwards, the wrapper's
      host time per call); the int8 launches at every quantized call shape
      the same way, their library time cuDNN's on the dequantized f32
-     operands and their bound the int8 tensor-core rate; one served batch
-     of each model end to end under each policy, and whole train steps.
+     operands and their bound the int8 tensor-core rate, summed per operand
+     pair; one served batch of each model end to end under each policy,
+     and whole train steps.
 
 The line before the last is the ``{"kernels": [...]}`` summary: each
 kernel's ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums
 over exactly the launches its ``launches`` counts (each call shape's time
 times the calls of that shape); ``deconv_fwd_int8`` and ``conv_fwd_int8``
-are the forward kernels' int8 launches of the quantized serving runs.
+are the forward kernels' int8 launches of the quantized serving runs,
+with the same sums per operand pair and the route each pair takes under
+``by_pair``.
 The last line is ``{"ok": true, "device": {...}}``.  ``--json PATH``
 also writes every check and per-layer time to PATH.
 """
@@ -94,14 +99,19 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): IEEE f32 on CUDA cores, bf16 tensor
 # cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# the dense int8 tensor-core rate: the bound of the int8 launches (their
-# sums run as f32 FMAs on CUDA cores; the int8 route is untried)
+# the dense int8 tensor-core rate: the bound of the int8 launches (int8
+# activations beside int8 weights run on the s8 tensor cores, int8
+# weights beside float activations as f32 FMAs on CUDA cores)
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain version, max|diff| / max|plain|: f32 sums in another
 # order (1e-4, the reference's tolerance); bf16 output may differ by one
 # bf16 rounding step (2^-8 relative), so 1e-2
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the s8 route (int8 x int8) vs the float64 plain version: its s32 sums are
+# exact, so only the conversion to f32 and the f32 epilogue round (a few
+# 2^-24 relative)
+S8_TOL = 1e-6
 SERVE_TOL = 1e-4                 # card vs CPU run of the port, f32
 # int8 activations, card vs CPU run of the port: each layer's input is
 # quantized per tensor, and its f32 values differ between card and CPU in
@@ -234,16 +244,36 @@ def main() -> int:
         row["max_registers"] = max([row["max_registers"], *src_regs])
         row["spill_store_bytes"] += sum(int(m) for m in re.findall(
             r"(\d+) bytes spill stores", src_log))
-        # per object: the forward parts 4-9 are the int8 variants
-        unit = " ".join(src_log.split("\n", 1)[0].split())
+        # per object: the forward parts 4-7 take int8 weights beside float
+        # activations, 8-10 are the s8 route (A copies of 16, 4, 1 bytes)
+        head = src_log.split("\n", 1)[0]
+        unit = " ".join(head.split("(")[0].split())
         detail["ptxas"].setdefault("units", {})[unit] = {
+            "compile_s": float(re.findall(r"\(([\d.]+) s\)", head)[0]),
             "kernels": len(src_regs),
-            "max_registers": max(src_regs, default=0)}
+            "max_registers": max(src_regs, default=0),
+            "spill_store_bytes": sum(int(m) for m in re.findall(
+                r"(\d+) bytes spill stores", src_log))}
     print(f"build_s {detail['build_s']:.1f} ptxas {detail['ptxas']}")
+    for src_log in log.split("== ")[1:]:     # the lines of any spill
+        lines = src_log.splitlines()
+        for i, line in enumerate(lines):
+            if re.search(r"[1-9]\d* bytes spill stores", line):
+                print("SPILL", lines[0], *lines[max(0, i - 3):i + 1],
+                      sep="\n  ")
     for src in ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu"):
         if src in detail["ptxas"]:      # absent when the build was cached
             check(detail["ptxas"][src]["spill_store_bytes"] == 0,
                   f"{src}: ptxas reports spill stores")
+    units = detail["ptxas"].get("units", {})
+    for unit, row in units.items():
+        check(row["kernels"] > 0 and row["spill_store_bytes"] == 0,
+              f"{unit}: {row['kernels']} kernels, "
+              f"{row['spill_store_bytes']} bytes of spill stores")
+    if units:
+        check(len(units) == len(build.compile_units()),
+              f"ptxas reported {len(units)} of "
+              f"{len(build.compile_units())} objects")
 
     # -- helpers --------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -565,6 +595,10 @@ def main() -> int:
          dpad3, 2, 2, 2, None, None),
         ("dil2", "conv", (13, 11, 9), 16, (3, 3, 3, 16, 32), 1, 2, 2, 1,
          2, None, None),
+        ("a4:cig8", "conv", (13, 11, 9), 8, (3, 3, 3, 8, 16), 1, 1, 1, 1,
+         2, None, None),
+        ("a4:cig36:split", "deconv", (7, 6, 5), 36, (3, 3, 3, 36, 24), 2,
+         dpad3, 1, 1, 2, 3, True),
     ]
     q_cases = [(f"{model}:{layer.name}:b{batch}", layer.op, pair,
                 lambda l=layer, p=pair, n=batch: q_layer_operands(l, p, n),
@@ -602,20 +636,28 @@ def main() -> int:
         codes = {k: v - before.get(k, 0)
                  for k, v in mod.operand_launches.items()
                  if v != before.get(k, 0)}
-        cig, cog = x3.shape[-1] // kw["groups"], wk.shape[-1] // kw["groups"]
-        vec = build.vector_copies(x3, wk, cig, cog)
-        q_copies.setdefault(pair, set()).add(vec)
+        cig = x3.shape[-1] // kw["groups"]
+        cog = ops["w"].shape[-1] // kw["groups"]
+        # the s8 route's A bytes per copy; else 16-byte copies or not
+        copy = build.copy_variant(x3, wk, cig, cog)
+        q_copies.setdefault(pair, set()).add(copy)
+        tol = S8_TOL if pair == "w8a8" else TOL[oname]
         row = {"check": tag, "op": op, "pair": Q_PAIRS[pair],
+               "route": "s8" if pair == "w8a8" else "f32",
                "out": oname, "shape": list(got.shape),
                "splits": split_log[0], "block_co": kw["block_co"],
-               "vec": vec, "launches_by_operands": {
+               "copy": copy, "w_layout": list(wk.shape),
+               "launches_by_operands": {
                    "/".join(k): v for k, v in codes.items()},
                "repeat_equal": bool(torch.equal(got, again)),
-               "max_abs_err": err, "rel_err": rel, "tol": TOL[oname]}
+               "max_abs_err": err, "rel_err": rel, "tol": tol}
         print(json.dumps(row))
         detail["int8_checks"].append(row)
         check(codes == {tuple(Q_PAIRS[pair].split("/")): 2},
               f"{tag}/{pair}: launches by operand types {codes}")
+        check((wk.dim() == 4) == (pair == "w8a8"),
+              f"{tag}/{pair}: weights {tuple(wk.shape)} (K-major exactly "
+              f"for the s8 route)")
         check(len(split_log) == 2 and split_log[0] == split_log[1],
               f"{tag}/{pair}: launches split {split_log}")
         check(must_split is None or (split_log[0] > 1) == must_split,
@@ -625,16 +667,16 @@ def main() -> int:
         want_out = (torch.bfloat16 if pair == "bf16w8" else torch.float32)
         check(got.shape == ref.shape and got.dtype == want_out,
               f"{tag}/{pair}: {got.shape} {got.dtype} vs plain {ref.shape}")
-        check(rel <= TOL[oname], f"{tag}/{pair}: relative error {rel:.3g} "
-              f"above {TOL[oname]}")
+        check(rel <= tol, f"{tag}/{pair}: relative error {rel:.3g} "
+              f"above {tol}")
         if oname == "float32":
             k = f"{op}_fwd_int8"
             max_abs[k] = max(max_abs[k], err)
         del ops, got, again, ref
-    for pair in ("w8", "w8a8"):
-        check(q_copies.get(pair) == {True, False},
-              f"{pair}: 16-byte and scalar copies not both run: "
-              f"{q_copies.get(pair)}")
+    for pair, widths in (("w8", {0, 1}), ("w8a8", {16, 4, 1})):
+        check(q_copies.get(pair) == widths,
+              f"{pair}: copy widths run {q_copies.get(pair)}, not "
+              f"{widths}")
     torch.cuda.empty_cache()
 
     # -- 3b. backward kernels against their plain versions -------------------
@@ -1500,9 +1542,13 @@ def main() -> int:
 
     # each kernel's totals over the main path's launches: every call
     # shape's times, weighted by the calls of that shape it recorded
-    totals = {k: {"launches": 0, "ms": 0.0, "plain_ms": 0.0,
-                  "bound_ms": 0.0, "library_ms": 0.0, "ops_ms": 0.0,
-                  "bytes_ms": 0.0} for k in max_abs}
+    def zero_total():
+        return {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
+
+    totals = {k: zero_total() for k in max_abs}
+    # the int8 kernels' totals again per (x, w) operand pair
+    pair_totals = {k: {} for k in max_abs}
     timed = set()
 
     def account(row, keys, ops_ms, bytes_ms):
@@ -1513,12 +1559,16 @@ def main() -> int:
             n = recorded.get(key, 0)
             timed.add(key)
             row["launches"][key[0]] = n
-            tot = totals[key[0]]
-            tot["launches"] += n
-            for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                tot[f] += n * row[f]
-            tot["ops_ms" if ops_ms >= bytes_ms else "bytes_ms"] += \
-                n * row["bound_ms"]
+            tots = [totals[key[0]]]
+            if "pair" in row:
+                tots.append(pair_totals[key[0]].setdefault(row["pair"],
+                                                           zero_total()))
+            for tot in tots:
+                tot["launches"] += n
+                for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    tot[f] += n * row[f]
+                tot["ops_ms" if ops_ms >= bytes_ms else "bytes_ms"] += \
+                    n * row["bound_ms"]
 
     def time_forward(model, layer, batch, args, operands, lib_call, peak,
                      kname, **extra):
@@ -1574,18 +1624,57 @@ def main() -> int:
     print(json.dumps({"bound_peaks_int8": {
         "int8_ops": PEAK_INT8_OPS, "hbm_bytes_per_s": PEAK_BYTES,
         "source": "H100 SXM data sheet, dense int8 tensor cores"}}))
+    from repro_torch.kernels import common as kcommon
+
+    def weight_layout(layer, pair, w, kw):
+        """The call the ops layer makes per launch to lay the weights out
+        for the kernel: K-major for the s8 route, else the deconv's
+        phase-major gather or the conv's reshape."""
+        k3, s3, d3, g = (kw["kernel"], kw["stride"], kw["dilation"],
+                         kw["groups"])
+        w3 = w.reshape(*k3, *w.shape[-2:])
+        if pair == "w8a8":
+            s3 = s3 if layer.op == "deconv" else (1, 1, 1)
+            return "k-major", lambda: kcommon.kmajor_weights(w3, k3, s3, d3,
+                                                             g)
+        if layer.op == "deconv":
+            return "phase-major", lambda: kcommon.phase_major_weights(
+                w3, k3, s3, d3)
+        return "reshape", lambda: w3.reshape(-1, *w.shape[-2:]).contiguous()
+
     detail["int8_layers"] = []
     for model, layer, batch in q_layers:
         for pair in ("w8", "w8a8"):
             ops = q_layer_operands(layer, pair, batch)
+            # the weight layout's cost per launch: device time (CUDA
+            # events) and host time per call (enqueue, no synchronize)
+            layout, lay = weight_layout(layer, pair, ops["w"],
+                                        ops["args"][2])
+            lay_ms = per_call_ms(lay, 10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                lay()
+            lay_host = 1e3 * (time.perf_counter() - t0) / 20
+            torch.cuda.synchronize()
             detail["int8_layers"].append(time_forward(
                 model, layer, batch, ops["args"],
                 (ops["x"], ops["w"], ops["b"], ops["args"][2]["scale"]),
                 library_call(layer, ops["x_deq"], ops["w_deq"], ops["b"]),
                 PEAK_INT8_OPS, f"{layer.op}_fwd_int8", pair=Q_PAIRS[pair],
-                library="cuDNN on the dequantized f32 operands"))
+                route="s8" if pair == "w8a8" else "f32",
+                library="cuDNN on the dequantized f32 operands",
+                w_layout=layout, layout_ms=lay_ms, layout_host_ms=lay_host))
             del ops
     torch.cuda.empty_cache()
+    # the int8 call shapes summed per operand pair (once each; the summary
+    # line weighs them by their launches)
+    for pair in ("float32/int8", "int8/int8"):
+        rows = [r_ for r_ in detail["int8_layers"] if r_["pair"] == pair]
+        print(json.dumps({"int8_pair": pair, "call_shapes": len(rows), **{
+            f: sum(r_[f] for r_ in rows)
+            for f in ("ms", "library_ms", "bound_ms", "layout_ms",
+                      "layout_host_ms")}}))
 
     detail["e2e"] = {}
     for pol, srv in (("f32", server), *q_servers.items()):
@@ -1734,6 +1823,12 @@ def main() -> int:
          "operands": "int8 weights beside f32 or int8 activations",
          "library": "cuDNN on the dequantized f32 operands"},
     ]}
+    # the block each operand pair of the int8 kernels runs on
+    PAIR_ROUTES = {
+        "float32/int8": "f32 FMAs on CUDA cores (igemm_kernel, int8 "
+                        "weights converted in registers)",
+        "int8/int8": "s8 tensor cores (igemm_s8_kernel: mma.sync "
+                     "m16n8k32, exact s32 sums, K-major weights)"}
     for entry in summary["kernels"]:
         k = entry["name"]
         tot = totals[k]
@@ -1746,6 +1841,18 @@ def main() -> int:
                      bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                                else "bytes"),
                      library_ms=tot["library_ms"])
+        if pair_totals[k]:
+            entry["by_pair"] = {
+                pair: {"route": PAIR_ROUTES[pair],
+                       "launches": pt["launches"], "ms": pt["ms"],
+                       "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
+                       "bound_by": ("operations"
+                                    if pt["ops_ms"] >= pt["bytes_ms"]
+                                    else "bytes"),
+                       "library_ms": pt["library_ms"]}
+                for pair, pt in sorted(pair_totals[k].items())}
+            check(sum(v["launches"] for v in entry["by_pair"].values())
+                  == n, f"{k}: launches per pair {entry['by_pair']}")
     detail["summary"] = summary
     if cli.json is not None:
         cli.json.parent.mkdir(parents=True, exist_ok=True)

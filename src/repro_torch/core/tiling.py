@@ -7,7 +7,9 @@ through a ring of shared-memory stages (64 bytes of each row's (tap,
 channel) pairs per stage: 16 f32 or 32 bf16 pairs).  What a layer decides
 is the output-channel tile ``block_co`` (16, 32, 64 or 128, the smallest
 that covers the layer's per-group output channels), which fixes the
-block's rows, threads and stages (``KERNEL_TILES``); what the budget
+block's rows, threads and stages (``KERNEL_TILES``; int8 activations
+beside int8 weights take the s8 tensor-core route's ``S8_KERNEL_TILES``,
+whose B stages are K-major, ``[block_co][64 + 16]`` bytes); what the budget
 bounds is the dynamic shared memory of one block, counted at the operands'
 true widths, against the 227 KB an sm_90 block may use.  Per launch,
 ``launch_split`` cuts the reduction into slices when the output alone
@@ -65,6 +67,11 @@ class KernelTile:
         """(tap, channel) pairs per stage at this operand width."""
         return max(1, self.k_bytes // in_dtype_bytes)
 
+    @property
+    def registers(self) -> int:
+        """Registers a thread is taken to hold (``TILE_REGISTERS``)."""
+        return TILE_REGISTERS
+
 
 # block_co -> tile; keep in step with csrc/igemm.cuh (Tile16 ... Tile128).
 # Up to 32 channels per group a thread owns all of its rows' channels, and
@@ -73,8 +80,50 @@ class KernelTile:
 KERNEL_TILES = {t.block_co: t for t in (
     KernelTile(256, 16, 2, 16, 64, 2), KernelTile(256, 32, 2, 32, 64, 2),
     KernelTile(128, 64, 8, 8, 64, 4), KernelTile(128, 128, 8, 8, 64, 4))}
-# the pad after each staged row of the gathered operand (bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class S8KernelTile:
+    """One instantiated tile of the int8 x int8 route (``csrc/igemm.cuh``
+    ``S8Tile``): ``block_m`` rows x ``block_co`` output channels per
+    block, ``warps_m`` x ``warps_n`` warps of m16n8 s32 fragments,
+    ``k_bytes`` of each row's pairs per stage, ``stages`` stages, and
+    ``min_blocks`` resident blocks an SM is built for (the kernel's
+    ``__launch_bounds__``, which caps its registers)."""
+    block_m: int
+    block_co: int
+    warps_m: int
+    warps_n: int
+    k_bytes: int
+    stages: int
+    min_blocks: int
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps_m * self.warps_n
+
+    @property
+    def registers(self) -> int:
+        """The most registers a thread may hold under ``min_blocks``."""
+        return min(255, REGISTERS_PER_SM // (self.threads * self.min_blocks))
+
+    def block_ci(self, in_dtype_bytes: int) -> int:
+        """(tap, channel) pairs per stage (one byte each)."""
+        return max(1, self.k_bytes // in_dtype_bytes)
+
+
+# block_co -> tile; keep in step with csrc/igemm.cuh (S8Tile16 ...
+# S8Tile128): 8 warps, each 32 rows x 16, 32, 32 or 64 channels, two
+# blocks an SM
+S8_KERNEL_TILES = {t.block_co: t for t in (
+    S8KernelTile(256, 16, 8, 1, 64, 3, 2),
+    S8KernelTile(256, 32, 8, 1, 64, 3, 2),
+    S8KernelTile(128, 64, 4, 2, 64, 4, 2),
+    S8KernelTile(128, 128, 4, 2, 64, 4, 2))}
+# the pad after each staged row of the gathered operand (bytes), and after
+# each K-major weight row of the int8 route's B stage
 A_PAD_BYTES = 16
+B_PAD_BYTES = 16
 # taps whose input offsets a block keeps in shared memory (16 bytes each)
 MAX_TAPS = 128
 # the split reduction: slices are whole stages at either width (up to 32
@@ -100,6 +149,7 @@ class DeconvTilePlan:
     step_smem_bytes: int
     smem_budget: int
     stages: int
+    registers: int = TILE_REGISTERS
 
     @property
     def overflows(self) -> bool:
@@ -110,20 +160,29 @@ class DeconvTilePlan:
                 f"_t{self.threads}_smem{self.step_smem_bytes}")
 
 
+def is_s8(in_dtype_bytes: int, w_dtype_bytes: int | None) -> bool:
+    """Whether the operand widths are the int8 x int8 route's."""
+    return in_dtype_bytes == 1 and w_dtype_bytes in (None, 1)
+
+
 def step_byte_model(*, in_dtype_bytes: int = 4,
                     w_dtype_bytes: int | None = None):
     """``step_bytes(block_m, block_ci, block_co, stages)``: dynamic shared
     memory of one block — ``stages`` times the A stage ``[block_m]
     [block_ci]`` at the activation width plus an ``A_PAD_BYTES`` pad per
-    row and the B stage ``[block_ci][block_co]`` at the weight width, four
-    int32 coordinates per row and four per tap of the ``MAX_TAPS``-entry
-    tap table."""
+    row and the B stage at the weight width, four int32 coordinates per
+    row and four per tap of the ``MAX_TAPS``-entry tap table.  B's stage
+    is ``[block_ci][block_co]``, or for int8 x int8 (``is_s8``) K-major,
+    ``[block_co][block_ci + B_PAD_BYTES]``."""
     w_bytes = in_dtype_bytes if w_dtype_bytes is None else w_dtype_bytes
+    s8 = is_s8(in_dtype_bytes, w_dtype_bytes)
 
     def step_bytes(block_m: int, block_ci: int, block_co: int,
                    stages: int) -> int:
+        b_stage = (block_co * (block_ci + B_PAD_BYTES) if s8
+                   else block_ci * block_co * w_bytes)
         return (stages * (block_m * (block_ci * in_dtype_bytes + A_PAD_BYTES)
-                          + block_ci * block_co * w_bytes)
+                          + b_stage)
                 + 4 * block_m * 4 + 4 * MAX_TAPS * 4)
 
     return step_bytes
@@ -142,7 +201,8 @@ def plan_uniform_tiles(cin: int, cout: int, *, mode: str = "deconv",
     ``block_co`` defaults to the smallest instantiated tile that covers the
     per-group output channels (the widest past that); explicit ``block_ci``
     / ``block_co`` must name an instantiated tile (``block_ci`` is fixed by
-    the tile and the operand width: ``KernelTile.block_ci``).
+    the tile and the operand width: ``KernelTile.block_ci``).  int8
+    activations beside int8 weights plan on ``S8_KERNEL_TILES``.
     """
     if mode not in ("deconv", "conv"):
         raise ValueError(f"unknown mode {mode!r}; expected 'deconv'|'conv'")
@@ -156,7 +216,8 @@ def plan_uniform_tiles(cin: int, cout: int, *, mode: str = "deconv",
     elif block_co not in KERNEL_TILES:
         raise ValueError(f"block_co={block_co}: the kernels are built for "
                          f"{sorted(KERNEL_TILES)}")
-    tile = KERNEL_TILES[block_co]
+    tile = (S8_KERNEL_TILES if is_s8(in_dtype_bytes, w_dtype_bytes)
+            else KERNEL_TILES)[block_co]
     # (the wrappers refuse operand types the kernels do not take)
     pairs = tile.block_ci(in_dtype_bytes)
     if block_ci is not None and block_ci != pairs:
@@ -169,22 +230,24 @@ def plan_uniform_tiles(cin: int, cout: int, *, mode: str = "deconv",
                           block_co=block_co, threads=tile.threads,
                           step_smem_bytes=step(tile.block_m, pairs,
                                                block_co, tile.stages),
-                          smem_budget=smem_budget, stages=tile.stages)
+                          smem_budget=smem_budget, stages=tile.stages,
+                          registers=tile.registers)
 
 
-def _resident(smem_bytes: int, threads: int) -> int:
+def _resident(smem_bytes: int, threads: int,
+              registers: int = TILE_REGISTERS) -> int:
     """Blocks of ``threads`` threads and ``smem_bytes`` of dynamic shared
     memory one SM keeps resident: the least of what its shared memory,
-    threads and registers (at ``TILE_REGISTERS`` a thread) allow."""
+    threads and registers (at ``registers`` a thread) allow."""
     return max(1, min(
         SMEM_PER_SM // (smem_bytes + SMEM_RESERVED_PER_BLOCK),
         THREADS_PER_SM // threads,
-        REGISTERS_PER_SM // (threads * TILE_REGISTERS), 32))
+        REGISTERS_PER_SM // (threads * registers), 32))
 
 
 def resident_blocks(plan: DeconvTilePlan) -> int:
     """Blocks of ``plan`` one SM keeps resident (``_resident``)."""
-    return _resident(plan.step_smem_bytes, plan.threads)
+    return _resident(plan.step_smem_bytes, plan.threads, plan.registers)
 
 
 def grid_blocks(plan: DeconvTilePlan, rows: int, cout: int, groups: int,

@@ -27,19 +27,20 @@
 //
 // Quantized operands, as the TPU kernel takes them: int8 weights beside
 // f32 or bf16 activations, or int8 activations and weights.  The kernel
-// reads them from global memory as int8 and stages them as int8; each
-// lane becomes f32 exactly in registers and the sums stay f32 FMAs, as
-// the reference casts to f32 before its dot; the per-cout dequant scale
-// (the activations' per-tensor scale folded in) multiplies the finished
-// sum first thing in the epilogue.  Their bound is the int8 tensor-core
-// rate, which these CUDA-core sums do not approach: that route is later
-// work.
+// reads them from global memory as int8 and stages them as int8.  Beside
+// float activations each int8 lane becomes f32 exactly in registers and
+// the sums stay f32 FMAs, as the reference casts to f32 before its dot.
+// int8 activations beside int8 weights run on the int8 tensor cores
+// (mma.sync s8, exact s32 sums, the weights K-major: igemm.cuh), bound by
+// their gathers.  Either way the per-cout dequant scale (the activations'
+// per-tensor scale folded in) multiplies the finished sum first thing in
+// the epilogue.
 #include "igemm.cuh"
 
-// This source is compiled once per variant (-DREPRO_PART=0..9, see
+// This source is compiled once per variant (-DREPRO_PART=0..10, see
 // igemm.cuh::variant_part); part 0 also holds the C entry point.
 #ifndef REPRO_PART
-#error "build with -DREPRO_PART=0..9"
+#error "build with -DREPRO_PART=0..10"
 #endif
 #define REPRO_CAT2(a, b) a##b
 #define REPRO_CAT(a, b) REPRO_CAT2(a, b)
@@ -58,14 +59,18 @@ int repro_conv_part6(const repro::FwdArgs& a);
 int repro_conv_part7(const repro::FwdArgs& a);
 int repro_conv_part8(const repro::FwdArgs& a);
 int repro_conv_part9(const repro::FwdArgs& a);
+int repro_conv_part10(const repro::FwdArgs& a);
 
 // in_dtype / w_dtype: x's and the weights' DType; the pair must be one
-// igemm.cuh::pair_index knows
+// igemm.cuh::pair_index knows.  copy picks the copy widths
+// (igemm.cuh::variant_part): 16-byte copies of both operands or not for
+// the float route, A's bytes per copy (16, 4 or 1) for int8 x int8, whose
+// weights come K-major
 extern "C" int repro_conv_fwd(const void* x, const void* w,
                               const float* scale, const float* bias, void* y,
                               float* work, const int* geom, int act,
                               float alpha, int in_dtype, int w_dtype,
-                              int out_dtype, int block_co, int vec,
+                              int out_dtype, int block_co, int copy,
                               void* stream) {
   repro::FwdArgs a;
   const int pair = repro::pair_index(in_dtype, w_dtype);
@@ -85,7 +90,8 @@ extern "C" int repro_conv_fwd(const void* x, const void* w,
       repro_conv_part7,
       repro_conv_part8,
       repro_conv_part9,
+      repro_conv_part10,
   };
-  return parts[repro::variant_part(pair, vec)](a);
+  return parts[repro::variant_part(pair, copy)](a);
 }
 #endif

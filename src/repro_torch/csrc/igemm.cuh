@@ -51,19 +51,52 @@
 // about 40 % of the f32 peak.
 //
 // No block waits on another.  Sums are f32 with plain FMA (no TF32);
-// operands are staged in their own type: the activations (A, type TA) f32,
-// bf16 or int8, the weights (B, type TB) the same type or int8.  A
-// stage holds 64 bytes of each row's pairs at A's width (16 f32, 32 bf16
-// or 64 int8 pairs) and B's rows of those pairs at B's width, so int8
-// weights beside f32 activations take a quarter of B's shared memory.
-// int8 lanes become f32 exactly in registers (the sign-flipped byte as
-// the low mantissa byte of 2^23, minus 2^23 + 128: a byte permute and an
-// add, no conversion instruction); every product of |q| <= 127 values is
-// then exact in f32, and the sums round in f32, as the reference's f32
-// cast-then-dot does.  The per-cout dequant scale is the epilogue's first
-// multiply, on the finished sum (after the slices' sum when split), so it
-// is applied exactly once.  int8 dot products (dp4a, IMMA or wgmma s8
-// tensor cores) are untried.
+// operands are staged in their own type: the activations (A, type TA) f32
+// or bf16, the weights (B, type TB) the same type or int8.  A stage holds
+// 64 bytes of each row's pairs at A's width (16 f32 or 32 bf16 pairs) and
+// B's rows of those pairs at B's width, so int8 weights beside f32
+// activations take a quarter of B's shared memory.  int8 lanes become f32
+// exactly in registers (the sign-flipped byte as the low mantissa byte of
+// 2^23, minus 2^23 + 128: a byte permute and an add, no conversion
+// instruction); every product of |q| <= 127 values is then exact in f32,
+// and the sums round in f32, as the reference's f32 cast-then-dot does.
+// The per-cout dequant scale is the epilogue's first multiply, on the
+// finished sum (after the slices' sum when split), so it is applied
+// exactly once.
+//
+// int8 activations beside int8 weights take a route of their own, on the
+// int8 tensor cores (igemm_s8_kernel): mma.sync m16n8k32 s8 x s8 with s32
+// sums, which are exact (|q| <= 128, at most 2^31 / 128^2 pairs deep: the
+// wrapper raises past that), so the one rounding is the s32 sum's
+// conversion to f32 before the same epilogue.  The same gathers, masks,
+// ring, tables, crop and split as above; what differs:
+//
+//   * B is K-major, [phases][G][Cout/G][kp] int8 (the deconv's phases
+//     along the first axis, each phase's (tap, channel) pairs contiguous
+//     and zero-padded to kp, the deepest phase's pairs rounded up to 16),
+//     because s8 mma takes B with K contiguous and ldmatrix has no 8-bit
+//     transpose.  A stage of B is [BN][64 + 16] bytes, filled with
+//     16-byte copies only.
+//   * A's copy width is its own (the VA template argument): 16-byte
+//     copies where Cin/G % 16 == 0, 4-byte cp.async where Cin/G % 4 == 0,
+//     else byte loads, whatever the output channels allow.  A's 16-byte
+//     copies allocate in L1 (.ca): neighbouring rows' taps re-read the
+//     same input, and on V-Net merge4 that took 0.95 against 1.22 ms.
+//   * each warp owns a 32-row x 16/32/64-channel tile of m16n8 fragments;
+//     A is read with ldmatrix.x4 from the 80-byte-pitch rows, B with
+//     ldmatrix.x4 (two n8 fragments of one k32 step) from the 80-byte
+//     rows of its K-major stage: no bank conflicts in either.  Every tile
+//     is built for two resident blocks (128 registers a thread).
+//   * the s32 tile goes through shared memory, and the epilogue runs as a
+//     loop over rows, four channels a thread; a split stores s32 partials
+//     (the f32 workspace's bytes) that igemm_reduce sums as integers,
+//     exactly, before the epilogue.
+//
+// What bounds the int8 route: the tensor cores' 1,979 TOP/s take a V-Net
+// merge layer's reduction in tens of microseconds, so the gathers bound
+// it (each input element read once per tap, from L1 or L2: merge4 0.92 ms
+// against a 0.12 ms byte bound), then the output's bytes.  wgmma, TMA and
+// staging the input tile once with its halo are what it leaves.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -128,20 +161,24 @@ __device__ __forceinline__ void store_out(void* y, int out_bf16, int64_t i,
 }
 
 // The slices' partial sums of element i, added in slice order (a fixed
-// order: the result repeats bit for bit).  partial is [splits][n].
-__device__ __forceinline__ float slice_sum(const float* __restrict__ partial,
+// order: the result repeats bit for bit), as f32.  partial is [splits][n]
+// of f32 sums, or of s32 ones (the int8 route: summed exactly, converted
+// once).
+template <typename TP>
+__device__ __forceinline__ float slice_sum(const TP* __restrict__ partial,
                                            int64_t n, int splits, int64_t i) {
-  float s = 0.f;
+  TP s = 0;
   for (int z = 0; z < splits; ++z) s += partial[(int64_t)z * n + i];
-  return s;
+  return static_cast<float>(s);
 }
 
 // -- asynchronous copies ---------------------------------------------------
 
 // Copy BYTES from global to shared memory, or zero-fill them when !valid
 // (source size 0: nothing is read).  cp.async has no 1- or 2-byte form, so
-// the int8 and bf16 scalar variants load and store synchronously.
-template <int BYTES>
+// the int8 and bf16 scalar variants load and store synchronously.  L1:
+// whether a 16-byte copy also allocates in L1 (.ca) or skips it (.cg).
+template <int BYTES, bool L1 = false>
 __device__ __forceinline__ void copy_async(void* smem, const void* gmem,
                                            bool valid) {
   if constexpr (BYTES == 1) {
@@ -155,9 +192,9 @@ __device__ __forceinline__ void copy_async(void* smem, const void* gmem,
     const unsigned dst =
         static_cast<unsigned>(__cvta_generic_to_shared(smem));
     const int src_bytes = valid ? BYTES : 0;
-    // 16-byte copies skip L1 (.cg): the staged operands live in shared
-    // memory, and allocating them in L1 too measured slower
-    if constexpr (BYTES == 16)
+    // 16-byte copies of the float route skip L1 (.cg): the staged operands
+    // live in shared memory, and allocating them in L1 too measured slower
+    if constexpr (BYTES == 16 && !L1)
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                        dst), "l"(gmem), "r"(src_bytes));
     else
@@ -287,7 +324,160 @@ __device__ __forceinline__ bool out_offset(const Geom& g, int m, int pd,
   return true;
 }
 
+// -- what both routes share: a block's place, its tables, A's gather -------
+
+// The block of blockIdx: x = row tile, y = group x channel tile, z = phase
+// x slice.  Its rows start at m0, its channels at co0 within group grp,
+// and its slice of the reduction covers pairs [kb, ke) of the phase's
+// (or the conv's) ntaps taps, the first tap0 of the phase table.
+struct BlockPos {
+  int grp, co0, m0, rows, slice, p, pd, ph, pw, tap0, ntaps, kb, ke;
+  const int* tapm;   // the deconv's per-tap (m_d, m_h, m_w) offsets
+};
+
+template <bool DECONV, int BM, int BN>
+__device__ __forceinline__ BlockPos block_pos(const Geom& g,
+                                              const int* taps) {
+  BlockPos b;
+  const int Cig = g.Ci / g.G, Cog = g.Co / g.G;
+  const int co_tiles = (Cog + BN - 1) / BN;
+  b.grp = blockIdx.y / co_tiles;
+  b.co0 = (blockIdx.y % co_tiles) * BN;          // within the group
+  b.rows = g.N * g.Pd * g.Ph * g.Pw;
+  b.m0 = blockIdx.x * BM;
+  b.slice = blockIdx.z % g.splits;
+  b.p = blockIdx.z / g.splits;
+  b.pd = b.ph = b.pw = b.tap0 = 0;
+  b.tapm = taps;
+  if (DECONV) {
+    b.pw = b.p % g.Sw;
+    b.ph = (b.p / g.Sw) % g.Sh;
+    b.pd = b.p / (g.Sw * g.Sh);
+    b.tap0 = taps[2 * b.p];
+    b.ntaps = taps[2 * b.p + 1];
+    b.tapm = taps + 2 * g.Sd * g.Sh * g.Sw;
+  } else {
+    b.ntaps = g.Kd * g.Kh * g.Kw;
+  }
+  b.kb = b.slice * g.k_per_split;
+  b.ke = min(b.ntaps * Cig, b.kb + g.k_per_split);
+  return b;
+}
+
+// Tap t's input offset (flat position delta) and coordinate deltas.
+template <bool DECONV>
+__device__ __forceinline__ int4 tap_entry(const Geom& g, const BlockPos& b,
+                                          int t) {
+  int dd, dh, dw;
+  if (DECONV) {
+    const int* mm = b.tapm + 3 * (b.tap0 + t);
+    dd = -mm[0]; dh = -mm[1]; dw = -mm[2];
+  } else {
+    const int kw = t % g.Kw, kh = (t / g.Kw) % g.Kh, kd = t / (g.Kw * g.Kh);
+    dd = kd * g.dd; dh = kh * g.dh; dw = kw * g.dw;
+  }
+  return make_int4((dd * g.H + dh) * g.W + dw, dd, dh, dw);
+}
+
+// The block's row table (each row's input position of tap offset 0 and its
+// coordinates; rows past the end get coordinates every tap reads out of
+// bounds) and tap table (the first MAX_TAPS taps' tap_entry), then a
+// barrier.
+template <bool DECONV, int BM, int THREADS>
+__device__ __forceinline__ void fill_tables(const Geom& g, const BlockPos& b,
+                                            int4* rowtab, int4* taptab) {
+  for (int r = threadIdx.x; r < BM; r += THREADS) {
+    const int m = b.m0 + r;
+    int4 e = make_int4(0, -(1 << 29), 0, 0);
+    if (m < b.rows) {
+      int t = m;
+      const int qw = t % g.Pw; t /= g.Pw;
+      const int qh = t % g.Ph; t /= g.Ph;
+      const int qd = t % g.Pd;
+      const int n = t / g.Pd;
+      int bd = qd, bh = qh, bw = qw;
+      if (!DECONV) {
+        bd = qd * g.Sd - g.lod;
+        bh = qh * g.Sh - g.loh;
+        bw = qw * g.Sw - g.low;
+      }
+      e = make_int4(((n * g.D + bd) * g.H + bh) * g.W + bw, bd, bh, bw);
+    }
+    rowtab[r] = e;
+  }
+  for (int t = threadIdx.x; t < b.ntaps && t < MAX_TAPS; t += THREADS)
+    taptab[t] = tap_entry<DECONV>(g, b, t);
+  __syncthreads();
+}
+
+// The gather of A into one stage: BM rows x BK pairs of TA, VA consecutive
+// channels of one tap a copy (VA divides Cin/G), UNROLL copies in flight
+// per thread, 16-byte copies through L1 when L1.  A thread owns copy
+// column ca (pair k0 + ca*VA of every stage, at tap a_t and channel a_ci,
+// advanced one stage at a time) of rows ra, ra + A_ROWS, ...; what the
+// masks drop is zero-filled: padding, rows past the end, pairs at or past
+// ke.
+template <typename TA, int VA, int BM, int THREADS, int BK, int APITCH,
+          int UNROLL, bool DECONV, bool L1 = false>
+struct AGather {
+  static constexpr int A_CH = BK / VA;            // copies per A row
+  static constexpr int A_ROWS = THREADS / A_CH;   // rows one pass covers
+  static_assert(BK % VA == 0 && THREADS % A_CH == 0 && BM % A_ROWS == 0,
+                "A copies");
+  int ca, ra, a_t, a_ci, a_tcur;
+  int4 a_tap;         // a_tcur's offsets (taptab entry)
+  int64_t ci_base;
+
+  __device__ __forceinline__ AGather(const Geom& g, const BlockPos& b) {
+    const int Cig = g.Ci / g.G;
+    ca = threadIdx.x % A_CH;
+    ra = threadIdx.x / A_CH;
+    const int kk = b.kb + ca * VA;
+    a_t = kk / Cig;
+    a_ci = kk - a_t * Cig;
+    a_tcur = -1;
+    a_tap = make_int4(0, 0, 0, 0);
+    ci_base = (int64_t)b.grp * Cig;
+  }
+
+  __device__ __forceinline__ void load(TA* As_slot, int k0, const TA* x,
+                                       const Geom& g, const BlockPos& b,
+                                       const int4* rowtab,
+                                       const int4* taptab) {
+    const int Cig = g.Ci / g.G;
+    const bool k_ok = k0 + ca * VA < b.ke;
+    if (k_ok && a_t != a_tcur) {
+      a_tcur = a_t;
+      a_tap = a_t < MAX_TAPS ? taptab[a_t] : tap_entry<DECONV>(g, b, a_t);
+    }
+    const int64_t coff = ci_base + a_ci;
+    TA* adst = As_slot + ra * APITCH + ca * VA;
+#pragma unroll (UNROLL)
+    for (int j = 0; j < BM / A_ROWS; ++j) {
+      const int4 e = rowtab[ra + j * A_ROWS];
+      const int id = e.y + a_tap.y, ih = e.z + a_tap.z, iw = e.w + a_tap.w;
+      const bool ok = k_ok && (unsigned)id < (unsigned)g.D &&
+                      (unsigned)ih < (unsigned)g.H &&
+                      (unsigned)iw < (unsigned)g.W;
+      const TA* src = ok ? x + (int64_t)(e.x + a_tap.x) * g.Ci + coff : x;
+      copy_async<VA * (int)sizeof(TA), L1>(adst + j * A_ROWS * APITCH, src,
+                                           ok);
+    }
+    a_ci += BK;
+    if (a_ci >= Cig) {
+      const int q = a_ci / Cig;
+      a_t += q;
+      a_ci -= q * Cig;
+    }
+  }
+};
+
+// -- the float route ---------------------------------------------------------
+
 // blockIdx: x = row tile, y = group x channel tile, z = phase x slice.
+// The float route keeps its own copy of the block's setup and gather
+// (block_pos, fill_tables and AGather are the same code): built from
+// those helpers, the bf16 scalar-copy conv (255 registers) spilled.
 // With partial != nullptr the block stores its slice's raw f32 sums at
 // partial[((slice * phases + p) * rows + m) * Co + c]; else the epilogue's
 // result in y (f32, or bf16 when out_bf16).  x is TA, w is TB.
@@ -557,9 +747,10 @@ igemm_kernel(const TA* __restrict__ x, const TB* __restrict__ w,
 }
 
 // The split reduction's second pass: element i = (p * rows + m) * Co + c
-// sums its slices in slice order, then the epilogue and the cropped store.
-template <bool DECONV>
-__global__ void igemm_reduce(const float* __restrict__ partial, Epi ep,
+// sums its slices in slice order (TP: f32 sums, or s32 ones summed
+// exactly), then the epilogue and the cropped store.
+template <typename TP, bool DECONV>
+__global__ void igemm_reduce(const TP* __restrict__ partial, Epi ep,
                              void* __restrict__ y, int out_bf16, Geom g) {
   const int rows = g.N * g.Pd * g.Ph * g.Pw;
   const int phases = DECONV ? g.Sd * g.Sh * g.Sw : 1;
@@ -576,41 +767,330 @@ __global__ void igemm_reduce(const float* __restrict__ partial, Epi ep,
   store_out(y, out_bf16, out + c, epilogue(s, ep, c));
 }
 
+// -- the int8 x int8 route: s8 tensor cores ----------------------------------
+
+// BM rows x BN output channels per block, WM x WN warps of (BM/WM) x
+// (BN/WN) sums each (m16n8 fragments, four s32 sums a thread each), 64
+// bytes of each row's pairs (two k32 steps) per stage, ST stages,
+// MINB blocks an SM keeps resident (the register cap).  Keep in step with
+// repro_torch/core/tiling.py::S8_KERNEL_TILES.
+template <int BM_, int BN_, int WM_, int WN_, int ST_, int MINB_>
+struct S8Tile {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
+  static constexpr int ST = ST_, MINB = MINB_, KB = 64;
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int WTM = BM / WM, WTN = BN / WN;   // a warp's tile
+  static constexpr int MT = WTM / 16, NT = WTN / 8;    // its fragments
+  static_assert(WTM % 16 == 0 && WTN % 16 == 0, "whole fragment pairs");
+};
+// Two resident blocks (128 registers a thread): capped at 80 for three,
+// the deconv's tiles spilled; on V-Net merge4 two, three or four blocks
+// an SM timed within 1 % of each other (PERF.md).
+using S8Tile16 = S8Tile<256, 16, 8, 1, 3, 2>;
+using S8Tile32 = S8Tile<256, 32, 8, 1, 3, 2>;
+using S8Tile64 = S8Tile<128, 64, 4, 2, 4, 2>;
+using S8Tile128 = S8Tile<128, 128, 4, 2, 4, 2>;
+
+constexpr int BPAD = 16;         // pad after each staged K-major B row
+
+// Dynamic shared memory of one block: the A ring [ST][BM][KB + APAD], the
+// K-major B ring [ST][BN][KB + BPAD], the row table and the tap table.
+// Keep in step with tiling.py::step_byte_model.
+template <class TL>
+constexpr int s8_smem_bytes() {
+  return TL::ST * (TL::BM * (TL::KB + APAD) + TL::BN * (TL::KB + BPAD)) +
+         16 * TL::BM + 16 * MAX_TAPS;
+}
+
+// Four 8 x 16-byte matrices from shared memory: lanes 8q..8q+7 give the
+// row addresses of matrix q, and each lane receives word (lane % 4) of row
+// lane / 4 of each matrix.
+__device__ __forceinline__ void ldmatrix_x4(unsigned& r0, unsigned& r1,
+                                            unsigned& r2, unsigned& r3,
+                                            unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// d += a (16 x 32 s8, row) * b (32 x 8 s8, col), s32 sums.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// w is K-major: [phases][G][Cog][kp] int8, kp the deepest phase's pairs
+// rounded up to 16, each row zero past its phase's pairs.  VA: A's bytes
+// per copy (16, 4 or 1).  With partial != nullptr the block stores its
+// slice's s32 sums at partial[((slice * phases + p) * rows + m) * Co + c].
+template <class TL, int VA, bool DECONV>
+__global__ void __launch_bounds__(TL::THREADS, TL::MINB)
+igemm_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                const int* __restrict__ taps, Epi ep, void* __restrict__ y,
+                int out_bf16, int* __restrict__ partial, Geom g) {
+  constexpr int BM = TL::BM, BN = TL::BN, THREADS = TL::THREADS;
+  constexpr int STAGES = TL::ST, BK = TL::KB;
+  constexpr int APITCH = TL::KB + APAD, BPITCH = TL::KB + BPAD;
+  constexpr int MT = TL::MT, NT = TL::NT;
+  constexpr int B_CH = BK / 16;                   // 16-byte copies per row
+  constexpr int B_COPIES = BN * B_CH;
+  constexpr int A_UNROLL = VA > 1 ? BM / (THREADS / (BK / VA)) : 4;
+  static_assert(BK == 64, "two k32 steps a stage");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* As = reinterpret_cast<int8_t*>(smem);        // [ST][BM][APITCH]
+  int8_t* Bs = As + STAGES * BM * APITCH;              // [ST][BN][BPITCH]
+  int4* rowtab = reinterpret_cast<int4*>(Bs + STAGES * BN * BPITCH);
+  int4* taptab = rowtab + BM;
+
+  const int tid = threadIdx.x;
+  const BlockPos b = block_pos<DECONV, BM, BN>(g, taps);
+  const int Cig = g.Ci / g.G, Cog = g.Co / g.G;
+  const int phases = DECONV ? g.Sd * g.Sh * g.Sw : 1;
+  const int nst = b.ke > b.kb ? (b.ke - b.kb + BK - 1) / BK : 0;
+  int deepest = b.ntaps;
+  if (DECONV)
+    for (int q = 0; q < phases; ++q) deepest = max(deepest, taps[2 * q + 1]);
+  const int64_t kp = ((int64_t)deepest * Cig + 15) / 16 * 16;
+  const int8_t* wblk = w + ((int64_t)b.p * g.G + b.grp) * Cog * kp;
+  fill_tables<DECONV, BM, THREADS>(g, b, rowtab, taptab);
+  AGather<int8_t, VA, BM, THREADS, BK, APITCH, A_UNROLL, DECONV, true> ga(g,
+                                                                       b);
+
+  auto load_stage = [&](int slot, int k0) {
+    ga.load(As + slot * BM * APITCH, k0, x, g, b, rowtab, taptab);
+    // B: BN K-major rows of 64 pairs; a 16-byte chunk starting at or past
+    // ke is not read (the rest of a row's last chunk is its zero pad)
+    int8_t* bdst = Bs + slot * BN * BPITCH;
+#pragma unroll
+    for (int e0 = 0; e0 < B_COPIES; e0 += THREADS) {
+      const int e = e0 + tid;
+      if (B_COPIES % THREADS == 0 || e < B_COPIES) {
+        const int n = e / B_CH, c = (e - n * B_CH) * 16;
+        const int co = b.co0 + n;
+        const bool ok = co < Cog && k0 + c < b.ke;
+        const int8_t* src = ok ? wblk + co * kp + k0 + c : w;
+        copy_async<16>(bdst + n * BPITCH + c, src, ok);
+      }
+    }
+  };
+
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][j][u] = 0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) load_stage(s, b.kb + s * BK);
+    copy_commit();
+  }
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % TL::WM, wn = warp / TL::WM;
+  // this lane's ldmatrix row address in slot 0.  A (x4: rows 0-7 / 8-15
+  // of a fragment at k 0 / 16): row lane % 16, k (lane / 16) * 16.  B (x4:
+  // fragments j, j + 1 at k 0 / 16): channel lane % 8 + (lane / 16) * 8, k
+  // ((lane / 8) % 2) * 16
+  const unsigned a_lane =
+      static_cast<unsigned>(__cvta_generic_to_shared(As)) +
+      (wm * TL::WTM + (lane & 15)) * APITCH + (lane >> 4) * 16;
+  const unsigned b_lane =
+      static_cast<unsigned>(__cvta_generic_to_shared(Bs)) +
+      (wn * TL::WTN + (lane & 7) + ((lane >> 4) << 3)) * BPITCH +
+      ((lane >> 3) & 1) * 16;
+  for (int st = 0; st < nst; ++st) {
+    copy_wait<STAGES - 2>();   // stage st has landed (this thread's copies)
+    __syncthreads();           // ... everyone's; slot st-1 is free again
+    const int nxt = st + STAGES - 1;
+    if (nxt < nst) load_stage(nxt % STAGES, b.kb + nxt * BK);
+    copy_commit();
+    const int slot = st % STAGES;
+    const unsigned a_s = a_lane + slot * BM * APITCH;
+    const unsigned b_s = b_lane + slot * BN * BPITCH;
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks) {
+      unsigned bf[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; j += 2)
+        ldmatrix_x4(bf[j][0], bf[j][1], bf[j + 1][0], bf[j + 1][1],
+                    b_s + j * 8 * BPITCH + ks * 32);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        unsigned af[4];
+        ldmatrix_x4(af[0], af[1], af[2], af[3],
+                    a_s + i * 16 * APITCH + ks * 32);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af, bf[j][0], bf[j][1]);
+      }
+    }
+  }
+  copy_wait<0>();
+
+  // the s32 tile through shared memory (the rings are free once every warp
+  // is past its last stage): fragment (i, j) holds rows lane / 4 (+ 8) of
+  // the warp's i-th 16 and channels 2 * (lane % 4) + {0, 1} of its j-th 8.
+  // Then four channels of a row a thread, in row order: a slice's s32
+  // sums, or the f32 epilogue and one store of four where aligned.  (The
+  // epilogue straight from the fragments, unrolled over every fragment,
+  // took cicc minutes to compile.)
+  constexpr int CPITCH = BN + 4;                  // s32 per staged row
+  static_assert(BM * CPITCH * 4 <= STAGES * (BM * APITCH + BN * BPITCH),
+                "C fits the rings");
+  int* ctile = reinterpret_cast<int*>(smem);      // [BM][CPITCH]
+  __syncthreads();
+  {
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<int2*>(
+              ctile + (wm * TL::WTM + i * 16 + gid + h * 8) * CPITCH +
+              wn * TL::WTN + j * 8 + tig * 2) =
+              make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  }
+  __syncthreads();
+  const int64_t co_base = (int64_t)b.grp * Cog;
+  const bool vec_out =
+      g.Co % 4 == 0 && Cog % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(y) % (out_bf16 ? 8 : 16) == 0;
+#pragma unroll 1
+  for (int e = tid; e < BM * (BN / 4); e += THREADS) {
+    const int r = e / (BN / 4), c = b.co0 + (e - r * (BN / 4)) * 4;
+    const int m = b.m0 + r;
+    if (m >= b.rows || c >= Cog) continue;
+    const int4 s4 = *reinterpret_cast<const int4*>(ctile + r * CPITCH + c -
+                                                    b.co0);
+    const int sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    if (partial) {
+      int* dst = partial +
+                 (((int64_t)b.slice * phases + b.p) * b.rows + m) * g.Co +
+                 co_base + c;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c + u < Cog) dst[u] = sv[u];
+      continue;
+    }
+    int64_t out;
+    if (!out_offset<DECONV>(g, m, b.pd, b.ph, b.pw, out)) continue;
+    out += co_base + c;
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)         // (scale/bias hold Co values)
+      v[u] = c + u < Cog ? epilogue(static_cast<float>(sv[u]), ep,
+                                    (int)co_base + c + u)
+                         : 0.f;
+    if (vec_out && c + 3 < Cog) {
+      if (out_bf16) {         // four bf16 in one 8-byte store
+        __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+        __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+        uint2 pk;
+        pk.x = *reinterpret_cast<unsigned*>(&lo);
+        pk.y = *reinterpret_cast<unsigned*>(&hi);
+        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(y) + out) = pk;
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(y) + out) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c + u < Cog) store_out(y, out_bf16, out + u, v[u]);
+    }
+  }
+}
+
+// -- launches ----------------------------------------------------------------
+
+constexpr int MAX_DEVICES = 64;
+
+// Raise a kernel's dynamic shared-memory limit once per device (the call
+// costs more host time than a small layer's whole launch); set holds the
+// devices done, one array per kernel.
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem, bool (&set)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && set[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess && dev < MAX_DEVICES) set[dev] = true;
+  return err;
+}
+
+// After a split launch's main pass: the slices' sum, epilogue and store.
+template <typename TP, bool DECONV>
+cudaError_t launch_reduce(const TP* work, const Epi& ep, void* y,
+                          int out_bf16, const Geom& g, cudaStream_t stream) {
+  const int rows = g.N * g.Pd * g.Ph * g.Pw;
+  const int phases = DECONV ? g.Sd * g.Sh * g.Sw : 1;
+  const int64_t n = (int64_t)phases * rows * g.Co;
+  igemm_reduce<TP, DECONV><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      work, ep, y, out_bf16, g);
+  return cudaGetLastError();
+}
+
+inline dim3 grid_of(const Geom& g, int BM, int BN, bool deconv) {
+  const int rows = g.N * g.Pd * g.Ph * g.Pw;
+  const int phases = deconv ? g.Sd * g.Sh * g.Sw : 1;
+  const int Cog = g.Co / g.G;
+  return dim3((rows + BM - 1) / BM, g.G * ((Cog + BN - 1) / BN),
+              phases * g.splits);
+}
+
 template <typename TA, typename TB, class TL, bool VEC, bool DECONV>
 cudaError_t launch_tile(const void* x, const void* w, const int* taps,
                         const Epi& ep, void* y, int out_bf16, float* work,
                         const Geom& g, cudaStream_t stream) {
-  const int rows = g.N * g.Pd * g.Ph * g.Pw;
-  const int phases = DECONV ? g.Sd * g.Sh * g.Sw : 1;
-  const int Cog = g.Co / g.G;
   if (g.splits < 1 || g.k_per_split < 1 || (g.splits > 1 && !work))
     return cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<TA, TB, TL>();
   auto kernel = igemm_kernel<TA, TB, TL, VEC, DECONV>;
-  // raise the kernel's dynamic shared-memory limit once per device (the
-  // call costs more host time than a small layer's whole launch)
-  constexpr int MAX_DEVICES = 64;
   static bool smem_set[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    if (dev < MAX_DEVICES) smem_set[dev] = true;
-  }
-  dim3 grid((rows + TL::BM - 1) / TL::BM, g.G * ((Cog + TL::BN - 1) / TL::BN),
-            phases * g.splits);
-  kernel<<<grid, TL::THREADS, smem, stream>>>(
+  kernel<<<grid_of(g, TL::BM, TL::BN, DECONV), TL::THREADS, smem, stream>>>(
       static_cast<const TA*>(x), static_cast<const TB*>(w), taps, ep, y,
       out_bf16, g.splits > 1 ? work : nullptr, g);
   err = cudaGetLastError();
   if (err != cudaSuccess || g.splits == 1) return err;
-  const int64_t n = (int64_t)phases * rows * g.Co;
-  igemm_reduce<DECONV><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      work, ep, y, out_bf16, g);
-  return cudaGetLastError();
+  return launch_reduce<float, DECONV>(work, ep, y, out_bf16, g, stream);
+}
+
+// The int8 route; work holds the slices' s32 sums (the f32 workspace's
+// bytes), and k_per_split is a multiple of 16 (B's copies).
+template <class TL, int VA, bool DECONV>
+cudaError_t launch_s8(const void* x, const void* w, const int* taps,
+                      const Epi& ep, void* y, int out_bf16, float* work,
+                      const Geom& g, cudaStream_t stream) {
+  if (g.splits < 1 || g.k_per_split < 1 || g.k_per_split % 16 ||
+      (g.splits > 1 && !work))
+    return cudaErrorInvalidValue;
+  constexpr int smem = s8_smem_bytes<TL>();
+  auto kernel = igemm_s8_kernel<TL, VA, DECONV>;
+  static bool smem_set[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  int* iwork = reinterpret_cast<int*>(work);
+  kernel<<<grid_of(g, TL::BM, TL::BN, DECONV), TL::THREADS, smem, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), taps, ep,
+      y, out_bf16, g.splits > 1 ? iwork : nullptr, g);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || g.splits == 1) return err;
+  return launch_reduce<int, DECONV>(iwork, ep, y, out_bf16, g, stream);
 }
 
 // The tile per output-channel block (the planner's block_co).
@@ -635,6 +1115,28 @@ cudaError_t launch_typed(const void* x, const void* w, const int* taps,
       return launch_tile<TA, TB, Tile128, VEC, DECONV>(x, w, taps, ep, y,
                                                        out_bf16, work, g,
                                                        stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int VA, bool DECONV>
+cudaError_t launch_s8_typed(const void* x, const void* w, const int* taps,
+                            const Epi& ep, void* y, int out_bf16, float* work,
+                            const Geom& g, int block_co,
+                            cudaStream_t stream) {
+  switch (block_co) {
+    case 16:
+      return launch_s8<S8Tile16, VA, DECONV>(x, w, taps, ep, y, out_bf16,
+                                             work, g, stream);
+    case 32:
+      return launch_s8<S8Tile32, VA, DECONV>(x, w, taps, ep, y, out_bf16,
+                                             work, g, stream);
+    case 64:
+      return launch_s8<S8Tile64, VA, DECONV>(x, w, taps, ep, y, out_bf16,
+                                             work, g, stream);
+    case 128:
+      return launch_s8<S8Tile128, VA, DECONV>(x, w, taps, ep, y, out_bf16,
+                                              work, g, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -673,20 +1175,10 @@ inline bool fwd_args(FwdArgs& a, const void* x, const void* w,
   return true;
 }
 
-// The variant (operand types TA and TB, copy width VEC) of one launch.
-// The C entry points compile the ten variants as ten objects (build.py
-// passes -DREPRO_PART=0..9, variant_part gives the number) so that nvcc
-// builds them in parallel.
-template <typename TA, typename TB, bool VEC, bool DECONV>
-int run_variant(const FwdArgs& a) {
-  return static_cast<int>(launch_typed<TA, TB, VEC, DECONV>(
-      a.x, a.w, a.taps, a.ep, a.y, a.out_bf16, a.work, a.g, a.block_co,
-      a.stream));
-}
-
 // The (x, w) operand pairs the kernels take, in part order: the float
-// pairs, then int8 weights beside f32, bf16 and int8 activations (the
-// pairs repro_torch.quant.Precision produces).
+// pairs, int8 weights beside f32 and bf16 activations (the float route),
+// then int8 activations and weights (the s8 route); the pairs
+// repro_torch.quant.Precision produces.
 template <int PAIR> struct PairTypes;
 template <> struct PairTypes<0> { using A = float; using B = float; };
 template <> struct PairTypes<1> {
@@ -695,8 +1187,8 @@ template <> struct PairTypes<1> {
 };
 template <> struct PairTypes<2> { using A = float; using B = int8_t; };
 template <> struct PairTypes<3> { using A = __nv_bfloat16; using B = int8_t; };
-template <> struct PairTypes<4> { using A = int8_t; using B = int8_t; };
-constexpr int FWD_PARTS = 10;
+constexpr int S8_PAIR = 4;
+constexpr int FWD_PARTS = 11;
 
 // The pair's index, or -1 for a pair the kernels do not take.
 constexpr int pair_index(int x_dtype, int w_dtype) {
@@ -704,18 +1196,35 @@ constexpr int pair_index(int x_dtype, int w_dtype) {
   if (x_dtype == DT_BF16 && w_dtype == DT_BF16) return 1;
   if (x_dtype == DT_F32 && w_dtype == DT_I8) return 2;
   if (x_dtype == DT_BF16 && w_dtype == DT_I8) return 3;
-  if (x_dtype == DT_I8 && w_dtype == DT_I8) return 4;
+  if (x_dtype == DT_I8 && w_dtype == DT_I8) return S8_PAIR;
   return -1;
 }
 
-constexpr int variant_part(int pair, int vec) {
-  return 2 * pair + (vec ? 0 : 1);
+// The variant of one launch.  The C entry points compile the eleven
+// variants as eleven objects (build.py passes -DREPRO_PART=0..10) so that
+// nvcc builds them in parallel: parts 0-7 the float route, per pair and
+// copy width (copy != 0: 16-byte copies of both operands); parts 8-10 the
+// s8 route, per A copy width (copy = 16, 4 or 1 bytes).
+constexpr int variant_part(int pair, int copy) {
+  if (pair < S8_PAIR) return 2 * pair + (copy ? 0 : 1);
+  return 8 + (copy == 16 ? 0 : copy == 4 ? 1 : 2);
 }
 
 template <bool DECONV, int PART>
 int run_part(const FwdArgs& a) {
-  using P = PairTypes<PART / 2>;
-  return run_variant<typename P::A, typename P::B, PART % 2 == 0, DECONV>(a);
+  cudaError_t err;
+  if constexpr (PART < 8) {
+    using P = PairTypes<PART / 2>;
+    err = launch_typed<typename P::A, typename P::B, PART % 2 == 0, DECONV>(
+        a.x, a.w, a.taps, a.ep, a.y, a.out_bf16, a.work, a.g, a.block_co,
+        a.stream);
+  } else {
+    constexpr int VA = PART == 8 ? 16 : PART == 9 ? 4 : 1;
+    err = launch_s8_typed<VA, DECONV>(a.x, a.w, a.taps, a.ep, a.y,
+                                      a.out_bf16, a.work, a.g, a.block_co,
+                                      a.stream);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace repro

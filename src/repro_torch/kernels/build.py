@@ -13,6 +13,7 @@ import: the first kernel launch builds, or ``chip_smoke.py`` calls
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -31,10 +33,11 @@ SOURCES = ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu")
 HEADERS = ("igemm.cuh",)
 # each source compiles once per variant of its kernels (-DREPRO_PART=k),
 # so the variants build in parallel: the forward sources per (x, w)
-# operand pair (f32/f32, bf16/bf16, f32/int8, bf16/int8, int8/int8) x
-# copy width (igemm.cuh::variant_part), the dw source per operand type x
-# A's x B's copy width
-PARTS = {"deconv_fwd.cu": 10, "conv_fwd.cu": 10, "deconv_dw.cu": 8}
+# operand pair of the float route (f32/f32, bf16/bf16, f32/int8,
+# bf16/int8) x copy width, then int8/int8 (the s8 route) per A copy width
+# (igemm.cuh::variant_part); the dw source per operand type x A's x B's
+# copy width
+PARTS = {"deconv_fwd.cu": 11, "conv_fwd.cu": 11, "deconv_dw.cu": 8}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,25 +77,33 @@ def compile_units() -> list[tuple[str, str, tuple[str, ...]]]:
 
 def build() -> tuple[Path, str]:
     """Compile the library if it is not built yet; returns its path and the
-    compiler's log (``-Xptxas -v``: registers, shared memory, spills)."""
+    compiler's log (``-Xptxas -v``: registers, shared memory, spills), one
+    ``== <source> <flags> (<seconds> s)`` section per object."""
     lib = library_path()
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp, \
+            contextlib.ExitStack() as files:
         procs = []
+        t0 = time.perf_counter()
         for src, stem, flags in compile_units():
             obj = Path(tmp) / (stem + ".o")
+            out = files.enter_context(open(Path(tmp) / (stem + ".log"), "w+"))
             cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", str(CSRC / src), "-o",
                    str(obj)]
-            procs.append((" ".join((src, *flags)), obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            procs.append([" ".join((src, *flags)), obj, out, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT), None])
+        while any(p[4] is None for p in procs):     # each object's seconds
+            for p in procs:
+                if p[4] is None and p[3].poll() is not None:
+                    p[4] = time.perf_counter() - t0
+            time.sleep(0.05)
         logs, failed = [], []
-        for unit, _, proc in procs:
-            out, _ = proc.communicate()
-            logs.append(f"== {unit}\n{out}")
+        for unit, _, out, proc, secs in procs:
+            out.seek(0)
+            logs.append(f"== {unit} ({secs:.1f} s)\n{out.read()}")
             if proc.returncode != 0:
                 failed.append(unit)
         if failed:
@@ -101,7 +112,7 @@ def build() -> tuple[Path, str]:
         tmp_lib = Path(tmp) / lib.name
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(tmp_lib),
-             *(str(obj) for _, obj, _ in procs)],
+             *(str(p[1]) for p in procs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
@@ -122,7 +133,10 @@ FLOAT_PAIRS = frozenset({(torch.float32, torch.float32),
 FORWARD_PAIRS = FLOAT_PAIRS | {(torch.float32, torch.int8),
                                (torch.bfloat16, torch.int8),
                                (torch.int8, torch.int8)}
+S8_PAIR = (torch.int8, torch.int8)
 _INT32_MAX = 2 ** 31 - 1
+# the most one product of two int8 values can be, in magnitude
+_S8_PRODUCT_MAX = 128 * 128
 
 
 def _name(dtype: torch.dtype) -> str:
@@ -159,6 +173,24 @@ def check_operands(x, w, scale, bias, out_dtype, *, co: int,
             v = v.reshape(co).to(torch.float32).contiguous()
         out.append(v)
     return tuple(out)
+
+
+def s8_route(x, w, depth: int) -> bool:
+    """Whether a forward launch of ``x`` and ``w`` takes the int8 x int8
+    route, which takes its weights K-major (4-D, ``common.kmajor_weights``,
+    16-byte aligned for its copies) and no other pair does; its reduction
+    of ``depth`` pairs must fit ``check_s8_depth``.  TypeError or
+    ValueError otherwise."""
+    s8 = (x.dtype, w.dtype) == S8_PAIR
+    if (w.dim() == 4) != s8:
+        raise TypeError(f"x is {x.dtype} and w is {w.dtype} of {w.dim()} "
+                        f"dims: int8 x int8 takes K-major weights "
+                        f"(common.kmajor_weights), and only it does")
+    if s8:
+        check_s8_depth(depth)
+        if w.data_ptr() % 16:
+            raise ValueError("K-major weights must be 16-byte aligned")
+    return s8
 
 
 def record_operands(record: dict, x, w) -> None:
@@ -213,18 +245,52 @@ def vector_copies(x, w, cig: int, cog: int) -> bool:
     return _vector_ok(x, cig) and _vector_ok(w, cog)
 
 
+def a_copy_bytes(x, cig: int) -> int:
+    """The int8 route's bytes per copy of A (x's channels of one row and
+    tap): 16 where Cin/G is a multiple of 16, 4 (cp.async's smallest
+    copy) where it is a multiple of 4, else 1 (byte loads); x's base
+    aligned to the copy.  B's copies are 16 bytes whatever the layer."""
+    for nbytes in (16, 4):
+        if cig % nbytes == 0 and x.data_ptr() % nbytes == 0:
+            return nbytes
+    return 1
+
+
+def copy_variant(x, w, cig: int, cog: int) -> int:
+    """The forward C entry's ``copy`` argument (igemm.cuh::variant_part):
+    A's bytes per copy for int8 x int8, else whether both operands take
+    16-byte copies."""
+    if (x.dtype, w.dtype) == S8_PAIR:
+        return a_copy_bytes(x, cig)
+    return int(vector_copies(x, w, cig, cog))
+
+
+def check_s8_depth(depth: int) -> None:
+    """The int8 route sums int8 x int8 products in int32: refuse a
+    reduction of ``depth`` (tap, channel) pairs whose sum could leave that
+    range (128^2 x depth >= 2^31: deeper than 131,071 pairs)."""
+    if _S8_PRODUCT_MAX * depth > _INT32_MAX:
+        raise ValueError(
+            f"int8 x int8 reduction of {depth} (tap, channel) pairs: sums "
+            f"of up to {_S8_PRODUCT_MAX} x {depth} could overflow the "
+            f"kernel's int32 accumulators (at most "
+            f"{_INT32_MAX // _S8_PRODUCT_MAX} pairs)")
+
+
 def dw_vector_copies(a, b, ag: int, bg: int) -> tuple[bool, bool]:
     """Whether deconv_dw.cu may stage A and B with 16-byte copies, each
     operand on its own: of one row of A, of one tap of one row of B."""
     return _vector_ok(a, ag), _vector_ok(b, bg)
 
 
-def split_workspace(splits: int, elems: int, device):
-    """The f32 partial sums of a split launch, ``splits`` x ``elems``
-    (None for an unsplit one)."""
+def split_workspace(splits: int, elems: int, device, s8: bool = False):
+    """The partial sums of a split launch, ``splits`` x ``elems``: f32, or
+    int32 for the int8 route (``s8``), the same bytes (None for an
+    unsplit launch)."""
     if splits == 1:
         return None
-    return torch.empty(splits * elems, dtype=torch.float32, device=device)
+    return torch.empty(splits * elems, device=device,
+                       dtype=torch.int32 if s8 else torch.float32)
 
 
 def ptr(t) -> int | None:

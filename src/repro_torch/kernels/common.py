@@ -143,6 +143,88 @@ def phase_major_weights(w3, kernel3, stride3, dilation3=None):
 
 
 @functools.lru_cache(maxsize=256)
+def kmajor_phase_taps(kernel3, stride3, dilation3=(1, 1, 1)):
+    """Each phase's kernel-element taps in the K-major weight layout, one
+    tuple per phase index (``itertools.product`` order, empty for a
+    structural-zero phase): the deconv's phase-major order.  A conv is the
+    one phase of stride 1, its taps in kernel-element order."""
+    flat = phase_major_tap_index(kernel3, stride3, dilation3)
+    out = [()] * math.prod(stride3)
+    off = 0
+    for p_idx, _, taps in phase_taps(kernel3, stride3, dilation3):
+        out[p_idx] = tuple(flat[off:off + len(taps)])
+        off += len(taps)
+    return tuple(out)
+
+
+def kmajor_pitch(kernel3, stride3, dilation3, cig: int) -> int:
+    """Bytes of one K-major weight row: the deepest phase's (tap, channel)
+    pairs rounded up to 16 (the int8 route's 16-byte copies)."""
+    deepest = max(len(t) for t in kmajor_phase_taps(
+        tuple(kernel3), tuple(stride3), tuple(dilation3)))
+    return -(-deepest * cig // 16) * 16
+
+
+@functools.lru_cache(maxsize=256)
+def _kmajor_index(kernel3, stride3, dilation3, cig: int,
+                  device: torch.device):
+    """Row of ``[prod(K) * cig, Co]`` weights (kernel-element taps; row
+    ``prod(K) * cig`` is a zero row) for every (phase, pair) of the
+    K-major layout."""
+    kp = kmajor_pitch(kernel3, stride3, dilation3, cig)
+    zero = math.prod(kernel3) * cig
+    idx = []
+    for taps in kmajor_phase_taps(kernel3, stride3, dilation3):
+        rows = [t * cig + c for t in taps for c in range(cig)]
+        idx += rows + [zero] * (kp - len(rows))
+    return torch.tensor(idx, dtype=torch.long, device=device)
+
+
+def kmajor_weights(w3, kernel3, stride3, dilation3=None, groups: int = 1):
+    """[*K, Cin/G, Cout] -> the int8 route's K-major weights
+    ``[phases, G, Cout/G, kp]``: row ``[p, g, c]`` holds phase p's (tap,
+    channel) pairs ``t * Cin/G + ci`` (taps in ``kmajor_phase_taps``
+    order) of output channel ``g * Cout/G + c``, zero past them up to
+    ``kmajor_pitch``.  The conv's layout is the stride-1 one (a single
+    phase).  A layout move: one gather and one transposing copy."""
+    dilation3 = tuple(dilation3) if dilation3 is not None else (1, 1, 1)
+    kernel3, stride3 = tuple(kernel3), tuple(stride3)
+    cig, co = w3.shape[-2], w3.shape[-1]
+    idx = _kmajor_index(kernel3, stride3, dilation3, cig, w3.device)
+    rows = torch.cat([w3.reshape(-1, co), w3.new_zeros((1, co))])
+    phases = math.prod(stride3)
+    return (rows.index_select(0, idx)
+            .reshape(phases, -1, groups, co // groups)
+            .permute(0, 2, 3, 1).contiguous())
+
+
+def weight_shape(kmajor: bool, kernel3, stride3, dilation3, cig: int,
+                 co: int, groups: int) -> torch.Size:
+    """The weights' shape a forward wrapper takes: ``[prod(K), cig, co]``
+    (taps), or K-major ``[prod(S), G, co/G, kmajor_pitch]``."""
+    if kmajor:
+        return torch.Size((math.prod(stride3), groups, co // groups,
+                           kmajor_pitch(kernel3, stride3, dilation3, cig)))
+    return torch.Size((math.prod(kernel3), cig, co))
+
+
+def taps_from_kmajor(wk, kernel3, stride3, dilation3, cig: int):
+    """The inverse of ``kmajor_weights`` up to the tap order: ``[taps,
+    Cin/G, Cout]`` with each phase's taps in phase-major order (the deconv
+    kernel's ``w_taps``; kernel-element order for the stride-1 layout)."""
+    _, groups, cog, _ = wk.shape
+    slabs = []
+    for p, taps in enumerate(kmajor_phase_taps(tuple(kernel3), tuple(stride3),
+                                               tuple(dilation3))):
+        if taps:
+            slab = wk[p, :, :, :len(taps) * cig].reshape(groups, cog,
+                                                         len(taps), cig)
+            slabs.append(slab.permute(2, 3, 0, 1).reshape(
+                len(taps), cig, groups * cog))
+    return torch.cat(slabs).contiguous()
+
+
+@functools.lru_cache(maxsize=256)
 def tap_table(kernel3, stride3, dilation3, device: torch.device):
     """The deconv kernel's int32 tap table on ``device``.
 

@@ -2,13 +2,15 @@
 
 It replaces the JAX package's TPU kernel ``conv_pallas_3d``.  Each CUDA
 block owns a tile of output positions and a block of output channels and
-sums every tap in f32 registers, reading the input through zero-filling
-copies in place of a host-side pad; see the note at the top of the source.
-Per launch the wrapper picks the copy width (``build.vector_copies``) and
-the split of the reduction (``tiling.launch_split``) from the real shapes;
-a split launch runs a second pass that sums the slices, and still counts
-once.  ``launches`` counts the calls that launched the kernel, and nothing
-else; ``operand_launches`` records each launch once more by its ``(x, w)``
+sums every tap in f32 registers (int8 activations beside int8 weights: in
+s32 on the int8 tensor cores, the weights K-major), reading the input
+through zero-filling copies in place of a host-side pad; see the note at
+the top of the source.  Per launch the wrapper picks the copy widths
+(``build.copy_variant``) and the split of the reduction
+(``tiling.launch_split``) from the real shapes; a split launch runs a
+second pass that sums the slices, and still counts once.  ``launches``
+counts the calls that launched the kernel, and nothing else;
+``operand_launches`` records each launch once more by its ``(x, w)``
 operand types, e.g. ``("int8", "int8")`` under int8 activations.
 
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
@@ -40,22 +42,25 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
 
     x: [N, D, H, W, Ci] (unpadded); w: [prod(K), Ci/G, Co] in kernel-element
     order; both f32, both bf16, or int8 weights beside f32, bf16 or int8 x
-    (``build.FORWARD_PAIRS``).
+    (``build.FORWARD_PAIRS``); beside int8 x the weights come K-major,
+    ``common.kmajor_weights`` of stride 1 (``[1, G, Co/G, kp]``).
     ``y[o] = act(scale * sum_k x[o*S + k*dil - lo] w[k] + bias)`` over
     ``out_spatial`` output positions, reads outside x being zero, cast to
-    ``out_dtype`` (default x's, f32 for int8 x).
+    ``out_dtype`` (default x's, f32 for int8 x).  int8 x int8 refuses a
+    reduction deeper than ``build.check_s8_depth`` allows.
     """
     global launches
     kernel, stride = tuple(kernel), tuple(stride)
     dilation, pad_lo = tuple(dilation), tuple(pad_lo)
     out_spatial = tuple(out_spatial)
-    if x.dim() != 5 or w.dim() != 3:
+    if x.dim() != 5 or w.dim() not in (3, 4):
         raise ValueError(f"expected x [N,D,H,W,Ci] and w [taps,Ci/G,Co], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     n, d, h, wd, ci = x.shape
-    co = w.shape[-1]
-    if (ci % groups or co % groups or w.shape[1] != ci // groups
-            or w.shape[0] != math.prod(kernel)):
+    co = w.shape[-1] if w.dim() == 3 else w.shape[1] * w.shape[2]
+    if ci % groups or co % groups or w.shape != _common.weight_shape(
+            w.dim() == 4, kernel, (1, 1, 1), dilation, ci // groups, co,
+            groups):
         raise ValueError(f"w {tuple(w.shape)} does not fit Ci={ci}, "
                          f"groups={groups}, kernel={kernel}")
     if activation not in _common.ACTIVATIONS:
@@ -65,6 +70,7 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
     out_dtype = out_dtype or _build.default_out_dtype(x)
     scale32, bias32 = _build.check_operands(x, w, scale, bias, out_dtype,
                                             co=co)
+    s8 = _build.s8_route(x, w, math.prod(kernel) * (ci // groups))
     if x.device.type == "cpu":
         return _ref.conv_fwd_plain(
             x, w, kernel=kernel, stride=stride, dilation=dilation,
@@ -82,7 +88,7 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
         plan, rows, math.prod(kernel) * (ci // groups), co, groups)
     lib = _build.library()
     y = torch.empty((n, *out_spatial, co), dtype=out_dtype, device=x.device)
-    work = _build.split_workspace(splits, rows * co, x.device)
+    work = _build.split_workspace(splits, rows * co, x.device, s8)
     geom = _build.geom_array((n, d, h, wd, ci, co, groups, *kernel, *stride,
                               *dilation, *out_spatial, *out_spatial,
                               *pad_lo, splits, per))
@@ -92,7 +98,7 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
         _common.ACTIVATION_CODES[activation], float(alpha),
         _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[w.dtype],
         _build.DTYPE_CODES[out_dtype], block_co,
-        int(_build.vector_copies(x, w, ci // groups, co // groups)),
+        _build.copy_variant(x, w, ci // groups, co // groups),
         _build.stream_of(x))
     if err:
         raise RuntimeError(f"conv kernel launch failed (cudaError {err})")

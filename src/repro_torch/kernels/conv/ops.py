@@ -5,7 +5,8 @@ Handles what surrounds the kernel: rank lifting to the canonical 3D layout
 masked loads read zeros there, so nothing is padded on the host), the
 fused epilogue and the output-dtype rule.  The kernel reads taps in
 kernel-element order, so the weights go in as a reshape of
-``[*K, Cin/G, Cout]``, no gather.  Every call runs against a
+``[*K, Cin/G, Cout]``, no gather (int8 weights beside int8 activations
+K-major, ``common.kmajor_weights``).  Every call runs against a
 ``repro_torch.core.engine.UniformEngine`` whose geometry-keyed plan cache
 picks the kernel's channel tile once per layer geometry.
 
@@ -61,7 +62,11 @@ def conv_kernel_args(x, w, stride=1, padding=0, *, dilation=1,
                        x3.shape[-1], co, groups=groups, dilation=dil3,
                        in_dtype_bytes=x3.element_size(),
                        w_dtype_bytes=w3.element_size())
-    w_flat = w3.reshape(-1, *w3.shape[3:]).contiguous()
+    # the int8 x int8 route reads its weights K-major (one phase)
+    if x3.dtype == w3.dtype == torch.int8:
+        w_flat = _common.kmajor_weights(w3, kernel3, (1, 1, 1), dil3, groups)
+    else:
+        w_flat = w3.reshape(-1, *w3.shape[3:]).contiguous()
     kwargs = dict(kernel=kernel3, stride=stride3, dilation=dil3,
                   groups=groups, pad_lo=tuple(lo for lo, _ in pads3),
                   out_spatial=out3, scale=_common.scale_vector(w_scale, co),

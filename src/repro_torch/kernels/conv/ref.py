@@ -21,11 +21,15 @@ from repro_torch.kernels.build import default_out_dtype
 def conv_fwd_plain(x, w, *, kernel, stride, dilation, groups, pad_lo,
                    out_spatial, scale=None, bias=None, activation="none",
                    alpha=0.2, out_dtype=None):
-    """x [N, D, H, W, Ci], w [prod(K), Ci/G, Co] in kernel-element order ->
-    y [N, *out_spatial, Co]: ``y[o] = sum_k x[o*S + k*dil - lo] w[k]``,
-    of dtype ``out_dtype`` (default x's, f32 for int8 x).  Sums in f32
-    (int8 operands cast to f32 first), or in float64 for float64 inputs."""
+    """x [N, D, H, W, Ci], w [prod(K), Ci/G, Co] in kernel-element order
+    (or the int8 route's K-major ``[1, G, Co/G, kp]``) -> y [N,
+    *out_spatial, Co]: ``y[o] = sum_k x[o*S + k*dil - lo] w[k]``, of dtype
+    ``out_dtype`` (default x's, f32 for int8 x).  Sums in f32 (int8
+    operands cast to f32 first), or in float64 for float64 inputs."""
     n, ci = x.shape[0], x.shape[-1]
+    if w.dim() == 4:
+        w = _common.taps_from_kmajor(w, kernel, (1, 1, 1), dilation,
+                                     ci // groups)
     co = w.shape[-1]
     cig, cog = ci // groups, co // groups
     # the padded window every output reads: [-lo, (O-1)*S + (K-1)*dil - lo]

@@ -3,11 +3,13 @@
 ``deconv_fwd`` wraps ``csrc/deconv_fwd.cu``, which replaces the JAX
 package's TPU kernel ``deconv_pallas_3d``.  The kernel gathers: each CUDA
 block owns one output phase, a tile of phase positions and a block of
-output channels, and sums the taps of its phase in f32 registers; see the
-note at the top of the source.  Per launch the wrapper picks the copy
-width (``build.vector_copies``) and the split of the reduction
-(``tiling.launch_split``, over the deepest phase) from the real shapes; a
-split launch runs a second pass that sums the slices, and counts once.
+output channels, and sums the taps of its phase in f32 registers (int8
+activations beside int8 weights: in s32 on the int8 tensor cores, the
+weights K-major); see the note at the top of the source.  Per launch the
+wrapper picks the copy widths (``build.copy_variant``) and the split of
+the reduction (``tiling.launch_split``, over the deepest phase) from the
+real shapes; a split launch runs a second pass that sums the slices, and
+counts once.
 
 ``deconv_dw`` wraps ``csrc/deconv_dw.cu``, which replaces
 ``deconv_dw_pallas_3d``: the weight gradient of the deconv and, with its
@@ -53,7 +55,10 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
 
     x: [N, D, H, W, Ci]; w_taps: [prod(K), Ci/G, Co] in the phase-major
     order of ``common.phase_major_tap_index``; both f32, both bf16, or int8
-    weights beside f32, bf16 or int8 x (``build.FORWARD_PAIRS``).  The
+    weights beside f32, bf16 or int8 x (``build.FORWARD_PAIRS``); beside
+    int8 x the weights come K-major (``common.kmajor_weights``,
+    ``[prod(S), G, Co/G, kp]``), no phase deeper than
+    ``build.check_s8_depth`` allows.  The
     output is the Eq. (1) extent with ``crop_lo`` rows removed in front of
     each dim, cut to ``out_spatial`` (default: the rest of the extent),
     then ``act(acc * scale + bias)`` cast to ``out_dtype`` (default x's,
@@ -65,13 +70,14 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     global launches
     kernel, stride = tuple(kernel), tuple(stride)
     dilation, crop_lo = tuple(dilation), tuple(crop_lo)
-    if x.dim() != 5 or w_taps.dim() != 3:
+    if x.dim() != 5 or w_taps.dim() not in (3, 4):
         raise ValueError(f"expected x [N,D,H,W,Ci] and w_taps [taps,Ci/G,Co],"
                          f" got {tuple(x.shape)} and {tuple(w_taps.shape)}")
     n, d, h, wd, ci = x.shape
-    co = w_taps.shape[-1]
-    if (ci % groups or co % groups or w_taps.shape[1] != ci // groups
-            or w_taps.shape[0] != math.prod(kernel)):
+    kmajor = w_taps.dim() == 4
+    co = w_taps.shape[1] * w_taps.shape[2] if kmajor else w_taps.shape[-1]
+    if ci % groups or co % groups or w_taps.shape != _common.weight_shape(
+            kmajor, kernel, stride, dilation, ci // groups, co, groups):
         raise ValueError(f"w_taps {tuple(w_taps.shape)} does not fit "
                          f"Ci={ci}, groups={groups}, kernel={kernel}")
     if activation not in _common.ACTIVATIONS:
@@ -86,6 +92,9 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     out_dtype = out_dtype or _build.default_out_dtype(x)
     scale32, bias32 = _build.check_operands(x, w_taps, scale, bias,
                                             out_dtype, co=co)
+    deepest = max(len(t) for t in _common.kmajor_phase_taps(kernel, stride,
+                                                            dilation))
+    s8 = _build.s8_route(x, w_taps, deepest * (ci // groups))
     if x.device.type == "cpu":
         return _ref.deconv_fwd_plain(
             x, w_taps, kernel=kernel, stride=stride, dilation=dilation,
@@ -107,7 +116,7 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     lib = _build.library()
     taps = _common.tap_table(kernel, stride, dilation, x.device)
     y = torch.empty((n, *out_spatial, co), dtype=out_dtype, device=x.device)
-    work = _build.split_workspace(splits, phases * rows * co, x.device)
+    work = _build.split_workspace(splits, phases * rows * co, x.device, s8)
     geom = _build.geom_array((n, d, h, wd, ci, co, groups, *kernel, *stride,
                               *dilation, *q, *out_spatial, *crop_lo, splits,
                               per))
@@ -118,7 +127,7 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
         float(alpha), _build.DTYPE_CODES[x.dtype],
         _build.DTYPE_CODES[w_taps.dtype], _build.DTYPE_CODES[out_dtype],
         block_co,
-        int(_build.vector_copies(x, w_taps, ci // groups, co // groups)),
+        _build.copy_variant(x, w_taps, ci // groups, co // groups),
         _build.stream_of(x))
     if err:
         raise RuntimeError(f"deconv kernel launch failed (cudaError {err})")

@@ -2,10 +2,11 @@
 
 Handles what surrounds the kernel: rank lifting to the canonical 3D layout
 (2D lifts as [N, H, 1, W, C]), the phase-major weight gather (each phase's
-taps become one contiguous [taps * Cin/G, Cout] matrix), the per-dim
-``(lo, hi)`` crop (folded into the kernel's store), the fused epilogue and
-the output-dtype rule.  Channels need no padding: the kernel masks ragged
-channel tiles inside each group.  Every call runs against a
+taps become one contiguous [taps * Cin/G, Cout] matrix; int8 weights
+beside int8 activations K-major instead, ``common.kmajor_weights``), the
+per-dim ``(lo, hi)`` crop (folded into the kernel's store), the fused
+epilogue and the output-dtype rule.  Channels need no padding: the kernel
+masks ragged channel tiles inside each group.  Every call runs against a
 ``repro_torch.core.engine.UniformEngine`` whose geometry-keyed plan cache
 picks the kernel's channel tile once per layer geometry.
 
@@ -63,7 +64,12 @@ def deconv_kernel_args(x, w, stride, padding=0, *, dilation=1,
                        w_dtype_bytes=w3.element_size())
     full3 = deconv_output_shape(x3.shape[1:4], kernel3, stride3, 0, dil3)
     out3 = tuple(f - lo - hi for f, (lo, hi) in zip(full3, pads3))
-    w_taps = _common.phase_major_weights(w3, kernel3, stride3, dil3)
+    # the int8 x int8 route reads its weights K-major; the others the
+    # phase-major slabs
+    if x3.dtype == w3.dtype == torch.int8:
+        w_taps = _common.kmajor_weights(w3, kernel3, stride3, dil3, groups)
+    else:
+        w_taps = _common.phase_major_weights(w3, kernel3, stride3, dil3)
     kwargs = dict(kernel=kernel3, stride=stride3, dilation=dil3,
                   groups=groups, crop_lo=tuple(lo for lo, _ in pads3),
                   out_spatial=out3, scale=_common.scale_vector(w_scale, co),

@@ -37,11 +37,15 @@ def phase_rows(in_spatial, kernel, stride, dilation, crop_lo, out_spatial):
 def deconv_fwd_plain(x, w_taps, *, kernel, stride, dilation, groups,
                      crop_lo, out_spatial, scale=None, bias=None,
                      activation="none", alpha=0.2, out_dtype=None):
-    """x [N, D, H, W, Ci], w_taps [prod(K), Ci/G, Co] phase-major ->
-    y [N, *out_spatial, Co] of dtype ``out_dtype`` (default x's, f32 for
-    int8 x).  Sums in f32 (int8 operands cast to f32 first), or in float64
-    for float64 inputs (the yardstick on the card)."""
+    """x [N, D, H, W, Ci], w_taps [prod(K), Ci/G, Co] phase-major (or the
+    int8 route's K-major ``[prod(S), G, Co/G, kp]``) -> y [N,
+    *out_spatial, Co] of dtype ``out_dtype`` (default x's, f32 for int8
+    x).  Sums in f32 (int8 operands cast to f32 first), or in float64 for
+    float64 inputs (the yardstick on the card)."""
     n, d, h, wd, ci = x.shape
+    if w_taps.dim() == 4:
+        w_taps = _common.taps_from_kmajor(w_taps, kernel, stride, dilation,
+                                          ci // groups)
     co = w_taps.shape[-1]
     cig, cog = ci // groups, co // groups
     q = phase_rows((d, h, wd), kernel, stride, dilation, crop_lo,

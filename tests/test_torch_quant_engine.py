@@ -192,11 +192,18 @@ def test_int8_weights_shrink_smem_at_identical_blocks(mode, cin, cout):
             tiling.launch_split(p32, rows, depth, cout, 1, 4)
         assert tiling.grid_blocks(plan, rows, cout, 1, 4) == \
             tiling.grid_blocks(p32, rows, cout, 1, 4)
-    # int8 activations stage 64 pairs a row, B at one byte: the f32 bytes
+    # int8 activations beside int8 weights take the s8 route's tiles: 64
+    # pairs a row, B's stage K-major, [block_co][64 + 16] bytes
     pa = tiling.plan_uniform_tiles(cin, cout, mode=mode, in_dtype_bytes=1,
                                    w_dtype_bytes=1)
-    assert pa.block_ci == 4 * p32.block_ci
-    assert pa.step_smem_bytes == p32.step_smem_bytes
+    tile = tiling.S8_KERNEL_TILES[pa.block_co]
+    assert pa.block_ci == 4 * p32.block_ci == tile.k_bytes
+    assert (pa.block_m, pa.threads, pa.stages) == (tile.block_m,
+                                                   tile.threads, tile.stages)
+    assert pa.step_smem_bytes == (
+        tile.stages * (tile.block_m * (64 + tiling.A_PAD_BYTES)
+                       + tile.block_co * (64 + tiling.B_PAD_BYTES))
+        + 16 * tile.block_m + 16 * tiling.MAX_TAPS)
 
 
 def test_plan_key_grows_weight_width():

@@ -1,11 +1,13 @@
 """The kernels' planner (``repro_torch.core.tiling``).
 
 Forward: the tile per per-group channel width, the modelled shared memory
-of every instantiated tile at f32 and bf16, the split of the reduction
-(``split_reduction`` / ``launch_split``) and the block counts the schedule
-report gives with the splits counted.  dw: the tile per layer shape, the
-ring's shared memory, the split filling a wave, slices covering the rows
-and the copy width per operand.  Pure Python: no kernel runs.
+of every instantiated tile at f32 and bf16 and of the int8 x int8 route's
+tiles (B's stage K-major), the split of the reduction
+(``split_reduction`` / ``launch_split``, on either route's residency), the
+block counts the schedule report gives with the splits counted, and the
+int8 route's A copy width, chosen apart from B's.  dw: the tile per layer
+shape, the ring's shared memory, the split filling a wave, slices covering
+the rows and the copy width per operand.  Pure Python: no kernel runs.
 """
 
 import math
@@ -110,6 +112,71 @@ def test_launch_split_follows_the_real_grid():
     assert blocks < wave
     assert tiling.grid_blocks(plan, 100, 512, 1, 4, small[0]) == \
         blocks * small[0]
+
+
+@pytest.mark.parametrize("block_co", sorted(tiling.S8_KERNEL_TILES))
+def test_s8_tiles_stage_b_k_major(block_co):
+    plan = tiling.plan_uniform_tiles(64, block_co, in_dtype_bytes=1,
+                                     w_dtype_bytes=1)
+    tile = tiling.S8_KERNEL_TILES[block_co]
+    assert (plan.block_m, plan.block_ci, plan.threads, plan.stages) == (
+        tile.block_m, tile.k_bytes, tile.threads, tile.stages)
+    # a stage: A [block_m][64 + 16], B K-major [block_co][64 + 16] bytes
+    step = tiling.step_byte_model(in_dtype_bytes=1, w_dtype_bytes=1)
+    want = (tile.stages * (tile.block_m + block_co) * (64 + 16)
+            + 16 * tile.block_m + 16 * tiling.MAX_TAPS)
+    assert plan.step_smem_bytes == step(tile.block_m, 64, block_co,
+                                        tile.stages) == want
+    assert not plan.overflows
+    # the kernel's __launch_bounds__ caps the registers at the residency
+    # it is built for, and shared memory allows that residency
+    assert plan.registers == tiling.REGISTERS_PER_SM // (
+        tile.threads * tile.min_blocks)
+    assert tiling.resident_blocks(plan) == tile.min_blocks
+    # the float route's layout at one byte a weight would differ
+    f_step = tiling.step_byte_model(in_dtype_bytes=4, w_dtype_bytes=1)
+    assert f_step(tile.block_m, 64, block_co, tile.stages) != want
+
+
+def test_s8_launch_split_on_its_own_residency():
+    # served DCGAN deconv1 under w:int8+a:int8 (batch 4): 4 phases x 25
+    # positions x 4 images, 4 taps x 1024 channels deep
+    p8 = tiling.plan_uniform_tiles(1024, 512, in_dtype_bytes=1,
+                                   w_dtype_bytes=1)
+    rows, depth = 4 * 25, 4 * 1024
+    wave = tiling.SMS * tiling.resident_blocks(p8)
+    blocks = tiling.grid_blocks(p8, rows, 512, 1, 4)
+    splits, per = tiling.launch_split(p8, rows, depth, 512, 1, 4)
+    assert (splits, per) == tiling.split_reduction(blocks, depth, wave, 4)
+    assert splits > 1 and per % 16 == 0           # B's 16-byte copies
+    assert (splits - 1) * per < depth <= splits * per
+    # V-Net merge4 (batch 4): the grid fills the card, one slice
+    p16 = tiling.plan_uniform_tiles(48, 16, in_dtype_bytes=1,
+                                    w_dtype_bytes=1)
+    assert p16.block_co == 16 and tiling.resident_blocks(p16) == 2
+    assert tiling.launch_split(p16, 4 * 128 * 128 * 64, 27 * 32, 16,
+                               1)[0] == 1
+
+
+@pytest.mark.parametrize("cig", [1, 4, 16])
+@pytest.mark.parametrize("cog", [2, 16])
+def test_s8_a_copy_width_apart_from_b(cig, cog):
+    from repro_torch.kernels import build
+    x = torch.zeros(8, 3 * cig, dtype=torch.int8)
+    w = torch.zeros(1, 3, cog, 16, dtype=torch.int8)
+    want = {1: 1, 4: 4, 16: 16}[cig]
+    # the output channels have no say: the head (Co 2) copies 16 bytes
+    assert build.a_copy_bytes(x, cig) == want
+    assert build.copy_variant(x, w, cig, cog) == want
+    # a base address off the copy's grid takes a narrower copy
+    shifted = torch.zeros(8 * 3 * cig + 4, dtype=torch.int8)[4:]
+    assert build.a_copy_bytes(shifted, cig) == min(want, 4)
+    odd = torch.zeros(8 * 3 * cig + 1, dtype=torch.int8)[1:]
+    assert build.a_copy_bytes(odd, cig) == 1
+    # the float route keeps one flag for both operands
+    wf = torch.zeros(27, cig, 3 * cog, dtype=torch.int8)
+    assert build.copy_variant(x.float(), wf, cig, cog) == int(
+        cig % 4 == 0 and cog % 16 == 0)
 
 
 def test_schedule_report_counts_the_splits():
