@@ -57,7 +57,28 @@ Phases, any failure of which exits non-zero before the result line:
      relu/leaky_relu mask flips between card and CPU counted; one DCGAN
      generator step through int8 weights (``{"w_q", "scale"}`` entries,
      the scales trained) at batch 4, its launches those of a train step,
-     its gradients held against the port's CPU run;
+     its gradients held against the port's CPU run; the serve phases also
+     check that every result was served by ``"pallas"`` and no bucket fell
+     back;
+     reference methods — ``compile_network`` of both full-width graphs at
+     batch 4 on each reference lowering (``oom``, ``xla``, ``iom``,
+     ``iom_phase``: cuDNN and plain tensor code), the serve phase's
+     weights and inputs, within 3e-5 of max |y| of the kernels' output,
+     with TF32 on in cuDNN and cuBLAS (the lowerings scope it off
+     themselves), and a control run with that scope removed that must
+     read above 3e-5 on every method; each method's cold batch, its batch after one warm
+     batch (CUDA events) and its peak memory; under w:int8 and
+     w:int8+a:int8 every layer on ``xla`` against the kernels, fed the
+     same input, at 1e-4;
+     serve (fallback) — a ``DcnnServer`` whose V-Net bucket fails on the
+     kernels (a ``FaultScript`` of dispatch errors through the retries
+     and the first probe): the degraded batches are served by ``"xla"``
+     with 0 kernel launches and within 1e-4 of the un-faulted outputs,
+     then ``fallbacks == 1``, a failed probe, ``recoveries == 1`` and the
+     recovered batch's (4, 10) launches; then a compile failure degrades
+     the bucket (``InjectedCompileError`` named), a NaN row is quarantined
+     and the rest re-run, and both engines failing completes every
+     request with a typed ``DispatchFailedError``;
   5. times — each kernel at every call shape the main path gave it (CUDA
      events; the serve and train runs record each wrapper's calls by
      shape) beside its plain version, one cuDNN call computing the same
@@ -67,22 +88,25 @@ Phases, any failure of which exits non-zero before the result line:
      host time per call); the int8 launches at every quantized call shape
      the same way, their library time cuDNN's on the dequantized f32
      operands and their bound the int8 tensor-core rate, summed per operand
-     pair; one served batch of each model end to end under each policy,
-     and whole train steps.
+     pair; one served batch of each model end to end under each policy
+     (every batch served by ``"pallas"``, no bucket fallen back), and
+     whole train steps.
 
 The line before the last is the ``{"kernels": [...]}`` summary: each
 kernel's ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums
 over exactly the launches its ``launches`` counts (each call shape's time
-times the calls of that shape); ``deconv_fwd_int8`` and ``conv_fwd_int8``
-are the forward kernels' int8 launches of the quantized serving runs,
-with the same sums per operand pair and the route each pair takes under
-``by_pair``.
+times the calls of that shape), each path's share of ``ms`` under
+``ms_by_path`` beside ``launches_by_path``; ``deconv_fwd_int8`` and
+``conv_fwd_int8`` are the forward kernels' int8 launches of the quantized
+serving runs, with the same sums per operand pair and the route each pair
+takes under ``by_pair``.
 The last line is ``{"ok": true, "device": {...}}``.  ``--json PATH``
 also writes every check and per-layer time to PATH.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -113,6 +137,12 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # 2^-24 relative)
 S8_TOL = 1e-6
 SERVE_TOL = 1e-4                 # card vs CPU run of the port, f32
+# the reference lowerings vs the hand kernels through a full-width graph,
+# f32, TF32 on in cuDNN and cuBLAS: IEEE f32 sums in another order read
+# under 1e-5 of max |y|, TF32 (10-bit mantissa products) reads above this;
+# the phase's control, run with the lowerings' IEEE scope removed, must
+# fail it
+REF_TOL = 3e-5
 # int8 activations, card vs CPU run of the port: each layer's input is
 # quantized per tensor, and its f32 values differ between card and CPU in
 # the last bits (sums in another order), so a value within rounding of a
@@ -152,6 +182,8 @@ DCGAN_CHANS = (1024, 512, 256, 128, 3)
 VNET_CHANS = (16, 32, 64, 128, 256)
 VNET_SPATIAL = (128, 128, 64)
 BATCH = 4                        # the server's max_batch
+# the port's counterparts of the JAX package's XLA-lowered methods
+REF_METHODS = ("oom", "xla", "iom", "iom_phase")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -179,6 +211,7 @@ def main() -> int:
 
     from repro_torch import quant, tree
     from repro_torch.configs import get_config
+    from repro_torch.core import functional as tfunc
     from repro_torch.core import networks as nets
     from repro_torch.core import tiling
     from repro_torch.core.engine import (
@@ -203,6 +236,8 @@ def main() -> int:
         pad_to,
         vnet_spec,
     )
+    from repro_torch.runtime.faults import FaultEvent, FaultScript
+    from repro_torch.runtime.serving import Backoff, DispatchFailedError
 
     detail: dict = {}
     # -- 1. device ----------------------------------------------------------
@@ -913,11 +948,12 @@ def main() -> int:
                   f"dw tile {ba}x{bc_}/{dname}: copies covered {seen_v}")
     torch.cuda.empty_cache()
 
-    # the main path's calls of each wrapper by call shape, recorded while
-    # the serve and train runs below are on, so that each kernel's times
-    # cover exactly the launches it counts
+    # the main path's calls of each wrapper by call shape and path,
+    # recorded while the serve and train runs below are on (``recording``
+    # names the path), so that each kernel's times cover exactly the
+    # launches it counts, and each path's share of them
     recorded: dict = {}
-    recording = [False]
+    recording = [None]
 
     def signature(kname, a, b, kw):
         return (kname, tuple(a.shape), a.dtype, tuple(b.shape), b.dtype,
@@ -933,7 +969,8 @@ def main() -> int:
                 # int8 weights' launches are the int8 entries' own
                 key = signature(kname + "_int8" * (b.dtype == torch.int8),
                                 a, b, kw)
-                recorded[key] = recorded.get(key, 0) + 1
+                paths = recorded.setdefault(key, {})
+                paths[recording[0]] = paths.get(recording[0], 0) + 1
             return real(a, b, **kw)
         setattr(mod, kname, wrapped)
 
@@ -957,7 +994,7 @@ def main() -> int:
     for r in reqs:
         server.submit(r)
     dk.launches = ck.launches = 0           # the main path's run starts
-    recording[0] = True
+    recording[0] = "serve"
     results, steps = [], []
     t_serve = time.perf_counter()
     while server.queue.depth:
@@ -976,11 +1013,14 @@ def main() -> int:
         results.extend(got)
     serve_s = time.perf_counter() - t_serve
     launches = {"deconv": dk.launches, "conv": ck.launches}
-    recording[0] = False
+    recording[0] = None
     print(json.dumps({"main_path_launches": launches,
                       "serve_s": serve_s}))
     check(launches == {"deconv": 12, "conv": 10},
           f"main path launches {launches}")
+    # a broken kernel must not be served quietly by the fallback
+    check(server.stats()["fallbacks"] == 0,
+          f"serve: {server.stats()['fallbacks']} buckets fell back")
     by_id = {r.id: r for r in results}
     check(sorted(by_id) == [r.id for r in reqs], "a request went missing")
     for r in reqs:
@@ -988,6 +1028,8 @@ def main() -> int:
         want = ((64, 64, 3) if r.model == "dcgan_gen"
                 else (*r.x.shape[:-1], 2))
         check(res.ok, f"request {r.id} failed: {res.error!r}")
+        check(res.engine == "pallas",
+              f"request {r.id} served by {res.engine!r}")
         check(res.output.shape == want,
               f"request {r.id} shape {res.output.shape} != {want}")
         check(bool(np.isfinite(res.output).all()),
@@ -1067,7 +1109,7 @@ def main() -> int:
         dk.launches = ck.launches = 0       # this path's run starts
         dk.operand_launches.clear()
         ck.operand_launches.clear()
-        recording[0] = True
+        recording[0] = "serve_quantized"
         qres, qsteps = [], []
         t_serve = time.perf_counter()
         while srv.queue.depth:
@@ -1097,10 +1139,12 @@ def main() -> int:
                   f"{sum(delta)} of {WANT_PAIR[pol]}")
             qres.extend(got)
         serve_s = time.perf_counter() - t_serve
-        recording[0] = False
+        recording[0] = None
         got_l = {"deconv": dk.launches, "conv": ck.launches}
         check(got_l == {"deconv": 12, "conv": 10},
               f"{pol}: launches {got_l}")
+        check(srv.stats()["fallbacks"] == 0,
+              f"{pol}: {srv.stats()['fallbacks']} buckets fell back")
         for k_ in q_launches:
             q_launches[k_] += got_l[k_]
         qby = {r_.id: r_ for r_ in qres}
@@ -1116,6 +1160,8 @@ def main() -> int:
         for r_, rf in zip(qreqs, reqs):
             res = qby[r_.id]
             check(res.ok, f"{pol}: request {r_.id} failed: {res.error!r}")
+            check(res.engine == "pallas",
+                  f"{pol}: request {r_.id} served by {res.engine!r}")
             check(res.output.shape == f32_out[rf.id].shape,
                   f"{pol}: request {r_.id} shape {res.output.shape}")
             check(bool(np.isfinite(res.output).all()),
@@ -1259,7 +1305,7 @@ def main() -> int:
             loop = TrainLoopConfig(total_steps=n - 1, checkpoint_every=1,
                                    log_every=1, checkpoint_dir=ckdir)
             zero_counts()               # the training path's run starts
-            recording[0] = True
+            recording[0] = "train"
             first = Trainer(counted, params, state, batches(arch, cfg, dev),
                             loop)
             first.run()
@@ -1276,7 +1322,7 @@ def main() -> int:
                 f"{arch}: resumed params differ from the checkpointed")
             second.run()
             got_counts = counts()       # the training path's run ends
-            recording[0] = False
+            recording[0] = None
         logs = first.metrics_log + second.metrics_log
         print(json.dumps({"train": arch, "batch": cfg.dcnn_batch,
                           "steps": [{k: v for k, v in r.items()}
@@ -1493,6 +1539,274 @@ def main() -> int:
     del p_q, gen_q, qgrads, qlogs
     torch.cuda.empty_cache()
 
+    # -- 4d. reference methods -------------------------------------------------
+    # the four reference lowerings (cuDNN and plain tensor code, the port's
+    # counterparts of the JAX package's XLA methods) over the full-width
+    # graphs at batch 4, the serve phase's weights and inputs, held against
+    # the hand kernels' output of the same batch.  TF32 is on in cuDNN (its
+    # default) and in cuBLAS for the phase: the lowerings scope IEEE f32
+    # around their library calls themselves and leave the flags as they are
+    phase("reference methods")
+    tf32_flags = (torch.backends.cudnn.allow_tf32,
+                  torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    ref_x = {"dcgan_gen": np.stack(seeds[:BATCH]),
+             "vnet": np.stack([pad_to(v, VNET_SPATIAL) for v in vols])}
+
+    def event_ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    def graph_apply(m, model, spec):
+        apply, _ = compile_network(spec.graph_for(None),
+                                   UniformEngine(EngineConfig(method=m)),
+                                   batch=BATCH)
+        xb = torch.from_numpy(ref_x[model]).to(dev)
+        return apply, server._weights(model), xb
+
+    def rel_to(y, ref):
+        return float((y - ref).abs().max() / ref.abs().max())
+
+    detail["reference_methods"] = {}
+    hand_out = {}
+    for m in ("pallas", *REF_METHODS):
+        row = {}
+        for model, spec in (("dcgan_gen", gen_spec), ("vnet", vol_spec)):
+            apply, ws, xb = graph_apply(m, model, spec)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with torch.inference_mode():
+                y, cold_ms = event_ms(lambda: apply(ws, xb))
+                peak = torch.cuda.max_memory_allocated()
+                ms = [event_ms(lambda: apply(ws, xb))[1] for _ in range(3)]
+            check(bool(torch.isfinite(y).all()), f"{m}/{model}: not finite")
+            r = {"cold_ms": cold_ms, "ms": ms,
+                 "median_ms": statistics.median(ms),
+                 "peak_mib": peak / 2**20,
+                 "peak_above_inputs_mib": (peak - base) / 2**20}
+            if m == "pallas":
+                hand_out[model] = y
+            else:
+                ref = hand_out[model]
+                check(y.shape == ref.shape and y.dtype == ref.dtype,
+                      f"{m}/{model}: {tuple(y.shape)} {y.dtype} vs the "
+                      f"kernels' {tuple(ref.shape)} {ref.dtype}")
+                r["rel_err"] = rel_to(y, ref)
+                r["tol"] = REF_TOL
+                check(r["rel_err"] <= REF_TOL, f"{m}/{model}: relative "
+                      f"error {r['rel_err']:.3g} to the kernels above "
+                      f"{REF_TOL}")
+            row[model] = r
+            del y
+        check((torch.backends.cudnn.allow_tf32,
+               torch.backends.cuda.matmul.allow_tf32) == (True, True),
+              f"{m}: a lowering left the TF32 flags changed")
+        detail["reference_methods"][m] = row
+        print(json.dumps({"reference_method": m, **row}))
+        del apply
+        torch.cuda.empty_cache()
+    # the gate's control: the same graphs with the lowerings' IEEE scope
+    # removed, so that their library calls run in TF32 as the flags allow;
+    # the gate must fail every method's control
+    ieee_f32, tfunc.ieee_f32 = tfunc.ieee_f32, contextlib.nullcontext
+    control = {}
+    try:
+        for m in REF_METHODS:
+            for model, spec in (("dcgan_gen", gen_spec),
+                                ("vnet", vol_spec)):
+                apply, ws, xb = graph_apply(m, model, spec)
+                with torch.inference_mode():
+                    y = apply(ws, xb)
+                control.setdefault(m, {})[model] = rel_to(y, hand_out[model])
+                del apply, y
+            torch.cuda.empty_cache()
+    finally:
+        tfunc.ieee_f32 = ieee_f32
+    detail["reference_tf32_control"] = control
+    print(json.dumps({"reference_tf32_control": control, "tol": REF_TOL}))
+    for m, row in control.items():
+        check(max(row.values()) > REF_TOL, f"{m}: without the IEEE scope "
+              f"the graphs read {row}, under the gate {REF_TOL}: the gate "
+              f"cannot tell TF32 from IEEE f32")
+    del hand_out
+    # int8 operands per layer, each layer's input the same on both methods
+    # (through the graph, int8 activations' rounding ties cascade): the
+    # lowering dequantizes the weights up front and fake-quantizes the
+    # activations; the kernels fold both scales into the epilogue
+    q_ref = {}
+    for pol, prec in POLICIES.items():
+        pe = UniformEngine(EngineConfig(precision=prec))
+        xe = UniformEngine(EngineConfig(method="xla", precision=prec))
+        worst = 0.0
+        for model, layer in ([("dcgan", l) for l in dcgan_layers]
+                             + [("vnet", l) for l in vnet_layers]):
+            x = rand((BATCH, *layer.in_spatial, layer.cin), torch.float32)
+            fan_in = math.prod(layer.weight_shape[:-1])
+            q = quant.quantize_tensor(rand(layer.weight_shape, torch.float32,
+                                           1.0 / math.sqrt(fan_in)))
+            b = (rand((layer.cout,), torch.float32, 0.1)
+                 if layer.epilogue.bias else None)
+            with torch.inference_mode():
+                yk = pe(layer, x, q["w_q"], b, w_scale=q["scale"])
+                yl = xe(layer, x, q["w_q"], b, w_scale=q["scale"])
+            rel = float((yk - yl).abs().max() / yk.abs().max())
+            check(rel <= SERVE_TOL, f"{pol}/{model}:{layer.name}: xla vs "
+                  f"the kernels {rel:.3g} above {SERVE_TOL}")
+            worst = max(worst, rel)
+            del x, q, b, yk, yl
+        q_ref[pol] = {"layers": len(dcgan_layers) + len(vnet_layers),
+                      "max_rel_err": worst, "tol": SERVE_TOL}
+        print(json.dumps({"reference_int8_per_layer": pol, **q_ref[pol]}))
+    detail["reference_int8"] = q_ref
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
+        = tf32_flags
+    torch.cuda.empty_cache()
+
+    # -- 4e. serve (fallback) ---------------------------------------------------
+    # the degradation path through the normal entry point: V-Net's bucket
+    # fails on the hand kernels (scripted dispatch errors through every
+    # retry and the first probe), is served by the cuDNN lowering, and the
+    # second probe brings it back onto the kernels.  Counts set to 0 just
+    # before this path and read just after; the degraded batches launch no
+    # hand kernel
+    phase("serve (fallback)")
+    retries = Backoff().max_retries
+    fsrv = DcnnServer([gen_spec, vol_spec], max_batch=BATCH, probe_every=1,
+                      faults=FaultScript([FaultEvent(
+                          "error", match="pallas:vnet",
+                          count=2 * (retries + 1))]))
+    vnet_ids = [r_.id for r_ in reqs if r_.model == "vnet"]
+    vbucket = f"vnet/{'x'.join(map(str, VNET_SPATIAL))}/b{BATCH}"
+    f_steps = []
+
+    def serve_batch(srv, model, xs):
+        for x in xs:
+            srv.submit(ServeRequest(model, x))
+        before = (dk.launches, ck.launches)
+        t0 = time.perf_counter()
+        got = srv.step()
+        dt = time.perf_counter() - t0
+        delta = (dk.launches - before[0], ck.launches - before[1])
+        check(len(got) == len(xs), f"{model}: {len(got)} of {len(xs)} "
+              f"results")
+        return got, delta, dt
+
+    dk.launches = ck.launches = 0           # this path's run starts
+    recording[0] = "serve_fallback"
+    got, delta, dt = serve_batch(fsrv, "dcgan_gen", seeds[:BATCH])
+    check(delta == (4, 0) and all(r_.ok and r_.engine == "pallas"
+                                  for r_ in got),
+          f"dcgan beside the faulted bucket: {delta}, "
+          f"{[(r_.code, r_.engine) for r_ in got]}")
+    f_steps.append({"model": "dcgan_gen", "engines": ["pallas"],
+                    "launches": delta, "s": dt})
+    # batch 1: degraded; batch 2: the first probe fails; batch 3: recovered
+    want = [("xla", (0, 0)), ("xla", (0, 0)), ("pallas", (4, 10))]
+    for i, (engine_want, launches_want) in enumerate(want):
+        got, delta, dt = serve_batch(fsrv, "vnet", vols)
+        st = fsrv.stats()
+        b_ = st["buckets"][vbucket]
+        errs = []
+        for r_, rid in zip(got, vnet_ids):
+            check(r_.ok and r_.engine == engine_want,
+                  f"fallback batch {i}: {r_.code} on {r_.engine!r}, "
+                  f"expected {engine_want!r}")
+            ref = by_id[rid].output
+            check(r_.output.shape == ref.shape, f"fallback batch {i}: "
+                  f"shape {r_.output.shape} vs {ref.shape}")
+            errs.append(float(np.abs(r_.output - ref).max()
+                              / np.abs(ref).max()))
+        check(delta == launches_want, f"fallback batch {i} launched "
+              f"(deconv, conv) = {delta}, expected {launches_want}")
+        check(max(errs) <= SERVE_TOL, f"fallback batch {i}: relative "
+              f"error {max(errs):.3g} to the un-faulted kernels' outputs")
+        f_steps.append({"model": "vnet", "engine": engine_want,
+                        "launches": delta, "s": dt, "rel_err": max(errs),
+                        **{k: st[k] for k in ("fallbacks", "recoveries",
+                                              "probes_failed", "retries")},
+                        "degraded": b_["degraded"],
+                        "fallback_reason": b_["fallback_reason"]})
+        print(json.dumps({"fallback_batch": f_steps[-1]}))
+        if i == 0:
+            check(st["fallbacks"] == 1 and b_["degraded"]
+                  and "InjectedDispatchError" in b_["fallback_reason"],
+                  f"first batch: {b_}")
+        if i == 1:
+            check(st["probes_failed"] >= 1 and st["recoveries"] == 0,
+                  f"second batch: {st['probes_failed']} failed probes, "
+                  f"{st['recoveries']} recoveries")
+    recording[0] = None
+    fb_launches = {"deconv": dk.launches, "conv": ck.launches}
+    st = fsrv.stats()
+    print(json.dumps({"fallback_launches": fb_launches,
+                      **{k: st[k] for k in ("fallbacks", "recoveries",
+                                            "probes_failed", "retries")}}))
+    check(fb_launches == {"deconv": 8, "conv": 10},
+          f"fallback path launches {fb_launches}")
+    check(st["fallbacks"] == 1 and st["recoveries"] == 1
+          and st["probes_failed"] >= 1 and fsrv.health()["fully_primary"],
+          f"fallback path stats {st}")
+    detail["serve_fallback"] = {"steps": f_steps, "launches": fb_launches}
+    del fsrv
+
+    # a compile failure degrades the bucket: its batches run on the
+    # lowering until the probe (every 4th), warm from the second on
+    csrv = DcnnServer([vol_spec], max_batch=BATCH, faults=FaultScript([
+        FaultEvent("compile_error", match="pallas:vnet")]))
+    c_rows = []
+    for i in range(3):
+        got, delta, dt = serve_batch(csrv, "vnet", vols)
+        check(delta == (0, 0) and all(r_.ok and r_.engine == "xla"
+                                      for r_ in got),
+              f"compile_error batch {i}: {delta}, "
+              f"{[(r_.code, r_.engine) for r_ in got]}")
+        c_rows.append(dt)
+    b_ = csrv.stats()["buckets"][vbucket]
+    check(b_["degraded"] and "InjectedCompileError" in b_["fallback_reason"],
+          f"compile_error bucket {b_}")
+    print(json.dumps({"fallback_compile_error": {
+        "batch_s": c_rows, "fallback_reason": b_["fallback_reason"]}}))
+    detail["serve_fallback"]["compile_error_batch_s"] = c_rows
+    del csrv
+
+    # a poisoned row is quarantined and the rest re-run on the kernels
+    nsrv = DcnnServer([gen_spec], max_batch=BATCH, faults=FaultScript([
+        FaultEvent("nan", match="pallas:dcgan_gen", rows=(0,))]))
+    got, _, _ = serve_batch(nsrv, "dcgan_gen", seeds[:BATCH])
+    by_req = {r_.id: r_ for r_ in got}
+    st = nsrv.stats()
+    check(by_req[0].code == "poisoned_output"
+          and all(by_req[i].ok and by_req[i].engine == "pallas"
+                  for i in (1, 2, 3))
+          and st["quarantined"] == 1 and st["reruns"] == 1,
+          f"nan script: {[(r_.id, r_.code) for r_ in got]}, {st}")
+    for i in (1, 2, 3):
+        ref = by_id[reqs[i].id].output
+        err = float(np.abs(by_req[i].output - ref).max() / np.abs(ref).max())
+        check(err <= SERVE_TOL, f"re-run request {i}: {err:.3g}")
+    del nsrv
+
+    # both engines failing: every request completes typed
+    esrv = DcnnServer([gen_spec], max_batch=BATCH,
+                      backoff=Backoff(sleep=lambda s: None),
+                      faults=FaultScript([FaultEvent("error", count=0)]))
+    got, delta, _ = serve_batch(esrv, "dcgan_gen", seeds[:BATCH])
+    check(delta == (0, 0) and all(
+        not r_.ok and isinstance(r_.error, DispatchFailedError)
+        for r_ in got) and esrv.stats()["dispatch_failures"] == 1,
+        f"both engines failing: {[(r_.code, r_.error) for r_ in got]}")
+    print(json.dumps({"fallback_scripts": "ok", "nan_quarantined": 1,
+                      "all_failed_typed": len(got)}))
+    del esrv
+    torch.cuda.empty_cache()
+
     # -- 5. times -------------------------------------------------------------
     phase("times")
     print(json.dumps({"bound_peaks": {
@@ -1544,7 +1858,8 @@ def main() -> int:
     # shape's times, weighted by the calls of that shape it recorded
     def zero_total():
         return {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                "library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
+                "library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                "ms_by_path": {}}
 
     totals = {k: zero_total() for k in max_abs}
     # the int8 kernels' totals again per (x, w) operand pair
@@ -1556,7 +1871,8 @@ def main() -> int:
         for key in keys:
             if key in timed:        # a shape two layers share counts once
                 continue
-            n = recorded.get(key, 0)
+            paths = recorded.get(key, {})
+            n = sum(paths.values())
             timed.add(key)
             row["launches"][key[0]] = n
             tots = [totals[key[0]]]
@@ -1569,6 +1885,9 @@ def main() -> int:
                     tot[f] += n * row[f]
                 tot["ops_ms" if ops_ms >= bytes_ms else "bytes_ms"] += \
                     n * row["bound_ms"]
+                for path, n_p in paths.items():
+                    tot["ms_by_path"][path] = (tot["ms_by_path"].get(path, 0.0)
+                                               + n_p * row["ms"])
 
     def time_forward(model, layer, batch, args, operands, lib_call, peak,
                      kname, **extra):
@@ -1688,11 +2007,19 @@ def main() -> int:
                 lat.append(time.perf_counter() - t0)
                 check(len(got) == len(xs) and all(r.ok for r in got),
                       f"{pol}/{model} timing batch failed")
+                # a batch the fallback served must not be timed as the
+                # kernels'
+                check(all(r.engine == "pallas" for r in got),
+                      f"{pol}/{model} timing batch served by "
+                      f"{sorted({r.engine for r in got})}")
             detail["e2e"].setdefault(pol, {})[model] = {"batch": len(xs),
                                                         "seconds": lat}
             print(json.dumps({"e2e_batch": model, "policy": pol,
                               "batch": len(xs), "seconds": lat,
                               "median_ms": 1e3 * statistics.median(lat)}))
+        check(srv.stats()["fallbacks"] == 0,
+              f"{pol}: {srv.stats()['fallbacks']} buckets fell back while "
+              f"timed")
 
     def library_backward(layer, x, w, dy, which):
         """One cuDNN ``convolution_backward`` computing the same dw or dx
@@ -1791,9 +2118,11 @@ def main() -> int:
 
     run_launches = {
         "deconv_fwd": {"serve": launches["deconv"],
-                       "train": train_launches["deconv_fwd"]},
+                       "train": train_launches["deconv_fwd"],
+                       "serve_fallback": fb_launches["deconv"]},
         "conv_fwd": {"serve": launches["conv"],
-                     "train": train_launches["conv_fwd"]},
+                     "train": train_launches["conv_fwd"],
+                     "serve_fallback": fb_launches["conv"]},
         "deconv_dw": {"train": train_launches["deconv_dw"]},
         "deconv_dx": {"train": train_launches["deconv_dx"]},
         "deconv_fwd_int8": {"serve_quantized": q_launches["deconv"]},
@@ -1835,8 +2164,16 @@ def main() -> int:
         n = sum(run_launches[k].values())
         check(tot["launches"] == n, f"{k}: timed call shapes cover "
               f"{tot['launches']} launches of the {n} counted")
+        check({p: tot["ms_by_path"].get(p, 0.0) > 0
+               for p in run_launches[k]}
+              == {p: n_p > 0 for p, n_p in run_launches[k].items()},
+              f"{k}: timed paths {tot['ms_by_path']} vs the counted "
+              f"{run_launches[k]}")
+        # each path's share of ``ms``: the sum over the earlier slices'
+        # paths alone is the total without this slice's serve_fallback
         entry.update(launches=n, launches_by_path=run_launches[k],
                      max_abs_err=max_abs[k], ms=tot["ms"],
+                     ms_by_path=tot["ms_by_path"],
                      plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
                      bound_by=("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                                else "bytes"),

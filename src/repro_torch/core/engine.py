@@ -10,8 +10,11 @@ decided at compile time.  In the port:
     and the ``device`` it runs on (``"cuda"`` unless the caller asks for
     the CPU, where the kernels' plain versions run).
   * ``UniformEngine`` — ``engine.conv``/``engine.deconv`` run both
-    directions on the hand-written Hopper kernels, and a geometry-keyed
-    plan cache makes the tile planner run once per layer geometry.
+    directions on the hand-written Hopper kernels (method ``"pallas"``) or
+    on a reference lowering (``"oom"``, ``"xla"``, ``"iom"``,
+    ``"iom_phase"``: cuDNN and plain tensor code, the epilogue applied on
+    the op output), and a geometry-keyed plan cache makes the tile
+    planner run once per layer geometry, whatever the method.
   * ``compile_network(layers, engine)`` — a ``UniformLayer`` chain or a
     ``UniformGraph`` becomes (a) an eager callable running every node on
     the engine and (b) a ``ScheduleReport`` of the per-layer plans.
@@ -23,10 +26,9 @@ optional border crop.  Under ``Precision(weight_quant="int8")`` int8
 weights reach the kernels as 1-byte operands with their per-cout dequant
 scale fused in the epilogue; ``act_quant="int8"`` adds a per-tensor int8
 quantization of each layer's input on the device, its scale folded into
-the weights'.  Only the ``"pallas"`` method (the JAX package's name for
-its kernel path) is ported; the XLA-lowered flavours (with their host-side
-dequantization), the mesh and the tuned-plan paths come with later
-ROADMAP items.
+the weights'.  The reference lowerings dequantize the weights up front
+and fake-quantize the activations instead (``_dequant_host``).  The mesh
+and the tuned-plan paths come with later ROADMAP items.
 """
 
 from __future__ import annotations
@@ -44,15 +46,29 @@ from repro_torch.core.functional import (  # noqa: F401 (re-export)
     METHODS,
     PORTED_METHODS,
     conv_output_shape,
+    correlate,
+    deconv_iom,
+    deconv_iom_phase,
+    deconv_oom,
+    deconv_xla,
     insertion_sparsity,
+    pop_pallas_knobs,
 )
 from repro_torch.kernels import common as _kcommon
 from repro_torch.quant import qint8 as _q8
 from repro_torch.quant.precision import Precision
 
-# where each reference method not ported yet will come from
-_PENDING = {m: "ROADMAP open item 2 (the XLA-lowered reference flavours)"
-            for m in METHODS if m not in PORTED_METHODS}
+CONV_METHODS = ("xla", "pallas")
+
+_XLA_DECONVS = {"oom": deconv_oom, "xla": deconv_xla, "iom": deconv_iom,
+                "iom_phase": deconv_iom_phase}
+
+
+def uniform_conv_method(deconv_method: str) -> str:
+    """The conv side of a deconv method: ``"pallas"`` keeps the network on
+    the hand kernels; every reference lowering pairs with the ``"xla"``
+    conv."""
+    return "pallas" if deconv_method == "pallas" else "xla"
 
 
 class EngineError(Exception):
@@ -78,9 +94,9 @@ class VmemBudgetError(ScheduleError):
 class EngineConfig:
     """The uniform engine's compile-time configuration.
 
-    ``method`` must be ``"pallas"`` (the hand kernels); any other
-    reference method name raises a typed error naming the ROADMAP item
-    that adds it.  ``precision`` (a ``repro_torch.quant.Precision``) is the
+    ``method`` is one of ``METHODS``: ``"pallas"`` (the hand kernels) or
+    a reference lowering; the conv side pairs via
+    ``uniform_conv_method``.  ``precision`` (a ``repro_torch.quant.Precision``) is the
     engine's numeric policy: activation storage dtype, int8 weight and
     activation quantization.  ``preferred_element_type`` is the legacy
     spelling of its storage dtype (``None``: the input's dtype, f32 for
@@ -89,7 +105,8 @@ class EngineConfig:
     hashes; naming both with different dtypes raises.  Accumulation is f32
     regardless.  ``max_tile_bytes`` overrides the per-block shared-memory
     budget; ``block_ci``/``block_co`` pin the kernels' tiles;
-    ``strict_vmem`` turns an over-budget plan into a ``VmemBudgetError``.
+    ``strict_vmem`` turns an over-budget plan into a ``VmemBudgetError``
+    (on every method: a schedule plans its layers whatever the method).
     ``telemetry`` (a ``repro_torch.obs.Telemetry``) records plan-cache and
     compile instruments.  ``device`` is where the engine runs: ``"cuda"``
     by default; ``"cpu"`` runs the kernels' plain versions.
@@ -108,9 +125,6 @@ class EngineConfig:
         if self.method not in METHODS:
             raise ValueError(f"unknown method {self.method!r}; expected one "
                              f"of {METHODS}")
-        if self.method in _PENDING:
-            raise EngineError(f"method {self.method!r} is not ported yet: "
-                              f"{_PENDING[self.method]}")
         pet = self.preferred_element_type
         if self.precision is None:
             # the compat shim: preferred_element_type=dt and
@@ -131,6 +145,10 @@ class EngineConfig:
             raise ValueError(f"preferred_element_type must be float32 or "
                              f"bfloat16, got {pet!r}")
         object.__setattr__(self, "device", torch.device(self.device))
+
+    @property
+    def conv_method(self) -> str:
+        return uniform_conv_method(self.method)
 
     @property
     def smem_budget(self) -> int:
@@ -258,34 +276,101 @@ class UniformEngine:
         return _q8.quantize_q8(x, s), (s if w_scale is None
                                        else w_scale * s)
 
+    @staticmethod
+    def _dequant_host(x: torch.Tensor, w: torch.Tensor, w_scale,
+                      precision: Precision | None):
+        """The reference lowerings' numerics for quantized operands:
+        dequantize the weights up front (the per-cout scale commutes with
+        the contraction, so this equals the kernels' epilogue scale) and
+        fake-quantize float activations when the policy asks.  Integer
+        activations become f32 as they are, unscaled, as in the JAX
+        package."""
+        if not w.dtype.is_floating_point:
+            w = w.to(torch.float32)
+            if w_scale is not None:
+                w = w * w_scale.to(w.device)
+        elif w_scale is not None:
+            w = w * w_scale.to(device=w.device, dtype=w.dtype)
+        if precision is not None and precision.act_quant == "int8" \
+                and x.dtype.is_floating_point:
+            s = _q8.absmax_scale(x)
+            x = _q8.dequantize_int8(_q8.quantize_q8(x, s), s).to(x.dtype)
+        if not x.dtype.is_floating_point:
+            x = x.to(torch.float32)
+        return x, w
+
     def deconv(self, x: torch.Tensor, w: torch.Tensor, stride, padding=0, *,
                dilation=1, groups: int = 1, bias: torch.Tensor | None = None,
                activation: str = "none", alpha: float = 0.2,
                w_scale: torch.Tensor | None = None,
                precision: Precision | None = None) -> torch.Tensor:
-        """Transposed convolution (Eq. (1) + border crop) on the deconv
-        kernel, epilogue fused.  ``w_scale`` is the per-cout (or scalar)
-        dequant scale of int8 weights, applied in the kernel's epilogue
-        before the store cast; ``precision`` overrides the config's policy
-        for this call (``compile_network`` passes per-layer overrides)."""
-        from repro_torch.kernels.deconv import ops as _dops  # lazy: cycle
-        x, w_scale = self._act_quant(x, w_scale, precision)
-        return _dops.deconv(x, w, stride, padding, dilation=dilation,
-                            groups=groups, bias=bias, activation=activation,
-                            alpha=alpha, w_scale=w_scale, engine=self)
+        """Transposed convolution (Eq. (1) + border crop).
+
+        On ``"pallas"`` it runs the deconv kernel, epilogue fused;
+        ``w_scale`` is the per-cout (or scalar) dequant scale of int8
+        weights, applied in the kernel's epilogue before the store cast.
+        A reference lowering dequantizes up front, applies the epilogue on
+        its output and routes grouped or dilated layers through
+        ``deconv_xla``; it returns the configured storage dtype, f32 when
+        none is set.  ``precision`` overrides the config's policy for this
+        call (``compile_network`` passes per-layer overrides)."""
+        cfg = self.config
+        if cfg.method == "pallas":
+            from repro_torch.kernels.deconv import ops as _dops  # lazy
+            x, w_scale = self._act_quant(x, w_scale, precision)
+            return _dops.deconv(x, w, stride, padding, dilation=dilation,
+                                groups=groups, bias=bias,
+                                activation=activation, alpha=alpha,
+                                w_scale=w_scale, engine=self)
+        x, w = self._dequant_host(
+            x, w, w_scale,
+            precision if precision is not None else cfg.precision)
+        pet = (cfg.preferred_element_type
+               if cfg.preferred_element_type is not None else torch.float32)
+        dil = _kcommon.canon_dilation(dilation, x.dim() - 2)
+        if groups == 1 and all(d == 1 for d in dil):
+            y = _XLA_DECONVS[cfg.method](x, w, stride, padding,
+                                         preferred_element_type=pet)
+        else:
+            y = deconv_xla(x, w, stride, padding, dilation=dil,
+                           groups=groups, preferred_element_type=pet)
+        if bias is not None or activation != "none":
+            y = _kcommon.apply_epilogue(y, bias, activation, alpha)
+        return y
 
     def conv(self, x: torch.Tensor, w: torch.Tensor, stride=1, padding=0, *,
              dilation=1, groups: int = 1, bias: torch.Tensor | None = None,
              activation: str = "none", alpha: float = 0.2,
              w_scale: torch.Tensor | None = None,
              precision: Precision | None = None) -> torch.Tensor:
-        """Forward strided convolution on the conv kernel, epilogue fused
-        (the same quantization conventions as ``deconv``)."""
-        from repro_torch.kernels.conv import ops as _cops  # lazy: cycle
-        x, w_scale = self._act_quant(x, w_scale, precision)
-        return _cops.conv(x, w, stride, padding, dilation=dilation,
-                          groups=groups, bias=bias, activation=activation,
-                          alpha=alpha, w_scale=w_scale, engine=self)
+        """Forward strided convolution (the same epilogue, grouping,
+        dilation and quantization conventions as ``deconv``).  The
+        ``"xla"`` conv accumulates f32 and returns the input dtype, or the
+        configured storage dtype."""
+        cfg = self.config
+        if cfg.conv_method == "pallas":
+            from repro_torch.kernels.conv import ops as _cops  # lazy
+            x, w_scale = self._act_quant(x, w_scale, precision)
+            return _cops.conv(x, w, stride, padding, dilation=dilation,
+                              groups=groups, bias=bias,
+                              activation=activation, alpha=alpha,
+                              w_scale=w_scale, engine=self)
+        x, w = self._dequant_host(
+            x, w, w_scale,
+            precision if precision is not None else cfg.precision)
+        pet, out_dtype = cfg.preferred_element_type, None
+        if pet is None:
+            # the kernels' contract: accumulate in f32, emit the input
+            # dtype (bf16 inputs must not accumulate in bf16)
+            pet, out_dtype = torch.float32, torch.promote_types(x.dtype,
+                                                                w.dtype)
+        y = correlate(x, w, stride, padding, dilation=dilation,
+                      groups=groups).to(pet)
+        if bias is not None or activation != "none":
+            # the epilogue on the accumulator dtype, then the storage cast,
+            # as in the kernels' flush
+            y = _kcommon.apply_epilogue(y, bias, activation, alpha)
+        return y if out_dtype is None else y.to(out_dtype)
 
     def __call__(self, layer: _networks.UniformLayer, x: torch.Tensor,
                  w: torch.Tensor, b: torch.Tensor | None = None, *,
@@ -322,7 +407,8 @@ def default_engine(config: EngineConfig | None = None,
 
 
 def as_engine(engine, default_method: str = "pallas") -> UniformEngine:
-    """Coerce ``UniformEngine | EngineConfig | method-name | None``."""
+    """Coerce ``UniformEngine | EngineConfig | method-name | None`` (a
+    method name gets the memoized default engine for it, on the card)."""
     if engine is None:
         return default_engine(method=default_method)
     if isinstance(engine, UniformEngine):
@@ -333,6 +419,23 @@ def as_engine(engine, default_method: str = "pallas") -> UniformEngine:
         return default_engine(method=engine)
     raise TypeError(f"expected UniformEngine | EngineConfig | method name, "
                     f"got {engine!r}")
+
+
+def conv_nd(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0,
+            method: str = "xla", *, device="cuda", **kw) -> torch.Tensor:
+    """Uniform 1D/2D/3D strided convolution on the memoized default engine
+    for ``method`` on ``device``; new code configures a ``UniformEngine``
+    once and calls ``engine.conv``.  x: [N, *spatial, Cin], w:
+    [*K, Cin, Cout]; ``padding`` is a scalar, per-dim scalars or per-dim
+    ``(lo, hi)`` pairs."""
+    if method not in CONV_METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of "
+                         f"{CONV_METHODS}")
+    pet = kw.pop("preferred_element_type", None)
+    knobs = pop_pallas_knobs(kw, method=method, op="conv_nd")
+    engine = default_engine(method=method, preferred_element_type=pet,
+                            device=device, **knobs)
+    return engine.conv(x, w, stride, padding)
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +520,10 @@ class ScheduleReport:
 
     @property
     def kernel_launches(self) -> int:
-        """Hand-kernel launches per forward: one per layer node."""
+        """Hand-kernel launches per forward: one per layer node on
+        ``"pallas"``, none on a reference lowering."""
+        if self.engine.method != "pallas":
+            return 0
         return sum(l.plan is not None for l in self.layers)
 
     def describe(self) -> str:
@@ -570,7 +676,8 @@ def compile_network(layers: Sequence[_networks.UniformLayer]
     Either takes quantized ``{"w_q", "scale"}`` entries
     (``repro_torch.quant.quantize_weights``); ``report``'s ``precision``
     column shows each layer's resolved policy.
-    Merge nodes own no weights; epilogues run inside the kernels.
+    Merge nodes own no weights; on ``"pallas"`` epilogues run inside the
+    kernels, on a reference lowering on each op's output.
     """
     engine = engine if isinstance(engine, UniformEngine) else as_engine(engine)
     tel = engine.config.telemetry

@@ -1,8 +1,10 @@
-"""Engine-backed DCNN inference server on the hand-written Hopper kernels.
+"""Engine-backed DCNN inference server on the hand-written Hopper kernels:
+deadlines, degradation, recovery.
 
 DCGAN generation and V-Net segmentation requests are served from compiled
-``UniformGraph`` schedules on ONE configured engine, eagerly (no graph
-capture yet).  Every failure mode is visible and typed:
+``UniformGraph`` schedules, eagerly (no graph capture yet), on a primary
+engine (the hand kernels) with a fallback engine (the cuDNN lowering,
+``"xla"``) beside it.  Every failure mode is survivable and visible:
 
   * **bounded queue + load shedding** — ``submit`` raises a typed
     ``QueueFullError`` at capacity;
@@ -12,20 +14,29 @@ capture yet).  Every failure mode is visible and typed:
     spatial, padded batch); each bucket compiles once via
     ``compile_network`` and lives in an LRU (``max_schedules``);
   * **retry with exponential backoff** — a dispatch that raises retries
-    on a deterministic ``Backoff`` schedule; a schedule that cannot be
-    built, or a dispatch that fails every retry, completes its requests
-    with a typed ``DispatchFailedError``;
+    on a deterministic ``Backoff`` schedule;
+  * **graceful degradation** — a bucket whose schedule fails to compile
+    (``ScheduleError``/``VmemBudgetError``/injected compile fault) or to
+    dispatch (after retries) on the primary degrades to the fallback
+    engine, records it, and probes the primary every ``probe_every``
+    batches to recover; when both fail its requests complete with a typed
+    ``DispatchFailedError``;
   * **NaN/Inf output guard** — poisoned rows are quarantined with a typed
     ``PoisonedOutputError`` and the rest of the batch re-runs;
   * **stats/health surface** — queue depth, shed/expired counts, per-bucket
-    latency percentiles, schedule-cache hit/miss/eviction counters.
+    engine state and latency percentiles, schedule-cache hit/miss/eviction
+    counters.
+
+Fault injection plugs in as a ``repro_torch.runtime.faults.FaultScript``:
+every compile runs through its ``compile`` channel and every compiled
+schedule is wrapped on its ``dispatch`` channel, under the JAX package's
+tags, so one script drives the same failures in both servers.
 
 A quantized model is a ``ModelSpec`` whose weights came from
 ``repro_torch.quant.quantize_weights``, served on an engine configured with
-the matching ``EngineConfig(precision=...)``, as in the JAX package.
-The JAX package's server also degrades a failing bucket to a second engine
-and injects scripted faults; both wait for ROADMAP open item 13.
-Weights move to the engine's device once per model, dtypes kept (int8
+the matching ``EngineConfig(precision=...)``, as in the JAX package; the
+self-built fallback ignores that policy, as the reference's does.
+Weights move to each engine's device once per model, dtypes kept (int8
 weights stay int8).
 """
 
@@ -49,6 +60,7 @@ from repro_torch.core.engine import (
     compile_network,
     init_network_weights,
 )
+from repro_torch.runtime import faults as _faults
 from repro_torch.runtime.serving import (
     Backoff,
     DeadlineExceededError,
@@ -199,10 +211,21 @@ class ServeResult:
 
 @dataclasses.dataclass
 class _BucketState:
-    """Per-bucket bookkeeping; ``latencies`` is the bucket's registry
+    """Per-bucket degradation state; ``latencies`` is the bucket's registry
     histogram."""
+    method: str
+    primary: str
     latencies: _obs.Histogram
     batches: int = 0
+    since_fallback: int = 0
+    fallback_reason: str | None = None
+    fallbacks: int = 0
+    recoveries: int = 0
+    probes_failed: int = 0
+
+    @property
+    def degraded(self) -> bool:
+        return self.method != self.primary
 
 
 class _RegistryCounters:
@@ -238,14 +261,6 @@ def pad_to(x: np.ndarray, spatial: tuple[int, ...]) -> np.ndarray:
     return np.pad(x, pads)
 
 
-def poisoned_rows(y: np.ndarray) -> list[int]:
-    """Batch rows of ``y`` (leading dim) containing NaN/Inf."""
-    if not np.issubdtype(y.dtype, np.floating):
-        return []
-    ok = np.isfinite(y.reshape(y.shape[0], -1)).all(axis=1)
-    return [i for i, good in enumerate(ok) if not good]
-
-
 def _to_numpy(y: torch.Tensor) -> np.ndarray:
     if y.dtype == torch.bfloat16:       # numpy has no bfloat16
         y = y.to(torch.float32)
@@ -260,41 +275,63 @@ class DcnnServer:
         results = server.drain()          # or step() per batch
         print(server.stats())
 
-    ``engine`` (default: a strict-budget hand-kernel engine on ``device``)
-    runs every batch.  ``clock``/``Backoff.sleep`` are injectable for
-    deterministic tests.
+    ``primary``/``fallback`` name the two engine methods.  ``engines``
+    maps each name to its engine; without it the primary is ``engine``
+    or, by default, a strict-budget hand-kernel engine on ``device``, and
+    the fallback an engine of method ``fallback`` with the default
+    precision and the server's telemetry on the primary's device.
+    ``faults`` plugs a ``FaultScript`` into every compile and dispatch.
+    ``clock``/``Backoff.sleep`` are injectable for deterministic tests.
     """
 
-    def __init__(self, specs, *, engine: UniformEngine | None = None,
+    def __init__(self, specs, *, primary: str = "pallas",
+                 fallback: str = "xla", engine: UniformEngine | None = None,
+                 engines: Mapping[str, UniformEngine] | None = None,
                  device="cuda", max_queue: int = 64, max_batch: int = 8,
-                 max_schedules: int = 8, backoff: Backoff | None = None,
+                 max_schedules: int = 8, probe_every: int = 4,
+                 backoff: Backoff | None = None,
                  max_tile_bytes: int | None = None,
+                 faults: _faults.FaultScript | None = None,
                  telemetry: _obs.Telemetry | None = None,
                  clock: Callable[[], float] = time.monotonic):
         specs = [specs] if isinstance(specs, ModelSpec) else list(specs)
         self.specs: dict[str, ModelSpec] = {s.name: s for s in specs}
         self.telemetry = (telemetry if telemetry is not None
                           else _obs.Telemetry.create())
-        if engine is None:
-            engine = UniformEngine(EngineConfig(
-                method="pallas", strict_vmem=True,
-                max_tile_bytes=max_tile_bytes, telemetry=self.telemetry,
-                device=device))
-        self.engine = engine
-        self.method = engine.config.method
+        if engines is None:
+            if engine is None:
+                engine = UniformEngine(EngineConfig(
+                    method=primary, strict_vmem=True,
+                    max_tile_bytes=max_tile_bytes, telemetry=self.telemetry,
+                    device=device))
+            engines = {primary: engine, fallback: UniformEngine(EngineConfig(
+                method=fallback, telemetry=self.telemetry,
+                device=engine.device))}
+        elif engine is not None:
+            raise ValueError("pass engine= (the primary) or engines=, not "
+                             "both")
+        self.engines = dict(engines)
+        for m in (primary, fallback):
+            if m not in self.engines:
+                raise ValueError(f"no engine configured for method {m!r}")
+        self.primary = primary
+        self.fallback = fallback
+        self.engine = self.engines[primary]
         self.max_batch = max_batch
+        self.probe_every = probe_every
         self.backoff = backoff or Backoff()
+        self.faults = faults
         self.clock = clock
         self.queue = RequestQueue(max_queue, clock)
         self.max_schedules = max_schedules
         self._schedules: OrderedDict[tuple, Callable] = OrderedDict()
-        self._device_weights: dict[str, Any] = {}
+        self._device_weights: dict[tuple, Any] = {}
         self._buckets: dict[tuple, _BucketState] = {}
         self._next_id = 0
         self.counters = _RegistryCounters(self.telemetry.registry, (
             "completed", "rejected", "retries", "quarantined", "reruns",
-            "cache_hits", "cache_misses", "cache_evictions",
-            "dispatch_failures",
+            "fallbacks", "recoveries", "probes_failed", "cache_hits",
+            "cache_misses", "cache_evictions", "dispatch_failures",
         ))
         self._queue_wait = self.telemetry.histogram(
             "serve_queue_wait_seconds")
@@ -327,34 +364,42 @@ class DcnnServer:
 
     # -- the schedule cache --------------------------------------------------
 
-    def _weights(self, model: str):
-        """The model's weights on the engine's device, moved once."""
-        ws = self._device_weights.get(model)
+    def _weights(self, model: str, method: str | None = None):
+        """The model's weights on ``method``'s engine's device (the
+        primary's by default), moved once per device."""
+        dev = self.engines[method or self.primary].device
+        ws = self._device_weights.get((model, dev))
         if ws is None:
-            dev = self.engine.device
-
             def move(node):
                 if isinstance(node, dict):
                     return {k: move(v) for k, v in node.items()}
                 return node.to(dev)
 
-            ws = self._device_weights[model] = move(
+            ws = self._device_weights[(model, dev)] = move(
                 dict(self.specs[model].weights))
         return ws
 
     def _schedule(self, model: str, bucket_sp: tuple[int, ...],
-                  batch: int) -> Callable:
-        """Compile (or fetch) the bucket's schedule; LRU over (model,
-        spatial, batch).  Schedule errors propagate to the caller."""
-        key = (model, bucket_sp, batch)
+                  batch: int, method: str) -> Callable:
+        """Compile (or fetch) the bucket's schedule on ``method``; LRU over
+        (model, spatial, batch, method).  Compile faults and schedule
+        errors (a budget overflow included) propagate to the caller's
+        degradation logic."""
+        key = (model, bucket_sp, batch, method)
         fn = self._schedules.get(key)
         if fn is not None:
             self._schedules.move_to_end(key)
             self.counters["cache_hits"] += 1
             return fn
         self.counters["cache_misses"] += 1
+        tag = f"{method}:{model}:{'x'.join(map(str, bucket_sp))}b{batch}"
+        if self.faults is not None:
+            self.faults.on_call("compile", tag)   # may raise injected
         graph = self.specs[model].graph_for(bucket_sp)
-        fn, _report = compile_network(graph, self.engine, batch=batch)
+        fn, _report = compile_network(graph, self.engines[method],
+                                      batch=batch)
+        if self.faults is not None:
+            fn = self.faults.wrap_schedule(fn, tag)
         self._schedules[key] = fn
         while len(self._schedules) > self.max_schedules:
             self._schedules.popitem(last=False)
@@ -364,14 +409,15 @@ class DcnnServer:
     # -- dispatch ------------------------------------------------------------
 
     def _dispatch(self, model: str, bucket_sp: tuple[int, ...],
-                  xb: np.ndarray) -> np.ndarray:
-        """One batch on the engine, retried with backoff when it raises.
-        Raises ``ScheduleError`` (no retry) or ``DispatchFailedError``."""
-        fn = self._schedule(model, bucket_sp, xb.shape[0])
-        ws = self._weights(model)
+                  method: str, xb: np.ndarray) -> np.ndarray:
+        """One batch on one engine, retried with backoff when it raises.
+        Raises ``ScheduleError``/``InjectedCompileError`` (compile-shaped,
+        no retry) or ``DispatchFailedError`` (retries exhausted)."""
+        fn = self._schedule(model, bucket_sp, xb.shape[0], method)
+        ws = self._weights(model, method)
         x = torch.from_numpy(xb)
         attempt = 0
-        with self.telemetry.span("dispatch", model=model, method=self.method,
+        with self.telemetry.span("dispatch", model=model, method=method,
                                  batch=xb.shape[0]) as sp:
             while True:
                 try:
@@ -379,16 +425,21 @@ class DcnnServer:
                         y = _to_numpy(fn(ws, x))
                     sp.set(attempts=attempt)
                     return y
-                except ScheduleError:
-                    raise                  # schedule-shaped: never retried
+                except (ScheduleError, _faults.InjectedCompileError):
+                    raise                  # compile-shaped: never retried
                 except Exception as e:     # noqa: BLE001 — retry, then type
                     if attempt >= self.backoff.max_retries:
                         raise DispatchFailedError(
-                            f"{self.method} dispatch failed after {attempt} "
+                            f"{method} dispatch failed after {attempt} "
                             f"retries: {e!r}") from e
                     self.counters["retries"] += 1
                     self.backoff.wait(attempt)
                     attempt += 1
+
+    def _run_on(self, model: str, bucket_sp, method: str,
+                xb: np.ndarray) -> np.ndarray:
+        """Dispatch on ``method``'s engine: the batch's raw host output."""
+        return self._dispatch(model, bucket_sp, method, xb)
 
     # -- serving -------------------------------------------------------------
 
@@ -443,11 +494,14 @@ class DcnnServer:
             engine=None, latency_s=now - t.submitted,
             bucket=self._bucket_name(t.item)) for t in tickets]
 
-    def _poisoned(self, model, t, msg: str, now: float) -> ServeResult:
+    def _poisoned(self, model, t, msg: str, now: float,
+                  served_by: str) -> ServeResult:
         return ServeResult(
             id=t.item.id, model=model, ok=False, output=None,
-            error=PoisonedOutputError(msg), engine=self.method,
+            error=PoisonedOutputError(msg), engine=served_by,
             latency_s=now - t.submitted, bucket=self._bucket_name(t.item))
+
+    # the batch pipeline: degradation -> dispatch -> NaN guard -> slice
 
     def _serve_batch(self, model, bsp, tickets,
                      rerun_depth: int = 0) -> list[ServeResult]:
@@ -457,6 +511,7 @@ class DcnnServer:
         if state is None:
             label = f"{model}/{'x'.join(map(str, bsp))}/b{batch}"
             state = self._buckets[bkey] = _BucketState(
+                method=self.primary, primary=self.primary,
                 latencies=self.telemetry.histogram(
                     "serve_latency_seconds", bucket=label))
 
@@ -465,17 +520,58 @@ class DcnnServer:
         for i, t in enumerate(tickets):
             xb[i] = pad_to(np.asarray(t.item.x), bsp)
 
-        try:
-            y = self._dispatch(model, bsp, xb)
-        except DispatchFailedError as e:
-            return self._fail_all(model, tickets, e)
-        except ScheduleError as e:
-            return self._fail_all(model, tickets, DispatchFailedError(
-                f"no schedule for {model}/{bsp}/b{batch}: {e!r}"))
+        y, served_by, fail = None, None, None
+        if state.degraded and state.since_fallback >= self.probe_every:
+            # recovery probe: one batch on the primary
+            try:
+                y = self._run_on(model, bsp, self.primary, xb)
+                state.method = self.primary
+                state.since_fallback = 0
+                state.fallback_reason = None
+                state.recoveries += 1
+                self.counters["recoveries"] += 1
+                self.telemetry.event(
+                    "recovery", model=model,
+                    bucket=self._bucket_name(tickets[0].item))
+                served_by = self.primary
+            except Exception:             # noqa: BLE001
+                state.probes_failed += 1
+                state.since_fallback = 0
+                self.counters["probes_failed"] += 1
+        if y is None:
+            try:
+                y = self._run_on(model, bsp, state.method, xb)
+                served_by = state.method
+            except Exception as e:        # noqa: BLE001
+                fail = e
+        if y is None and fail is not None and not state.degraded:
+            # degrade THIS bucket to the fallback engine and record it
+            state.method = self.fallback
+            state.fallback_reason = repr(fail)
+            state.since_fallback = 0
+            state.fallbacks += 1
+            self.counters["fallbacks"] += 1
+            self.telemetry.event("fallback", model=model,
+                                 bucket=self._bucket_name(tickets[0].item),
+                                 reason=repr(fail))
+            try:
+                y = self._run_on(model, bsp, self.fallback, xb)
+                served_by = self.fallback
+                fail = None
+            except Exception as e:        # noqa: BLE001
+                fail = e
+        if y is None:
+            # every engine failed: typed completion, never a crash
+            return self._fail_all(model, tickets, (
+                fail if isinstance(fail, ServeError)
+                else DispatchFailedError(f"all engines failed: {fail!r}")))
+
         state.batches += 1
+        if state.degraded:
+            state.since_fallback += 1
 
         # NaN/Inf output guard: quarantine poisoned rows, re-run the rest
-        bad = set(poisoned_rows(y[:len(tickets)]))
+        bad = set(_faults.poisoned_rows(y[:len(tickets)]))
         results: list[ServeResult] = []
         now = self.clock()
         if bad:
@@ -485,14 +581,15 @@ class DcnnServer:
                 self.counters["quarantined"] += 1
                 results.append(self._poisoned(
                     model, t, f"request {t.item.id}: non-finite output "
-                    f"quarantined", now))
+                    f"quarantined", now, served_by))
             if clean and rerun_depth >= 2:
                 # still poisoned after two re-runs: the clean rows give up
                 # too, typed, as the reference's do
                 for t in clean:
                     self.counters["quarantined"] += 1
                     results.append(self._poisoned(
-                        model, t, "batch poisoned on every re-run", now))
+                        model, t, "batch poisoned on every re-run", now,
+                        served_by))
             elif clean:
                 self.counters["reruns"] += 1
                 results.extend(self._serve_batch(model, bsp, clean,
@@ -511,7 +608,7 @@ class DcnnServer:
             self.counters["completed"] += 1
             results.append(ServeResult(
                 id=r.id, model=model, ok=True, output=y[sl],
-                error=None, engine=self.method, latency_s=lat,
+                error=None, engine=served_by, latency_s=lat,
                 bucket=self._bucket_name(r)))
         return results
 
@@ -520,7 +617,13 @@ class DcnnServer:
     def stats(self) -> dict:
         buckets = {
             f"{model}/{'x'.join(map(str, bsp))}/b{batch}": {
-                "engine": self.method, "batches": st.batches,
+                "engine": st.method,
+                "degraded": st.degraded,
+                "fallback_reason": st.fallback_reason,
+                "batches": st.batches,
+                "fallbacks": st.fallbacks,
+                "recoveries": st.recoveries,
+                "probes_failed": st.probes_failed,
                 **latency_summary(st.latencies)}
             for (model, bsp, batch), st in self._buckets.items()}
         self.telemetry.gauge("serve_queue_depth").set(self.queue.depth)
@@ -544,10 +647,14 @@ class DcnnServer:
         }
 
     def health(self) -> dict:
-        """The load-balancer view: alive, queue depth, shed count."""
+        """The load-balancer view: alive, degraded-bucket list, depth."""
+        degraded = [k for k, b in self.stats()["buckets"].items()
+                    if b["degraded"]]
         return {
             "ok": True,                    # a crash would have raised typed
             "queue_depth": self.queue.depth,
             "shed": self.queue.shed,
+            "degraded_buckets": degraded,
+            "fully_primary": not degraded,
             "dispatch_failures": self.counters["dispatch_failures"],
         }

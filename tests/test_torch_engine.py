@@ -22,6 +22,7 @@ from repro_torch.convert import weights_from_numpy  # noqa: E402
 from repro_torch.core import networks as tnet  # noqa: E402
 from repro_torch.core import tiling  # noqa: E402
 from repro_torch.core.engine import (  # noqa: E402
+    METHODS,
     EngineConfig,
     EngineError,
     ScheduleError,
@@ -203,8 +204,13 @@ def test_chain_and_graph_errors_are_typed():
         apply([torch.zeros(layers[0].weight_shape)], torch.zeros(1, 4, 4, 4))
 
 
-def test_unported_methods_name_their_roadmap_item():
-    with pytest.raises(EngineError, match="ROADMAP"):
-        EngineConfig(method="xla", device="cpu")
+def test_every_method_constructs_and_unknown_names_raise():
+    for method in METHODS:
+        engine = UniformEngine(EngineConfig(method=method, device="cpu"))
+        assert engine.config.method == method
+        assert engine.config.conv_method == (
+            "pallas" if method == "pallas" else "xla")
     with pytest.raises(ValueError):
         EngineConfig(method="nope", device="cpu")
+    with pytest.raises(EngineError):
+        UniformEngine(method="xla", device="meta")
