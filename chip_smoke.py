@@ -30,13 +30,18 @@ Phases, any failure of which exits non-zero before the result line:
      B's extent, forced splits of 1, 4 and 16 beside the planner's;
      then the int8 operands of the forward kernels: every distinct
      geometry of the quantized serving path with int8 weights beside f32
-     activations (the f32 route) and with int8 activations and weights
-     (the s8 tensor-core route, K-major weights), bf16 activations beside
-     int8 weights at the DCGAN layers, and the block's code paths
-     (16-byte and scalar copies, and the s8 route's 16-, 4- and 1-byte A
-     copies, forced and no splits, groups, dilation, scale + leaky_relu),
-     each launch run twice for the same bits and held against the plain
-     version summed in float64 (s8: within 1e-6, its sums exact);
+     activations and beside bf16 ones (the TF32 route) and with int8
+     activations and weights (the s8 tensor-core route, K-major weights),
+     and the block's code paths (16-byte and scalar copies, and the s8
+     route's 16-, 4- and 1-byte A copies, forced and no splits, groups,
+     dilation, scale + leaky_relu), each launch run twice for the same
+     bits and held against the plain version summed in float64 (s8:
+     within 1e-6, its sums exact; f32 x int8: within 5e-5); every forward
+     launch's record names the kernel the C entry reports it launched,
+     and its passes (f32 x f32: igemm_kernel, the CUDA cores' FMAs; f32 x
+     int8: igemm_tf32_kernel in two passes; bf16 x int8 and bf16 x bf16:
+     igemm_tf32_kernel in one; int8 x int8: igemm_s8_kernel), checked per
+     launch and over the run;
   4. serve — a ``DcnnServer`` answers 8 DCGAN seeds and 4 V-Net volumes at
      full width through the kernels (launch counts checked per batch), and
      one request of each model is held against the port's CPU run;
@@ -85,10 +90,13 @@ Phases, any failure of which exits non-zero before the result line:
      function (``convolution_backward`` with one output's mask set for
      dw and dx), and the bound, with each launch's tile, reduction
      slices and share of the bound (and, for the forwards, the wrapper's
-     host time per call); the int8 launches at every quantized call shape
-     the same way, their library time cuDNN's on the dequantized f32
-     operands and their bound the int8 tensor-core rate, summed per operand
-     pair; one served batch of each model end to end under each policy
+     host time per call); the forward and dx shapes again in bf16 (the
+     TF32 route); the int8 launches at every quantized call shape the
+     same way, with bf16 activations too, their library time cuDNN's on
+     the dequantized f32 operands and their bound at the card's rate for
+     their operand types (dense TF32 for f32 x int8, bf16 for bf16 x int8,
+     int8 for int8 x int8), summed per operand pair; one served
+     batch of each model end to end under each policy
      (every batch served by ``"pallas"``, no bucket fallen back), and
      whole train steps.
 
@@ -98,8 +106,10 @@ over exactly the launches its ``launches`` counts (each call shape's time
 times the calls of that shape), each path's share of ``ms`` under
 ``ms_by_path`` beside ``launches_by_path``; ``deconv_fwd_int8`` and
 ``conv_fwd_int8`` are the forward kernels' int8 launches of the quantized
-serving runs, with the same sums per operand pair and the route each pair
-takes under ``by_pair``.
+serving runs.  ``by_pair`` gives the forward kernels' (and dx's) sums per
+operand pair with the route each takes; a bf16 pair, which the main path
+does not launch, stands in for its f32 counterpart: the same call shapes
+in bf16, weighted by the f32 shapes' launches (``on_main_path`` false).
 The last line is ``{"ok": true, "device": {...}}``.  ``--json PATH``
 also writes every check and per-layer time to PATH.
 """
@@ -123,11 +133,34 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): IEEE f32 on CUDA cores, bf16 tensor
 # cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-# the dense int8 tensor-core rate: the bound of the int8 launches (int8
-# activations beside int8 weights run on the s8 tensor cores, int8
-# weights beside float activations as f32 FMAs on CUDA cores)
+# the dense int8 tensor-core rate: the bound of the int8 x int8 launches
+# (the s8 route)
 PEAK_INT8_OPS = 1979e12
+# the dense TF32 tensor-core rate, the card's for f32 products on the
+# tensor cores: the ops bound of f32 x int8 (2 x MACs, whatever passes the
+# kernel runs); bf16 x int8 and bf16 x bf16 take the bf16 rate (int8
+# values are exact in bf16)
+PEAK_TF32 = 494.7e12
 PEAK_BYTES = 3.35e12
+# the forward block's route for each (x, w) operand pair (igemm.cuh), and
+# the passes of the TF32 route per activation type: what each launch's C
+# entry must report it launched (launch_key)
+PAIR_ROUTE = {("float32", "float32"): "fma",
+              ("bfloat16", "bfloat16"): "tf32",
+              ("float32", "int8"): "tf32",
+              ("bfloat16", "int8"): "tf32",
+              ("int8", "int8"): "s8"}
+TF32_PASSES = {"float32": 2, "bfloat16": 1}
+
+
+def launch_key(xn: str, wn: str) -> tuple[str, str, str, int]:
+    """The launch record an (x, w) pair's launch must leave: its type
+    names, its route and passes (the wrappers' ``operand_launches`` keys,
+    from what the C entry reports)."""
+    route = PAIR_ROUTE[(xn, wn)]
+    return xn, wn, route, TF32_PASSES[xn] if route == "tf32" else 1
+
+
 # kernel vs plain version, max|diff| / max|plain|: f32 sums in another
 # order (1e-4, the reference's tolerance); bf16 output may differ by one
 # bf16 rounding step (2^-8 relative), so 1e-2
@@ -136,6 +169,13 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # exact, so only the conversion to f32 and the f32 epilogue round (a few
 # 2^-24 relative)
 S8_TOL = 1e-6
+# f32-output launches of the TF32 route with f32 activations (f32 x int8,
+# w:int8) vs the float64 plain version: the activations split hi + lo
+# (within 2^-21), the int8 weights exact, each k8 step's products summed on
+# the tensor cores and added to the f32 sums rounded to nearest; the
+# emulation (tests/test_torch_tf32_route.py) reads under 1e-6 of max |y|
+# at depth 4,096, and one pass (hi alone) above 1e-4, so 5e-5
+W8_TOL = 5e-5
 SERVE_TOL = 1e-4                 # card vs CPU run of the port, f32
 # the reference lowerings vs the hand kernels through a full-width graph,
 # f32, TF32 on in cuDNN and cuBLAS: IEEE f32 sums in another order read
@@ -279,8 +319,9 @@ def main() -> int:
         row["max_registers"] = max([row["max_registers"], *src_regs])
         row["spill_store_bytes"] += sum(int(m) for m in re.findall(
             r"(\d+) bytes spill stores", src_log))
-        # per object: the forward parts 4-7 take int8 weights beside float
-        # activations, 8-10 are the s8 route (A copies of 16, 4, 1 bytes)
+        # per object: the forward parts 0-1 are the FMA route, 2-7 the TF32
+        # route (bf16 x bf16, f32 x int8, bf16 x int8), 8-10 the s8 route
+        # (A copies of 16, 4, 1 bytes)
         head = src_log.split("\n", 1)[0]
         unit = " ".join(head.split("(")[0].split())
         detail["ptxas"].setdefault("units", {})[unit] = {
@@ -356,6 +397,29 @@ def main() -> int:
         kw = {k: v for k, v in kw.items() if k != "block_co"}
         return KERNELS[op][2](x3, wk, **kw)
 
+    def fwd_launches():
+        """Both forward wrappers' launches so far, by (x, w, route,
+        passes): the wrappers' launch records (``operand_launches``)."""
+        out = {}
+        for mod in (dk, ck):
+            for k_, v_ in mod.operand_launches.items():
+                out[k_] = out.get(k_, 0) + v_
+        return out
+
+    def launches_since(before):
+        """``fwd_launches()`` less ``before``, the launches in between."""
+        return {k_: v_ - before.get(k_, 0)
+                for k_, v_ in fwd_launches().items()
+                if v_ != before.get(k_, 0)}
+
+    def check_routes(tag, codes):
+        """Every launch in ``codes`` ran its operand pair's kernel, at its
+        passes, as its C entry reported."""
+        for key, n in codes.items():
+            want = launch_key(*key[:2])
+            check(key == want, f"{tag}: {n} launches of {key[0]} x "
+                  f"{key[1]} on {key[2:]}, not {want[2:]}")
+
     dcgan_layers = dcgan_gen_spec(chans=DCGAN_CHANS).graph_for(None).layers
     vnet_layers = nets.vnet_graph(in_spatial=VNET_SPATIAL,
                                   chans=VNET_CHANS).layers
@@ -417,18 +481,25 @@ def main() -> int:
     detail["checks"] = []
     for tag, op, dtype, make in cases:
         _, _, _, args = make()
+        before = fwd_launches()
         got = run_kernel(op, args)
+        codes = launches_since(before)
         torch.cuda.synchronize()
         ref = run_plain(op, args)
         err = float((got.float() - ref.float()).abs().max())
         mag = float(ref.float().abs().max())
         dname = str(dtype).split(".")[-1]
         rel = err / mag if mag else err
+        route = PAIR_ROUTE[(dname, dname)]
         print(json.dumps({"check": tag, "op": op, "dtype": dname,
-                          "shape": list(got.shape), "max_abs_err": err,
-                          "rel_err": rel, "tol": TOL[dname]}))
+                          "route": route, "shape": list(got.shape),
+                          "max_abs_err": err, "rel_err": rel,
+                          "tol": TOL[dname]}))
         detail["checks"].append({"check": tag, "op": op, "dtype": dname,
-                                 "max_abs_err": err, "rel_err": rel})
+                                 "route": route, "max_abs_err": err,
+                                 "rel_err": rel})
+        check(codes == {launch_key(dname, dname): 1}, f"{tag}/{op}/{dname}: "
+              f"launches by operands and route {codes}")
         check(got.shape == ref.shape and got.dtype == ref.dtype,
               f"{tag}/{op}/{dname}: kernel output {got.shape} {got.dtype} "
               f"vs plain {ref.shape} {ref.dtype}")
@@ -517,15 +588,20 @@ def main() -> int:
                                      activation="leaky_relu", alpha=0.1,
                                      batch=batch)
             split_log.clear()
+            before = fwd_launches()
             got = run_kernel(op, args)
             again = run_kernel(op, args)
+            codes = launches_since(before)
             torch.cuda.synchronize()
             force[0] = None
             ref = run_plain(op, args)
             err = float((got.float() - ref.float()).abs().max())
             mag = float(ref.float().abs().max())
             rel = err / mag if mag else err
-            row = {"check": tag, "op": op, "dtype": dname,
+            route = PAIR_ROUTE[(dname, dname)]
+            check(codes == {launch_key(dname, dname): 2}, f"{tag}/{dname}: "
+                  f"launches by operands and route {codes}")
+            row = {"check": tag, "op": op, "dtype": dname, "route": route,
                    "shape": list(got.shape), "splits": split_log[0],
                    "block_co": args[2]["block_co"],
                    "repeat_equal": bool(torch.equal(got, again)),
@@ -639,8 +715,7 @@ def main() -> int:
                 lambda l=layer, p=pair, n=batch: q_layer_operands(l, p, n),
                 None, None)
                for model, layer, batch in q_layers
-               for pair in (("w8", "w8a8", "bf16w8") if model == "dcgan"
-                            else ("w8", "w8a8"))]
+               for pair in ("w8", "w8a8", "bf16w8")]
     q_cases += [(tag, op, pair,
                  lambda op=op, sp=sp, cin=cin, ws=ws, st=st, pad=pad,
                  dil=dil, g=g, p=pair, n=batch: q_operands(
@@ -649,47 +724,46 @@ def main() -> int:
                  n_split, must_split)
                 for (tag, op, sp, cin, ws, st, pad, dil, g, batch, n_split,
                      must_split) in q_path_cases
-                for pair in ("w8", "w8a8")]
+                for pair in ("w8", "w8a8", "bf16w8")]
     detail["int8_checks"] = []
     q_copies = {}
     for tag, op, pair, make, n_split, must_split in q_cases:
         ops = make()
         x3, wk, kw, _ = ops["args"]
-        mod = dk if op == "deconv" else ck
-        before = dict(mod.operand_launches)
+        before = fwd_launches()
         force[0] = None if n_split is None else forced(n_split)
         split_log.clear()
         got = run_kernel(op, ops["args"])
         again = run_kernel(op, ops["args"])
         torch.cuda.synchronize()
         force[0] = None
+        codes = launches_since(before)
         ref = run_plain64(op, ops["args"])
         err = float((got.double() - ref).abs().max())
         mag = float(ref.abs().max())
         rel = err / mag if mag else err
         oname = str(got.dtype).split(".")[-1]
-        codes = {k: v - before.get(k, 0)
-                 for k, v in mod.operand_launches.items()
-                 if v != before.get(k, 0)}
         cig = x3.shape[-1] // kw["groups"]
         cog = ops["w"].shape[-1] // kw["groups"]
         # the s8 route's A bytes per copy; else 16-byte copies or not
         copy = build.copy_variant(x3, wk, cig, cog)
         q_copies.setdefault(pair, set()).add(copy)
-        tol = S8_TOL if pair == "w8a8" else TOL[oname]
+        route = PAIR_ROUTE[tuple(Q_PAIRS[pair].split("/"))]
+        tol = (S8_TOL if route == "s8" else W8_TOL if oname == "float32"
+               else TOL[oname])
         row = {"check": tag, "op": op, "pair": Q_PAIRS[pair],
-               "route": "s8" if pair == "w8a8" else "f32",
+               "route": route,
                "out": oname, "shape": list(got.shape),
                "splits": split_log[0], "block_co": kw["block_co"],
                "copy": copy, "w_layout": list(wk.shape),
                "launches_by_operands": {
-                   "/".join(k): v for k, v in codes.items()},
+                   "/".join(map(str, k)): v for k, v in codes.items()},
                "repeat_equal": bool(torch.equal(got, again)),
                "max_abs_err": err, "rel_err": rel, "tol": tol}
         print(json.dumps(row))
         detail["int8_checks"].append(row)
-        check(codes == {tuple(Q_PAIRS[pair].split("/")): 2},
-              f"{tag}/{pair}: launches by operand types {codes}")
+        check(codes == {launch_key(*Q_PAIRS[pair].split("/")): 2},
+              f"{tag}/{pair}: launches by operands and route {codes}")
         check((wk.dim() == 4) == (pair == "w8a8"),
               f"{tag}/{pair}: weights {tuple(wk.shape)} (K-major exactly "
               f"for the s8 route)")
@@ -708,7 +782,8 @@ def main() -> int:
             k = f"{op}_fwd_int8"
             max_abs[k] = max(max_abs[k], err)
         del ops, got, again, ref
-    for pair, widths in (("w8", {0, 1}), ("w8a8", {16, 4, 1})):
+    for pair, widths in (("w8", {0, 1}), ("w8a8", {16, 4, 1}),
+                         ("bf16w8", {0, 1})):
         check(q_copies.get(pair) == widths,
               f"{pair}: copy widths run {q_copies.get(pair)}, not "
               f"{widths}")
@@ -768,8 +843,16 @@ def main() -> int:
             _, _, _, dx_args, dw_args = backward_operands(layer, batch,
                                                           dtype)
             for which, args in (("dx", dx_args), ("dw", dw_args)):
+                before = fwd_launches()
                 got = run_backward(layer.op, which, args)
+                codes = launches_since(before)
                 torch.cuda.synchronize()
+                # dx runs on a forward kernel, on its pair's route
+                route = PAIR_ROUTE[(dname, dname)]
+                check(codes == ({launch_key(dname, dname): 1} if which == "dx"
+                                else {}),
+                      f"{model}:{layer.name}/{which}/{dname}: forward "
+                      f"launches by operands and route {codes}")
                 # the yardstick sums in float64 (the same bf16-rounded
                 # inputs for bf16), so its own rounding is not charged
                 ref = run_backward_plain(layer.op, which, args,
@@ -780,6 +863,7 @@ def main() -> int:
                 tol = BACKWARD_TOL[dname]
                 row = {"check": f"{model}:{layer.name}", "op": layer.op,
                        "grad": which, "dtype": dname, "batch": batch,
+                       "route": route if which == "dx" else None,
                        "shape": list(got.shape), "max_abs_err": err,
                        "rel_err": rel, "tol": tol}
                 print(json.dumps(row))
@@ -1070,8 +1154,8 @@ def main() -> int:
         "w:int8": quant.Precision(weight_quant="int8"),
         "w:int8+a:int8": quant.Precision(weight_quant="int8",
                                          act_quant="int8")}
-    WANT_PAIR = {"w:int8": ("float32", "int8"),
-                 "w:int8+a:int8": ("int8", "int8")}
+    WANT_PAIR = {"w:int8": launch_key("float32", "int8"),
+                 "w:int8+a:int8": launch_key("int8", "int8")}
     # the int8 activations every quantize_q8 call of a run produced, and
     # (replay) the card's, handed to a CPU run in their place
     from repro_torch.quant import qint8
@@ -1107,8 +1191,6 @@ def main() -> int:
         for r_ in qreqs:
             srv.submit(r_)
         dk.launches = ck.launches = 0       # this path's run starts
-        dk.operand_launches.clear()
-        ck.operand_launches.clear()
         recording[0] = "serve_quantized"
         qres, qsteps = [], []
         t_serve = time.perf_counter()
@@ -1128,15 +1210,16 @@ def main() -> int:
                            "deconv_launches": delta[0],
                            "conv_launches": delta[1],
                            "launches_by_operands": {
-                               "/".join(k_): v_ for k_, v_ in codes.items()}})
+                               "/".join(map(str, k_)): v_
+                               for k_, v_ in codes.items()}})
             print(json.dumps({"served_batch": qsteps[-1], "policy": pol}))
             check(len(models) == 1, f"{pol}: one batch served {models}")
             want = (4, 0) if models == {"dcgan_gen"} else (4, 10)
             check(delta == want, f"{pol}: {models} batch launched (deconv, "
                   f"conv) = {delta}, expected {want}")
             check(codes == {WANT_PAIR[pol]: sum(delta)},
-                  f"{pol}: launches by operand types {codes}, expected "
-                  f"{sum(delta)} of {WANT_PAIR[pol]}")
+                  f"{pol}: launches by operands and route {codes}, "
+                  f"expected {sum(delta)} of {WANT_PAIR[pol]}")
             qres.extend(got)
         serve_s = time.perf_counter() - t_serve
         recording[0] = None
@@ -1850,9 +1933,9 @@ def main() -> int:
         return lambda: fn(xl, wl, b, stride=layer.stride, padding=pad,
                           dilation=layer.dilation)
 
-    def tile_name(block_co):
+    def tile_name(block_co, route="fma"):
         """rows x output channels of a forward kernel's block."""
-        return f"{tiling.KERNEL_TILES[block_co].block_m}x{block_co}"
+        return f"{tiling.ROUTE_TILES[route][block_co].block_m}x{block_co}"
 
     # each kernel's totals over the main path's launches: every call
     # shape's times, weighted by the calls of that shape it recorded
@@ -1862,23 +1945,40 @@ def main() -> int:
                 "ms_by_path": {}}
 
     totals = {k: zero_total() for k in max_abs}
-    # the int8 kernels' totals again per (x, w) operand pair
+    # each kernel's totals again per (x, w) operand pair; a pair the main
+    # path does not launch (bf16 x bf16, bf16 x int8) stands in for the
+    # path's f32 (w:int8) pair: its call shapes in bf16, weighted by the
+    # launches of the f32 shapes
     pair_totals = {k: {} for k in max_abs}
-    timed = set()
+    stand_in_pairs = set()
+    timed, timed_stand_in = set(), set()
 
-    def account(row, keys, ops_ms, bytes_ms):
+    def as_f32(key):
+        """The call-shape signature with every bf16 tensor f32."""
+        if isinstance(key, tuple):
+            return tuple(as_f32(k_) for k_ in key)
+        return torch.float32 if key is torch.bfloat16 else key
+
+    def account(row, keys, ops_ms, bytes_ms, stand_in=False):
+        """Add a call shape's times to its kernels' totals, weighted by the
+        main path's launches of that shape; a ``stand_in`` row (a bf16
+        pair) only to its pair's totals, weighted by the launches of the
+        same shape in f32."""
         row["launches"] = {}
         for key in keys:
-            if key in timed:        # a shape two layers share counts once
+            seen = timed_stand_in if stand_in else timed
+            if key in seen:         # a shape two layers share counts once
                 continue
-            paths = recorded.get(key, {})
+            paths = recorded.get(as_f32(key) if stand_in else key, {})
             n = sum(paths.values())
-            timed.add(key)
+            seen.add(key)
             row["launches"][key[0]] = n
-            tots = [totals[key[0]]]
+            tots = [] if stand_in else [totals[key[0]]]
             if "pair" in row:
                 tots.append(pair_totals[key[0]].setdefault(row["pair"],
                                                            zero_total()))
+                if stand_in:
+                    stand_in_pairs.add((key[0], row["pair"]))
             for tot in tots:
                 tot["launches"] += n
                 for f in ("ms", "plain_ms", "library_ms", "bound_ms"):
@@ -1890,11 +1990,12 @@ def main() -> int:
                                                + n_p * row["ms"])
 
     def time_forward(model, layer, batch, args, operands, lib_call, peak,
-                     kname, **extra):
+                     kname, stand_in=False, **extra):
         """One forward call shape on the card: the kernel (CUDA events),
         the wrapper's host time per call, the plain version, ``lib_call``
         and the bound (the operations at ``peak``, or the bytes of
-        ``operands`` and the output), accounted to ``kname``'s totals."""
+        ``operands`` and the output), accounted to ``kname``'s totals
+        (``account``)."""
         split_log.clear()
         y = run_kernel(layer.op, args)
         splits = split_log[0]
@@ -1920,29 +2021,49 @@ def main() -> int:
                "library_ms": lms, "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                "share": max(ops_ms, bytes_ms) / kms, "host_ms": hms,
-               "tile": tile_name(args[2]["block_co"]), "splits": splits,
+               "tile": tile_name(args[2]["block_co"],
+                                 extra.get("route", "fma")),
+               "splits": splits,
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "tflops": flops / kms / 1e9}
-        account(row, [signature(kname, *args[:3])], ops_ms, bytes_ms)
+        account(row, [signature(kname, *args[:3])], ops_ms, bytes_ms,
+                stand_in)
         print(json.dumps(row))
         return row
 
+    # every main-path forward shape in f32 (the FMA route), then again in
+    # bf16 (the TF32 route, one pass; cuDNN in bf16 beside it), standing
+    # in for the path in bf16; each bound at the card's rate for the
+    # operands' type
+    print(json.dumps({"bound_peaks_tf32": {
+        "tf32_flops": PEAK_TF32,
+        "source": "H100 SXM data sheet, dense TF32 tensor cores"}}))
     detail["layers"] = []
-    for model, layer, batch in main_layers:
-        x, w, b, args = layer_operands(layer, torch.float32, batch)
-        detail["layers"].append(time_forward(
-            model, layer, batch, args, (x, w, b), library_call(layer, x, w, b),
-            PEAK_FLOPS["float32"], f"{layer.op}_fwd"))
-        del x, w, b, args
+    for dtype, stand_in in ((torch.float32, False), (torch.bfloat16, True)):
+        dname = str(dtype).split(".")[-1]
+        for model, layer, batch in main_layers:
+            x, w, b, args = layer_operands(layer, dtype, batch)
+            detail["layers"].append(time_forward(
+                model, layer, batch, args, (x, w, b),
+                library_call(layer, x, w, b), PEAK_FLOPS[dname],
+                f"{layer.op}_fwd",
+                stand_in, pair=f"{dname}/{dname}",
+                route=PAIR_ROUTE[(dname, dname)]))
+            del x, w, b, args
     torch.cuda.empty_cache()
 
     # the int8 launches at every call shape of the quantized serving path,
-    # the same way; the library time is cuDNN's on the dequantized f32
-    # operands (dequantized outside the timed region, TF32 off), the
-    # bound the int8 tensor-core rate or the bytes at their true widths
+    # the same way, and bf16 activations beside the int8 weights standing
+    # in for the w:int8 path in bf16; the library time is cuDNN's on the
+    # dequantized f32 operands (dequantized outside the timed region, TF32
+    # off), the bound the card's rate for the operands' types (2 x MACs:
+    # dense TF32 for f32 x int8, bf16 for bf16 x int8, int8 for int8 x
+    # int8) or the bytes at their true widths
     print(json.dumps({"bound_peaks_int8": {
         "int8_ops": PEAK_INT8_OPS, "hbm_bytes_per_s": PEAK_BYTES,
         "source": "H100 SXM data sheet, dense int8 tensor cores"}}))
+    Q_PEAK = {"w8": PEAK_TF32, "w8a8": PEAK_INT8_OPS,
+              "bf16w8": PEAK_FLOPS["bfloat16"]}
     from repro_torch.kernels import common as kcommon
 
     def weight_layout(layer, pair, w, kw):
@@ -1963,7 +2084,7 @@ def main() -> int:
 
     detail["int8_layers"] = []
     for model, layer, batch in q_layers:
-        for pair in ("w8", "w8a8"):
+        for pair in ("w8", "w8a8", "bf16w8"):
             ops = q_layer_operands(layer, pair, batch)
             # the weight layout's cost per launch: device time (CUDA
             # events) and host time per call (enqueue, no synchronize)
@@ -1980,15 +2101,16 @@ def main() -> int:
                 model, layer, batch, ops["args"],
                 (ops["x"], ops["w"], ops["b"], ops["args"][2]["scale"]),
                 library_call(layer, ops["x_deq"], ops["w_deq"], ops["b"]),
-                PEAK_INT8_OPS, f"{layer.op}_fwd_int8", pair=Q_PAIRS[pair],
-                route="s8" if pair == "w8a8" else "f32",
+                Q_PEAK[pair], f"{layer.op}_fwd_int8", pair == "bf16w8",
+                pair=Q_PAIRS[pair],
+                route=PAIR_ROUTE[tuple(Q_PAIRS[pair].split("/"))],
                 library="cuDNN on the dequantized f32 operands",
                 w_layout=layout, layout_ms=lay_ms, layout_host_ms=lay_host))
             del ops
     torch.cuda.empty_cache()
     # the int8 call shapes summed per operand pair (once each; the summary
     # line weighs them by their launches)
-    for pair in ("float32/int8", "int8/int8"):
+    for pair in ("float32/int8", "int8/int8", "bfloat16/int8"):
         rows = [r_ for r_ in detail["int8_layers"] if r_["pair"] == pair]
         print(json.dumps({"int8_pair": pair, "call_shapes": len(rows), **{
             f: sum(r_[f] for r_ in rows)
@@ -2048,50 +2170,61 @@ def main() -> int:
             dyl, xl, wl, None, list(layer.stride), padding,
             list(layer.dilation), transposed, [0] * r, layer.groups, mask)
 
-    # backward kernels at every training geometry (batch 64 / 4), f32
+    # backward kernels at every training geometry (batch 64 / 4), f32;
+    # then dx again in bf16 (a forward kernel on the TF32 route, one
+    # pass), standing in for the path's dx in bf16
     detail["backward_layers"] = []
-    for model, layer, batch in train_layers:
-        x, w, dy, dx_args, dw_args = backward_operands(layer, batch,
-                                                       torch.float32)
-        for which, args in (("dw", dw_args), ("dx", dx_args)):
-            kname = BACKWARD_KERNEL[(layer.op, which)]
-            split_log.clear()
-            out = run_backward(layer.op, which, args)
-            kw = args[2]
-            tile = (tile_name(kw["block_co"]) if which == "dx"
-                    else f"{kw['block_a']}x{kw['block_c']}")
-            splits = split_log[0] if which == "dx" else kw["splits"]
-            kms = per_call_ms(lambda: run_backward(layer.op, which, args),
-                              5, groups=3)
-            pms = per_call_ms(
-                lambda: run_backward_plain(layer.op, which, args), 1,
-                groups=3)
-            lms = per_call_ms(library_backward(layer, x, w, dy, which), 5,
-                              groups=3)
-            nbytes = sum(t.numel() * t.element_size()
-                         for t in ((x, dy, out) if which == "dw"
-                                   else (dy, w, out)))
-            flops = 2 * batch * layer.valid_macs
-            ops_ms = 1e3 * flops / PEAK_FLOPS["float32"]
-            bytes_ms = 1e3 * nbytes / PEAK_BYTES
-            row = {"layer": f"{model}:{layer.name}", "op": layer.op,
-                   "grad": which, "kernel": kname, "batch": batch,
-                   "ms": kms, "plain_ms": pms,
-                   "library_ms": lms, "bound_ms": max(ops_ms, bytes_ms),
-                   "bound_by": ("operations" if ops_ms >= bytes_ms
-                                else "bytes"),
-                   "share": max(ops_ms, bytes_ms) / kms, "tile": tile,
-                   "splits": splits,
-                   "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-                   "tflops": flops / kms / 1e9}
-            keys = [signature(kname, *args)]
-            if kname == "deconv_dx":            # its launch is conv_fwd's
-                keys.append(signature("conv_fwd", *args))
-            account(row, keys, ops_ms, bytes_ms)
-            print(json.dumps(row))
-            detail["backward_layers"].append(row)
-            del out
-        del x, w, dy, dx_args, dw_args
+    for dtype, grads in ((torch.float32, ("dw", "dx")),
+                         (torch.bfloat16, ("dx",))):
+        dname = str(dtype).split(".")[-1]
+        route = PAIR_ROUTE[(dname, dname)]
+        for model, layer, batch in train_layers:
+            x, w, dy, dx_args, dw_args = backward_operands(layer, batch,
+                                                           dtype)
+            for which in grads:
+                args = dx_args if which == "dx" else dw_args
+                kname = BACKWARD_KERNEL[(layer.op, which)]
+                split_log.clear()
+                out = run_backward(layer.op, which, args)
+                kw = args[2]
+                tile = (tile_name(kw["block_co"], route) if which == "dx"
+                        else f"{kw['block_a']}x{kw['block_c']}")
+                splits = split_log[0] if which == "dx" else kw["splits"]
+                kms = per_call_ms(
+                    lambda: run_backward(layer.op, which, args), 5,
+                    groups=3)
+                pms = per_call_ms(
+                    lambda: run_backward_plain(layer.op, which, args), 1,
+                    groups=3)
+                lms = per_call_ms(library_backward(layer, x, w, dy, which),
+                                  5, groups=3)
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in ((x, dy, out) if which == "dw"
+                                       else (dy, w, out)))
+                flops = 2 * batch * layer.valid_macs
+                ops_ms = 1e3 * flops / PEAK_FLOPS[dname]
+                bytes_ms = 1e3 * nbytes / PEAK_BYTES
+                row = {"layer": f"{model}:{layer.name}", "op": layer.op,
+                       "grad": which, "kernel": kname, "batch": batch,
+                       "ms": kms, "plain_ms": pms,
+                       "library_ms": lms, "bound_ms": max(ops_ms, bytes_ms),
+                       "bound_by": ("operations" if ops_ms >= bytes_ms
+                                    else "bytes"),
+                       "share": max(ops_ms, bytes_ms) / kms, "tile": tile,
+                       "splits": splits,
+                       "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                       "tflops": flops / kms / 1e9}
+                if which == "dx":               # a forward kernel's pair
+                    row.update(pair=f"{dname}/{dname}", route=route)
+                keys = [signature(kname, *args)]
+                if kname == "deconv_dx":        # its launch is conv_fwd's
+                    keys.append(signature("conv_fwd", *args))
+                account(row, keys, ops_ms, bytes_ms,
+                        dtype == torch.bfloat16)
+                print(json.dumps(row))
+                detail["backward_layers"].append(row)
+                del out
+            del x, w, dy, dx_args, dw_args
     torch.cuda.empty_cache()
     untimed = set(recorded) - timed
     check(not untimed, f"main-path calls of no timed shape: {untimed}")
@@ -2152,12 +2285,24 @@ def main() -> int:
          "operands": "int8 weights beside f32 or int8 activations",
          "library": "cuDNN on the dequantized f32 operands"},
     ]}
-    # the block each operand pair of the int8 kernels runs on
-    PAIR_ROUTES = {
-        "float32/int8": "f32 FMAs on CUDA cores (igemm_kernel, int8 "
-                        "weights converted in registers)",
-        "int8/int8": "s8 tensor cores (igemm_s8_kernel: mma.sync "
-                     "m16n8k32, exact s32 sums, K-major weights)"}
+    # the block each route runs on
+    ROUTE_BLOCKS = {
+        "fma": "f32 FMAs on the CUDA cores (igemm_kernel)",
+        "tf32": "TF32 tensor cores (igemm_tf32_kernel: mma.sync m16n8k8, "
+                "int8 and bf16 operands exact, f32 activations split hi + "
+                "lo in two passes)",
+        "s8": "s8 tensor cores (igemm_s8_kernel: mma.sync m16n8k32, "
+              "exact s32 sums, K-major weights)"}
+    # every forward launch of the run on its pair's route: none of the
+    # TF32 route's pairs on igemm_kernel, and each pair launched
+    run_routes = fwd_launches()
+    detail["launches_by_route"] = {"/".join(map(str, k_)): v_
+                                   for k_, v_ in sorted(run_routes.items())}
+    print(json.dumps({"launches_by_route": detail["launches_by_route"]}))
+    check_routes("the run", run_routes)
+    for pair in PAIR_ROUTE:
+        check(run_routes.get(launch_key(*pair), 0) > 0,
+              f"{pair}: no launch on {launch_key(*pair)[2:]} in the run")
     for entry in summary["kernels"]:
         k = entry["name"]
         tot = totals[k]
@@ -2179,17 +2324,23 @@ def main() -> int:
                                else "bytes"),
                      library_ms=tot["library_ms"])
         if pair_totals[k]:
-            entry["by_pair"] = {
-                pair: {"route": PAIR_ROUTES[pair],
-                       "launches": pt["launches"], "ms": pt["ms"],
-                       "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
-                       "bound_by": ("operations"
-                                    if pt["ops_ms"] >= pt["bytes_ms"]
-                                    else "bytes"),
-                       "library_ms": pt["library_ms"]}
-                for pair, pt in sorted(pair_totals[k].items())}
-            check(sum(v["launches"] for v in entry["by_pair"].values())
-                  == n, f"{k}: launches per pair {entry['by_pair']}")
+            # a bf16 pair's launches are those of the f32 (w:int8) shapes
+            # it stands in for: not launched on the main path
+            entry["by_pair"] = {}
+            for pair, pt in sorted(pair_totals[k].items()):
+                route = PAIR_ROUTE[tuple(pair.split("/"))]
+                entry["by_pair"][pair] = {
+                    "route": route, "block": ROUTE_BLOCKS[route],
+                    "on_main_path": (k, pair) not in stand_in_pairs,
+                    "launches": pt["launches"], "ms": pt["ms"],
+                    "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
+                    "bound_by": ("operations"
+                                 if pt["ops_ms"] >= pt["bytes_ms"]
+                                 else "bytes"),
+                    "library_ms": pt["library_ms"]}
+            check(sum(v["launches"] for v in entry["by_pair"].values()
+                      if v["on_main_path"]) == n,
+                  f"{k}: launches per pair {entry['by_pair']}")
     detail["summary"] = summary
     if cli.json is not None:
         cli.json.parent.mkdir(parents=True, exist_ok=True)

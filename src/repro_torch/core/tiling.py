@@ -4,18 +4,22 @@ The JAX package's planner sized a TPU grid step against 8 MiB of VMEM,
 charging every float at 2 bytes.  The CUDA kernels here (``csrc/igemm.cuh``)
 are implicit GEMMs whose block stages the gathered input and the weights
 through a ring of shared-memory stages (64 bytes of each row's (tap,
-channel) pairs per stage: 16 f32 or 32 bf16 pairs).  What a layer decides
-is the output-channel tile ``block_co`` (16, 32, 64 or 128, the smallest
-that covers the layer's per-group output channels), which fixes the
-block's rows, threads and stages (``KERNEL_TILES``; int8 activations
-beside int8 weights take the s8 tensor-core route's ``S8_KERNEL_TILES``,
-whose B stages are K-major, ``[block_co][64 + 16]`` bytes); what the budget
-bounds is the dynamic shared memory of one block, counted at the operands'
-true widths, against the 227 KB an sm_90 block may use.  Per launch,
-``launch_split`` cuts the reduction into slices when the output alone
-gives the card less than a wave of blocks.  Plans differ from the TPU's by
-design: there is no leading-dim tile and no halo, because no block carries
-anything to another.
+channel) pairs per stage: 16 f32, 32 bf16 or 64 int8 pairs).  The operand
+pair picks the block's route (``operand_route``): f32 x f32 runs IEEE f32
+FMAs on the CUDA cores (``"fma"``, ``KERNEL_TILES``); the pairs whose
+weights are exact in TF32 (f32 x int8, bf16 x int8, bf16 x bf16) run on
+the TF32 tensor cores (``"tf32"``, ``TF32_KERNEL_TILES``, B's stage rows
+padded: ``tf32_b_pitch``); int8 x int8 on the int8 tensor cores
+(``"s8"``, ``S8_KERNEL_TILES``, B's stages K-major, ``[block_co][64 +
+16]`` bytes).  What a layer decides is the output-channel tile
+``block_co`` (16, 32, 64 or 128, the smallest that covers the layer's
+per-group output channels), which with the route fixes the block's rows,
+threads and stages; what the budget bounds is the dynamic shared memory
+of one block, counted at the operands' true widths, against the 227 KB an
+sm_90 block may use.  Per launch, ``launch_split`` cuts the reduction
+into slices when the output alone gives the card less than a wave of
+blocks.  Plans differ from the TPU's by design: there is no leading-dim
+tile and no halo, because no block carries anything to another.
 
 The backward adds the dw kernel (``csrc/deconv_dw.cu``), a GEMM whose
 reduction runs over every input position: its plan picks the tile
@@ -83,13 +87,14 @@ KERNEL_TILES = {t.block_co: t for t in (
 
 
 @dataclasses.dataclass(frozen=True)
-class S8KernelTile:
-    """One instantiated tile of the int8 x int8 route (``csrc/igemm.cuh``
-    ``S8Tile``): ``block_m`` rows x ``block_co`` output channels per
-    block, ``warps_m`` x ``warps_n`` warps of m16n8 s32 fragments,
-    ``k_bytes`` of each row's pairs per stage, ``stages`` stages, and
-    ``min_blocks`` resident blocks an SM is built for (the kernel's
-    ``__launch_bounds__``, which caps its registers)."""
+class MmaKernelTile:
+    """One instantiated tile of a tensor-core route (``csrc/igemm.cuh``
+    ``MmaTile``): ``block_m`` rows x ``block_co`` output channels per
+    block, ``warps_m`` x ``warps_n`` warps of m16n8 fragments (s32 sums
+    on the s8 route, f32 on the TF32 route), ``k_bytes`` of each row's
+    pairs per stage, ``stages`` stages, and ``min_blocks`` resident
+    blocks an SM is built for (the kernel's ``__launch_bounds__``, which
+    caps its registers)."""
     block_m: int
     block_co: int
     warps_m: int
@@ -108,7 +113,7 @@ class S8KernelTile:
         return min(255, REGISTERS_PER_SM // (self.threads * self.min_blocks))
 
     def block_ci(self, in_dtype_bytes: int) -> int:
-        """(tap, channel) pairs per stage (one byte each)."""
+        """(tap, channel) pairs per stage at this operand width."""
         return max(1, self.k_bytes // in_dtype_bytes)
 
 
@@ -116,10 +121,22 @@ class S8KernelTile:
 # S8Tile128): 8 warps, each 32 rows x 16, 32, 32 or 64 channels, two
 # blocks an SM
 S8_KERNEL_TILES = {t.block_co: t for t in (
-    S8KernelTile(256, 16, 8, 1, 64, 3, 2),
-    S8KernelTile(256, 32, 8, 1, 64, 3, 2),
-    S8KernelTile(128, 64, 4, 2, 64, 4, 2),
-    S8KernelTile(128, 128, 4, 2, 64, 4, 2))}
+    MmaKernelTile(256, 16, 8, 1, 64, 3, 2),
+    MmaKernelTile(256, 32, 8, 1, 64, 3, 2),
+    MmaKernelTile(128, 64, 4, 2, 64, 4, 2),
+    MmaKernelTile(128, 128, 4, 2, 64, 4, 2))}
+# block_co -> tile of the TF32 route; keep in step with csrc/igemm.cuh
+# (Tf32Tile16 ... Tf32Tile128): the FMA route's rows and stages, warps of
+# 32 rows x 16 or 32 channels (the narrowest tile at three blocks an SM,
+# the widest sixteen warps at one)
+TF32_KERNEL_TILES = {t.block_co: t for t in (
+    MmaKernelTile(256, 16, 8, 1, 64, 2, 3),
+    MmaKernelTile(256, 32, 8, 1, 64, 2, 2),
+    MmaKernelTile(128, 64, 4, 2, 64, 4, 2),
+    MmaKernelTile(128, 128, 4, 4, 64, 4, 1))}
+# the routes' tile tables (operand_route's names)
+ROUTE_TILES = {"fma": KERNEL_TILES, "tf32": TF32_KERNEL_TILES,
+               "s8": S8_KERNEL_TILES}
 # the pad after each staged row of the gathered operand (bytes), and after
 # each K-major weight row of the int8 route's B stage
 A_PAD_BYTES = 16
@@ -160,9 +177,37 @@ class DeconvTilePlan:
                 f"_t{self.threads}_smem{self.step_smem_bytes}")
 
 
-def is_s8(in_dtype_bytes: int, w_dtype_bytes: int | None) -> bool:
-    """Whether the operand widths are the int8 x int8 route's."""
-    return in_dtype_bytes == 1 and w_dtype_bytes in (None, 1)
+def operand_route(in_dtype_bytes: int, w_dtype_bytes: int | None) -> str:
+    """The forward block's route for an operand pair, by its widths
+    (``w_dtype_bytes`` None: the activations' width): ``"fma"`` for f32 x
+    f32 (IEEE FMAs on the CUDA cores), ``"s8"`` for int8 x int8 (the int8
+    tensor cores, exact s32 sums) and ``"tf32"`` for the pairs whose
+    weights are exact in TF32, f32 x int8, bf16 x int8 and bf16 x bf16
+    (the TF32 tensor cores; f32 activations split hi + lo, two passes).
+    Widths of no pair the kernels take plan as ``"fma"`` (the wrappers
+    refuse such operands)."""
+    w_bytes = in_dtype_bytes if w_dtype_bytes is None else w_dtype_bytes
+    if (in_dtype_bytes, w_bytes) == (1, 1):
+        return "s8"
+    if (in_dtype_bytes, w_bytes) in ((4, 1), (2, 1), (2, 2)):
+        return "tf32"
+    return "fma"
+
+
+def tf32_b_pitch(in_dtype_bytes: int, b_row_bytes: int) -> int:
+    """Bytes between two staged weight rows of the TF32 route: the least
+    multiple of 16 at or above ``b_row_bytes`` with ``(4 //
+    in_dtype_bytes) x pitch = 32 (mod 64)``, which puts the B-fragment
+    reads of a warp (rows ``tig`` / ``tig + 4``, or ``2 tig`` / ``2 tig +
+    1`` beside bf16 activations, a lane's channels ``gid * NT ..``) on
+    distinct banks.  Keep in step with csrc/igemm.cuh::tf32_b_pitch."""
+    if in_dtype_bytes not in (2, 4):
+        raise ValueError(f"the TF32 route stages 2- or 4-byte activations, "
+                         f"not {in_dtype_bytes}-byte")
+    pitch = -(-b_row_bytes // 16) * 16
+    while (4 // in_dtype_bytes) * pitch % 64 != 32:
+        pitch += 16
+    return pitch
 
 
 def step_byte_model(*, in_dtype_bytes: int = 4,
@@ -172,18 +217,26 @@ def step_byte_model(*, in_dtype_bytes: int = 4,
     [block_ci]`` at the activation width plus an ``A_PAD_BYTES`` pad per
     row and the B stage at the weight width, four int32 coordinates per
     row and four per tap of the ``MAX_TAPS``-entry tap table.  B's stage
-    is ``[block_ci][block_co]``, or for int8 x int8 (``is_s8``) K-major,
-    ``[block_co][block_ci + B_PAD_BYTES]``."""
+    is, per ``operand_route``: ``[block_ci][block_co]`` (fma); ``[block_ci]
+    [tf32_b_pitch]`` bytes (tf32, whose f32 C tile ``[block_m][block_co +
+    4]`` takes the rings' place after the last stage, so the larger of the
+    two counts); or K-major, ``[block_co][block_ci + B_PAD_BYTES]``
+    (s8)."""
     w_bytes = in_dtype_bytes if w_dtype_bytes is None else w_dtype_bytes
-    s8 = is_s8(in_dtype_bytes, w_dtype_bytes)
+    route = operand_route(in_dtype_bytes, w_dtype_bytes)
 
     def step_bytes(block_m: int, block_ci: int, block_co: int,
                    stages: int) -> int:
-        b_stage = (block_co * (block_ci + B_PAD_BYTES) if s8
-                   else block_ci * block_co * w_bytes)
-        return (stages * (block_m * (block_ci * in_dtype_bytes + A_PAD_BYTES)
-                          + b_stage)
-                + 4 * block_m * 4 + 4 * MAX_TAPS * 4)
+        a_stage = block_m * (block_ci * in_dtype_bytes + A_PAD_BYTES)
+        if route == "s8":
+            ring = stages * (a_stage + block_co * (block_ci + B_PAD_BYTES))
+        elif route == "tf32":
+            ring = max(stages * (a_stage + block_ci * tf32_b_pitch(
+                in_dtype_bytes, block_co * w_bytes)),
+                block_m * (block_co + 4) * 4)
+        else:
+            ring = stages * (a_stage + block_ci * block_co * w_bytes)
+        return ring + 4 * block_m * 4 + 4 * MAX_TAPS * 4
 
     return step_bytes
 
@@ -201,8 +254,9 @@ def plan_uniform_tiles(cin: int, cout: int, *, mode: str = "deconv",
     ``block_co`` defaults to the smallest instantiated tile that covers the
     per-group output channels (the widest past that); explicit ``block_ci``
     / ``block_co`` must name an instantiated tile (``block_ci`` is fixed by
-    the tile and the operand width: ``KernelTile.block_ci``).  int8
-    activations beside int8 weights plan on ``S8_KERNEL_TILES``.
+    the tile and the operand width: ``KernelTile.block_ci``).  The tile
+    comes from the table of the operands' route (``ROUTE_TILES``,
+    ``operand_route``).
     """
     if mode not in ("deconv", "conv"):
         raise ValueError(f"unknown mode {mode!r}; expected 'deconv'|'conv'")
@@ -216,8 +270,8 @@ def plan_uniform_tiles(cin: int, cout: int, *, mode: str = "deconv",
     elif block_co not in KERNEL_TILES:
         raise ValueError(f"block_co={block_co}: the kernels are built for "
                          f"{sorted(KERNEL_TILES)}")
-    tile = (S8_KERNEL_TILES if is_s8(in_dtype_bytes, w_dtype_bytes)
-            else KERNEL_TILES)[block_co]
+    tile = ROUTE_TILES[operand_route(in_dtype_bytes,
+                                     w_dtype_bytes)][block_co]
     # (the wrappers refuse operand types the kernels do not take)
     pairs = tile.block_ci(in_dtype_bytes)
     if block_ci is not None and block_ci != pairs:

@@ -50,19 +50,51 @@
 // each staged input element only 16 times; the narrow merge layers reach
 // about 40 % of the f32 peak.
 //
-// No block waits on another.  Sums are f32 with plain FMA (no TF32);
-// operands are staged in their own type: the activations (A, type TA) f32
-// or bf16, the weights (B, type TB) the same type or int8.  A stage holds
-// 64 bytes of each row's pairs at A's width (16 f32 or 32 bf16 pairs) and
-// B's rows of those pairs at B's width, so int8 weights beside f32
-// activations take a quarter of B's shared memory.  int8 lanes become f32
-// exactly in registers (the sign-flipped byte as the low mantissa byte of
-// 2^23, minus 2^23 + 128: a byte permute and an add, no conversion
-// instruction); every product of |q| <= 127 values is then exact in f32,
-// and the sums round in f32, as the reference's f32 cast-then-dot does.
+// No block waits on another.  Operands are staged in their own type: the
+// activations (A, type TA) f32, bf16 or int8, the weights (B, type TB) the
+// same type or int8.  A stage holds 64 bytes of each row's pairs at A's
+// width (16 f32, 32 bf16 or 64 int8 pairs).  The operand pair picks one of
+// three routes (the planner's tiling.py::operand_route):
+//
+//   * f32 x f32 (igemm_kernel, the "fma" route): IEEE f32 FMAs on the CUDA
+//     cores, as described above.
+//   * f32 x int8, bf16 x int8 and bf16 x bf16 (igemm_tf32_kernel, "tf32"):
+//     mma.sync m16n8k8 on the TF32 tensor cores, f32 sums.  Every int8
+//     (|q| <= 127) and bf16 value is exact in TF32, so the weights and bf16
+//     activations go in unsplit: int8 lanes become f32 exactly in registers
+//     (the sign-flipped byte as the low mantissa byte of 2^23, minus 2^23 +
+//     128: a byte permute and an add), bf16 ones by a shift.  An f32
+//     activation is split once per fragment load into hi = rna_tf32(x) and
+//     lo = rna_tf32(x - hi), hi + lo within 2^-21 of x, and each k8 step
+//     runs two products, hi x w then lo x w (two passes; bf16 activations
+//     one).  The tensor cores' f32 sums truncate, so a k8 step's two
+//     products of f32 activations run from zero and are then added to
+//     the f32 sums in registers, rounded to nearest; bf16 activations'
+//     sums stay in the mma's registers, whose truncation (under 3e-5 of
+//     max |y| at 4,096 pairs) is far below the operands' own rounding
+//     (2^-9).
+//   * int8 x int8 (igemm_s8_kernel, "s8"): below.
+//
 // The per-cout dequant scale is the epilogue's first multiply, on the
-// finished sum (after the slices' sum when split), so it is applied
-// exactly once.
+// finished sum (after the slices' sum when split), so it is applied exactly
+// once, as the reference's cast-then-dot-then-scale does.
+//
+// The TF32 route keeps the FMA route's stages: A row-major at the 80-byte
+// pitch (its 16-byte copies skip L1: 4 % faster than .ca on merge4),
+// read with ldmatrix.x4 (a lane's words are a[gid][tig] and
+// a[gid][tig + 4] of an f32 k8 step, or two bf16 pairs of a k16 chunk,
+// which feed two k8 steps with the k order permuted: a0 / a2 take pairs
+// 2 tig / 2 tig + 1, and B's rows follow), B N-major [pairs][channels] as
+// the weights lie in memory, its rows padded (tf32_b_pitch) so the
+// fragment reads of a warp hit distinct banks.  Each warp owns a 32-row x
+// 16- or 32-channel tile; its n8 fragment j takes the channels n * NT + j
+// (n the fragment column, NT the warp's fragments), so a lane reads its
+// NT weights of a row in one 2- to 8-byte load.  The finished sums go
+// through shared memory (the rings, free after the last stage) to the
+// epilogue, as the s8 route's s32 sums do.  What bounds the route:
+// the gathers, as on the s8 route, at four times its bytes for f32
+// activations (V-Net merge4 under int8 weights stages 14.5 GB of A in
+// 4.27 ms, PERF.md).
 //
 // int8 activations beside int8 weights take a route of their own, on the
 // int8 tensor cores (igemm_s8_kernel): mma.sync m16n8k32 s8 x s8 with s32
@@ -242,7 +274,7 @@ __device__ __forceinline__ float lane_f32<int8_t>(const uint4& v, int k) {
 }
 
 // N consecutive values of T from shared memory, as f32: 16-byte vectors,
-// or one 8- or 4-byte read for a shorter row; src aligned to the read.
+// or one 8-, 4- or 2-byte read for a shorter row; src aligned to the read.
 template <typename T, int N>
 __device__ __forceinline__ void load_row(float* out, const T* src) {
   constexpr int PER = 16 / sizeof(T);
@@ -256,14 +288,17 @@ __device__ __forceinline__ void load_row(float* out, const T* src) {
       for (int k = 0; k < PER; ++k) out[v * PER + k] = lane_f32<T>(raw, k);
     }
   } else {
-    static_assert(BYTES == 8 || BYTES == 4, "an 8- or 4-byte read");
+    static_assert(BYTES == 8 || BYTES == 4 || BYTES == 2,
+                  "an 8-, 4- or 2-byte read");
     uint4 raw = make_uint4(0u, 0u, 0u, 0u);
     if constexpr (BYTES == 8) {
       const uint2 u = *reinterpret_cast<const uint2*>(src);
       raw.x = u.x;
       raw.y = u.y;
-    } else {
+    } else if constexpr (BYTES == 4) {
       raw.x = *reinterpret_cast<const unsigned*>(src);
+    } else {
+      raw.x = *reinterpret_cast<const uint16_t*>(src);
     }
 #pragma unroll
     for (int k = 0; k < N; ++k) out[k] = lane_f32<T>(raw, k);
@@ -292,13 +327,12 @@ using Tile128 = Tile<128, 128, 8, 8, 64, 4>;
 constexpr int APAD = 16;         // pad after each staged A row, bytes
 constexpr int MAX_TAPS = 128;    // taps a block's shared tap table holds
 
-// Dynamic shared memory of one block: the A and B rings (a stage of B is
-// A's KB / sizeof(TA) pairs of BN weights of TB), the row table and the tap
-// table.  Keep in step with tiling.py::step_byte_model.
-template <typename TA, typename TB, class TL>
-constexpr int smem_bytes() {
-  return TL::ST * (TL::BM * (TL::KB + APAD) +
-                   TL::KB / (int)sizeof(TA) * TL::BN * (int)sizeof(TB)) +
+// Dynamic shared memory of one FMA-route block: the A and B rings (a
+// stage of B is KB / 4 pairs of BN f32 weights), the row table and the
+// tap table.  Keep in step with tiling.py::step_byte_model.
+template <class TL>
+constexpr int fma_smem_bytes() {
+  return TL::ST * (TL::BM * (TL::KB + APAD) + TL::KB / 4 * TL::BN * 4) +
          16 * TL::BM + 16 * MAX_TAPS;
 }
 
@@ -472,20 +506,21 @@ struct AGather {
   }
 };
 
-// -- the float route ---------------------------------------------------------
+// -- the FMA route: f32 x f32 on the CUDA cores ------------------------------
 
 // blockIdx: x = row tile, y = group x channel tile, z = phase x slice.
-// The float route keeps its own copy of the block's setup and gather
-// (block_pos, fill_tables and AGather are the same code): built from
-// those helpers, the bf16 scalar-copy conv (255 registers) spilled.
-// With partial != nullptr the block stores its slice's raw f32 sums at
-// partial[((slice * phases + p) * rows + m) * Co + c]; else the epilogue's
-// result in y (f32, or bf16 when out_bf16).  x is TA, w is TB.
-template <typename TA, typename TB, class TL, bool VEC, bool DECONV>
+// The FMA route keeps its own copy of the block's setup and gather
+// (block_pos, fill_tables and AGather are the same code), the code that
+// was timed for it (PERF.md).  With partial != nullptr the block stores its
+// slice's raw f32 sums at partial[((slice * phases + p) * rows + m) * Co +
+// c]; else the epilogue's result in y (f32, or bf16 when out_bf16).
+template <class TL, bool VEC, bool DECONV>
 __global__ void __launch_bounds__(TL::THREADS)
-igemm_kernel(const TA* __restrict__ x, const TB* __restrict__ w,
+igemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
              const int* __restrict__ taps, Epi ep, void* __restrict__ y,
              int out_bf16, float* __restrict__ partial, Geom g) {
+  using TA = float;
+  using TB = float;
   constexpr int BM = TL::BM, BN = TL::BN, TM = TL::TM, TN = TL::TN;
   constexpr int THREADS = TL::THREADS, STAGES = TL::ST;
   constexpr int BK = TL::KB / sizeof(TA);         // pairs per stage
@@ -617,34 +652,16 @@ igemm_kernel(const TA* __restrict__ x, const TB* __restrict__ w,
     }
     // B: BK rows x BN channels of the plain [taps * Cig, Co] slab
     TB* bdst = Bs + slot * BK * BN;
-    if constexpr (!VEC && sizeof(TB) < sizeof(TA)) {
-      // int8 weights beside wider activations, a byte per copy: fully
-      // unrolled, the bf16-activation conv spilled (ptxas), so four at a
-      // time; every other variant keeps the full unroll below
-#pragma unroll 4
-      for (int e0 = 0; e0 < B_COPIES; e0 += THREADS) {
-        const int e = e0 + tid;
-        if (B_COPIES % THREADS == 0 || e < B_COPIES) {
-          const int k = e / B_CH, c = (e - k * B_CH) * VB;
-          const int co = co0 + c;
-          const bool ok = k0 + k < ke && co < Cog;
-          const TB* src =
-              ok ? w + (w_row0 + k0 + k) * g.Co + co_base + co : w;
-          copy_async<CB>(bdst + k * BN + c, src, ok);
-        }
-      }
-    } else {
 #pragma unroll
-      for (int e0 = 0; e0 < B_COPIES; e0 += THREADS) {
-        const int e = e0 + tid;
-        if (B_COPIES % THREADS == 0 || e < B_COPIES) {
-          const int k = e / B_CH, c = (e - k * B_CH) * VB;
-          const int co = co0 + c;
-          const bool ok = k0 + k < ke && co < Cog;
-          const TB* src =
-              ok ? w + (w_row0 + k0 + k) * g.Co + co_base + co : w;
-          copy_async<CB>(bdst + k * BN + c, src, ok);
-        }
+    for (int e0 = 0; e0 < B_COPIES; e0 += THREADS) {
+      const int e = e0 + tid;
+      if (B_COPIES % THREADS == 0 || e < B_COPIES) {
+        const int k = e / B_CH, c = (e - k * B_CH) * VB;
+        const int co = co0 + c;
+        const bool ok = k0 + k < ke && co < Cog;
+        const TB* src =
+            ok ? w + (w_row0 + k0 + k) * g.Co + co_base + co : w;
+        copy_async<CB>(bdst + k * BN + c, src, ok);
       }
     }
   };
@@ -767,40 +784,42 @@ __global__ void igemm_reduce(const TP* __restrict__ partial, Epi ep,
   store_out(y, out_bf16, out + c, epilogue(s, ep, c));
 }
 
-// -- the int8 x int8 route: s8 tensor cores ----------------------------------
+// -- the tensor-core routes: what both share --------------------------------
 
 // BM rows x BN output channels per block, WM x WN warps of (BM/WM) x
-// (BN/WN) sums each (m16n8 fragments, four s32 sums a thread each), 64
-// bytes of each row's pairs (two k32 steps) per stage, ST stages,
-// MINB blocks an SM keeps resident (the register cap).  Keep in step with
-// repro_torch/core/tiling.py::S8_KERNEL_TILES.
+// (BN/WN) sums each (m16n8 fragments, four sums a thread each), 64 bytes
+// of each row's pairs per stage, ST stages, MINB blocks an SM keeps
+// resident (the register cap).  Keep in step with
+// repro_torch/core/tiling.py::S8_KERNEL_TILES and TF32_KERNEL_TILES.
 template <int BM_, int BN_, int WM_, int WN_, int ST_, int MINB_>
-struct S8Tile {
+struct MmaTile {
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
   static constexpr int ST = ST_, MINB = MINB_, KB = 64;
   static constexpr int THREADS = 32 * WM * WN;
   static constexpr int WTM = BM / WM, WTN = BN / WN;   // a warp's tile
   static constexpr int MT = WTM / 16, NT = WTN / 8;    // its fragments
   static_assert(WTM % 16 == 0 && WTN % 16 == 0, "whole fragment pairs");
+  static constexpr int CPITCH = BN + 4;      // sums per row of the C tile
 };
 // Two resident blocks (128 registers a thread): capped at 80 for three,
-// the deconv's tiles spilled; on V-Net merge4 two, three or four blocks
-// an SM timed within 1 % of each other (PERF.md).
-using S8Tile16 = S8Tile<256, 16, 8, 1, 3, 2>;
-using S8Tile32 = S8Tile<256, 32, 8, 1, 3, 2>;
-using S8Tile64 = S8Tile<128, 64, 4, 2, 4, 2>;
-using S8Tile128 = S8Tile<128, 128, 4, 2, 4, 2>;
-
-constexpr int BPAD = 16;         // pad after each staged K-major B row
-
-// Dynamic shared memory of one block: the A ring [ST][BM][KB + APAD], the
-// K-major B ring [ST][BN][KB + BPAD], the row table and the tap table.
-// Keep in step with tiling.py::step_byte_model.
-template <class TL>
-constexpr int s8_smem_bytes() {
-  return TL::ST * (TL::BM * (TL::KB + APAD) + TL::BN * (TL::KB + BPAD)) +
-         16 * TL::BM + 16 * MAX_TAPS;
-}
+// the s8 deconv's tiles spilled; on V-Net merge4 two, three or four s8
+// blocks an SM timed within 1 % of each other (PERF.md).
+using S8Tile16 = MmaTile<256, 16, 8, 1, 3, 2>;
+using S8Tile32 = MmaTile<256, 32, 8, 1, 3, 2>;
+using S8Tile64 = MmaTile<128, 64, 4, 2, 4, 2>;
+using S8Tile128 = MmaTile<128, 128, 4, 2, 4, 2>;
+// The TF32 route's tiles, the FMA route's rows and stages.  The narrowest
+// takes three blocks an SM (85 registers: with three stages it spilled; on
+// V-Net merge4, f32 x int8, it timed 5 % under three stages and two
+// blocks, PERF.md), the 32-channel one two blocks (at three stages it
+// spilled), and the widest sixteen warps of 32 x 32, one block (a 32 x 64
+// warp tile, 64 f32 sums a thread, spilled at 128 registers).  Warps of
+// 32 x 16 in the 32- and 64-channel tiles timed 9-12 % slower over the
+// V-Net batch, f32 x int8 and bf16 alike (PERF.md).
+using Tf32Tile16 = MmaTile<256, 16, 8, 1, 2, 3>;
+using Tf32Tile32 = MmaTile<256, 32, 8, 1, 2, 2>;
+using Tf32Tile64 = MmaTile<128, 64, 4, 2, 4, 2>;
+using Tf32Tile128 = MmaTile<128, 128, 4, 4, 4, 1>;
 
 // Four 8 x 16-byte matrices from shared memory: lanes 8q..8q+7 give the
 // row addresses of matrix q, and each lane receives word (lane % 4) of row
@@ -812,6 +831,373 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned& r0, unsigned& r1,
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
       : "r"(addr));
+}
+
+template <typename T> struct Vec4;
+template <> struct Vec4<int> { using type = int4; };
+template <> struct Vec4<float> { using type = float4; };
+
+// The finished BM x BN tile of sums (TC: s32 or f32) in shared memory,
+// ctile[r * CPITCH + c], after a barrier: four channels of a row a
+// thread, in row order, a slice's raw sums stored at partial[((slice *
+// phases + p) * rows + m) * Co + c], or the f32 epilogue and one store of
+// four where aligned.  (An epilogue straight from the fragments, unrolled
+// over every fragment, took cicc minutes to compile.)
+template <typename TC, class TL, bool DECONV>
+__device__ __forceinline__ void store_tile(const TC* ctile, const Geom& g,
+                                           const BlockPos& b, const Epi& ep,
+                                           void* y, int out_bf16,
+                                           TC* partial) {
+  constexpr int BM = TL::BM, BN = TL::BN, THREADS = TL::THREADS;
+  constexpr int CPITCH = TL::CPITCH;
+  const int tid = threadIdx.x;
+  const int Cog = g.Co / g.G;
+  const int phases = DECONV ? g.Sd * g.Sh * g.Sw : 1;
+  const int64_t co_base = (int64_t)b.grp * Cog;
+  const bool vec_out =
+      g.Co % 4 == 0 && Cog % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(y) % (out_bf16 ? 8 : 16) == 0;
+#pragma unroll 1
+  for (int e = tid; e < BM * (BN / 4); e += THREADS) {
+    const int r = e / (BN / 4), c = b.co0 + (e - r * (BN / 4)) * 4;
+    const int m = b.m0 + r;
+    if (m >= b.rows || c >= Cog) continue;
+    using V4 = typename Vec4<TC>::type;
+    const V4 s4 = *reinterpret_cast<const V4*>(ctile + r * CPITCH + c -
+                                               b.co0);
+    const TC sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    if (partial) {
+      TC* dst = partial +
+                (((int64_t)b.slice * phases + b.p) * b.rows + m) * g.Co +
+                co_base + c;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c + u < Cog) dst[u] = sv[u];
+      continue;
+    }
+    int64_t out;
+    if (!out_offset<DECONV>(g, m, b.pd, b.ph, b.pw, out)) continue;
+    out += co_base + c;
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)         // (scale/bias hold Co values)
+      v[u] = c + u < Cog ? epilogue(static_cast<float>(sv[u]), ep,
+                                    (int)co_base + c + u)
+                         : 0.f;
+    if (vec_out && c + 3 < Cog) {
+      if (out_bf16) {         // four bf16 in one 8-byte store
+        __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+        __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+        uint2 pk;
+        pk.x = *reinterpret_cast<unsigned*>(&lo);
+        pk.y = *reinterpret_cast<unsigned*>(&hi);
+        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(y) + out) = pk;
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(y) + out) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c + u < Cog) store_out(y, out_bf16, out + u, v[u]);
+    }
+  }
+}
+
+// -- the TF32 route: f32 x int8, bf16 x int8, bf16 x bf16 -------------------
+
+// The bytes between two staged B rows of BN weights of TB: the least
+// multiple of 16 with (4 / sizeof(TA)) x pitch = 32 (mod 64), so that
+// the four quads of a warp (B rows tig, or 2 tig with bf16 activations)
+// and the eight lanes of a quad (NT channels each) read distinct banks.
+// Keep in step with tiling.py::tf32_b_pitch.
+template <typename TA, typename TB, int BN>
+__host__ __device__ constexpr int tf32_b_pitch() {
+  int p = (BN * (int)sizeof(TB) + 15) / 16 * 16;
+  while ((4 / (int)sizeof(TA)) * p % 64 != 32) p += 16;
+  return p;
+}
+
+// Dynamic shared memory of one block: the A ring [ST][BM][KB + APAD]
+// bytes and the B ring [ST][KB / sizeof(TA)][tf32_b_pitch] bytes, or the
+// f32 C tile [BM][BN + 4] where that is larger (it takes the rings' place
+// after the last stage), then the row table and the tap table.  Keep in
+// step with tiling.py::step_byte_model.
+template <typename TA, typename TB, class TL>
+__host__ __device__ constexpr int tf32_ring_bytes() {
+  const int ring =
+      TL::ST * (TL::BM * (TL::KB + APAD) +
+                TL::KB / (int)sizeof(TA) * tf32_b_pitch<TA, TB, TL::BN>());
+  const int ctile = TL::BM * TL::CPITCH * 4;
+  return ring > ctile ? ring : ctile;
+}
+template <typename TA, typename TB, class TL>
+__host__ __device__ constexpr int tf32_smem_bytes() {
+  return tf32_ring_bytes<TA, TB, TL>() + 16 * TL::BM + 16 * MAX_TAPS;
+}
+
+// The products a k8 step runs per fragment: hi and lo of f32 activations,
+// bf16 ones unsplit.
+template <typename TA>
+__host__ __device__ constexpr int tf32_passes() {
+  return sizeof(TA) == 4 ? 2 : 1;
+}
+
+// v rounded to TF32 (nearest, ties away), as the mma operand's bits.
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a (16 x 8 tf32, row) * b (8 x 8 tf32, col), f32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a (16 x 8 tf32, row) * b (8 x 8 tf32, col), f32 sums from zero.
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
+                                              const unsigned (&a)[4],
+                                              unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// N int8 values (2 or 4) of a staged B row in one read, each byte's sign
+// bit flipped (q + 128), for flipped_s8.
+template <int N>
+__device__ __forceinline__ unsigned packed_row(const unsigned char* src) {
+  const unsigned u = N == 4 ? *reinterpret_cast<const unsigned*>(src)
+                            : *reinterpret_cast<const uint16_t*>(src);
+  return u ^ 0x80808080u;
+}
+
+// Byte k of packed_row's word as the exact f32 of its int8 value (the
+// byte as the low mantissa byte of 2^23, then 2^23 + 128 off).
+__device__ __forceinline__ float flipped_s8(unsigned u, int k) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | (unsigned)k)) -
+         8388736.f;
+}
+
+// x is TA (f32 or bf16), w is TB (int8 or bf16), the plain [taps * Cig,
+// Co] slab the FMA route takes (the deconv's phase-major).  VEC: 16-byte
+// copies of both operands, else one element a copy.  With partial !=
+// nullptr the block stores its slice's raw f32 sums at partial[((slice *
+// phases + p) * rows + m) * Co + c].
+template <typename TA, typename TB, class TL, bool VEC, bool DECONV>
+__global__ void __launch_bounds__(TL::THREADS, TL::MINB)
+igemm_tf32_kernel(const TA* __restrict__ x, const TB* __restrict__ w,
+                  const int* __restrict__ taps, Epi ep,
+                  void* __restrict__ y, int out_bf16,
+                  float* __restrict__ partial, Geom g) {
+  constexpr int BM = TL::BM, BN = TL::BN, THREADS = TL::THREADS;
+  constexpr int STAGES = TL::ST, MT = TL::MT, NT = TL::NT;
+  constexpr int BK = TL::KB / sizeof(TA);         // pairs per stage
+  constexpr int APB = TL::KB + APAD;              // bytes per staged A row
+  constexpr int APITCH = APB / sizeof(TA);
+  constexpr int BP = tf32_b_pitch<TA, TB, BN>();  // bytes per staged B row
+  constexpr int VA = VEC ? 16 / sizeof(TA) : 1;   // A elements per copy
+  constexpr int VB = VEC ? 16 / sizeof(TB) : 1;   // B elements per copy
+  constexpr int B_CH = BN / VB;                   // copies per B row
+  constexpr int B_COPIES = BK * B_CH;             // copies per B stage
+  constexpr int A_UNROLL = VEC ? BM / (THREADS / (BK / VA)) : 4;
+  // f32 activations: hi and lo, two products a k8 step; and a 32-byte
+  // chunk of a staged A row (one ldmatrix.x4 per 16 rows) is one k8 step
+  // of f32 or two of bf16
+  constexpr bool SPLIT = tf32_passes<TA>() == 2;
+  constexpr int CPITCH = TL::CPITCH;
+  static_assert(sizeof(TA) == 4 || sizeof(TA) == 2, "f32 or bf16 A");
+  static_assert(BN % VB == 0 && BP % 16 == 0, "B copies");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  TA* As = reinterpret_cast<TA*>(smem);                // [ST][BM][APITCH]
+  unsigned char* Bs = smem + STAGES * BM * APB;        // [ST][BK][BP] bytes
+  int4* rowtab =
+      reinterpret_cast<int4*>(smem + tf32_ring_bytes<TA, TB, TL>());
+  int4* taptab = rowtab + BM;
+
+  const int tid = threadIdx.x;
+  const BlockPos b = block_pos<DECONV, BM, BN>(g, taps);
+  const int Cig = g.Ci / g.G, Cog = g.Co / g.G;
+  const int nst = b.ke > b.kb ? (b.ke - b.kb + BK - 1) / BK : 0;
+  const int64_t co_base = (int64_t)b.grp * Cog;
+  const int64_t w_row0 = (int64_t)b.tap0 * Cig;
+  fill_tables<DECONV, BM, THREADS>(g, b, rowtab, taptab);   // (a barrier)
+  AGather<TA, VA, BM, THREADS, BK, APITCH, A_UNROLL, DECONV> ga(g, b);
+
+  auto copy_b = [&](unsigned char* bdst, int k0, int e) {
+    const int k = e / B_CH, c = (e - k * B_CH) * VB;
+    const int co = b.co0 + c;
+    const bool ok = k0 + k < b.ke && co < Cog;
+    const TB* src = ok ? w + (w_row0 + k0 + k) * g.Co + co_base + co : w;
+    copy_async<VB * (int)sizeof(TB)>(bdst + k * BP + c * (int)sizeof(TB),
+                                     src, ok);
+  };
+  auto load_stage = [&](int slot, int k0) {
+    ga.load(As + slot * BM * APITCH, k0, x, g, b, rowtab, taptab);
+    // B: BK rows x BN channels of the slab, at the padded pitch
+    unsigned char* bdst = Bs + slot * BK * BP;
+    if constexpr (VEC) {
+#pragma unroll
+      for (int e0 = 0; e0 < B_COPIES; e0 += THREADS)
+        if (B_COPIES % THREADS == 0 || e0 + tid < B_COPIES)
+          copy_b(bdst, k0, e0 + tid);
+    } else {
+      // an element a copy: four at a time (fully unrolled, the FMA
+      // route's byte-wide copy loop spilled)
+#pragma unroll 4
+      for (int e0 = 0; e0 < B_COPIES; e0 += THREADS)
+        if (B_COPIES % THREADS == 0 || e0 + tid < B_COPIES)
+          copy_b(bdst, k0, e0 + tid);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][j][u] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) load_stage(s, b.kb + s * BK);
+    copy_commit();
+  }
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % TL::WM, wn = warp / TL::WM;
+  const int gid = lane >> 2, tig = lane & 3;
+  // this lane's ldmatrix row address in slot 0 (x4: rows 0-7 / 8-15 of a
+  // fragment at bytes 0 / 16 of a 32-byte chunk): row lane % 16, byte
+  // (lane / 16) * 16.  Its B reads: the NT channels wn * WTN + gid * NT
+  // of rows tig and tig + 4 of each k8 step (f32 A), or 2 tig and 2 tig + 1
+  // (bf16 A, whose a0 / a2 hold pairs 2 tig / 2 tig + 1)
+  const unsigned a_lane =
+      static_cast<unsigned>(__cvta_generic_to_shared(As)) +
+      (wm * TL::WTM + (lane & 15)) * APB + (lane >> 4) * 16;
+  constexpr int B_GAP = SPLIT ? 4 : 1;            // rows between b0, b1
+  const unsigned char* b_lane = Bs + (SPLIT ? tig : 2 * tig) * BP +
+                                (wn * TL::WTN + gid * NT) * (int)sizeof(TB);
+  for (int st = 0; st < nst; ++st) {
+    copy_wait<STAGES - 2>();   // stage st has landed (this thread's copies)
+    __syncthreads();           // ... everyone's; slot st-1 is free again
+    const int nxt = st + STAGES - 1;
+    if (nxt < nst) load_stage(nxt % STAGES, b.kb + nxt * BK);
+    copy_commit();
+    const int slot = st % STAGES;
+    const unsigned a_s = a_lane + slot * BM * APB;
+    const unsigned char* b_s = b_lane + slot * BK * BP;
+    if constexpr (SPLIT) {
+      // f32 x int8, a k8 step a chunk: the NT weights of each of its B
+      // rows stay packed (sign bits flipped) and are widened where used;
+      // one chunk at a time (overlapping two spilled)
+      static_assert(sizeof(TB) == 1 && (NT == 2 || NT == 4),
+                    "int8 rows of 2 or 4 weights");
+#pragma unroll 1
+      for (int ch = 0; ch < TL::KB / 32; ++ch) {
+        const unsigned raw0 = packed_row<NT>(b_s + ch * 8 * BP);
+        const unsigned raw1 = packed_row<NT>(b_s + (ch * 8 + B_GAP) * BP);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          unsigned a[4], op[2][4];
+          ldmatrix_x4(a[0], a[1], a[2], a[3], a_s + i * 16 * APB + ch * 32);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            op[0][u] = tf32_rna(__uint_as_float(a[u]));
+            op[1][u] = tf32_rna(__uint_as_float(a[u]) -
+                                __uint_as_float(op[0][u]));
+          }
+          // hi then lo from zero, then added to the sums rounded to
+          // nearest (the tensor cores' own sums truncate)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const unsigned w0 = __float_as_uint(flipped_s8(raw0, j));
+            const unsigned w1 = __float_as_uint(flipped_s8(raw1, j));
+            float t[4];
+            mma_tf32_zero(t, op[0], w0, w1);
+            mma_tf32(t, op[1], w0, w1);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) acc[i][j][u] += t[u];
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ch = 0; ch < TL::KB / 32; ++ch) {
+        // bf16 activations: the chunk's A fragments feed its two k8 steps
+        unsigned af[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          ldmatrix_x4(af[i][0], af[i][1], af[i][2], af[i][3],
+                      a_s + i * 16 * APB + ch * 32);
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int k8 = (ch * 2 + s) * 8;        // the step's first pair
+          float bv0[NT], bv1[NT];
+          load_row<TB, NT>(bv0, reinterpret_cast<const TB*>(b_s + k8 * BP));
+          load_row<TB, NT>(bv1, reinterpret_cast<const TB*>(
+                                    b_s + (k8 + B_GAP) * BP));
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            // rows gid / gid + 8; pairs 2 tig (low half), 2 tig + 1
+            const unsigned r0 = af[i][2 * s], r1 = af[i][2 * s + 1];
+            const unsigned op[4] = {r0 << 16, r1 << 16, r0 & 0xffff0000u,
+                                    r1 & 0xffff0000u};
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              mma_tf32(acc[i][j], op, __float_as_uint(bv0[j]),
+                       __float_as_uint(bv1[j]));
+          }
+        }
+      }
+    }
+  }
+  copy_wait<0>();
+
+  // the f32 tile through shared memory (the rings are free once every
+  // warp is past its last stage): fragment (i, j) holds rows lane / 4 (+ 8)
+  // of the warp's i-th 16 and fragment columns n = 2 * (lane % 4) + {0, 1},
+  // which are the warp's channels n * NT + j
+  float* ctile = reinterpret_cast<float*>(smem);  // [BM][CPITCH]
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* dst = ctile + (wm * TL::WTM + i * 16 + gid + h * 8) * CPITCH +
+                     wn * TL::WTN + (2 * tig + e) * NT;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) dst[j] = acc[i][j][2 * h + e];
+      }
+  __syncthreads();
+  store_tile<float, TL, DECONV>(ctile, g, b, ep, y, out_bf16, partial);
+}
+
+// -- the int8 x int8 route: s8 tensor cores ----------------------------------
+
+constexpr int BPAD = 16;         // pad after each staged K-major B row
+
+// Dynamic shared memory of one block: the A ring [ST][BM][KB + APAD], the
+// K-major B ring [ST][BN][KB + BPAD], the row table and the tap table.
+// Keep in step with tiling.py::step_byte_model.
+template <class TL>
+constexpr int s8_smem_bytes() {
+  return TL::ST * (TL::BM * (TL::KB + APAD) + TL::BN * (TL::KB + BPAD)) +
+         16 * TL::BM + 16 * MAX_TAPS;
 }
 
 // d += a (16 x 32 s8, row) * b (32 x 8 s8, col), s32 sums.
@@ -937,12 +1323,8 @@ igemm_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
   // the s32 tile through shared memory (the rings are free once every warp
   // is past its last stage): fragment (i, j) holds rows lane / 4 (+ 8) of
-  // the warp's i-th 16 and channels 2 * (lane % 4) + {0, 1} of its j-th 8.
-  // Then four channels of a row a thread, in row order: a slice's s32
-  // sums, or the f32 epilogue and one store of four where aligned.  (The
-  // epilogue straight from the fragments, unrolled over every fragment,
-  // took cicc minutes to compile.)
-  constexpr int CPITCH = BN + 4;                  // s32 per staged row
+  // the warp's i-th 16 and channels 2 * (lane % 4) + {0, 1} of its j-th 8
+  constexpr int CPITCH = TL::CPITCH;              // s32 per staged row
   static_assert(BM * CPITCH * 4 <= STAGES * (BM * APITCH + BN * BPITCH),
                 "C fits the rings");
   int* ctile = reinterpret_cast<int*>(smem);      // [BM][CPITCH]
@@ -961,54 +1343,7 @@ igemm_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
               make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
   }
   __syncthreads();
-  const int64_t co_base = (int64_t)b.grp * Cog;
-  const bool vec_out =
-      g.Co % 4 == 0 && Cog % 4 == 0 &&
-      reinterpret_cast<uintptr_t>(y) % (out_bf16 ? 8 : 16) == 0;
-#pragma unroll 1
-  for (int e = tid; e < BM * (BN / 4); e += THREADS) {
-    const int r = e / (BN / 4), c = b.co0 + (e - r * (BN / 4)) * 4;
-    const int m = b.m0 + r;
-    if (m >= b.rows || c >= Cog) continue;
-    const int4 s4 = *reinterpret_cast<const int4*>(ctile + r * CPITCH + c -
-                                                    b.co0);
-    const int sv[4] = {s4.x, s4.y, s4.z, s4.w};
-    if (partial) {
-      int* dst = partial +
-                 (((int64_t)b.slice * phases + b.p) * b.rows + m) * g.Co +
-                 co_base + c;
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (c + u < Cog) dst[u] = sv[u];
-      continue;
-    }
-    int64_t out;
-    if (!out_offset<DECONV>(g, m, b.pd, b.ph, b.pw, out)) continue;
-    out += co_base + c;
-    float v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)         // (scale/bias hold Co values)
-      v[u] = c + u < Cog ? epilogue(static_cast<float>(sv[u]), ep,
-                                    (int)co_base + c + u)
-                         : 0.f;
-    if (vec_out && c + 3 < Cog) {
-      if (out_bf16) {         // four bf16 in one 8-byte store
-        __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-        __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-        uint2 pk;
-        pk.x = *reinterpret_cast<unsigned*>(&lo);
-        pk.y = *reinterpret_cast<unsigned*>(&hi);
-        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(y) + out) = pk;
-      } else {
-        *reinterpret_cast<float4*>(static_cast<float*>(y) + out) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      }
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (c + u < Cog) store_out(y, out_bf16, out + u, v[u]);
-    }
-  }
+  store_tile<int, TL, DECONV>(ctile, g, b, ep, y, out_bf16, partial);
 }
 
 // -- launches ----------------------------------------------------------------
@@ -1051,95 +1386,10 @@ inline dim3 grid_of(const Geom& g, int BM, int BN, bool deconv) {
               phases * g.splits);
 }
 
-template <typename TA, typename TB, class TL, bool VEC, bool DECONV>
-cudaError_t launch_tile(const void* x, const void* w, const int* taps,
-                        const Epi& ep, void* y, int out_bf16, float* work,
-                        const Geom& g, cudaStream_t stream) {
-  if (g.splits < 1 || g.k_per_split < 1 || (g.splits > 1 && !work))
-    return cudaErrorInvalidValue;
-  constexpr int smem = smem_bytes<TA, TB, TL>();
-  auto kernel = igemm_kernel<TA, TB, TL, VEC, DECONV>;
-  static bool smem_set[MAX_DEVICES] = {};
-  cudaError_t err = allow_smem(kernel, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid_of(g, TL::BM, TL::BN, DECONV), TL::THREADS, smem, stream>>>(
-      static_cast<const TA*>(x), static_cast<const TB*>(w), taps, ep, y,
-      out_bf16, g.splits > 1 ? work : nullptr, g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || g.splits == 1) return err;
-  return launch_reduce<float, DECONV>(work, ep, y, out_bf16, g, stream);
-}
-
-// The int8 route; work holds the slices' s32 sums (the f32 workspace's
-// bytes), and k_per_split is a multiple of 16 (B's copies).
-template <class TL, int VA, bool DECONV>
-cudaError_t launch_s8(const void* x, const void* w, const int* taps,
-                      const Epi& ep, void* y, int out_bf16, float* work,
-                      const Geom& g, cudaStream_t stream) {
-  if (g.splits < 1 || g.k_per_split < 1 || g.k_per_split % 16 ||
-      (g.splits > 1 && !work))
-    return cudaErrorInvalidValue;
-  constexpr int smem = s8_smem_bytes<TL>();
-  auto kernel = igemm_s8_kernel<TL, VA, DECONV>;
-  static bool smem_set[MAX_DEVICES] = {};
-  cudaError_t err = allow_smem(kernel, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  int* iwork = reinterpret_cast<int*>(work);
-  kernel<<<grid_of(g, TL::BM, TL::BN, DECONV), TL::THREADS, smem, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), taps, ep,
-      y, out_bf16, g.splits > 1 ? iwork : nullptr, g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || g.splits == 1) return err;
-  return launch_reduce<int, DECONV>(iwork, ep, y, out_bf16, g, stream);
-}
-
-// The tile per output-channel block (the planner's block_co).
-template <typename TA, typename TB, bool VEC, bool DECONV>
-cudaError_t launch_typed(const void* x, const void* w, const int* taps,
-                         const Epi& ep, void* y, int out_bf16, float* work,
-                         const Geom& g, int block_co, cudaStream_t stream) {
-  switch (block_co) {
-    case 16:
-      return launch_tile<TA, TB, Tile16, VEC, DECONV>(x, w, taps, ep, y,
-                                                      out_bf16, work, g,
-                                                      stream);
-    case 32:
-      return launch_tile<TA, TB, Tile32, VEC, DECONV>(x, w, taps, ep, y,
-                                                      out_bf16, work, g,
-                                                      stream);
-    case 64:
-      return launch_tile<TA, TB, Tile64, VEC, DECONV>(x, w, taps, ep, y,
-                                                      out_bf16, work, g,
-                                                      stream);
-    case 128:
-      return launch_tile<TA, TB, Tile128, VEC, DECONV>(x, w, taps, ep, y,
-                                                       out_bf16, work, g,
-                                                       stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <int VA, bool DECONV>
-cudaError_t launch_s8_typed(const void* x, const void* w, const int* taps,
-                            const Epi& ep, void* y, int out_bf16, float* work,
-                            const Geom& g, int block_co,
-                            cudaStream_t stream) {
-  switch (block_co) {
-    case 16:
-      return launch_s8<S8Tile16, VA, DECONV>(x, w, taps, ep, y, out_bf16,
-                                             work, g, stream);
-    case 32:
-      return launch_s8<S8Tile32, VA, DECONV>(x, w, taps, ep, y, out_bf16,
-                                             work, g, stream);
-    case 64:
-      return launch_s8<S8Tile64, VA, DECONV>(x, w, taps, ep, y, out_bf16,
-                                             work, g, stream);
-    case 128:
-      return launch_s8<S8Tile128, VA, DECONV>(x, w, taps, ep, y, out_bf16,
-                                              work, g, stream);
-  }
-  return cudaErrorInvalidValue;
-}
+// The kernel a C call launched, as its launched[2] out-parameter reports
+// it: launched[0] is the kernel, launched[1] the products a k8 step runs
+// per fragment (the TF32 route's passes, else 1).
+enum Launched { LAUNCHED_FMA = 0, LAUNCHED_TF32 = 1, LAUNCHED_S8 = 2 };
 
 // One forward launch's arguments, as the C entry points receive them.
 struct FwdArgs {
@@ -1152,14 +1402,124 @@ struct FwdArgs {
   float* work;
   Geom g;
   int block_co;
+  int* launched;    // [2], or null
   cudaStream_t stream;
 };
 
+// Record in a.launched what was launched; then, for a split launch, the
+// slices' sum (TP: the workspace's f32 or s32 sums).
+template <typename TP, bool DECONV>
+cudaError_t finish(const FwdArgs& a, TP* work, int kernel, int passes) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (a.launched) {
+    a.launched[0] = kernel;
+    a.launched[1] = passes;
+  }
+  if (a.g.splits == 1) return cudaSuccess;
+  return launch_reduce<TP, DECONV>(work, a.ep, a.y, a.out_bf16, a.g,
+                                   a.stream);
+}
+
+template <class TL, bool VEC, bool DECONV>
+cudaError_t launch_tile(const FwdArgs& a) {
+  const Geom& g = a.g;
+  if (g.splits < 1 || g.k_per_split < 1 || (g.splits > 1 && !a.work))
+    return cudaErrorInvalidValue;
+  constexpr int smem = fma_smem_bytes<TL>();
+  auto kernel = igemm_kernel<TL, VEC, DECONV>;
+  static bool smem_set[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid_of(g, TL::BM, TL::BN, DECONV), TL::THREADS, smem,
+           a.stream>>>(static_cast<const float*>(a.x),
+                       static_cast<const float*>(a.w), a.taps, a.ep, a.y,
+                       a.out_bf16, g.splits > 1 ? a.work : nullptr, g);
+  return finish<float, DECONV>(a, a.work, LAUNCHED_FMA, 1);
+}
+
+// The TF32 route; k_per_split is a multiple of a stage's pairs.
+template <typename TA, typename TB, class TL, bool VEC, bool DECONV>
+cudaError_t launch_tf32(const FwdArgs& a) {
+  const Geom& g = a.g;
+  if (g.splits < 1 || g.k_per_split < 1 ||
+      g.k_per_split % (TL::KB / (int)sizeof(TA)) || (g.splits > 1 && !a.work))
+    return cudaErrorInvalidValue;
+  constexpr int smem = tf32_smem_bytes<TA, TB, TL>();
+  auto kernel = igemm_tf32_kernel<TA, TB, TL, VEC, DECONV>;
+  static bool smem_set[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid_of(g, TL::BM, TL::BN, DECONV), TL::THREADS, smem,
+           a.stream>>>(static_cast<const TA*>(a.x),
+                       static_cast<const TB*>(a.w), a.taps, a.ep, a.y,
+                       a.out_bf16, g.splits > 1 ? a.work : nullptr, g);
+  return finish<float, DECONV>(a, a.work, LAUNCHED_TF32, tf32_passes<TA>());
+}
+
+// The int8 route; work holds the slices' s32 sums (the f32 workspace's
+// bytes), and k_per_split is a multiple of 16 (B's copies).
+template <class TL, int VA, bool DECONV>
+cudaError_t launch_s8(const FwdArgs& a) {
+  const Geom& g = a.g;
+  if (g.splits < 1 || g.k_per_split < 1 || g.k_per_split % 16 ||
+      (g.splits > 1 && !a.work))
+    return cudaErrorInvalidValue;
+  constexpr int smem = s8_smem_bytes<TL>();
+  auto kernel = igemm_s8_kernel<TL, VA, DECONV>;
+  static bool smem_set[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  int* iwork = reinterpret_cast<int*>(a.work);
+  kernel<<<grid_of(g, TL::BM, TL::BN, DECONV), TL::THREADS, smem,
+           a.stream>>>(static_cast<const int8_t*>(a.x),
+                       static_cast<const int8_t*>(a.w), a.taps, a.ep, a.y,
+                       a.out_bf16, g.splits > 1 ? iwork : nullptr, g);
+  return finish<int, DECONV>(a, iwork, LAUNCHED_S8, 1);
+}
+
+// The tile per output-channel block (the planner's block_co).
+template <bool VEC, bool DECONV>
+cudaError_t launch_fma_typed(const FwdArgs& a) {
+  switch (a.block_co) {
+    case 16: return launch_tile<Tile16, VEC, DECONV>(a);
+    case 32: return launch_tile<Tile32, VEC, DECONV>(a);
+    case 64: return launch_tile<Tile64, VEC, DECONV>(a);
+    case 128: return launch_tile<Tile128, VEC, DECONV>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename TA, typename TB, bool VEC, bool DECONV>
+cudaError_t launch_tf32_typed(const FwdArgs& a) {
+  switch (a.block_co) {
+    case 16: return launch_tf32<TA, TB, Tf32Tile16, VEC, DECONV>(a);
+    case 32: return launch_tf32<TA, TB, Tf32Tile32, VEC, DECONV>(a);
+    case 64: return launch_tf32<TA, TB, Tf32Tile64, VEC, DECONV>(a);
+    case 128: return launch_tf32<TA, TB, Tf32Tile128, VEC, DECONV>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int VA, bool DECONV>
+cudaError_t launch_s8_typed(const FwdArgs& a) {
+  switch (a.block_co) {
+    case 16: return launch_s8<S8Tile16, VA, DECONV>(a);
+    case 32: return launch_s8<S8Tile32, VA, DECONV>(a);
+    case 64: return launch_s8<S8Tile64, VA, DECONV>(a);
+    case 128: return launch_s8<S8Tile128, VA, DECONV>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // Unpack a C call; false for an output type the kernels do not store.
+// launched (see Launched) reads -1 until a kernel has been launched.
 inline bool fwd_args(FwdArgs& a, const void* x, const void* w,
                      const int* taps, const float* scale, const float* bias,
                      void* y, float* work, const int* geom, int act,
-                     float alpha, int out_dtype, int block_co, void* stream) {
+                     float alpha, int out_dtype, int block_co, int* launched,
+                     void* stream) {
+  if (launched) launched[0] = launched[1] = -1;
   if (out_dtype != DT_F32 && out_dtype != DT_BF16) return false;
   int* dst = reinterpret_cast<int*>(&a.g);
   for (int i = 0; i < GEOM_FIELDS; ++i) dst[i] = geom[i];
@@ -1171,16 +1531,17 @@ inline bool fwd_args(FwdArgs& a, const void* x, const void* w,
   a.out_bf16 = out_dtype == DT_BF16;
   a.work = work;
   a.block_co = block_co;
+  a.launched = launched;
   a.stream = static_cast<cudaStream_t>(stream);
   return true;
 }
 
-// The (x, w) operand pairs the kernels take, in part order: the float
-// pairs, int8 weights beside f32 and bf16 activations (the float route),
-// then int8 activations and weights (the s8 route); the pairs
-// repro_torch.quant.Precision produces.
+// The (x, w) operand pairs the kernels take, in part order: f32 x f32 (the
+// FMA route, pair 0), the pairs whose weights are exact in TF32 (the TF32
+// route: bf16 x bf16, f32 x int8, bf16 x int8, pairs 1-3, their types
+// below), then int8 x int8 (the s8 route); the pairs
+// repro_torch.quant.Precision and bf16 training produce.
 template <int PAIR> struct PairTypes;
-template <> struct PairTypes<0> { using A = float; using B = float; };
 template <> struct PairTypes<1> {
   using A = __nv_bfloat16;
   using B = __nv_bfloat16;
@@ -1202,9 +1563,10 @@ constexpr int pair_index(int x_dtype, int w_dtype) {
 
 // The variant of one launch.  The C entry points compile the eleven
 // variants as eleven objects (build.py passes -DREPRO_PART=0..10) so that
-// nvcc builds them in parallel: parts 0-7 the float route, per pair and
-// copy width (copy != 0: 16-byte copies of both operands); parts 8-10 the
-// s8 route, per A copy width (copy = 16, 4 or 1 bytes).
+// nvcc builds them in parallel: per pair 0-3 and copy width (copy != 0:
+// 16-byte copies of both operands), parts 0-1 the FMA route (f32 x f32)
+// and 2-7 the TF32 route; parts 8-10 the s8 route, per A copy width
+// (copy = 16, 4 or 1 bytes).
 constexpr int variant_part(int pair, int copy) {
   if (pair < S8_PAIR) return 2 * pair + (copy ? 0 : 1);
   return 8 + (copy == 16 ? 0 : copy == 4 ? 1 : 2);
@@ -1213,16 +1575,14 @@ constexpr int variant_part(int pair, int copy) {
 template <bool DECONV, int PART>
 int run_part(const FwdArgs& a) {
   cudaError_t err;
-  if constexpr (PART < 8) {
+  if constexpr (PART < 2) {
+    err = launch_fma_typed<PART % 2 == 0, DECONV>(a);
+  } else if constexpr (PART < 8) {
     using P = PairTypes<PART / 2>;
-    err = launch_typed<typename P::A, typename P::B, PART % 2 == 0, DECONV>(
-        a.x, a.w, a.taps, a.ep, a.y, a.out_bf16, a.work, a.g, a.block_co,
-        a.stream);
+    err = launch_tf32_typed<typename P::A, typename P::B, PART % 2 == 0,
+                            DECONV>(a);
   } else {
-    constexpr int VA = PART == 8 ? 16 : PART == 9 ? 4 : 1;
-    err = launch_s8_typed<VA, DECONV>(a.x, a.w, a.taps, a.ep, a.y,
-                                      a.out_bf16, a.work, a.g, a.block_co,
-                                      a.stream);
+    err = launch_s8_typed<PART == 8 ? 16 : PART == 9 ? 4 : 1, DECONV>(a);
   }
   return static_cast<int>(err);
 }

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core.tiling import operand_route
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
@@ -33,9 +35,10 @@ SOURCES = ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu")
 HEADERS = ("igemm.cuh",)
 # each source compiles once per variant of its kernels (-DREPRO_PART=k),
 # so the variants build in parallel: the forward sources per (x, w)
-# operand pair of the float route (f32/f32, bf16/bf16, f32/int8,
-# bf16/int8) x copy width, then int8/int8 (the s8 route) per A copy width
-# (igemm.cuh::variant_part); the dw source per operand type x A's x B's
+# operand pair x copy width, f32/f32 on the FMA route (parts 0-1), then
+# bf16/bf16, f32/int8 and bf16/int8 on the TF32 route (2-7), then
+# int8/int8 (the s8 route) per A copy width (8-10;
+# igemm.cuh::variant_part); the dw source per operand type x A's x B's
 # copy width
 PARTS = {"deconv_fwd.cu": 11, "conv_fwd.cu": 11, "deconv_dw.cu": 8}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -127,7 +130,8 @@ _I = ctypes.c_int
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # the (x, w) operand types each kernel takes: the dw kernel floats of one
 # type; the forward kernels also int8 weights beside float or int8
-# activations, the pairs repro_torch.quant.Precision produces
+# activations, the pairs repro_torch.quant.Precision produces (each
+# pair's route: tiling.operand_route)
 FLOAT_PAIRS = frozenset({(torch.float32, torch.float32),
                          (torch.bfloat16, torch.bfloat16)})
 FORWARD_PAIRS = FLOAT_PAIRS | {(torch.float32, torch.int8),
@@ -175,12 +179,13 @@ def check_operands(x, w, scale, bias, out_dtype, *, co: int,
     return tuple(out)
 
 
-def s8_route(x, w, depth: int) -> bool:
-    """Whether a forward launch of ``x`` and ``w`` takes the int8 x int8
-    route, which takes its weights K-major (4-D, ``common.kmajor_weights``,
-    16-byte aligned for its copies) and no other pair does; its reduction
-    of ``depth`` pairs must fit ``check_s8_depth``.  TypeError or
-    ValueError otherwise."""
+def forward_route(x, w, depth: int) -> str:
+    """The route of a forward launch of ``x`` and ``w``
+    (``tiling.operand_route``: ``"fma"``, ``"tf32"`` or ``"s8"``).  The
+    int8 x int8 route takes its weights K-major (4-D,
+    ``common.kmajor_weights``, 16-byte aligned for its copies) and no
+    other route does; its reduction of ``depth`` pairs must fit
+    ``check_s8_depth``.  TypeError or ValueError otherwise."""
     s8 = (x.dtype, w.dtype) == S8_PAIR
     if (w.dim() == 4) != s8:
         raise TypeError(f"x is {x.dtype} and w is {w.dtype} of {w.dim()} "
@@ -190,13 +195,32 @@ def s8_route(x, w, depth: int) -> bool:
         check_s8_depth(depth)
         if w.data_ptr() % 16:
             raise ValueError("K-major weights must be 16-byte aligned")
-    return s8
+    return operand_route(x.element_size(), w.element_size())
 
 
-def record_operands(record: dict, x, w) -> None:
-    """Count one launch in ``record`` under its ``(x, w)`` operand type
-    names (a wrapper's ``operand_launches``)."""
-    key = (_name(x.dtype), _name(w.dtype))
+# the kernels a forward C entry reports in its ``launched`` out-parameter
+# (igemm.cuh::Launched), by their routes' names
+LAUNCHED_ROUTES = ("fma", "tf32", "s8")
+
+
+def launched_buffer() -> ctypes.Array:
+    """The forward C entries' ``launched`` out-parameter: the kernel the
+    call launched (an index of ``LAUNCHED_ROUTES``) and the products a k8
+    step of it runs per fragment (the TF32 route's passes, else 1); -1
+    until a kernel has launched."""
+    return (ctypes.c_int * 2)(-1, -1)
+
+
+def record_operands(record: dict, x, w, launched) -> None:
+    """Count one launch in ``record`` (a wrapper's ``operand_launches``)
+    under its ``(x, w)`` operand type names and the route and passes the
+    C entry reported in ``launched`` (``launched_buffer``); RuntimeError
+    when it reported no kernel."""
+    kernel, passes = launched[0], launched[1]
+    if not 0 <= kernel < len(LAUNCHED_ROUTES) or passes < 1:
+        raise RuntimeError(f"the forward entry reported no launch "
+                           f"({kernel}, {passes})")
+    key = (_name(x.dtype), _name(w.dtype), LAUNCHED_ROUTES[kernel], passes)
     record[key] = record.get(key, 0) + 1
 
 
@@ -258,9 +282,9 @@ def a_copy_bytes(x, cig: int) -> int:
 
 def copy_variant(x, w, cig: int, cog: int) -> int:
     """The forward C entry's ``copy`` argument (igemm.cuh::variant_part):
-    A's bytes per copy for int8 x int8, else whether both operands take
-    16-byte copies."""
-    if (x.dtype, w.dtype) == S8_PAIR:
+    A's bytes per copy on the s8 route, else (the FMA and TF32 routes)
+    whether both operands take 16-byte copies."""
+    if operand_route(x.element_size(), w.element_size()) == "s8":
         return a_copy_bytes(x, cig)
     return int(vector_copies(x, w, cig, cog))
 
@@ -283,14 +307,14 @@ def dw_vector_copies(a, b, ag: int, bg: int) -> tuple[bool, bool]:
     return _vector_ok(a, ag), _vector_ok(b, bg)
 
 
-def split_workspace(splits: int, elems: int, device, s8: bool = False):
+def split_workspace(splits: int, elems: int, device, route: str):
     """The partial sums of a split launch, ``splits`` x ``elems``: f32, or
-    int32 for the int8 route (``s8``), the same bytes (None for an
-    unsplit launch)."""
+    int32 on the s8 route, the same bytes (None for an unsplit
+    launch)."""
     if splits == 1:
         return None
     return torch.empty(splits * elems, device=device,
-                       dtype=torch.int32 if s8 else torch.float32)
+                       dtype=torch.int32 if route == "s8" else torch.float32)
 
 
 def ptr(t) -> int | None:
@@ -306,15 +330,16 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), argtypes declared."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    geom = ctypes.POINTER(ctypes.c_int)
-    lib.repro_deconv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, geom, _I,
+    ints = ctypes.POINTER(ctypes.c_int)
+    lib.repro_deconv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, ints, _I,
                                      ctypes.c_float, _I, _I, _I, _I, _I,
-                                     _P]
+                                     ints, _P]
     lib.repro_deconv_fwd.restype = _I
-    lib.repro_conv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, geom, _I,
-                                   ctypes.c_float, _I, _I, _I, _I, _I, _P]
+    lib.repro_conv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, ints, _I,
+                                   ctypes.c_float, _I, _I, _I, _I, _I, ints,
+                                   _P]
     lib.repro_conv_fwd.restype = _I
-    lib.repro_deconv_dw.argtypes = [_P, _P, _P, _P, geom, _I, _I, _I, _I,
+    lib.repro_deconv_dw.argtypes = [_P, _P, _P, _P, ints, _I, _I, _I, _I,
                                     _I, _I, _I, _P]
     lib.repro_deconv_dw.restype = _I
     return lib

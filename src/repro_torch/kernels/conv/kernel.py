@@ -2,16 +2,19 @@
 
 It replaces the JAX package's TPU kernel ``conv_pallas_3d``.  Each CUDA
 block owns a tile of output positions and a block of output channels and
-sums every tap in f32 registers (int8 activations beside int8 weights: in
-s32 on the int8 tensor cores, the weights K-major), reading the input
-through zero-filling copies in place of a host-side pad; see the note at
-the top of the source.  Per launch the wrapper picks the copy widths
-(``build.copy_variant``) and the split of the reduction
-(``tiling.launch_split``) from the real shapes; a split launch runs a
-second pass that sums the slices, and still counts once.  ``launches``
-counts the calls that launched the kernel, and nothing else;
-``operand_launches`` records each launch once more by its ``(x, w)``
-operand types, e.g. ``("int8", "int8")`` under int8 activations.
+sums every tap on the route of its operand pair (``build.forward_route``:
+f32 FMAs for f32 x f32; the TF32 tensor cores for f32 x int8, bf16 x int8
+and bf16 x bf16; exact s32 sums on the int8 tensor cores for int8 x int8,
+the weights K-major), reading the input through zero-filling copies in
+place of a host-side pad; see the note at the top of the source.  Per
+launch the wrapper picks the copy widths (``build.copy_variant``) and the
+split of the reduction (``tiling.launch_split``) from the real shapes; a
+split launch runs a second pass that sums the slices, and still counts
+once.  ``launches`` counts the calls that launched the kernel, and
+nothing else; ``operand_launches`` records each launch once more by its
+``(x, w)`` operand types and the kernel and passes the C entry reports it
+launched (``build.record_operands``), e.g. ``("int8", "int8", "s8", 1)``
+under int8 activations.
 
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises.
@@ -29,7 +32,7 @@ from repro_torch.kernels import common as _common
 from repro_torch.kernels.conv import ref as _ref
 
 launches = 0
-operand_launches: dict[tuple[str, str], int] = {}
+operand_launches: dict[tuple[str, str, str, int], int] = {}
 
 
 def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
@@ -70,7 +73,7 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
     out_dtype = out_dtype or _build.default_out_dtype(x)
     scale32, bias32 = _build.check_operands(x, w, scale, bias, out_dtype,
                                             co=co)
-    s8 = _build.s8_route(x, w, math.prod(kernel) * (ci // groups))
+    route = _build.forward_route(x, w, math.prod(kernel) * (ci // groups))
     if x.device.type == "cpu":
         return _ref.conv_fwd_plain(
             x, w, kernel=kernel, stride=stride, dilation=dilation,
@@ -88,10 +91,11 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
         plan, rows, math.prod(kernel) * (ci // groups), co, groups)
     lib = _build.library()
     y = torch.empty((n, *out_spatial, co), dtype=out_dtype, device=x.device)
-    work = _build.split_workspace(splits, rows * co, x.device, s8)
+    work = _build.split_workspace(splits, rows * co, x.device, route)
     geom = _build.geom_array((n, d, h, wd, ci, co, groups, *kernel, *stride,
                               *dilation, *out_spatial, *out_spatial,
                               *pad_lo, splits, per))
+    launched = _build.launched_buffer()
     err = lib.repro_conv_fwd(
         _build.ptr(x), _build.ptr(w), _build.ptr(scale32),
         _build.ptr(bias32), _build.ptr(y), _build.ptr(work), geom,
@@ -99,9 +103,9 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
         _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[w.dtype],
         _build.DTYPE_CODES[out_dtype], block_co,
         _build.copy_variant(x, w, ci // groups, co // groups),
-        _build.stream_of(x))
+        launched, _build.stream_of(x))
     if err:
         raise RuntimeError(f"conv kernel launch failed (cudaError {err})")
     launches += 1
-    _build.record_operands(operand_launches, x, w)
+    _build.record_operands(operand_launches, x, w, launched)
     return y

@@ -3,13 +3,15 @@
 ``deconv_fwd`` wraps ``csrc/deconv_fwd.cu``, which replaces the JAX
 package's TPU kernel ``deconv_pallas_3d``.  The kernel gathers: each CUDA
 block owns one output phase, a tile of phase positions and a block of
-output channels, and sums the taps of its phase in f32 registers (int8
-activations beside int8 weights: in s32 on the int8 tensor cores, the
-weights K-major); see the note at the top of the source.  Per launch the
-wrapper picks the copy widths (``build.copy_variant``) and the split of
-the reduction (``tiling.launch_split``, over the deepest phase) from the
-real shapes; a split launch runs a second pass that sums the slices, and
-counts once.
+output channels, and sums the taps of its phase on the route of its
+operand pair (``build.forward_route``): f32 FMAs for f32 x f32, f32 sums
+on the TF32 tensor cores for f32 x int8 (activations split hi + lo),
+bf16 x int8 and bf16 x bf16, exact s32 sums on the int8 tensor cores for
+int8 x int8 (the weights K-major); see the note at the top of the
+source.  Per launch the wrapper picks the copy widths
+(``build.copy_variant``) and the split of the reduction
+(``tiling.launch_split``, over the deepest phase) from the real shapes; a
+split launch runs a second pass that sums the slices, and counts once.
 
 ``deconv_dw`` wraps ``csrc/deconv_dw.cu``, which replaces
 ``deconv_dw_pallas_3d``: the weight gradient of the deconv and, with its
@@ -21,7 +23,9 @@ over the conv kernel (``conv.kernel.conv_fwd``).
 wrapper that launched its kernel on the card, and nothing else (a
 ``deconv_dx`` call also counts one ``conv_fwd`` launch).
 ``operand_launches`` records each ``deconv_fwd`` launch once more by its
-``(x, w)`` operand types, e.g. ``("float32", "int8")`` for int8 weights.
+``(x, w)`` operand types and the kernel and passes the C entry reports it
+launched (``build.record_operands``), e.g. ``("float32", "int8", "tf32",
+2)`` for int8 weights.
 On a CPU tensor each wrapper runs the plain version (``ref.py``); on a
 CUDA tensor it launches the kernel or raises.
 """
@@ -42,7 +46,7 @@ from repro_torch.kernels.deconv import ref as _ref
 launches = 0
 dw_launches = 0
 dx_launches = 0
-operand_launches: dict[tuple[str, str], int] = {}
+operand_launches: dict[tuple[str, str, str, int], int] = {}
 
 
 def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
@@ -94,7 +98,7 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
                                             out_dtype, co=co)
     deepest = max(len(t) for t in _common.kmajor_phase_taps(kernel, stride,
                                                             dilation))
-    s8 = _build.s8_route(x, w_taps, deepest * (ci // groups))
+    route = _build.forward_route(x, w_taps, deepest * (ci // groups))
     if x.device.type == "cpu":
         return _ref.deconv_fwd_plain(
             x, w_taps, kernel=kernel, stride=stride, dilation=dilation,
@@ -116,10 +120,12 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     lib = _build.library()
     taps = _common.tap_table(kernel, stride, dilation, x.device)
     y = torch.empty((n, *out_spatial, co), dtype=out_dtype, device=x.device)
-    work = _build.split_workspace(splits, phases * rows * co, x.device, s8)
+    work = _build.split_workspace(splits, phases * rows * co, x.device,
+                                  route)
     geom = _build.geom_array((n, d, h, wd, ci, co, groups, *kernel, *stride,
                               *dilation, *q, *out_spatial, *crop_lo, splits,
                               per))
+    launched = _build.launched_buffer()
     err = lib.repro_deconv_fwd(
         _build.ptr(x), _build.ptr(w_taps), _build.ptr(taps),
         _build.ptr(scale32), _build.ptr(bias32), _build.ptr(y),
@@ -128,11 +134,11 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
         _build.DTYPE_CODES[w_taps.dtype], _build.DTYPE_CODES[out_dtype],
         block_co,
         _build.copy_variant(x, w_taps, ci // groups, co // groups),
-        _build.stream_of(x))
+        launched, _build.stream_of(x))
     if err:
         raise RuntimeError(f"deconv kernel launch failed (cudaError {err})")
     launches += 1
-    _build.record_operands(operand_launches, x, w_taps)
+    _build.record_operands(operand_launches, x, w_taps, launched)
     return y
 
 

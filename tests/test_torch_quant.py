@@ -346,7 +346,8 @@ def test_backward_through_quantized_activations_raises():
 def test_operand_pairs_and_launch_records():
     """The forward kernels take the pairs the policy produces; the dw
     kernel (which the reference never gives int8) floats only; int8
-    inputs store f32; launch records count by operand types."""
+    inputs store f32; launch records count by operand types and the
+    kernel and passes the C entry reports."""
     from repro_torch.kernels import build
     from repro_torch.kernels.deconv import kernel as deconv_kernel
     i8, f32, bf16 = torch.int8, torch.float32, torch.bfloat16
@@ -359,7 +360,12 @@ def test_operand_pairs_and_launch_records():
                                 stride=(1, 1, 1))
     assert build.default_out_dtype(a.to(i8)) == f32
     assert build.default_out_dtype(a.to(bf16)) == bf16
+    tf32, s8 = build.launched_buffer(), build.launched_buffer()
+    tf32[0], tf32[1] = build.LAUNCHED_ROUTES.index("tf32"), 2
+    s8[0], s8[1] = build.LAUNCHED_ROUTES.index("s8"), 1
     record = {}
-    build.record_operands(record, a, a.to(i8))
-    build.record_operands(record, a, a.to(i8))
-    assert record == {("float32", "int8"): 2}
+    build.record_operands(record, a, a.to(i8), tf32)
+    build.record_operands(record, a, a.to(i8), tf32)
+    build.record_operands(record, a.to(i8), a.to(i8), s8)
+    assert record == {("float32", "int8", "tf32", 2): 2,
+                      ("int8", "int8", "s8", 1): 1}

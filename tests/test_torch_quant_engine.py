@@ -180,18 +180,27 @@ def test_int8_weights_shrink_smem_at_identical_blocks(mode, cin, cout):
     p32 = tiling.plan_uniform_tiles(cin, cout, mode=mode, in_dtype_bytes=4)
     p8 = tiling.plan_uniform_tiles(cin, cout, mode=mode, in_dtype_bytes=4,
                                    w_dtype_bytes=1)
-    assert (p32.block_m, p32.block_ci, p32.block_co, p32.threads,
-            p32.stages) == (p8.block_m, p8.block_ci, p8.block_co,
-                            p8.threads, p8.stages)
-    # the delta is exactly B's stages at 3 bytes less a weight
+    # int8 weights beside f32 activations take the TF32 route's tile: the
+    # FMA route's rows, pairs, channels and stages, in warps of its own
+    assert (p32.block_m, p32.block_ci, p32.block_co, p32.stages) == \
+        (p8.block_m, p8.block_ci, p8.block_co, p8.stages)
+    assert p8.threads == tiling.TF32_KERNEL_TILES[p8.block_co].threads
+    # the weights' stages at one byte a weight (rows padded), or the f32
+    # C tile where it outgrows the rings, whose place it takes after the
+    # last stage: the block shrinks either way
+    b8 = p8.stages * p8.block_ci * tiling.tf32_b_pitch(4, p8.block_co)
+    b32 = p32.stages * p32.block_ci * p32.block_co * 4
+    a_ring = p8.stages * p8.block_m * (p8.block_ci * 4 + tiling.A_PAD_BYTES)
+    c_tile = p8.block_m * (p8.block_co + 4) * 4
     assert p32.step_smem_bytes - p8.step_smem_bytes == \
-        p32.stages * p32.block_ci * p32.block_co * 3
+        b32 - max(b8, c_tile - a_ring) > 0
     rows, depth = 4 * 16 * 16, 9 * cin
-    for plan in (p32, p8):      # the same launches: blocks and slices
+    blocks = tiling.grid_blocks(p32, rows, cout, 1, 4)
+    for plan in (p32, p8):      # the same blocks, split at each residency
+        assert tiling.grid_blocks(plan, rows, cout, 1, 4) == blocks
         assert tiling.launch_split(plan, rows, depth, cout, 1, 4) == \
-            tiling.launch_split(p32, rows, depth, cout, 1, 4)
-        assert tiling.grid_blocks(plan, rows, cout, 1, 4) == \
-            tiling.grid_blocks(p32, rows, cout, 1, 4)
+            tiling.split_reduction(blocks, depth, tiling.SMS
+                                   * tiling.resident_blocks(plan), 4)
     # int8 activations beside int8 weights take the s8 route's tiles: 64
     # pairs a row, B's stage K-major, [block_co][64 + 16] bytes
     pa = tiling.plan_uniform_tiles(cin, cout, mode=mode, in_dtype_bytes=1,

@@ -1,9 +1,10 @@
 """The kernels' planner (``repro_torch.core.tiling``).
 
 Forward: the tile per per-group channel width, the modelled shared memory
-of every instantiated tile at f32 and bf16 and of the int8 x int8 route's
-tiles (B's stage K-major), the split of the reduction
-(``split_reduction`` / ``launch_split``, on either route's residency), the
+of every instantiated tile of the FMA route (f32), the TF32 route (bf16
+and int8 weights, B's rows padded) and the int8 x int8 route (B's stage
+K-major), the split of the reduction (``split_reduction`` /
+``launch_split``, on each route's residency), the
 block counts the schedule report gives with the splits counted, and the
 int8 route's A copy width, chosen apart from B's.  dw: the tile per layer
 shape, the ring's shared memory, the split filling a wave, slices covering
@@ -46,13 +47,22 @@ def test_tile_per_group_channel_width(cog, block_co, threads):
 @pytest.mark.parametrize("nbytes", [4, 2])
 def test_every_tile_fits_the_budget(block_co, nbytes):
     plan = tiling.plan_uniform_tiles(64, block_co, in_dtype_bytes=nbytes)
-    tile = tiling.KERNEL_TILES[block_co]
+    # f32 x f32 plans on the FMA route's tiles, bf16 x bf16 on the TF32
+    # route's
+    route = {4: "fma", 2: "tf32"}[nbytes]
+    assert tiling.operand_route(nbytes, None) == route
+    tile = tiling.ROUTE_TILES[route][block_co]
     # a stage holds k_bytes of each row's pairs at either width
     assert plan.block_ci == tile.k_bytes // nbytes == tile.block_ci(nbytes)
+    a_ring = tile.stages * tile.block_m * (tile.k_bytes + tiling.A_PAD_BYTES)
+    if route == "fma":
+        ring = a_ring + tile.stages * tile.k_bytes * block_co
+    else:       # B rows padded; the f32 C tile takes the rings' place
+        ring = max(a_ring + tile.stages * plan.block_ci
+                   * tiling.tf32_b_pitch(2, 2 * block_co),
+                   tile.block_m * (block_co + 4) * 4)
     assert plan.step_smem_bytes == (
-        tile.stages * (tile.block_m * (tile.k_bytes + tiling.A_PAD_BYTES)
-                       + tile.k_bytes * block_co)
-        + 16 * tile.block_m + 16 * tiling.MAX_TAPS)
+        ring + 16 * tile.block_m + 16 * tiling.MAX_TAPS)
     assert not plan.overflows
     assert plan.step_smem_bytes <= tiling.SMEM_BUDGET
     assert tiling.resident_blocks(plan) >= 1
@@ -154,6 +164,62 @@ def test_s8_launch_split_on_its_own_residency():
     p16 = tiling.plan_uniform_tiles(48, 16, in_dtype_bytes=1,
                                     w_dtype_bytes=1)
     assert p16.block_co == 16 and tiling.resident_blocks(p16) == 2
+    assert tiling.launch_split(p16, 4 * 128 * 128 * 64, 27 * 32, 16,
+                               1)[0] == 1
+
+
+@pytest.mark.parametrize("block_co", sorted(tiling.TF32_KERNEL_TILES))
+@pytest.mark.parametrize("x_bytes,w_bytes", [(4, 1), (2, 1), (2, 2)])
+def test_tf32_tiles_fit_at_their_residency(block_co, x_bytes, w_bytes):
+    """The TF32 route's tiles: 64 bytes of pairs a stage, B's rows at the
+    padded pitch, the f32 C tile in the rings' place after the last stage
+    (the larger of the two counts); each fits the budget at the residency
+    its __launch_bounds__ is built for (one to three blocks an SM), and
+    the planner counts that residency."""
+    plan = tiling.plan_uniform_tiles(64, block_co, in_dtype_bytes=x_bytes,
+                                     w_dtype_bytes=w_bytes)
+    tile = tiling.TF32_KERNEL_TILES[block_co]
+    assert (plan.block_m, plan.block_ci, plan.threads, plan.stages) == (
+        tile.block_m, 64 // x_bytes, tile.threads, tile.stages)
+    pitch = tiling.tf32_b_pitch(x_bytes, block_co * w_bytes)
+    ring = max(tile.stages * (tile.block_m * (64 + tiling.A_PAD_BYTES)
+                              + plan.block_ci * pitch),
+               tile.block_m * (block_co + 4) * 4)
+    assert plan.step_smem_bytes == (ring + 16 * tile.block_m
+                                    + 16 * tiling.MAX_TAPS)
+    assert tile.min_blocks >= 1 and not plan.overflows
+    assert tile.min_blocks * (plan.step_smem_bytes
+                              + tiling.SMEM_RESERVED_PER_BLOCK) <= \
+        tiling.SMEM_PER_SM
+    assert plan.registers == tiling.REGISTERS_PER_SM // (
+        tile.threads * tile.min_blocks)
+    assert tiling.resident_blocks(plan) == tile.min_blocks
+    # each warp owns 32 rows of m16n8 fragments
+    assert tile.block_m // tile.warps_m == 32
+
+
+def test_launch_split_follows_the_tf32_residency():
+    # served DCGAN deconv1 under w:int8 (batch 4): 4 phases x 25 positions
+    # x 4 images, 4 taps x 1024 channels deep, on the 128 x 128 tile of
+    # sixteen warps, one block an SM
+    pt = tiling.plan_uniform_tiles(1024, 512, in_dtype_bytes=4,
+                                   w_dtype_bytes=1)
+    pf = tiling.plan_uniform_tiles(1024, 512, in_dtype_bytes=4)
+    assert (pt.block_m, pt.threads, pf.block_m) == (128, 512, 128)
+    assert (tiling.resident_blocks(pt), tiling.resident_blocks(pf)) == (1, 2)
+    rows, depth = 4 * 25, 4 * 1024
+    wave = tiling.SMS * tiling.resident_blocks(pt)
+    blocks = tiling.grid_blocks(pt, rows, 512, 1, 4)
+    splits, per = tiling.launch_split(pt, rows, depth, 512, 1, 4)
+    assert (splits, per) == tiling.split_reduction(blocks, depth, wave, 4)
+    assert splits > 1 and per % tiling.SPLIT_UNIT == 0
+    # the FMA route's grid, split to the route's own residency
+    assert blocks == tiling.grid_blocks(pf, rows, 512, 1, 4)
+    assert tiling.launch_split(pf, rows, depth, 512, 1, 4)[0] == 2 * splits
+    # V-Net merge4 (batch 4): the grid fills the card, one slice
+    p16 = tiling.plan_uniform_tiles(32, 16, in_dtype_bytes=4,
+                                    w_dtype_bytes=1)
+    assert tiling.resident_blocks(p16) == 3
     assert tiling.launch_split(p16, 4 * 128 * 128 * 64, 27 * 32, 16,
                                1)[0] == 1
 

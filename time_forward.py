@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Time the forward kernels of one served batch on one NVIDIA GPU.
 
-    python3 time_forward.py [--src DIR] [--dtype bfloat16] [--json PATH]
+    python3 time_forward.py [--src DIR] [--dtype bfloat16] [--weights int8]
+                            [--json PATH]
 
 Every conv and deconv layer of a served DCGAN generator batch and a
 served V-Net batch (full width, batch 4, weights and inputs random from
 a seed) is launched through the port's kernel wrappers in one operand
-type (``--dtype``: float32 or bfloat16) and timed with CUDA events, the
-median of five groups of ten launches.  ``--src`` names the ``src``
+type (``--dtype``: float32 or bfloat16), the weights in that type too or,
+with ``--weights int8``, quantized per output channel (int8 weights
+beside the activations, the scale in the epilogue), and timed with CUDA
+events, the median of five groups of ten launches.  ``--src`` names the ``src``
 directory whose ``repro_torch`` is timed (default: this checkout's), so
 one copy of this script times two commits in turns.  Prints the card's
 name and power limit, one JSON line per layer and, last, the sums per
@@ -36,6 +39,7 @@ def main() -> int:
                         default=Path(__file__).resolve().parent / "src")
     parser.add_argument("--dtype", default="bfloat16",
                         choices=("float32", "bfloat16"))
+    parser.add_argument("--weights", default="same", choices=("same", "int8"))
     parser.add_argument("--json", type=Path, default=None)
     cli = parser.parse_args()
     import torch
@@ -44,6 +48,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(cli.src.resolve()))
     from repro_torch.core import networks as nets
+    from repro_torch import quant
     from repro_torch.core.engine import UniformEngine
     from repro_torch.kernels.conv import kernel as ck
     from repro_torch.kernels.conv import ops as cops
@@ -90,29 +95,37 @@ def main() -> int:
             x = torch.randn((BATCH, *layer.in_spatial, layer.cin),
                             generator=gen, device=dev).to(dtype)
             w = (torch.randn(layer.weight_shape, generator=gen, device=dev)
-                 / math.sqrt(math.prod(layer.weight_shape[:-1]))).to(dtype)
+                 / math.sqrt(math.prod(layer.weight_shape[:-1])))
+            scale = None
+            if cli.weights == "int8":
+                q = quant.quantize_tensor(w)
+                w, scale = q["w_q"], q["scale"]
+            else:
+                w = w.to(dtype)
             epi = layer.epilogue
             b = (0.1 * torch.randn((layer.cout,), generator=gen,
                                    device=dev)).to(dtype) if epi.bias else None
             args_fn, kernel = ops[layer.op]
             x3, wk, kw, _ = args_fn(
                 x, w, layer.stride, layer.padding, dilation=layer.dilation,
-                groups=layer.groups, bias=b, activation=epi.activation,
-                alpha=epi.alpha, engine=engine)
+                groups=layer.groups, bias=b, w_scale=scale,
+                activation=epi.activation, alpha=epi.alpha, engine=engine)
             ms = per_call_ms(lambda: kernel(x3, wk, **kw))
             row = {"model": model, "layer": layer.name, "op": layer.op,
-                   "dtype": cli.dtype, "ms": ms}
+                   "dtype": cli.dtype, "weights": cli.weights, "ms": ms}
             print(json.dumps(row), flush=True)
             rows.append(row)
             sums[model] = sums.get(model, 0.0) + ms
             del x, w, b, x3, wk
         torch.cuda.empty_cache()
     out = {"card": card, "src": str(cli.src), "dtype": cli.dtype,
-           "batch": BATCH, "sum_ms": sums, "layers": rows}
+           "weights": cli.weights, "batch": BATCH, "sum_ms": sums,
+           "layers": rows}
     if cli.json is not None:
         cli.json.parent.mkdir(parents=True, exist_ok=True)
         cli.json.write_text(json.dumps(out, indent=1))
-    print(json.dumps({"sum_ms": sums, "dtype": cli.dtype}))
+    print(json.dumps({"sum_ms": sums, "dtype": cli.dtype,
+                      "weights": cli.weights}))
     return 0
 
 
