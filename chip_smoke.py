@@ -98,7 +98,25 @@ Phases, any failure of which exits non-zero before the result line:
      int8 for int8 x int8), summed per operand pair; one served
      batch of each model end to end under each policy
      (every batch served by ``"pallas"``, no bucket fallen back), and
-     whole train steps.
+     whole train steps;
+  6. runtime report — ``obs.measure_network`` of full-width V-Net and
+     DCGAN at batch 4: every node alone (the device's time on CUDA
+     events, the host's issue time beside it) against the calibrated f32
+     roof (an IEEE f32 matmul probe) and the HBM copy probe, one row per
+     node in order, every layer timed, no share above 1.05; the
+     telemetry-instrumented callable launching the schedule's kernels
+     per call, bit-equal to the bare one, one dispatch recorded per call;
+     the server's registry exported as JSON and Prometheus text;
+  7. tune — ``tune.tune_network`` at batch 4, the top 3 of the model
+     and the heuristic measured: V-Net in f32 and under w:int8, DCGAN in
+     f32; every measured candidate launched once more and held against
+     its plain version (1e-4; 5e-5 for f32 x int8 against float64), each
+     changed winner retimed in turns against the heuristic within the
+     run's spread, the cache saved under ``build/``, reloaded with no
+     heuristic fallback, a V-Net batch served on the tuned plans within
+     1e-4 of the untuned one, and V-Net's graph timed on both plan sets
+     in turns.  These two phases' launches are reported on their own:
+     the ``"kernels"`` line counts the main paths' alone.
 
 The line before the last is the ``{"kernels": [...]}`` summary: each
 kernel's ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums
@@ -222,8 +240,15 @@ DCGAN_CHANS = (1024, 512, 256, 128, 3)
 VNET_CHANS = (16, 32, 64, 128, 256)
 VNET_SPATIAL = (128, 128, 64)
 BATCH = 4                        # the server's max_batch
+# each tuning candidate's time: the best of this many calls (one layer
+# takes ~0.05-0.2 ms of wrapper host time inside its CUDA events)
+TUNE_REPEATS = 5
 # the port's counterparts of the JAX package's XLA-lowered methods
 REF_METHODS = ("oom", "xla", "iom", "iom_phase")
+
+
+# the wrappers' tile arguments, which their plain versions do not take
+TILE_KWARGS = ("block_co", "split")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -249,7 +274,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch import quant, tree
+    from repro_torch import obs, quant, tree, tune
     from repro_torch.configs import get_config
     from repro_torch.core import functional as tfunc
     from repro_torch.core import networks as nets
@@ -258,6 +283,7 @@ def main() -> int:
         EngineConfig,
         UniformEngine,
         compile_network,
+        init_network_weights,
     )
     from repro_torch.kernels import build
     from repro_torch.kernels.conv import kernel as ck
@@ -394,7 +420,7 @@ def main() -> int:
 
     def run_plain(op, args):
         x3, wk, kw, _ = args
-        kw = {k: v for k, v in kw.items() if k != "block_co"}
+        kw = {k: v for k, v in kw.items() if k not in TILE_KWARGS}
         return KERNELS[op][2](x3, wk, **kw)
 
     def fwd_launches():
@@ -671,7 +697,7 @@ def main() -> int:
 
     def run_plain64(op, args):
         x3, wk, kw, _ = args
-        kw = {k: v for k, v in kw.items() if k != "block_co"}
+        kw = {k: v for k, v in kw.items() if k not in TILE_KWARGS}
         return KERNELS[op][2](x3.double(), wk.double(),
                               **dict(kw, out_dtype=torch.float64))
 
@@ -2247,6 +2273,310 @@ def main() -> int:
                           "ms": ms, "median_ms_after_first":
                           statistics.median(ms[1:])}))
         del params, state
+    torch.cuda.empty_cache()
+
+    # -- 6. runtime report ------------------------------------------------------
+    # obs.measure_network at full width, batch 4: every node of V-Net's graph
+    # and of DCGAN's chain timed alone after a warm call (the device's time
+    # on CUDA events and the host's issue time, best of 3) against the
+    # calibrated f32 roof (a matmul probe under
+    # functional.ieee_f32: the CUDA cores' rate, the f32 route's); then the
+    # instrumented callable against the bare one, and the server's registry
+    # exported after a served batch.  Not a main path: its launches are
+    # reported on their own, never added to the counts above
+    phase("runtime report")
+    t_phase = time.perf_counter()
+    launches_before = (dk.launches, ck.launches)
+    peak = obs.machine_peak_gflops(device=dev)
+    mem = obs.machine_mem_gbps(device=dev)
+    detail["calibrated"] = {"f32_gflops": peak, "mem_gbps": mem}
+    print(json.dumps({"calibrated_peaks": detail["calibrated"],
+                      "probe": "IEEE f32 8192^3 matmul; copy of 1 GiB",
+                      "card": smi}))
+    report_nets = {"vnet": nets.vnet_graph(in_spatial=VNET_SPATIAL,
+                                           chans=VNET_CHANS),
+                   "dcgan": nets.dcgan()}
+    detail["runtime_report"] = {}
+    for net_name, network in report_nets.items():
+        rpt = obs.measure_network(network, UniformEngine(device=dev),
+                                  batch=BATCH, repeats=3, name=net_name)
+        order = (list(network.order) if isinstance(network, nets.UniformGraph)
+                 else [l.name for l in network])
+        check([r.name for r in rpt.layers] == order,
+              f"{net_name}: report rows {[r.name for r in rpt.layers]}")
+        for r in rpt.layers:
+            print(json.dumps({"fig6": net_name, "node": r.name, "op": r.op,
+                              "ms": r.measured_s * 1e3,
+                              "host_ms": r.host_s * 1e3,
+                              "gflops": r.achieved_gflops,
+                              "f32_roof_share": r.utilization,
+                              "blocks": r.blocks, "splits": r.splits}))
+            if r.op in ("conv", "deconv"):
+                check(r.measured_s > 0, f"{net_name}/{r.name}: no time")
+            check(r.utilization <= 1.05, f"{net_name}/{r.name}: "
+                  f"{r.utilization:.3f} of the calibrated f32 roof")
+        check(rpt.utilization <= 1.05, f"{net_name}: whole network at "
+              f"{rpt.utilization:.3f} of the calibrated f32 roof")
+        print(json.dumps({"fig6_network": net_name, "batch": BATCH,
+                          "net_ms": rpt.net_wall_s * 1e3,
+                          "net_host_ms": rpt.net_host_s * 1e3,
+                          "sum_layer_ms": rpt.sum_layer_s * 1e3,
+                          "gflops": rpt.achieved_gflops,
+                          "f32_roof_share": rpt.utilization,
+                          "peak_gflops": rpt.peak_gflops}))
+        detail["runtime_report"][net_name] = rpt.to_json()
+
+    # the instrumented callable: the schedule's launches per call, the bare
+    # callable's bits, one dispatch recorded per call
+    tel = obs.Telemetry.create()
+    inst_eng = UniformEngine(EngineConfig(telemetry=tel, device=dev))
+    bare_eng = UniformEngine(device=dev)
+    for net_name, network in report_nets.items():
+        ws = tree.tree_map(lambda t: t.to(dev), init_network_weights(
+            network, torch.Generator().manual_seed(0)))
+        first = (network.in_shape if isinstance(network, nets.UniformGraph)
+                 else (network[0].in_spatial, network[0].cin))
+        x = rand((BATCH, *first[0], first[1]), torch.float32)
+        inst, sched = compile_network(network, inst_eng, batch=BATCH)
+        bare, _ = compile_network(network, bare_eng, batch=BATCH)
+        with torch.inference_mode():
+            want = bare(ws, x)
+            for call in range(3):
+                before = dk.launches + ck.launches
+                got = inst(ws, x)
+                n = dk.launches + ck.launches - before
+                check(n == sched.kernel_launches, f"{net_name}: the "
+                      f"instrumented call launched {n}, the schedule "
+                      f"{sched.kernel_launches}")
+                check(torch.equal(got, want), f"{net_name}: instrumented "
+                      f"output differs from the bare one")
+        hist = tel.registry.get("engine_dispatch_seconds",
+                                schedule=inst.telemetry_tag)
+        check(hist is not None and hist.count == 3,
+              f"{net_name}: dispatch histogram {hist}")
+        print(json.dumps({"instrumented": net_name,
+                          "launches_per_call": sched.kernel_launches,
+                          "dispatch_ms": [1e3 * v for v in hist.samples()]}))
+        del ws, x, want, got
+
+    # the server's registry, exported after one served batch
+    esrv = DcnnServer([gen_spec], max_batch=BATCH)
+    for x_ in seeds[:BATCH]:
+        esrv.submit(ServeRequest("dcgan_gen", x_))
+    got = esrv.step()
+    check(len(got) == BATCH and all(r_.ok for r_ in got),
+          f"export batch: {[r_.code for r_ in got]}")
+    prom = obs.render_prometheus(esrv.telemetry.registry)
+    exported = obs.render_json(esrv.telemetry.registry, indent=None)
+    check(json.loads(exported)["serve_completed_total"][0]["value"] == BATCH
+          and "# TYPE engine_dispatch_seconds summary" in prom,
+          "server registry export")
+    print(prom, end="")
+    print(json.dumps({"registry_json": json.loads(exported)}))
+    detail["registry_export"] = {"prometheus": prom,
+                                 "json": json.loads(exported)}
+    del esrv
+    report_launches = {"deconv": dk.launches - launches_before[0],
+                       "conv": ck.launches - launches_before[1]}
+    detail["runtime_report_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"runtime_report_launches": report_launches,
+                      "phase_s": detail["runtime_report_s"]}))
+    torch.cuda.empty_cache()
+
+    # -- 7. tune ----------------------------------------------------------------
+    # tune.tune_network at batch 4 (the server's), measure_topk=3: V-Net's
+    # graph in f32 (the FMA route) and under w:int8 (the TF32 route), DCGAN's
+    # chain in f32.  Every candidate the tuner measured then launches once
+    # more at full width through the wrappers, held against its plain
+    # version (f32: TOL; f32 x int8: W8_TOL against float64); the checks
+    # run after the timing, since a plain version run between a
+    # candidate's warm call and its timed calls slowed them by up to 0.2
+    # ms.  Then the cache is saved under build/, reloaded search-free, and
+    # a V-Net batch served on the tuned plans is held against the untuned
+    # server's.  The probes' launches are reported on their own
+    phase("tune")
+    t_phase = time.perf_counter()
+    launches_before = (dk.launches, ck.launches)
+    tune_checks: dict = {}
+    wrapped_fwd = {"deconv": (dk, "deconv_fwd"), "conv": (ck, "conv_fwd")}
+    real_fwd = {op: getattr(m, n) for op, (m, n) in wrapped_fwd.items()}
+
+    def checked(op):
+        real = real_fwd[op]
+
+        def launch(a, b, **kw):
+            y = real(a, b, **kw)
+            key = (op, tuple(a.shape), str(a.dtype), tuple(b.shape),
+                   str(b.dtype), kw["block_co"], kw["split"])
+            if key not in tune_checks:
+                torch.cuda.synchronize()
+                w8_ = b.dtype == torch.int8
+                ref = (run_plain64 if w8_ else run_plain)(op, (a, b, kw,
+                                                               None))
+                tol = W8_TOL if w8_ else TOL["float32"]
+                err = float((y.double() - ref.double()).abs().max())
+                mag = float(ref.double().abs().max())
+                tune_checks[key] = {"rel_err": err / mag if mag else err,
+                                    "tol": tol}
+                del ref
+            return y
+        return launch
+
+    model = tune.LatencyModel.calibrate(device=dev)
+    w8 = quant.Precision(weight_quant="int8")
+    sweeps = (("vnet", "f32", report_nets["vnet"], quant.Precision()),
+              ("vnet", "w:int8", report_nets["vnet"], w8),
+              ("dcgan", "f32", report_nets["dcgan"], quant.Precision()))
+    cache = tune.TunedPlanCache()
+    results = []
+    for net_name, policy, network, prec in sweeps:
+        _, res = tune.tune_network(network, batch=BATCH, measure_topk=3,
+                                   repeats=TUNE_REPEATS, model=model,
+                                   device=dev, precision=prec, cache=cache)
+        results += [(net_name, policy, r) for r in res]
+    tune_s = time.perf_counter() - t_phase
+    # each winner that is not the heuristic, timed again in turns (winner,
+    # heuristic, winner, heuristic): with the tuner's own, each such plan
+    # has three times, and the run's spread is the largest (max - min) /
+    # min of one plan's
+    retimed = {}
+    for net_name, policy, r in results:
+        if r.improved:
+            retimed[r.key] = [tune.measure_plan(
+                p, r.geometry, repeats=TUNE_REPEATS, batch=BATCH, device=dev)
+                for p in (r.plan, r.heuristic) * 2]
+    for op, (m, n) in wrapped_fwd.items():
+        setattr(m, n, checked(op))
+    try:
+        for net_name, policy, r in results:
+            by_name = {p.describe(): p
+                       for p in tune.candidate_plans(r.geometry)}
+            for name_ in r.measured:
+                tune.measure_plan(by_name[name_], r.geometry, repeats=1,
+                                  batch=BATCH, device=dev)
+    finally:
+        for op, (m, n) in wrapped_fwd.items():
+            setattr(m, n, real_fwd[op])
+    times_of = [times for _, _, r in results if r.key in retimed
+                for times in ((r.entry.measured_s, *retimed[r.key][0::2]),
+                              (r.entry.heuristic_measured_s,
+                               *retimed[r.key][1::2]))]
+    spread = max([(max(ts) - min(ts)) / min(ts) for ts in times_of],
+                 default=0.0)
+    tune_rows = []
+    for net_name, policy, r in results:
+        e = r.entry
+        row = {"network": net_name, "policy": policy, "key": r.key,
+               "heuristic": r.heuristic.describe(),
+               "heuristic_ms": e.heuristic_measured_s * 1e3,
+               "winner": r.plan.describe(), "winner_ms": e.measured_s * 1e3,
+               "source": e.winner_source, "measured": {
+                   k: v * 1e3 for k, v in r.measured.items()}}
+        check(e.measured_s <= e.heuristic_measured_s,
+              f"{r.key}: winner {e.measured_s} above the heuristic's "
+              f"{e.heuristic_measured_s}")
+        if r.key in retimed:
+            ts = retimed[r.key]
+            row["retimed_ms"] = [t_ * 1e3 for t_ in ts]
+            check(min(ts[0], ts[2]) <= min(ts[1], ts[3]) * (1 + spread),
+                  f"{r.key}: retimed winner {ts[0::2]} vs heuristic "
+                  f"{ts[1::2]} beyond the run's spread {spread:.3g}")
+        tune_rows.append(row)
+        print(json.dumps({"tuned": row}))
+    for key, c in sorted(tune_checks.items(), key=str):
+        check(c["rel_err"] <= c["tol"], f"tuned launch {key}: relative "
+              f"error {c['rel_err']:.3g} above {c['tol']}")
+    n_measured = sum(len(r.measured) for _, _, r in results)
+    check(len(tune_checks) == n_measured, f"{len(tune_checks)} checked "
+          f"launches of {n_measured} measured candidates")
+    print(json.dumps({"tune_checks": len(tune_checks), "max_rel_err": {
+        tol: max(c["rel_err"] for c in tune_checks.values()
+                 if c["tol"] == tol) for tol in {c["tol"] for c in
+                                                 tune_checks.values()}},
+        "run_spread": spread}))
+    changed = [r.key for _, _, r in results if r.improved]
+    sums = {}
+    for net_name, policy, r in results:
+        row_ = sums.setdefault(f"{net_name}:{policy}", {
+            "geometries": 0, "changed": 0, "heuristic_ms": 0.0,
+            "tuned_ms": 0.0, "model_top1_is_winner": 0})
+        row_["geometries"] += 1
+        row_["changed"] += r.improved
+        row_["heuristic_ms"] += r.entry.heuristic_measured_s * 1e3
+        row_["tuned_ms"] += r.entry.measured_s * 1e3
+        row_["model_top1_is_winner"] += r.plan == model.rank(
+            tune.distinct_launches(tune.candidate_plans(r.geometry),
+                                   r.geometry, batch=BATCH),
+            r.geometry, batch=BATCH)[0]
+    print(json.dumps({"tuned_geometries": len(results),
+                      "changed_from_heuristic": len(changed),
+                      "per_network": sums}))
+
+    # persist, reload strictly, replan every network search-free
+    cache.meta.update({"batch": BATCH, "card": smi})
+    path = cache.save(ROOT / "build" / "chip_smoke_tuned_plans.json")
+    loaded = tune.TunedPlanCache.load(path, strict=True)
+    check(len(loaded) == len(results), f"reloaded {len(loaded)} entries")
+    from repro_torch.launch.tune import verify_zero_search
+    zero = {policy: verify_zero_search(
+        loaded, {"vnet": report_nets["vnet"]} if policy == "w:int8"
+        else report_nets, device=dev, precision=prec)
+        for _, policy, _, prec in sweeps[:2]}
+    print(json.dumps({"zero_search_reload": zero}))
+
+    # one V-Net batch served on the tuned plans against the untuned server's
+    tsrv = DcnnServer([vol_spec], max_batch=BATCH, engine=UniformEngine(
+        EngineConfig(tuned_plans=loaded, strict_vmem=True, device=dev)))
+    for x_ in vols:
+        tsrv.submit(ServeRequest("vnet", x_))
+    before = (dk.launches, ck.launches)
+    got = tsrv.step()
+    delta = (dk.launches - before[0], ck.launches - before[1])
+    check(delta == (4, 10), f"tuned V-Net batch launched {delta}")
+    srcs = tsrv.engine.plan_sources
+    check(srcs["heuristic"] == 0 and srcs["tuned"] > 0,
+          f"tuned server planned {srcs}")
+    t_errs = []
+    for r_, rid in zip(got, vnet_ids):
+        check(r_.ok and r_.engine == "pallas",
+              f"tuned batch: {r_.code} on {r_.engine!r}")
+        ref = by_id[rid].output
+        t_errs.append(float(np.abs(r_.output - ref).max()
+                            / np.abs(ref).max()))
+    check(max(t_errs) <= SERVE_TOL, f"tuned V-Net batch {max(t_errs):.3g} "
+          f"from the untuned server's")
+    del tsrv
+    # V-Net's graph on the heuristic's plans and on the tuned ones, inputs
+    # on the card, in turns (heuristic, tuned, tuned, heuristic; CUDA
+    # events, median of 5 groups of 3 calls)
+    graph_ms = {}
+    vnet_ws = tree.tree_map(lambda t: t.to(dev), init_network_weights(
+        report_nets["vnet"], torch.Generator().manual_seed(0)))
+    vx = rand((BATCH, *VNET_SPATIAL, 1), torch.float32)
+    for policy, prec in (("f32", quant.Precision()), ("w:int8", w8)):
+        ws_ = quant.quantize_weights(vnet_ws, prec)
+        fns = {plans: compile_network(report_nets["vnet"], UniformEngine(
+            EngineConfig(precision=prec, device=dev, tuned_plans=(
+                loaded if plans == "tuned" else None))), batch=BATCH)[0]
+            for plans in ("heuristic", "tuned")}
+        with torch.inference_mode():
+            for plans in ("heuristic", "tuned", "tuned", "heuristic"):
+                graph_ms.setdefault(policy, {}).setdefault(plans, []).append(
+                    per_call_ms(lambda f=fns[plans]: f(ws_, vx), 3))
+    print(json.dumps({"vnet_graph_ms": graph_ms, "batch": BATCH,
+                      "card": smi}))
+    del vnet_ws, vx
+    tune_launches = {"deconv": dk.launches - launches_before[0],
+                     "conv": ck.launches - launches_before[1]}
+    detail["tune"] = {"rows": tune_rows, "checks": len(tune_checks),
+                      "run_spread": spread, "changed": changed,
+                      "served_rel_err": t_errs, "plan_sources": srcs,
+                      "per_network": sums, "vnet_graph_ms": graph_ms,
+                      "probe_launches": tune_launches, "tune_s": tune_s,
+                      "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"tuned_serve_rel_err": t_errs, "plan_sources": srcs,
+                      "tune_probe_launches": tune_launches,
+                      "phase_s": detail["tune"]["phase_s"]}))
     torch.cuda.empty_cache()
 
     run_launches = {

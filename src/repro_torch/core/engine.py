@@ -27,8 +27,10 @@ weights reach the kernels as 1-byte operands with their per-cout dequant
 scale fused in the epilogue; ``act_quant="int8"`` adds a per-tensor int8
 quantization of each layer's input on the device, its scale folded into
 the weights'.  The reference lowerings dequantize the weights up front
-and fake-quantize the activations instead (``_dequant_host``).  The mesh
-and the tuned-plan paths come with later ROADMAP items.
+and fake-quantize the activations instead (``_dequant_host``).  A
+``repro_torch.tune.TunedPlanCache`` in ``EngineConfig(tuned_plans=...)``
+gives the planner the autotuner's measured plans first.  The mesh comes
+with a later ROADMAP item.
 """
 
 from __future__ import annotations
@@ -108,8 +110,14 @@ class EngineConfig:
     ``strict_vmem`` turns an over-budget plan into a ``VmemBudgetError``
     (on every method: a schedule plans its layers whatever the method).
     ``telemetry`` (a ``repro_torch.obs.Telemetry``) records plan-cache and
-    compile instruments.  ``device`` is where the engine runs: ``"cuda"``
-    by default; ``"cpu"`` runs the kernels' plain versions.
+    compile instruments, and makes ``compile_network`` time each call of
+    its callable (``obs.instrument_apply``).  ``tuned_plans`` (a
+    ``repro_torch.tune.TunedPlanCache``) is the autotuner's output: on a
+    plan-cache miss of a forward geometry the engine takes its entry
+    before the heuristic, unless the entry's shared memory exceeds this
+    config's budget; like ``Telemetry`` it hashes by identity.  ``device``
+    is where the engine runs: ``"cuda"`` by default; ``"cpu"`` runs the
+    kernels' plain versions.
     """
     method: str = "pallas"
     preferred_element_type: Any = None
@@ -120,6 +128,7 @@ class EngineConfig:
     strict_vmem: bool = False
     telemetry: Any = None
     device: Any = "cuda"
+    tuned_plans: Any = None
 
     def __post_init__(self):
         if self.method not in METHODS:
@@ -185,6 +194,9 @@ class UniformEngine:
         self.config = config
         self.device = config.device
         self._plans: dict[tuple, _tiling.DeconvTilePlan] = {}
+        # where each plan-cache miss took its plan from: the tuned cache or
+        # the heuristic (telemetry's source counters, without telemetry)
+        self.plan_sources: dict[str, int] = {"tuned": 0, "heuristic": 0}
 
     def __repr__(self):
         return (f"UniformEngine({self.config!r}, "
@@ -201,12 +213,18 @@ class UniformEngine:
              rows: int | None = None):
         """The engine's only path to the tile planner — geometry-memoized.
 
-        ``backward=True`` plans the layer's backward instead (a
-        ``BackwardPlan``: the dx launch on the other forward kernel and the
-        dw kernel), keyed apart from the forward as the JAX package keys
-        it.  ``rows`` is then the dw reduction's length — the batch times
-        the positions of the unstrided operand (x for a deconv, dy for a
-        conv) — which sets the split of the reduction.
+        ``mode="conv"`` takes the padded input extent, as the JAX planner
+        does.  A forward geometry's miss takes the ``tuned_plans`` entry
+        for its key when there is one within the budget, else runs the
+        heuristic (``plan_sources``; with telemetry the
+        ``engine_plan_tuned_hits_total`` / ``engine_plan_heuristic_total``
+        counters).  ``backward=True`` plans the layer's backward instead
+        (a ``BackwardPlan``: the dx launch on the other forward kernel and
+        the dw kernel), keyed apart from the forward as the JAX package
+        keys it, always by the heuristic.  ``rows`` is then the dw
+        reduction's length — the batch times the positions of the
+        unstrided operand (x for a deconv, dy for a conv) — which sets the
+        split of the reduction.
         """
         dilation = (tuple(dilation) if dilation is not None
                     else (1,) * len(tuple(in_spatial)))
@@ -224,7 +242,15 @@ class UniformEngine:
         if plan is None:
             cfg = self.config
             t0 = time.perf_counter()
-            if backward:
+            tuned = None
+            if cfg.tuned_plans is not None and not backward:
+                tuned = cfg.tuned_plans.lookup(key,
+                                               smem_budget=cfg.smem_budget)
+            if tuned is not None:
+                # the autotuner measured this geometry: its winner, no
+                # heuristic work
+                plan = tuned
+            elif backward:
                 # dx: the other forward kernel, channel roles swapped
                 dx = _tiling.plan_uniform_tiles(
                     int(cout), int(cin),
@@ -244,8 +270,13 @@ class UniformEngine:
                     block_co=cfg.block_co, groups=groups,
                     in_dtype_bytes=in_dtype_bytes, w_dtype_bytes=w_bytes)
             self._plans[key] = plan
+            self.plan_sources["tuned" if tuned is not None
+                              else "heuristic"] += 1
             if tel is not None:
                 tel.registry.counter("engine_plan_cache_misses_total").inc()
+                tel.registry.counter(
+                    "engine_plan_tuned_hits_total" if tuned is not None
+                    else "engine_plan_heuristic_total").inc()
                 tel.registry.histogram("engine_plan_seconds").observe(
                     time.perf_counter() - t0)
         elif tel is not None:
@@ -544,20 +575,16 @@ def _schedule_layer(layer: _networks.UniformLayer, engine: UniformEngine,
     prec = (layer.precision if layer.precision is not None
             else engine.config.precision)
     a_bytes, w_bytes = prec.operand_bytes(dtype)
-    plan = engine.plan(layer.op, sp3, k3, s3, layer.cin, layer.cout,
+    key_sp = _kcommon.padded_extent(sp3, p3) if layer.op == "conv" else sp3
+    plan = engine.plan(layer.op, key_sp, k3, s3, layer.cin, layer.cout,
                        groups=g, dilation=dil3, in_dtype_bytes=a_bytes,
                        w_dtype_bytes=w_bytes)
-    if layer.op == "deconv":
-        mt = _kcommon.phase_geometry(k3, s3, dil3)
-        q = tuple(i + m - 1 for i, m in zip(sp3, mt))
-        rows, phases = batch * math.prod(q), math.prod(s3)
-        depth = math.prod(mt) * (layer.cin // g)
-        sparsity = insertion_sparsity(layer.in_spatial, layer.kernel,
-                                      layer.stride)
-    else:
-        rows, phases = batch * math.prod(layer.out_spatial), 1
-        depth = math.prod(k3) * (layer.cin // g)
-        sparsity = 0.0
+    rows, phases, depth = _tiling.launch_shape(
+        layer.op, key_sp, k3, s3, layer.cin, groups=g, dilation=dil3,
+        batch=batch)
+    sparsity = (insertion_sparsity(layer.in_spatial, layer.kernel,
+                                   layer.stride)
+                if layer.op == "deconv" else 0.0)
     splits, _ = _tiling.launch_split(plan, rows, depth, layer.cout, g,
                                      phases)
     blocks = _tiling.grid_blocks(plan, rows, layer.cout, g, phases, splits)
@@ -677,7 +704,9 @@ def compile_network(layers: Sequence[_networks.UniformLayer]
     (``repro_torch.quant.quantize_weights``); ``report``'s ``precision``
     column shows each layer's resolved policy.
     Merge nodes own no weights; on ``"pallas"`` epilogues run inside the
-    kernels, on a reference lowering on each op's output.
+    kernels, on a reference lowering on each op's output.  With telemetry
+    ``apply`` comes wrapped in ``obs.instrument_apply``: each call is
+    timed into ``engine_dispatch_seconds`` and counted.
     """
     engine = engine if isinstance(engine, UniformEngine) else as_engine(engine)
     tel = engine.config.telemetry
@@ -713,12 +742,14 @@ def compile_network(layers: Sequence[_networks.UniformLayer]
             return h
     report = ScheduleReport(engine=engine.config, layers=rows, batch=batch)
     if tel is not None:
+        from repro_torch.obs.report import instrument_apply  # opt-in only
         dt = time.perf_counter() - t0
         tel.registry.histogram("engine_compile_seconds",
                                schedule=tag).observe(dt)
         tel.tracer.event("compile", schedule=tag,
                          method=engine.config.method, batch=batch,
                          layers=len(report.layers), duration_s=dt)
+        apply = instrument_apply(apply, tel, tag)
     return apply, report
 
 

@@ -18,8 +18,16 @@ threads and stages; what the budget bounds is the dynamic shared memory
 of one block, counted at the operands' true widths, against the 227 KB an
 sm_90 block may use.  Per launch, ``launch_split`` cuts the reduction
 into slices when the output alone gives the card less than a wave of
-blocks.  Plans differ from the TPU's by design: there is no leading-dim
-tile and no halo, because no block carries anything to another.
+blocks, unless the plan's split policy is ``"off"``.  Plans differ from
+the TPU's by design: there is no leading-dim tile and no halo, because no
+block carries anything to another.
+
+The autotuner's design space and cost live here too, beside the planner
+they extend: ``candidate_tile_plans`` (every tile of the route x both
+split policies, within the budget) and ``plan_cost_terms`` /
+``modeled_cost`` (a roofline over the launch's padded work and gathered
+bytes, plus per-wave and per-launch overheads, at the ``NOMINAL_*``
+roofs).
 
 The backward adds the dw kernel (``csrc/deconv_dw.cu``), a GEMM whose
 reduction runs over every input position: its plan picks the tile
@@ -35,6 +43,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+
+from repro_torch.kernels.common import phase_geometry
 
 # the most shared memory one sm_90 block may use (227 KB)
 SMEM_BUDGET = 232448
@@ -149,6 +160,9 @@ MAX_TAPS = 128
 SPLIT_UNIT = 32
 SPLIT_MIN_K = 128
 GRID_Z_LIMIT = 65535
+# a plan's reduction policy: "auto" splits short grids (launch_split),
+# "off" never does
+SPLIT_POLICIES = ("auto", "off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +171,10 @@ class DeconvTilePlan:
 
     ``step_smem_bytes`` is the modeled dynamic shared memory of one block
     (``stages`` operand stages plus the per-row coordinate table);
-    ``overflows`` says it exceeds ``smem_budget``.
+    ``overflows`` says it exceeds ``smem_budget``.  ``split`` is the
+    reduction's policy (``SPLIT_POLICIES``): ``"auto"`` lets
+    ``launch_split`` cut short grids' reductions into slices (the
+    heuristic's), ``"off"`` keeps every launch in one slice.
     """
     block_m: int
     block_ci: int
@@ -167,6 +184,7 @@ class DeconvTilePlan:
     smem_budget: int
     stages: int
     registers: int = TILE_REGISTERS
+    split: str = "auto"
 
     @property
     def overflows(self) -> bool:
@@ -174,7 +192,8 @@ class DeconvTilePlan:
 
     def describe(self) -> str:
         return (f"m{self.block_m}_ci{self.block_ci}_co{self.block_co}"
-                f"_t{self.threads}_smem{self.step_smem_bytes}")
+                f"_t{self.threads}_smem{self.step_smem_bytes}"
+                + ("_unsplit" if self.split == "off" else ""))
 
 
 def operand_route(in_dtype_bytes: int, w_dtype_bytes: int | None) -> str:
@@ -247,7 +266,8 @@ def plan_uniform_tiles(cin: int, cout: int, *, mode: str = "deconv",
                        block_ci: int | None = None,
                        block_co: int | None = None,
                        groups: int = 1, in_dtype_bytes: int = 4,
-                       w_dtype_bytes: int | None = None) -> DeconvTilePlan:
+                       w_dtype_bytes: int | None = None,
+                       split: str = "auto") -> DeconvTilePlan:
     """Pick the output-channel tile for one layer and model its smem
     (memoised: a pure function of its arguments).
 
@@ -256,10 +276,14 @@ def plan_uniform_tiles(cin: int, cout: int, *, mode: str = "deconv",
     / ``block_co`` must name an instantiated tile (``block_ci`` is fixed by
     the tile and the operand width: ``KernelTile.block_ci``).  The tile
     comes from the table of the operands' route (``ROUTE_TILES``,
-    ``operand_route``).
+    ``operand_route``).  ``split`` is the plan's reduction policy
+    (``SPLIT_POLICIES``).
     """
     if mode not in ("deconv", "conv"):
         raise ValueError(f"unknown mode {mode!r}; expected 'deconv'|'conv'")
+    if split not in SPLIT_POLICIES:
+        raise ValueError(f"split={split!r}; expected one of "
+                         f"{SPLIT_POLICIES}")
     if cin % groups or cout % groups:
         raise ValueError(f"groups={groups} must divide cin={cin}, "
                          f"cout={cout}")
@@ -285,7 +309,7 @@ def plan_uniform_tiles(cin: int, cout: int, *, mode: str = "deconv",
                           step_smem_bytes=step(tile.block_m, pairs,
                                                block_co, tile.stages),
                           smem_budget=smem_budget, stages=tile.stages,
-                          registers=tile.registers)
+                          registers=tile.registers, split=split)
 
 
 def _resident(smem_bytes: int, threads: int,
@@ -342,11 +366,128 @@ def launch_split(plan: DeconvTilePlan, rows: int, depth: int, cout: int,
                  groups: int, phases: int = 1) -> tuple[int, int]:
     """The split of one launch from its real shapes: ``rows`` (batch
     included), the deepest phase's reduction ``depth`` and the grid the
-    plan gives, against one wave of ``SMS`` x ``resident_blocks``.  Pure,
-    so memoised: the wrappers call it (and ``plan_uniform_tiles``) on
-    every launch."""
+    plan gives, against one wave of ``SMS`` x ``resident_blocks``; one
+    slice under the plan's ``split="off"``.  Pure, so memoised: the
+    wrappers call it (and ``plan_uniform_tiles``) on every launch, and the
+    schedule rows count the same slices."""
+    if plan.split == "off":
+        return split_reduction(1 << 30, depth, 1)
     return split_reduction(grid_blocks(plan, rows, cout, groups, phases),
                            depth, SMS * resident_blocks(plan), phases)
+
+
+# -- the autotuner's design space and cost -------------------------------------
+
+# H100 SXM data-sheet roofs (dense), per route: IEEE f32 FMAs on the CUDA
+# cores, TF32 and int8 on the tensor cores, and HBM3.  Nominal constants,
+# not measurements: ``repro_torch.tune.LatencyModel.calibrate`` replaces
+# the f32 roof and the bandwidth with the ``repro_torch.obs`` probes.  The
+# overheads only have to separate a plan of many waves or two launches
+# from one of few, not predict microseconds.
+NOMINAL_ROUTE_FLOPS = {"fma": 67e12, "tf32": 494.7e12, "s8": 1979e12}
+NOMINAL_MEM_BPS = 3.35e12
+NOMINAL_WAVE_OVERHEAD_S = 2e-6
+NOMINAL_LAUNCH_OVERHEAD_S = 5e-6
+
+
+def launch_shape(mode: str, in_spatial, kernel, stride, cin: int, *,
+                 groups: int = 1, dilation=None,
+                 batch: int = 1) -> tuple[int, int, int]:
+    """``(rows, phases, depth)`` of one forward launch of a lifted 3D
+    geometry, as the wrappers count them: the deconv runs ``prod(S)``
+    phases of ``I + M - 1`` positions per dim, each ``prod(M) x Cin/G``
+    pairs deep at most; the conv (``in_spatial`` its padded input)
+    ``prod(O)`` positions of ``prod(K) x Cin/G`` pairs.  ``batch``
+    multiplies the rows."""
+    dilation = (tuple(dilation) if dilation is not None
+                else (1,) * len(tuple(kernel)))
+    cig = cin // groups
+    if mode == "deconv":
+        mt = phase_geometry(kernel, stride, dilation)
+        q = [i + m - 1 for i, m in zip(in_spatial, mt)]
+        return batch * math.prod(q), math.prod(stride), math.prod(mt) * cig
+    out = [(i - ((k - 1) * d + 1)) // s + 1
+           for i, k, s, d in zip(in_spatial, kernel, stride, dilation)]
+    return batch * math.prod(out), 1, math.prod(kernel) * cig
+
+
+def plan_cost_terms(plan: DeconvTilePlan, in_spatial, kernel, stride,
+                    cin: int, cout: int, *, mode: str = "deconv",
+                    groups: int = 1, dilation=None, in_dtype_bytes: int = 4,
+                    w_dtype_bytes: int | None = None,
+                    batch: int = 1) -> dict:
+    """The accounting behind a plan's modeled latency, for one forward
+    launch of a lifted 3D geometry (``mode="conv"``: the padded input).
+
+    ``blocks`` and ``waves`` are the main pass's grid against one wave of
+    ``SMS`` x ``resident_blocks``; ``splits`` the slices ``launch_split``
+    gives.  ``flops`` is the padded work the blocks issue: rows padded to
+    ``block_m``, channels to ``block_co``, the reduction to whole
+    ``SPLIT_UNIT`` slices, times the passes of the route (two for f32
+    activations on the TF32 route).  ``bytes`` are the gathered operands,
+    A once per channel tile and tap and B once per row tile, plus the
+    output, plus the split pass's f32 slices written and read back.
+    ``launches`` is 1, or 2 when split."""
+    w_bytes = in_dtype_bytes if w_dtype_bytes is None else w_dtype_bytes
+    route = operand_route(in_dtype_bytes, w_bytes)
+    rows, phases, depth = launch_shape(mode, in_spatial, kernel, stride, cin,
+                                       groups=groups, dilation=dilation,
+                                       batch=batch)
+    cog = cout // groups
+    splits, per = launch_split(plan, rows, depth, cout, groups, phases)
+    blocks = grid_blocks(plan, rows, cout, groups, phases, splits)
+    wave = SMS * resident_blocks(plan)
+    row_tiles = -(-rows // plan.block_m)
+    co_tiles = -(-cog // plan.block_co)
+    passes = 2 if (route, in_dtype_bytes) == ("tf32", 4) else 1
+    flops = (2 * phases * groups * row_tiles * plan.block_m
+             * co_tiles * plan.block_co * splits * per * passes)
+    out_bytes = in_dtype_bytes if in_dtype_bytes in (2, 4) else 4
+    moved = phases * groups * (
+        in_dtype_bytes * rows * depth * co_tiles
+        + w_bytes * depth * cog * row_tiles
+        + out_bytes * rows * cog)
+    if splits > 1:
+        moved += 2 * 4 * splits * phases * rows * cout
+    return {"route": route, "blocks": blocks, "waves": -(-blocks // wave),
+            "splits": splits, "flops": flops, "bytes": moved,
+            "launches": 2 if splits > 1 else 1}
+
+
+def modeled_cost(terms: dict, *, route_flops: dict | None = None,
+                 mem_bps: float = NOMINAL_MEM_BPS,
+                 wave_overhead_s: float = NOMINAL_WAVE_OVERHEAD_S,
+                 launch_overhead_s: float = NOMINAL_LAUNCH_OVERHEAD_S,
+                 ) -> float:
+    """Seconds from ``plan_cost_terms``: ``max(flops / the route's roof,
+    bytes / bandwidth) + waves x wave overhead + launches x launch
+    overhead`` (``route_flops`` defaults to ``NOMINAL_ROUTE_FLOPS``)."""
+    roofs = NOMINAL_ROUTE_FLOPS if route_flops is None else route_flops
+    return (max(terms["flops"] / roofs[terms["route"]],
+                terms["bytes"] / mem_bps)
+            + terms["waves"] * wave_overhead_s
+            + terms["launches"] * launch_overhead_s)
+
+
+def candidate_tile_plans(cin: int, cout: int, *, mode: str = "deconv",
+                         smem_budget: int = SMEM_BUDGET, groups: int = 1,
+                         in_dtype_bytes: int = 4,
+                         w_dtype_bytes: int | None = None,
+                         ) -> list[DeconvTilePlan]:
+    """The tuner's design space for one layer: every instantiated tile of
+    the operands' route (``ROUTE_TILES``) under each split policy, those
+    within ``smem_budget``.  The heuristic's plan (``plan_uniform_tiles``
+    with no pins) is one of them whenever it fits; when nothing fits, the
+    list is the heuristic's over-budget plan alone."""
+    route = operand_route(in_dtype_bytes, w_dtype_bytes)
+    kw = dict(mode=mode, smem_budget=smem_budget, groups=groups,
+              in_dtype_bytes=in_dtype_bytes, w_dtype_bytes=w_dtype_bytes)
+    plans = [p for bco in sorted(ROUTE_TILES[route])
+             for split in SPLIT_POLICIES
+             for p in (plan_uniform_tiles(cin, cout, block_co=bco,
+                                          split=split, **kw),)
+             if not p.overflows]
+    return plans or [plan_uniform_tiles(cin, cout, **kw)]
 
 
 # -- the dw kernel (csrc/deconv_dw.cu) ----------------------------------------

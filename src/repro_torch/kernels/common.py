@@ -352,6 +352,12 @@ def lift_padding(pads, rank):
     return ((0, 0), (0, 0), pads[0])
 
 
+def padded_extent(spatial, pads):
+    """A conv input's extent with its (lo, hi) pads added: the spatial
+    part of a conv's plan key, as the JAX planner keys it."""
+    return tuple(i + lo + hi for i, (lo, hi) in zip(spatial, pads))
+
+
 def unlift_shape(n, out3, co, squeeze):
     """The op-level output shape of a lifted result: drop the singleton
     dims ``lift_3d`` inserted (``squeeze``, as tensor dims)."""

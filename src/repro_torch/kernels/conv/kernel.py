@@ -40,7 +40,7 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
              out_spatial, scale: torch.Tensor | None = None,
              bias: torch.Tensor | None = None, activation: str = "none",
              alpha: float = 0.2, out_dtype: torch.dtype | None = None,
-             block_co: int = 64) -> torch.Tensor:
+             block_co: int = 64, split: str = "auto") -> torch.Tensor:
     """Strided correlation on the canonical rank-3 layout.
 
     x: [N, D, H, W, Ci] (unpadded); w: [prod(K), Ci/G, Co] in kernel-element
@@ -50,7 +50,9 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
     ``y[o] = act(scale * sum_k x[o*S + k*dil - lo] w[k] + bias)`` over
     ``out_spatial`` output positions, reads outside x being zero, cast to
     ``out_dtype`` (default x's, f32 for int8 x).  int8 x int8 refuses a
-    reduction deeper than ``build.check_s8_depth`` allows.
+    reduction deeper than ``build.check_s8_depth`` allows.  ``block_co``
+    picks the output-channel tile and ``split`` the reduction's policy
+    (the plan's, ``tiling.SPLIT_POLICIES``).
     """
     global launches
     kernel, stride = tuple(kernel), tuple(stride)
@@ -85,7 +87,8 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
     plan = _tiling.plan_uniform_tiles(ci, co, mode="conv",
                                       block_co=block_co, groups=groups,
                                       in_dtype_bytes=x.element_size(),
-                                      w_dtype_bytes=w.element_size())
+                                      w_dtype_bytes=w.element_size(),
+                                      split=split)
     rows = n * math.prod(out_spatial)
     splits, per = _tiling.launch_split(
         plan, rows, math.prod(kernel) * (ci // groups), co, groups)

@@ -58,9 +58,9 @@ def conv_kernel_args(x, w, stride=1, padding=0, *, dilation=1,
     if any(o < 1 for o in out3):
         raise ValueError(f"conv of {tuple(x.shape)} with kernel {kernel3} "
                          f"and padding {pads3} has empty output {out3}")
-    plan = engine.plan("conv", x3.shape[1:4], kernel3, stride3,
-                       x3.shape[-1], co, groups=groups, dilation=dil3,
-                       in_dtype_bytes=x3.element_size(),
+    plan = engine.plan("conv", _common.padded_extent(x3.shape[1:4], pads3),
+                       kernel3, stride3, x3.shape[-1], co, groups=groups,
+                       dilation=dil3, in_dtype_bytes=x3.element_size(),
                        w_dtype_bytes=w3.element_size())
     # the int8 x int8 route reads its weights K-major (one phase)
     if x3.dtype == w3.dtype == torch.int8:
@@ -72,7 +72,7 @@ def conv_kernel_args(x, w, stride=1, padding=0, *, dilation=1,
                   out_spatial=out3, scale=_common.scale_vector(w_scale, co),
                   bias=bias, activation=activation, alpha=float(alpha),
                   out_dtype=engine.config.preferred_element_type,
-                  block_co=plan.block_co)
+                  block_co=plan.block_co, split=plan.split)
     shape = _common.unlift_shape(x.shape[0], out3, co, squeeze)
     return x3, w_flat, kwargs, shape
 
@@ -120,9 +120,10 @@ def conv_backward_args(x, w, dy, stride=1, padding=0, *, dilation=1,
     kernel3 = tuple(w3.shape[:3])
     ci, co = x3.shape[-1], w3.shape[-1]
     pad_lo = tuple(lo for lo, _ in pads3)
-    plan = engine.plan("conv", x3.shape[1:4], kernel3, stride3, ci, co,
-                       groups=groups, dilation=dil3,
-                       in_dtype_bytes=x3.element_size(), backward=True,
+    plan = engine.plan("conv", _common.padded_extent(x3.shape[1:4], pads3),
+                       kernel3, stride3, ci, co, groups=groups,
+                       dilation=dil3, in_dtype_bytes=x3.element_size(),
+                       backward=True,
                        rows=dy3.shape[0] * math.prod(dy3.shape[1:4]))
     geometry = dict(kernel=kernel3, stride=stride3, dilation=dil3,
                     groups=groups)

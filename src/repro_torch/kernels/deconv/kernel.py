@@ -54,7 +54,7 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
                out_spatial=None, scale: torch.Tensor | None = None,
                bias: torch.Tensor | None = None, activation: str = "none",
                alpha: float = 0.2, out_dtype: torch.dtype | None = None,
-               block_co: int = 64) -> torch.Tensor:
+               block_co: int = 64, split: str = "auto") -> torch.Tensor:
     """Polyphase IOM deconv on the canonical rank-3 layout.
 
     x: [N, D, H, W, Ci]; w_taps: [prod(K), Ci/G, Co] in the phase-major
@@ -69,7 +69,8 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     f32 for int8 x); ``scale`` is the per-cout dequant scale.
     The window may reach past the Eq. (1) extent (a conv's dx over input
     rows no tap reads); rows there hold the epilogue of a zero sum.
-    ``block_co`` picks the kernel's output-channel tile (the planner's).
+    ``block_co`` picks the kernel's output-channel tile and ``split`` the
+    reduction's policy (the plan's, ``tiling.SPLIT_POLICIES``).
     """
     global launches
     kernel, stride = tuple(kernel), tuple(stride)
@@ -110,7 +111,8 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     plan = _tiling.plan_uniform_tiles(ci, co, mode="deconv",
                                       block_co=block_co, groups=groups,
                                       in_dtype_bytes=x.element_size(),
-                                      w_dtype_bytes=w_taps.element_size())
+                                      w_dtype_bytes=w_taps.element_size(),
+                                      split=split)
     q = _ref.phase_rows((d, h, wd), kernel, stride, dilation, crop_lo,
                         out_spatial)
     rows, phases = n * math.prod(q), math.prod(stride)

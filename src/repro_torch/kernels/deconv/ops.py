@@ -75,7 +75,7 @@ def deconv_kernel_args(x, w, stride, padding=0, *, dilation=1,
                   out_spatial=out3, scale=_common.scale_vector(w_scale, co),
                   bias=bias, activation=activation, alpha=float(alpha),
                   out_dtype=engine.config.preferred_element_type,
-                  block_co=plan.block_co)
+                  block_co=plan.block_co, split=plan.split)
     shape = _common.unlift_shape(x.shape[0], out3, co, squeeze)
     return x3, w_taps, kwargs, shape
 

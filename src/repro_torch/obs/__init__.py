@@ -3,9 +3,12 @@
 ``Telemetry`` bundles the process-local ``MetricsRegistry`` (typed
 Counter/Gauge/Histogram instruments) with a span ``Tracer`` (bounded ring
 buffer + optional JSONL event log).  The engine (``EngineConfig(
-telemetry=...)``) and the server record into one of these.  Everything is
-host-side; the JAX package's runtime report (``obs/report.py``) and
-exporters are not ported yet.
+telemetry=...)``) and the server record into one of these.  ``report``
+measures networks node by node against the machine's roofs (the paper's
+Fig. 6 table, ``measure_network``) and times instrumented callables
+(``instrument_apply``); ``export`` renders a registry as JSON or
+Prometheus text.  Instruments are host-side: recording never launches
+anything on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +21,20 @@ from repro_torch.obs.metrics import (
     quantile,
 )
 from repro_torch.obs.trace import Span, Tracer
+from repro_torch.obs.report import (
+    LayerRuntime,
+    RuntimeReport,
+    instrument_apply,
+    machine_mem_gbps,
+    machine_peak_gflops,
+    measure_network,
+    timed_call,
+)
+from repro_torch.obs.export import (
+    registry_to_dict,
+    render_json,
+    render_prometheus,
+)
 
 
 class Telemetry:
@@ -76,9 +93,19 @@ __all__ = [
     "Counter",
     "Gauge",
     "Histogram",
+    "LayerRuntime",
     "MetricsRegistry",
+    "RuntimeReport",
     "Span",
     "Telemetry",
     "Tracer",
+    "instrument_apply",
+    "machine_mem_gbps",
+    "machine_peak_gflops",
+    "measure_network",
     "quantile",
+    "registry_to_dict",
+    "render_json",
+    "render_prometheus",
+    "timed_call",
 ]

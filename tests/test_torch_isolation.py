@@ -82,3 +82,22 @@ def test_quant_package_stands_alone():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["[]", "repro_torch.quant.precision"]
+
+
+@pytest.mark.parametrize("module", ["repro_torch.tune",
+                                    "repro_torch.launch.tune",
+                                    "repro_torch.obs.report",
+                                    "repro_torch.obs.export"])
+def test_telemetry_and_tuning_modules_stand_alone(module):
+    """The runtime report, the exporters and the autotuner port modules
+    of the JAX package whose own imports pull in jax (``repro.obs`` ->
+    ``obs/report.py``, ``repro.tune`` -> ``repro.core``); each loads
+    alone without either."""
+    code = (f"import sys, importlib; importlib.import_module({module!r}); "
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["[]"]

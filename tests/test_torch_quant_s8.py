@@ -140,7 +140,8 @@ def test_plain_fed_kmajor_matches_reference(op, rank, sp, cin, cout, k,
     x3, wk, kwargs, shape = args_fn(xq, wq, stride, pad, bias=_t(b),
                                     w_scale=scale * sx, engine=teng, **kw)
     assert wk.dim() == 4
-    kwargs = {k_: v for k_, v in kwargs.items() if k_ != "block_co"}
+    kwargs = {k_: v for k_, v in kwargs.items()
+              if k_ not in ("block_co", "split")}
     k3, s3, d3 = kwargs["kernel"], kwargs["stride"], kwargs["dilation"]
     w3 = wq.reshape(*k3, cin // groups, cout)
     if op == "deconv":
