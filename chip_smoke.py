@@ -12,7 +12,9 @@ Phases, any failure of which exits non-zero before the result line:
      together); no object may report spill stores;
   3. kernels against their plain versions — every distinct forward
      geometry of full-width DCGAN and V-Net, served (batch 4) and trained
-     (DCGAN generator and discriminator at batch 64), in f32 and bf16,
+     (DCGAN generator and discriminator at batch 64), of the full-width
+     GP-GAN and 3D-GAN generators at batch 4 and of 3D-GAN's GAN train
+     step (generator and discriminator at batch 32), in f32 and bf16,
      plus groups, dilation, rank 1, K=5/S=1 and scale+leaky_relu cases;
      then the forward block's code paths, each in f32 and bf16, run twice
      for the same bits: a geometry split by the planner and forced
@@ -20,8 +22,8 @@ Phases, any failure of which exits non-zero before the result line:
      channel tiles, groups whose Cig is not a multiple of 4, forced
      splits; then the backward: dw and both dx routes at every training
      geometry (DCGAN generator and discriminator at batch 64, V-Net at
-     batch 4), f32 and bf16 operands, against the plain versions summed
-     in float64,
+     batch 4, 3D-GAN's at batch 32), f32 and bf16 operands, against the
+     plain versions summed in float64,
      and a conv's dx over input rows no tap reads (exactly zero there),
      also with its reduction forced into slices; then the dw kernel's
      code paths, each in f32 and bf16, run twice for the same bits: every
@@ -65,6 +67,12 @@ Phases, any failure of which exits non-zero before the result line:
      its gradients held against the port's CPU run; the serve phases also
      check that every result was served by ``"pallas"`` and no bucket fell
      back;
+     paper benchmarks — the full-width GP-GAN and 3D-GAN generators at
+     batch 4 through ``models.dcnn.generator_forward`` on the kernels (4
+     launches each, output finite, of the last layer's shape, within 3e-5
+     of max |y| of the same generator on the ``xla`` lowering), then two
+     GAN train steps of 3D-GAN at batch 32 through ``Trainer``: launches
+     per step exactly ``train_step_launches``, losses finite;
      reference methods — ``compile_network`` of both full-width graphs at
      batch 4 on each reference lowering (``oom``, ``xla``, ``iom``,
      ``iom_phase``: cuDNN and plain tensor code), the serve phase's
@@ -115,8 +123,24 @@ Phases, any failure of which exits non-zero before the result line:
      run's spread, the cache saved under ``build/``, reloaded with no
      heuristic fallback, a V-Net batch served on the tuned plans within
      1e-4 of the untuned one, and V-Net's graph timed on both plan sets
-     in turns.  These two phases' launches are reported on their own:
-     the ``"kernels"`` line counts the main paths' alone.
+     in turns;
+  8. paper figures — Fig. 1 (``sparsity``, all four benchmarks), Table II
+     (``tiling.ENGINE_2D``/``ENGINE_3D``, and ``tiling.gpu_blocking`` of
+     each network's layer 2 within the shared-memory budget), Fig. 6a
+     (``tiling.network_summary``), Fig. 6c (``obs.measure_network`` of the
+     four full-width generator chains at batch 4 on ``pallas`` and on
+     ``xla``: every layer timed, no share of the calibrated f32 roof above
+     1.05) and Fig. 7 (``comparison.modeled_comparison``, spec arithmetic,
+     and ``measured_cpu_speedup`` on the card for DCGAN's and 3D-GAN's
+     layer 2 at full width: ``oom``, ``iom_phase`` and the kernels within
+     3e-5 of max |y| of ``oom``'s output);
+  9. examples — each ``repro_torch.examples`` module's ``main`` on the
+     card: ``train_dcgan --full --steps 2 --method pallas``,
+     ``segment_vnet3d --steps 2 --method pallas``, ``serve_dcnn`` without
+     and with ``--inject-faults`` (one fallback, one recovery), and
+     ``quickstart``; each launches the hand kernels.
+     Phases 6-9's launches are reported on their own: the ``"kernels"``
+     line counts the main paths' alone.
 
 The line before the last is the ``{"kernels": [...]}`` summary: each
 kernel's ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums
@@ -245,6 +269,11 @@ BATCH = 4                        # the server's max_batch
 TUNE_REPEATS = 5
 # the port's counterparts of the JAX package's XLA-lowered methods
 REF_METHODS = ("oom", "xla", "iom", "iom_phase")
+# the paper's four benchmarks (core.networks.BENCHMARKS) and the two
+# generators the paper-benchmark path adds to DCGAN and V-Net
+PAPER_NETWORKS = ("dcgan", "gp_gan", "3d_gan", "v_net")
+PAPER_GENERATORS = ("gp_gan", "3d_gan")
+PAPER_TRAIN_STEPS = 2
 
 
 # the wrappers' tile arguments, which their plain versions do not take
@@ -468,11 +497,21 @@ def main() -> int:
                 out.append((model, l, batch))
         return out
 
-    # every forward geometry of the main path, served (batch 4) and
+    # the paper-benchmark path: the GP-GAN and 3D-GAN generators at full
+    # width, batch 4, and 3D-GAN's GAN train step at its config's batch (32)
+    paper_cfgs = {arch: get_config(arch) for arch in PAPER_GENERATORS}
+    gan3d_cfg = paper_cfgs["3d_gan"]
+    paper_layers = [(arch, l, BATCH) for arch in PAPER_GENERATORS
+                    for l in dcnn._generator_graph(arch, False).layers]
+    train_layers += [(f"3d_gan_{name}", l, gan3d_cfg.dcnn_batch)
+                     for name, graph in ST.train_graphs(gan3d_cfg).items()
+                     for l in graph.layers]
+
+    # every forward geometry of the main paths, served (batch 4) and
     # trained (V-Net trains at the served shapes)
     main_layers = distinct([("dcgan", l, BATCH) for l in dcgan_layers]
                            + [("vnet", l, BATCH) for l in vnet_layers]
-                           + train_layers)
+                           + paper_layers + train_layers)
 
     # -- 3. kernels against their plain versions ------------------------------
     phase("kernels vs plain versions")
@@ -1648,6 +1687,88 @@ def main() -> int:
     del p_q, gen_q, qgrads, qlogs
     torch.cuda.empty_cache()
 
+    # -- 4p. paper benchmarks ----------------------------------------------
+    # the GP-GAN and 3D-GAN generators at full width (batch 4) through
+    # models.dcnn.generator_forward on the kernels, each output held against
+    # the same generator on the xla lowering (cuDNN at IEEE f32) at REF_TOL;
+    # then two GAN train steps of 3D-GAN at its config's batch (32) through
+    # Trainer: launches per step exactly train_step_launches, losses finite
+    phase("paper benchmarks")
+    paper_launches = dict.fromkeys(ST.LAUNCH_COUNTERS, 0)
+    detail["paper_benchmarks"] = {}
+    xla_engine = UniformEngine(method="xla", device=dev)
+    zero_counts()                       # the paper-benchmark path starts
+    recording[0] = "paper_benchmarks"
+    for arch in PAPER_GENERATORS:
+        cfg = paper_cfgs[arch]
+        gen_p = ST.real_params(cfg, torch.Generator().manual_seed(4),
+                               dev)["gen"]
+        z = rand((BATCH, cfg.dcnn_z), torch.float32)
+        before = counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            y = dcnn.generator_forward(gen_p, cfg, z, engine)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            want = dcnn.generator_forward(gen_p, cfg, z, xla_engine)
+        got_l = {k: v - before[k] for k, v in counts().items()}
+        last = dcnn._generator_graph(arch, False).layers[-1]
+        rel = float((y - want).abs().max()) / float(want.abs().max())
+        row = {"generator": arch, "batch": BATCH, "shape": list(y.shape),
+               "launches": got_l, "rel_err_vs_xla": rel, "tol": REF_TOL,
+               "cold_s": fwd_s}
+        print(json.dumps(row))
+        detail["paper_benchmarks"][arch] = row
+        check(got_l == {"deconv_fwd": 4, "conv_fwd": 0, "deconv_dw": 0,
+                        "deconv_dx": 0}, f"{arch} generator launched {got_l}")
+        check(tuple(y.shape) == (BATCH, *last.out_spatial, last.cout),
+              f"{arch} generator output {tuple(y.shape)}")
+        check(bool(torch.isfinite(y).all()) and float(y.abs().max()) <= 1.0,
+              f"{arch} generator output not finite or beyond tanh's range")
+        check(rel <= REF_TOL, f"{arch} generator: kernels vs xla relative "
+              f"error {rel:.3g} above {REF_TOL}")
+        del gen_p, y, want
+    train_cfgs["3d-gan"] = gan3d_cfg
+    cfg, params, state, step_fn = train_setup("3d-gan", dev, engine)
+    want = ST.train_step_launches(cfg)
+    per_step = []
+
+    def counted_3d(p, s_, b):
+        before = counts()
+        out = step_fn(p, s_, b)
+        torch.cuda.synchronize()
+        per_step.append({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckdir:
+        tr3 = Trainer(counted_3d, params, state, batches("3d-gan", cfg, dev),
+                      TrainLoopConfig(total_steps=PAPER_TRAIN_STEPS,
+                                      checkpoint_every=PAPER_TRAIN_STEPS,
+                                      log_every=1, checkpoint_dir=ckdir))
+        t0 = time.perf_counter()
+        tr3.run()
+        train3_s = time.perf_counter() - t0
+    recording[0] = None                 # the paper-benchmark path ends
+    for k in paper_launches:
+        paper_launches[k] = counts()[k]
+    logs = tr3.metrics_log
+    row = {"train": "3d-gan", "batch": cfg.dcnn_batch, "steps": logs,
+           "launches_per_step": per_step, "expected_per_step": want,
+           "run_s": train3_s, "peak_mem_gb":
+           torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps(row))
+    detail["paper_benchmarks"]["train_3d_gan"] = row
+    check(tr3.step == PAPER_TRAIN_STEPS and len(logs) == PAPER_TRAIN_STEPS,
+          f"3d-gan: ran {tr3.step} steps, logged {len(logs)}")
+    check(all(math.isfinite(v) for r in logs for k, v in r.items()
+              if k.endswith("loss")), "3d-gan: a loss is not finite")
+    check(all(d == want for d in per_step),
+          f"3d-gan: launches per step {per_step}, expected {want}")
+    print(json.dumps({"paper_benchmark_launches": paper_launches}))
+    del tr3, params, state
+    torch.cuda.empty_cache()
+
     # -- 4d. reference methods -------------------------------------------------
     # the four reference lowerings (cuDNN and plain tensor code, the port's
     # counterparts of the JAX package's XLA methods) over the full-width
@@ -2579,15 +2700,173 @@ def main() -> int:
                       "phase_s": detail["tune"]["phase_s"]}))
     torch.cuda.empty_cache()
 
+    # -- 8. paper figures -------------------------------------------------
+    # the paper's figures from the package modules they live in: Fig. 1
+    # (insertion sparsity of all four benchmarks), Table II (both FPGA
+    # engines, and the Hopper blocking of each network's layer 2), Fig. 6a
+    # (the FPGA model per network), Fig. 6c (obs.measure_network of the
+    # four full-width generator chains at batch 4 on the kernels and on
+    # the xla lowering: every layer timed, no share of the calibrated f32
+    # roof above 1.05) and Fig. 7 (the platform models, spec arithmetic,
+    # and measured_cpu_speedup on the card at full width: oom, iom_phase
+    # and the kernels on the JAX package's layers, within REF_TOL of oom's
+    # output).  Not a main path: its launches are reported on their own
+    phase("paper figures")
+    from repro_torch.core import comparison, sparsity
+    t_phase = time.perf_counter()
+    launches_before = (dk.launches, ck.launches)
+    fig = {"fig1": {net: [(l.name, sparsity.layer_sparsity(l))
+                          for l in nets.benchmark_layers(net)]
+                    for net in PAPER_NETWORKS}}
+    means = {net: statistics.mean(s_ for _, s_ in rows)
+             for net, rows in fig["fig1"].items()}
+    print(sparsity.summarize())
+    check(means["3d_gan"] > means["dcgan"], f"Fig. 1: 3D sparsity "
+          f"{means['3d_gan']:.4f} not above 2D {means['dcgan']:.4f}")
+    fig["table2"] = {
+        name: {**dataclasses.asdict(e_), "total_pes": e_.total_pes,
+               "adder_tree_adders": e_.adder_tree_adders}
+        for name, e_ in (("2d", tiling.ENGINE_2D), ("3d", tiling.ENGINE_3D))}
+    fig["gpu_blocking"] = {}
+    for net in PAPER_NETWORKS:
+        l2 = nets.benchmark_layers(net)[1]
+        blk = tiling.gpu_blocking(l2.cin, l2.cout)
+        fig["gpu_blocking"][net] = {"layer": l2.name,
+                                    **dataclasses.asdict(blk)}
+        check(blk.smem_bytes <= blk.smem_budget,
+              f"{net}: blocking {blk} beyond the shared-memory budget")
+    fig["fig6a"] = {net: tiling.network_summary(net)
+                    for net in PAPER_NETWORKS}
+    for key in ("fig1", "table2", "gpu_blocking", "fig6a"):
+        print(json.dumps({key: fig[key]}))
+    fig["fig6c"] = {}
+    for net in PAPER_NETWORKS:
+        chain = nets.benchmark_layers(net)
+        for method in ("pallas", "xla"):
+            rpt = obs.measure_network(
+                chain, UniformEngine(method=method, device=dev), batch=BATCH,
+                repeats=3, peak_gflops=peak, name=net)
+            check([r.name for r in rpt.layers] == [l.name for l in chain],
+                  f"Fig. 6c {net}/{method}: rows {rpt.layers}")
+            for r in rpt.layers:
+                print(json.dumps({"fig6c": net, "method": method,
+                                  "node": r.name, "ms": r.measured_s * 1e3,
+                                  "host_ms": r.host_s * 1e3,
+                                  "gflops": r.achieved_gflops,
+                                  "f32_roof_share": r.utilization}))
+                check(r.measured_s > 0, f"Fig. 6c {net}/{method}/{r.name}: "
+                      f"no time")
+                check(r.utilization <= 1.05, f"Fig. 6c {net}/{method}/"
+                      f"{r.name}: {r.utilization:.3f} of the f32 roof")
+            print(json.dumps({"fig6c_network": net, "method": method,
+                              "batch": BATCH, "net_ms": rpt.net_wall_s * 1e3,
+                              "sum_layer_ms": rpt.sum_layer_s * 1e3,
+                              "gflops": rpt.achieved_gflops,
+                              "f32_roof_share": rpt.utilization}))
+            fig["fig6c"][f"{net}/{method}"] = rpt.to_json()
+    fig["fig7_modeled"] = {net: comparison.modeled_comparison(net)
+                           for net in PAPER_NETWORKS}
+    print(json.dumps({"fig7_modeled": fig["fig7_modeled"],
+                      "source": "public-spec platform models, not "
+                                "measurements"}))
+    fig["fig7_measured"] = {}
+    for net in ("dcgan", "3d_gan"):
+        res = comparison.measured_cpu_speedup(nets.benchmark_layers(net)[1],
+                                              repeats=10, device=dev)
+        print(json.dumps({"fig7_measured": net, **res, "card": smi}))
+        fig["fig7_measured"][net] = res
+        for m_, rel in res["max_rel_diff"].items():
+            check(rel <= REF_TOL, f"Fig. 7 {net}: {m_} vs oom relative "
+                  f"difference {rel:.3g} above {REF_TOL}")
+    fig["launches"] = {"deconv": dk.launches - launches_before[0],
+                       "conv": ck.launches - launches_before[1]}
+    fig["phase_s"] = time.perf_counter() - t_phase
+    detail["paper_figures"] = fig
+    print(json.dumps({"paper_figures_launches": fig["launches"],
+                      "phase_s": fig["phase_s"]}))
+    torch.cuda.empty_cache()
+
+    # -- 9. examples -------------------------------------------------------
+    # each example's main on the card with --method pallas: train_dcgan
+    # --full --steps 2 (DCGAN at batch 64), segment_vnet3d --steps 2,
+    # serve_dcnn without and with --inject-faults (one fallback, one
+    # recovery), quickstart as it is; each must launch the hand kernels.
+    # Their output goes to the --json file; not a main path
+    phase("examples")
+    import io
+
+    from repro_torch.examples import (
+        quickstart,
+        segment_vnet3d,
+        serve_dcnn,
+        train_dcgan,
+    )
+    t_phase = time.perf_counter()
+    detail["examples"] = {}
+    with tempfile.TemporaryDirectory() as ckdir:
+        runs = (("train_dcgan", train_dcgan.main,
+                 ["--full", "--steps", "2", "--method", "pallas",
+                  "--checkpoint-dir", ckdir]),
+                ("segment_vnet3d", segment_vnet3d.main,
+                 ["--steps", "2", "--method", "pallas"]),
+                ("serve_dcnn", serve_dcnn.main, []),
+                ("serve_dcnn --inject-faults", serve_dcnn.main,
+                 ["--inject-faults"]),
+                ("quickstart", quickstart.main, []))
+        for tag, fn, argv in runs:
+            zero_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = fn(argv)
+            torch.cuda.synchronize()
+            row = {"example": tag, "launches": counts(),
+                   "run_s": time.perf_counter() - t0}
+            out = buf.getvalue()
+            print(json.dumps(row))
+            print("  " + "\n  ".join(out.rstrip().splitlines()[-3:]))
+            detail["examples"][tag] = dict(row, stdout=out)
+            check(row["launches"]["deconv_fwd"] + row["launches"]["conv_fwd"]
+                  > 0, f"{tag}: no hand-kernel launch")
+            if tag == "train_dcgan":
+                check(res.step == 2 and all(
+                    math.isfinite(v) for r_ in res.metrics_log
+                    for k_, v in r_.items() if k_.endswith("loss")),
+                    f"{tag}: {res.step} steps, {res.metrics_log}")
+                check(row["launches"]["deconv_dw"] > 0, f"{tag}: no dw")
+            elif tag == "segment_vnet3d":
+                check(len(res["losses"]) == 2 and all(
+                    math.isfinite(v) for v in res["losses"]),
+                    f"{tag}: losses {res['losses']}")
+                check(row["launches"]["deconv_dw"] > 0, f"{tag}: no dw")
+            elif tag.startswith("serve_dcnn"):
+                faulted = tag.endswith("faults")
+                got = (res["fallbacks"], res["recoveries"])
+                check(out.rstrip().endswith("serve_dcnn OK")
+                      and res["completed"] == 8
+                      and got == ((1, 1) if faulted else (0, 0)),
+                      f"{tag}: completed {res['completed']}, (fallbacks, "
+                      f"recoveries) {got}")
+            else:
+                check(out.rstrip().endswith("quickstart OK"),
+                      f"{tag}: {out[-200:]}")
+    detail["examples_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"examples_s": detail["examples_s"]}))
+    torch.cuda.empty_cache()
+
     run_launches = {
         "deconv_fwd": {"serve": launches["deconv"],
                        "train": train_launches["deconv_fwd"],
-                       "serve_fallback": fb_launches["deconv"]},
+                       "serve_fallback": fb_launches["deconv"],
+                       "paper_benchmarks": paper_launches["deconv_fwd"]},
         "conv_fwd": {"serve": launches["conv"],
                      "train": train_launches["conv_fwd"],
-                     "serve_fallback": fb_launches["conv"]},
-        "deconv_dw": {"train": train_launches["deconv_dw"]},
-        "deconv_dx": {"train": train_launches["deconv_dx"]},
+                     "serve_fallback": fb_launches["conv"],
+                     "paper_benchmarks": paper_launches["conv_fwd"]},
+        "deconv_dw": {"train": train_launches["deconv_dw"],
+                      "paper_benchmarks": paper_launches["deconv_dw"]},
+        "deconv_dx": {"train": train_launches["deconv_dx"],
+                      "paper_benchmarks": paper_launches["deconv_dx"]},
         "deconv_fwd_int8": {"serve_quantized": q_launches["deconv"]},
         "conv_fwd_int8": {"serve_quantized": q_launches["conv"]}}
     summary = {"kernels": [
@@ -2645,7 +2924,8 @@ def main() -> int:
               f"{k}: timed paths {tot['ms_by_path']} vs the counted "
               f"{run_launches[k]}")
         # each path's share of ``ms``: the sum over the earlier slices'
-        # paths alone is the total without this slice's serve_fallback
+        # paths alone is the total without the later slices' paths
+        # (serve_fallback, paper_benchmarks)
         entry.update(launches=n, launches_by_path=run_launches[k],
                      max_abs_err=max_abs[k], ms=tot["ms"],
                      ms_by_path=tot["ms_by_path"],

@@ -551,11 +551,11 @@ class ScheduleReport:
 
     @property
     def kernel_launches(self) -> int:
-        """Hand-kernel launches per forward: one per layer node on
-        ``"pallas"``, none on a reference lowering."""
+        """Hand-kernel launches per forward: one per layer node with work
+        (blocks) on ``"pallas"``, none on a reference lowering."""
         if self.engine.method != "pallas":
             return 0
-        return sum(l.plan is not None for l in self.layers)
+        return sum(l.blocks > 0 for l in self.layers)
 
     def describe(self) -> str:
         head = (f"schedule[{self.engine.method}@{self.engine.device}] "
@@ -588,11 +588,15 @@ def _schedule_layer(layer: _networks.UniformLayer, engine: UniformEngine,
     splits, _ = _tiling.launch_split(plan, rows, depth, layer.cout, g,
                                      phases)
     blocks = _tiling.grid_blocks(plan, rows, layer.cout, g, phases, splits)
+    if layer.empty:
+        # a window with no sum: the op returns without a launch
+        splits = blocks = 0
     return LayerSchedule(
         name=layer.name, op=layer.op, in_spatial=layer.in_spatial,
         out_spatial=layer.out_spatial, cin=layer.cin, cout=layer.cout,
         kernel=layer.kernel, stride=layer.stride, plan=plan, blocks=blocks,
-        smem_bytes=plan.step_smem_bytes, macs=batch * layer.valid_macs,
+        smem_bytes=plan.step_smem_bytes,
+        macs=0 if layer.empty else batch * layer.valid_macs,
         sparsity=sparsity, groups=g, dilation=layer.dilation,
         epilogue=layer.epilogue.describe(), dtype=_dtype_name(dtype),
         splits=splits, precision=prec.describe())

@@ -195,14 +195,55 @@ def _crop(y: torch.Tensor, padding) -> torch.Tensor:
         slice(lo, dim - hi) for (lo, hi), dim in zip(pads, y.shape[1:-1]))]
 
 
+class _NoSum(torch.autograd.Function):
+    """f32 zeros of ``shape`` standing for a window that holds no sum: no
+    element of x or w reaches them, so both gradients are zeros of their
+    shapes, as the JAX package's are."""
+
+    @staticmethod
+    def forward(ctx, x, w, shape):
+        ctx.like = [(t.shape, t.dtype, t.device) for t in (x, w)]
+        ctx.set_materialize_grads(False)
+        return torch.zeros(shape, dtype=torch.float32, device=x.device)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*(torch.zeros(sh, dtype=dt, device=dev)
+                  for sh, dt, dev in ctx.like), None)
+
+
+def _no_sum(x: torch.Tensor, w: torch.Tensor, out_sp: Ints):
+    """``_NoSum`` of the ``[N, *out_sp, Co]`` result (extents clipped at
+    0) when x or that result has no position, else None: torch's
+    convolutions refuse a kernel larger than the padded input, and the
+    JAX package returns an empty array there."""
+    out_sp = tuple(max(int(o), 0) for o in out_sp)
+    if x.numel() and math.prod(out_sp):
+        return None
+    return _NoSum.apply(x, w, (x.shape[0], *out_sp, w.shape[-1]))
+
+
+def _deconv_no_sum(x, w, stride, padding, preferred_element_type,
+                   dilation=1):
+    """``_no_sum`` of a deconv's Eq. (1) extent less its crop, in
+    ``preferred_element_type``."""
+    y = _no_sum(x, w, deconv_output_shape(
+        x.shape[1:-1], w.shape[:x.dim() - 2], stride, padding, dilation))
+    return None if y is None else y.to(preferred_element_type)
+
+
 def correlate(x: torch.Tensor, w: torch.Tensor, stride: Ints, padding=0, *,
               dilation: Ints | int = 1, groups: int = 1) -> torch.Tensor:
     """Channels-last strided correlation (the reference's
     ``lax.conv_general_dilated``): x [N, *I, Ci], w [*K, Ci/G, Co], f32
     out; ``padding`` per ``canon_padding`` (asymmetric pads go through
-    ``F.pad``)."""
+    ``F.pad``).  An extent at or below 0 gives an empty result."""
     rank = x.dim() - 2
     pads = canon_padding(padding, rank)
+    empty = _no_sum(x, w, conv_output_shape(
+        x.shape[1:-1], w.shape[:rank], stride, pads, dilation))
+    if empty is not None:
+        return empty
     xn = _f32(x).movedim(-1, 1)
     if all(lo == hi for lo, hi in pads):
         pad = tuple(lo for lo, _ in pads)
@@ -233,6 +274,9 @@ def deconv_oom(x: torch.Tensor, w: torch.Tensor, stride: Ints,
                padding=0, *, preferred_element_type=torch.float32
                ) -> torch.Tensor:
     """OOM, the paper's baseline: zero-insert, then a dense convolution."""
+    empty = _deconv_no_sum(x, w, stride, padding, preferred_element_type)
+    if empty is not None:
+        return empty
     stride = _canon(stride, x.dim() - 2)
     y = _full_correlate(zero_insert(_f32(x), stride), w)
     return _crop(y.to(preferred_element_type), padding)
@@ -244,6 +288,10 @@ def deconv_xla(x: torch.Tensor, w: torch.Tensor, stride: Ints, padding=0,
     """``conv_transpose`` with kernel ``dilation`` and ``groups`` (w is
     ``[*K, Ci/G, Co]``, the lax grouping convention); the engine routes
     grouped and dilated layers of every reference method through here."""
+    empty = _deconv_no_sum(x, w, stride, padding, preferred_element_type,
+                           dilation)
+    if empty is not None:
+        return empty
     rank = x.dim() - 2
     kernel, cig, co = tuple(w.shape[:rank]), w.shape[rank], w.shape[-1]
     # [*K, Ci/G, Co] -> [Ci, Co/G, *K]: input group g feeds output
@@ -262,6 +310,9 @@ def deconv_iom(x: torch.Tensor, w: torch.Tensor, stride: Ints, padding=0,
                *, preferred_element_type=torch.float32) -> torch.Tensor:
     """IOM, the paper's Fig. 5: one matmul per input activation against
     the whole kernel, its K^d block overlap-added at o = i*S + k."""
+    empty = _deconv_no_sum(x, w, stride, padding, preferred_element_type)
+    if empty is not None:
+        return empty
     rank = x.dim() - 2
     stride = _canon(stride, rank)
     kernel = tuple(w.shape[:rank])
@@ -284,6 +335,9 @@ def deconv_iom_phase(x: torch.Tensor, w: torch.Tensor, stride: Ints,
                      ) -> torch.Tensor:
     """Polyphase IOM: output phase p is a stride-1 full correlation of the
     raw input with W_p[m] = W[m*S + p], written at o = q*S + p."""
+    empty = _deconv_no_sum(x, w, stride, padding, preferred_element_type)
+    if empty is not None:
+        return empty
     rank = x.dim() - 2
     stride = _canon(stride, rank)
     kernel = tuple(w.shape[:rank])

@@ -136,11 +136,23 @@ class UniformLayer:
 
     @property
     def out_spatial(self) -> tuple[int, ...]:
+        """The output extent per dim, clipped at 0: the shape the JAX
+        package's ``xla`` method gives a layer whose kernel or crop leaves
+        no position (its layer algebra goes negative there)."""
         z = zip(self.in_spatial, self.stride, self.effective_kernel,
                 self.padding)
         if self.op == "deconv":
-            return tuple((i - 1) * s + k - lo - hi for i, s, k, (lo, hi) in z)
-        return tuple((i + lo + hi - k) // s + 1 for i, s, k, (lo, hi) in z)
+            out = ((i - 1) * s + k - lo - hi for i, s, k, (lo, hi) in z)
+        else:
+            out = ((i + lo + hi - k) // s + 1 for i, s, k, (lo, hi) in z)
+        return tuple(max(o, 0) for o in out)
+
+    @property
+    def empty(self) -> bool:
+        """No kernel runs for this layer: its input or its output has no
+        position (the output is then empty, or the epilogue of a zero
+        sum)."""
+        return 0 in self.in_spatial or 0 in self.out_spatial
 
     @property
     def valid_macs(self) -> int:
@@ -189,6 +201,13 @@ def scale_channels(layers: Sequence[UniformLayer], div: int = 8,
     for i in range(1, len(out)):
         out[i] = dataclasses.replace(out[i], cin=out[i - 1].cout)
     return out
+
+
+def DeconvLayer(name, in_spatial, cin, cout, kernel, stride, crop):
+    """Compat constructor: the pre-uniform deconv-only layer spec."""
+    return UniformLayer(name=name, in_spatial=tuple(in_spatial), cin=cin,
+                        cout=cout, kernel=tuple(kernel), stride=tuple(stride),
+                        padding=tuple(crop), op="deconv")
 
 
 def deconv_stack(name: str, rank: int, start: int,
@@ -252,6 +271,14 @@ def vnet_decoder() -> list[UniformLayer]:
             kernel=(3, 3, 3), stride=(2, 2, 2), padding=((0, 1),) * 3))
         sp = tuple(2 * v for v in sp)
     return layers
+
+
+def vnet_encoder(in_spatial=(128, 128, 64)) -> list[UniformLayer]:
+    """V-Net encoder convs: 5 stages, stride 1 then 2x4, ending at the
+    (8, 8, 4) x 256 feature map the decoder deconvs consume, so
+    ``vnet_encoder() + vnet_decoder()`` chains as one uniform schedule."""
+    return conv_stack("vnet", in_spatial,
+                      [(1, 16), (16, 32), (32, 64), (64, 128), (128, 256)])
 
 
 BENCHMARKS = {

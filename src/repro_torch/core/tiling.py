@@ -37,6 +37,12 @@ how many row splits the reduction takes so that small-output,
 long-reduction layers still fill a wave; a second pass sums the splits
 in a fixed order.  ``BackwardPlan``
 pairs it with the dx launch's forward-kernel plan.
+
+The paper's own models sit beside the planner, as in the JAX package:
+``gpu_blocking`` reads a plan in Table II's Tm/Tn/Tz*Tr*Tc roles, and
+the FPGA half (``FpgaEngineConfig``, ``ENGINE_2D``/``ENGINE_3D``,
+``model_layer``, ``model_network``, ``network_summary``) regenerates
+Table II and Fig. 6a from the layer algebra alone.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import dataclasses
 import functools
 import math
 
+from repro_torch.core import networks
 from repro_torch.kernels.common import phase_geometry
 
 # the most shared memory one sm_90 block may use (227 KB)
@@ -624,3 +631,157 @@ class BackwardPlan:
         return (f"dx:{self.dx.describe()} dw:a{self.dw.block_a}"
                 f"_c{self.dw.block_c}_split{self.dw.splits}"
                 f"x{self.dw.rows_per_split}")
+
+
+# -- The paper's mapping onto Hopper -----------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GpuBlocking:
+    """Hopper-kernel blocking in the paper's Tm/Tn/Tz/Tr/Tc roles (the JAX
+    package's ``TpuBlocking``): Tm -> ``block_co`` (the block's output
+    channels), Tn -> ``block_ci`` (the (tap, channel) pairs one stage of
+    the reduction takes: the adder tree), Tz*Tr*Tc -> ``block_m`` (the
+    output positions one block owns); ``smem_bytes`` is the block's
+    modeled shared memory against ``smem_budget``."""
+    block_ci: int
+    block_co: int
+    block_m: int
+    smem_bytes: int
+    smem_budget: int = SMEM_BUDGET
+
+
+def gpu_blocking(cin: int, cout: int,
+                 smem_budget: int = SMEM_BUDGET) -> GpuBlocking:
+    """The deconv kernel's blocking for a layer of ``cin`` -> ``cout``
+    channels: a thin facade over ``plan_uniform_tiles``, so there is
+    exactly ONE shared-memory model.  A Hopper block gathers its own
+    rows, so the tile depends on the channels alone."""
+    plan = plan_uniform_tiles(cin, cout, mode="deconv",
+                              smem_budget=smem_budget)
+    return GpuBlocking(block_ci=plan.block_ci, block_co=plan.block_co,
+                       block_m=plan.block_m, smem_bytes=plan.step_smem_bytes,
+                       smem_budget=smem_budget)
+
+
+# -- Table II / Fig. 6a: the paper's FPGA engine and its model ----------------
+#
+# The paper maps a deconv layer onto a PE mesh blocked as ``Tm (out
+# channels) x Tn (in channels) x Tz x Tr x Tc (spatial)``, with one fixed
+# configuration for all 2D benchmarks and one for all 3D benchmarks (Table
+# II), and an analytic model (compute cycles vs DDR traffic with double
+# buffering) regenerates Fig. 6a: PE utilisation above 90% on all four
+# benchmarks except the memory-bound final layers of DCGAN/GP-GAN.  The
+# arithmetic is the JAX package's, verbatim.
+
+@dataclasses.dataclass(frozen=True)
+class FpgaEngineConfig:
+    """The paper's FPGA computation-engine configuration (Table II).
+
+    (The GPU-side runtime configuration is
+    ``repro_torch.core.engine.EngineConfig``; this dataclass models the
+    paper's fixed PE-mesh blocking.)
+    """
+    tm: int   # output-channel parallelism (PE groups)
+    tn: int   # input-channel parallelism (PE planes per group)
+    tz: int   # depth-direction PE planes (1 for 2D)
+    tr: int   # PE rows
+    tc: int   # PE cols
+    data_width: int = 16
+    freq_hz: float = 200e6
+    ddr_bytes_per_s: float = 25.6e9   # VC709 dual DDR3-1866
+
+    @property
+    def total_pes(self) -> int:
+        return self.tm * self.tn * self.tz * self.tr * self.tc
+
+    @property
+    def peak_macs_per_s(self) -> float:
+        return self.total_pes * self.freq_hz
+
+    @property
+    def adder_tree_adders(self) -> int:
+        # paper: Tm x Tc x Tz x log2(Tn) adders
+        return self.tm * self.tc * self.tz * int(math.log2(max(self.tn, 2)))
+
+
+# Table II, verbatim.
+ENGINE_2D = FpgaEngineConfig(tm=2, tn=64, tz=1, tr=4, tc=4)
+ENGINE_3D = FpgaEngineConfig(tm=2, tn=16, tz=4, tr=4, tc=4)
+
+if ENGINE_2D.total_pes != 2048 or ENGINE_3D.total_pes != 2048:
+    raise AssertionError("Table II's engines hold 2048 PEs each")
+
+
+def engine_for(rank: int) -> FpgaEngineConfig:
+    return ENGINE_3D if rank == 3 else ENGINE_2D
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPerf:
+    layer: str
+    compute_s: float
+    memory_s: float
+    total_s: float
+    pe_utilization: float        # compute-time occupancy (paper Fig. 6a)
+    real_tops: float             # valid (IOM) ops / time
+    effective_tops: float        # OOM-equivalent ops / time (zeros avoided)
+    memory_bound: bool
+
+
+def model_layer(layer: networks.UniformLayer,
+                engine: FpgaEngineConfig | None = None) -> LayerPerf:
+    """Double-buffered roofline model of one deconv layer on the engine.
+
+    Compute time: IOM executes exactly ``valid_macs``; the engine retires
+    ``total_pes`` MACs/cycle at the blocked efficiency (ceil effects when a
+    dim does not divide its tile).
+    Memory time: off-chip traffic at DDR bandwidth.  With double buffering
+    the layer time is max(compute, memory); the paper's utilisation metric
+    is compute / total.
+    """
+    engine = engine or engine_for(layer.rank)
+    # ceil-blocked MAC issue count (idle PEs when dims don't divide tiles)
+    sp = layer.in_spatial
+    if layer.rank == 3:
+        spatial_tiles = (math.ceil(sp[0] / engine.tr)
+                         * math.ceil(sp[1] / engine.tc)
+                         * math.ceil(sp[2] / engine.tz))
+        chan_par = engine.tn
+    else:
+        spatial_tiles = (math.ceil(sp[0] / engine.tr)
+                         * math.ceil(sp[1] / engine.tc))
+        chan_par = engine.tn * engine.tz   # 2D: Tz planes re-used for channels
+    blocks = (math.ceil(layer.cout / engine.tm)
+              * math.ceil(layer.cin / chan_par) * spatial_tiles)
+    # each PE needs prod(K) cycles per activation it owns
+    cycles = blocks * math.prod(layer.kernel)
+    compute_s = cycles / engine.freq_hz
+    memory_s = layer.bytes_moved(engine.data_width) / engine.ddr_bytes_per_s
+    total_s = max(compute_s, memory_s)
+    util = compute_s / total_s
+    return LayerPerf(
+        layer=layer.name,
+        compute_s=compute_s, memory_s=memory_s, total_s=total_s,
+        pe_utilization=util,
+        real_tops=2 * layer.valid_macs / total_s / 1e12,
+        effective_tops=2 * layer.oom_macs / total_s / 1e12,
+        memory_bound=memory_s > compute_s)
+
+
+def model_network(name: str) -> list[LayerPerf]:
+    return [model_layer(l) for l in networks.benchmark_layers(name)]
+
+
+def network_summary(name: str) -> dict:
+    perfs = model_network(name)
+    total = sum(p.total_s for p in perfs)
+    compute = sum(p.compute_s for p in perfs)
+    valid = sum(l.valid_macs for l in networks.benchmark_layers(name))
+    oom = sum(l.oom_macs for l in networks.benchmark_layers(name))
+    return {
+        "network": name,
+        "pe_utilization": compute / total,
+        "real_tops": 2 * valid / total / 1e12,
+        "effective_tops": 2 * oom / total / 1e12,
+        "memory_bound_layers": [p.layer for p in perfs if p.memory_bound],
+    }

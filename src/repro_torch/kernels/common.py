@@ -272,6 +272,18 @@ def apply_epilogue(y, bias, activation, alpha=0.2, scale=None):
     return y
 
 
+def no_sum_result(x, out_spatial, co, bias, activation, alpha, out_dtype):
+    """What a forward wrapper returns without a launch when its window
+    holds no sum: x or the ``[N, *out_spatial, Co]`` output has no
+    position.  The output is then empty, or the epilogue of a zero sum
+    (a scale leaves zero as it is).  None when there is a sum to run."""
+    if x.numel() and math.prod(out_spatial):
+        return None
+    y = torch.zeros((x.shape[0], *out_spatial, co), dtype=torch.float32,
+                    device=x.device)
+    return apply_epilogue(y, bias, activation, alpha).to(out_dtype)
+
+
 def activation_grad_from_output(y, activation, alpha=0.2):
     """d(act)/d(pre-activation) computed from the *output* y = act(pre).
 
@@ -457,6 +469,15 @@ def op_backward(ctx, dy, backward_args, dx_kernel, dw_kernel):
     dy, db = peel_epilogue(dy, y, b, activation, alpha, need_b)
     dx = dw = dscale = None
     if not (need_x or need_w or need_s):
+        return (dx, dw, db, dscale) + (None,) * 7
+    if not (x.numel() and dy.numel()):
+        # a window that held no sum: nothing reached y from x or w, so
+        # both gradients are zeros and no kernel runs
+        if need_x:
+            dx = torch.zeros_like(x)
+        if need_w or need_s:
+            wd = dequantized(w, w_scale)
+            dw, dscale = fold_scale(torch.zeros_like(wd), w, w_scale)
         return (dx, dw, db, dscale) + (None,) * 7
     dx_args, dw_args = backward_args(
         x, dequantized(w, w_scale), dy, stride, padding, dilation=dilation,

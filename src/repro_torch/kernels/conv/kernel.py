@@ -70,11 +70,15 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
                          f"groups={groups}, kernel={kernel}")
     if activation not in _common.ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
-    if any(o < 1 for o in out_spatial) or any(lo < 0 for lo in pad_lo):
+    if any(o < 0 for o in out_spatial) or any(lo < 0 for lo in pad_lo):
         raise ValueError(f"bad conv extent {out_spatial} / pad {pad_lo}")
     out_dtype = out_dtype or _build.default_out_dtype(x)
     scale32, bias32 = _build.check_operands(x, w, scale, bias, out_dtype,
                                             co=co)
+    y = _common.no_sum_result(x, out_spatial, co, bias, activation, alpha,
+                              out_dtype)
+    if y is not None:
+        return y
     route = _build.forward_route(x, w, math.prod(kernel) * (ci // groups))
     if x.device.type == "cpu":
         return _ref.conv_fwd_plain(

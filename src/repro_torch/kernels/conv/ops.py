@@ -54,10 +54,9 @@ def conv_kernel_args(x, w, stride=1, padding=0, *, dilation=1,
                                                _canon(stride, rank))
     kernel3 = tuple(w3.shape[:3])
     co = w3.shape[-1]
-    out3 = conv_output_shape(x3.shape[1:4], kernel3, stride3, pads3, dil3)
-    if any(o < 1 for o in out3):
-        raise ValueError(f"conv of {tuple(x.shape)} with kernel {kernel3} "
-                         f"and padding {pads3} has empty output {out3}")
+    # an extent at or below 0 is empty (the wrapper launches nothing)
+    out3 = tuple(max(o, 0) for o in conv_output_shape(
+        x3.shape[1:4], kernel3, stride3, pads3, dil3))
     plan = engine.plan("conv", _common.padded_extent(x3.shape[1:4], pads3),
                        kernel3, stride3, x3.shape[-1], co, groups=groups,
                        dilation=dil3, in_dtype_bytes=x3.element_size(),

@@ -91,12 +91,16 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     if out_spatial is None:
         out_spatial = tuple(f - lo for f, lo in zip(full, crop_lo))
     out_spatial = tuple(out_spatial)
-    if any(lo < 0 or o < 1 for lo, o in zip(crop_lo, out_spatial)):
+    if any(lo < 0 or o < 0 for lo, o in zip(crop_lo, out_spatial)):
         raise ValueError(f"crop {crop_lo} / extent {out_spatial} is not a "
                          f"window of the Eq. (1) extent {full}")
     out_dtype = out_dtype or _build.default_out_dtype(x)
     scale32, bias32 = _build.check_operands(x, w_taps, scale, bias,
                                             out_dtype, co=co)
+    y = _common.no_sum_result(x, out_spatial, co, bias, activation, alpha,
+                              out_dtype)
+    if y is not None:
+        return y
     deepest = max(len(t) for t in _common.kmajor_phase_taps(kernel, stride,
                                                             dilation))
     route = _build.forward_route(x, w_taps, deepest * (ci // groups))

@@ -63,7 +63,8 @@ def deconv_kernel_args(x, w, stride, padding=0, *, dilation=1,
                        in_dtype_bytes=x3.element_size(),
                        w_dtype_bytes=w3.element_size())
     full3 = deconv_output_shape(x3.shape[1:4], kernel3, stride3, 0, dil3)
-    out3 = tuple(f - lo - hi for f, (lo, hi) in zip(full3, pads3))
+    # a crop that leaves nothing is empty (the wrapper launches nothing)
+    out3 = tuple(max(f - lo - hi, 0) for f, (lo, hi) in zip(full3, pads3))
     # the int8 x int8 route reads its weights K-major; the others the
     # phase-major slabs
     if x3.dtype == w3.dtype == torch.int8:

@@ -117,8 +117,9 @@ def _graph_launches(graph, input_needs_grad: bool):
     """Launches of one forward+backward of ``graph`` per wrapper: the
     forward kernel of each layer, its dw, and its dx when its input needs
     a gradient (every layer's but the first, whose input needs one only
-    when ``input_needs_grad``).  ``deconv_fwd`` also runs each conv's dx
-    and ``conv_fwd`` each deconv's (``deconv_dx``)."""
+    when ``input_needs_grad``); none for an empty layer.  ``deconv_fwd``
+    also runs each conv's dx and ``conv_fwd`` each deconv's
+    (``deconv_dx``)."""
     n = dict.fromkeys(LAUNCH_COUNTERS, 0)
     needs = {graph.INPUT: input_needs_grad}
     for name in graph.order:
@@ -128,6 +129,8 @@ def _graph_launches(graph, input_needs_grad: bool):
             needs[name] = any(needs[p] for p in preds)
             continue
         needs[name] = True                  # its weights want a gradient
+        if nd.empty:                        # no sum: nothing launches
+            continue
         n[f"{nd.op}_fwd"] += 1
         n["deconv_dw"] += 1
         if needs[preds[0]]:
@@ -158,6 +161,8 @@ def train_step_launches(cfg: ModelConfig) -> dict[str, int]:
     # the pass over the fakes: forward and dx only (weights held fixed)
     fake = dict.fromkeys(LAUNCH_COUNTERS, 0)
     for l in graphs["disc"].layers:
+        if l.empty:
+            continue
         fake[f"{l.op}_fwd"] += 1
         fake["deconv_fwd" if l.op == "conv" else "conv_fwd"] += 1
         fake["deconv_dx"] += l.op == "deconv"
