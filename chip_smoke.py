@@ -13,8 +13,10 @@ Phases, any failure of which exits non-zero before the result line:
   3. kernels against their plain versions — every distinct forward
      geometry of full-width DCGAN and V-Net, served (batch 4) and trained
      (DCGAN generator and discriminator at batch 64), of the full-width
-     GP-GAN and 3D-GAN generators at batch 4 and of 3D-GAN's GAN train
-     step (generator and discriminator at batch 32), in f32 and bf16,
+     GP-GAN and 3D-GAN generators at batch 4, of 3D-GAN's GAN train
+     step (generator and discriminator at batch 32) and of the sharded
+     path (V-Net at 2 per rank, the DCGAN chain's channel shards at batch
+     4, DCGAN's GAN at 32 per rank), in f32 and bf16,
      plus groups, dilation, rank 1, K=5/S=1 and scale+leaky_relu cases;
      then the forward block's code paths, each in f32 and bf16, run twice
      for the same bits: a geometry split by the planner and forced
@@ -67,6 +69,26 @@ Phases, any failure of which exits non-zero before the result line:
      its gradients held against the port's CPU run; the serve phases also
      check that every result was served by ``"pallas"`` and no bucket fell
      back;
+     sharded — the multi-GPU path on ``torch.distributed``, its ranks
+     spawned (``torch.multiprocessing``, a ``file://`` rendezvous) after
+     the build, all on device 0: one rank over NCCL serves V-Net
+     data-parallel at batch 4 and runs two int8-compressed DP GAN steps of
+     DCGAN at batch 64; two ranks sharing the card over gloo (collectives
+     staged through the host, so no time there is NCCL's) serve V-Net at
+     2 per rank (the gathered shards within 1e-4 of max |y| of the
+     unsharded engine), run the full-width DCGAN generator chain on a
+     2-way model axis at batch 4 (within 1e-4 of the unsharded chain, each
+     collective's bytes equal to the report's ``collective_bytes``), three
+     DP GAN steps of DCGAN at 32 per rank with int8 and with f32
+     all-reduce (final losses within 5e-2, params equal on both ranks after
+     every step; the first f32 step's losses and AdamW first moment within
+     1e-4 of the mean of one process's steps on each rank's shard, and
+     within 1e-3 of its step on the whole batch of 64) and one DP V-Net
+     train step at 2 per rank; every DP step's bytes handed to
+     ``dist.all_reduce`` counted and held to its payload (the int8 path's
+     int32 sum is 4 B per element, as f32's mean); one launch per
+     layer node per rank, a train step's launches per step; a rank that
+     raises, exits or runs over 300 s fails the phase;
      paper benchmarks — the full-width GP-GAN and 3D-GAN generators at
      batch 4 through ``models.dcnn.generator_forward`` on the kernels (4
      launches each, output finite, of the last layer's shape, within 3e-5
@@ -142,11 +164,17 @@ Phases, any failure of which exits non-zero before the result line:
      Phases 6-9's launches are reported on their own: the ``"kernels"``
      line counts the main paths' alone.
 
+``--cards N`` (N > 1) runs phases 1 and 2, then only the sharded phase's
+multi-rank runs over NCCL with one rank per card (a 2 x 2 mesh for the
+chain at N = 4), and ends with the result line; it prints no kernels
+line.
+
 The line before the last is the ``{"kernels": [...]}`` summary: each
 kernel's ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums
 over exactly the launches its ``launches`` counts (each call shape's time
 times the calls of that shape), each path's share of ``ms`` under
-``ms_by_path`` beside ``launches_by_path``; ``deconv_fwd_int8`` and
+``ms_by_path`` beside ``launches_by_path`` (the sharded path's launches
+are its ranks', summed; its call shapes are timed in this process); ``deconv_fwd_int8`` and
 ``conv_fwd_int8`` are the forward kernels' int8 launches of the quantized
 serving runs.  ``by_pair`` gives the forward kernels' (and dx's) sums per
 operand pair with the route each takes; a bf16 pair, which the main path
@@ -279,14 +307,558 @@ PAPER_TRAIN_STEPS = 2
 # the wrappers' tile arguments, which their plain versions do not take
 TILE_KWARGS = ("block_co", "split")
 
+# the sharded phase: each world of ranks (spawned, all on the card's device
+# 0) must end within this many seconds; a sharded output against the
+# unsharded engine's, relative to max |y| (f32 sums in another order, the
+# reference's tolerance); the int8-compressed DP GAN's final losses
+# against the f32 all-reduce's (the reference's bound,
+# tests/test_sharded_engine.py)
+SHARDED_TIMEOUT = 300
+SHARDED_TOL = 1e-4
+DP_GAN_TOL = 5e-2
+# the first f32 DP GAN step's reduced gradients against one process's step
+# on the whole batch, relative to max |g| per network: f32 sums at another
+# batch size, magnified by the generator's cancelling gradients (2.6e-4
+# on the card at 2 x 32 against 64); a wrong reduction is off by O(1)
+DP_WHOLE_BATCH_TOL = 1e-3
+# the sharded path's full-width runs: V-Net served at batch 4, the DCGAN
+# generator chain (networks.dcgan()) channel-sharded on a 2-way model axis
+# at batch 4, DP GAN steps of DCGAN at its config's batch (64), one DP
+# V-Net train step at batch 4
+SHARDED_SPEC = {"device": "cuda", "one_card": True, "reduced": False,
+                "vnet_spatial": (128, 128, 64),
+                "vnet_chans": (16, 32, 64, 128, 256), "batch": 4,
+                "gan_batch": 64, "min_channel_block": 8}
+
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
 
 
+def signature(kname, a, b, kw):
+    """A wrapper call's shape key: the kernel, its operands' shapes and
+    types and its other arguments (tensors by shape and type)."""
+    import torch
+    return (kname, tuple(a.shape), a.dtype, tuple(b.shape), b.dtype,
+            tuple(sorted((k, (tuple(v.shape), v.dtype)
+                          if torch.is_tensor(v) else v)
+                         for k, v in kw.items())))
+
+
+def record_calls(dk, ck, recorded: dict, recording: list) -> None:
+    """Wrap the four kernel wrappers so that each call on the card while
+    ``recording[0]`` names a path adds one to ``recorded[signature][path]``
+    (int8 weights' launches are the int8 entries' own)."""
+    import torch
+
+    def recorder(mod, kname):
+        real = getattr(mod, kname)
+
+        def wrapped(a, b, **kw):
+            if recording[0] and a.is_cuda:
+                key = signature(kname + "_int8" * (b.dtype == torch.int8),
+                                a, b, kw)
+                paths = recorded.setdefault(key, {})
+                paths[recording[0]] = paths.get(recording[0], 0) + 1
+            return real(a, b, **kw)
+        setattr(mod, kname, wrapped)
+
+    for mod, kname in ((dk, "deconv_fwd"), (ck, "conv_fwd"),
+                       (dk, "deconv_dw"), (dk, "deconv_dx")):
+        recorder(mod, kname)
+
+
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+# -- the sharded phase's ranks ----------------------------------------------
+
+class RankRun:
+    """One rank's runs of the sharded path: each wrapper's launch count
+    set to 0 just before a run and read just after, its calls recorded by
+    shape (``record_calls``) while it runs, and what it measured."""
+
+    def __init__(self, rank: int, spec: dict):
+        import torch
+        from repro_torch.kernels.conv import kernel as ck
+        from repro_torch.kernels.deconv import kernel as dk
+        self.torch, self.dk, self.ck = torch, dk, ck
+        self.rank, self.spec = rank, spec
+        # ranks sharing one card all run on its device 0
+        self.dev = (torch.device("cuda", 0 if spec["one_card"] else rank)
+                    if spec["device"] == "cuda" else torch.device("cpu"))
+        self.recorded, self.recording = {}, [None]
+        record_calls(dk, ck, self.recorded, self.recording)
+        self.launches = {"deconv_fwd": 0, "conv_fwd": 0, "deconv_dw": 0,
+                         "deconv_dx": 0}
+        self.rows = []
+
+    def counts(self) -> dict:
+        dk, ck = self.dk, self.ck
+        return {"deconv_fwd": dk.launches, "conv_fwd": ck.launches,
+                "deconv_dw": dk.dw_launches, "deconv_dx": dk.dx_launches}
+
+    def sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize(self.dev)
+
+    def path(self, fn):
+        """``fn()`` as a run of the sharded path: ``(its result, its
+        launches per wrapper, its seconds)``."""
+        dk, ck = self.dk, self.ck
+        dk.launches = ck.launches = dk.dw_launches = dk.dx_launches = 0
+        self.recording[0] = "sharded"
+        t0 = time.perf_counter()
+        out = fn()
+        self.sync()
+        seconds = time.perf_counter() - t0
+        self.recording[0] = None
+        got = self.counts()
+        for k, v in got.items():
+            self.launches[k] += v
+        return out, got, seconds
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+@contextlib.contextmanager
+def counted_collectives(sent: list):
+    """While open, every ``dist.all_reduce`` / ``dist.all_gather`` call
+    appends ``(name, bytes of the tensor handed to it)`` to ``sent``: the
+    payload the backend received, after any staging through the host."""
+    import torch.distributed as dist
+    real = {}
+    for name, arg in (("all_reduce", 0), ("all_gather", 1)):
+        real[name] = getattr(dist, name)
+
+        def counted(*a, _real=real[name], _arg=arg, _name=name, **kw):
+            t = a[_arg]
+            sent.append((_name, t.numel() * t.element_size()))
+            return _real(*a, **kw)
+        setattr(dist, name, counted)
+    try:
+        yield sent
+    finally:
+        for name, f in real.items():
+            setattr(dist, name, f)
+
+
+def sharded_vnet_serve(run: RankRun, mesh, label: str) -> None:
+    """V-Net served data-parallel: each rank's batch shard through the
+    mesh-aware engine (one launch per layer node), the shards gathered and
+    held against the unsharded engine's output for the whole batch."""
+    torch = run.torch
+    from repro_torch.core import (EngineConfig, UniformEngine,
+                                  compile_network, init_network_weights,
+                                  networks, shard_batch)
+    from repro_torch.sharding import mesh as SM
+    spec, dev = run.spec, run.dev
+    graph = networks.vnet_graph(in_spatial=spec["vnet_spatial"],
+                                chans=spec["vnet_chans"])
+    ws = {k: v.to(dev) for k, v in init_network_weights(
+        graph, torch.Generator().manual_seed(5)).items()}
+    x = torch.randn((spec["batch"], *spec["vnet_spatial"], 1),
+                    generator=torch.Generator().manual_seed(6)).to(dev)
+    eng = UniformEngine(EngineConfig(method="pallas", device=dev,
+                                     mesh=mesh))
+    fn, report = compile_network(graph, eng, batch=spec["batch"])
+    xs = shard_batch(x, mesh)
+    with torch.inference_mode():
+        y, got, cold_s = run.path(lambda: fn(ws, xs))
+        t0 = time.perf_counter()
+        fn(ws, xs)
+        run.sync()
+        warm_s = time.perf_counter() - t0
+        whole = SM.all_gather(y, mesh.group("data"), dim=0)
+        base, _ = compile_network(graph, UniformEngine(device=dev))
+        want = base(ws, x)
+    rel = _rel_err(whole, want)
+    n_deconv = sum(l.op == "deconv" for l in graph.layers)
+    run.rows.append({"run": f"vnet_serve{label}", "mesh": mesh.shape,
+                     "per_rank_batch": report.per_device_batch,
+                     "launches": got, "kernel_launches":
+                     report.kernel_launches, "cold_s": cold_s,
+                     "warm_s": warm_s, "rel_err_vs_unsharded": rel,
+                     "tol": SHARDED_TOL})
+    check(report.per_device_batch == xs.shape[0] == y.shape[0],
+          f"V-Net shard {tuple(xs.shape)} -> {tuple(y.shape)}, report "
+          f"{report.per_device_batch}")
+    check(got == {"deconv_fwd": n_deconv,
+                  "conv_fwd": len(graph.layers) - n_deconv,
+                  "deconv_dw": 0, "deconv_dx": 0}
+          and sum(got.values()) == report.kernel_launches,
+          f"V-Net data-parallel batch launched {got}, report "
+          f"{report.kernel_launches}")
+    check(bool(torch.isfinite(y).all()), "V-Net shard not finite")
+    check(rel <= SHARDED_TOL, f"V-Net data parallel vs unsharded: "
+          f"{rel:.3g} above {SHARDED_TOL}")
+
+
+def sharded_dcgan_chain(run: RankRun, mesh) -> None:
+    """The DCGAN generator chain on the model axis: each rank its channel
+    shard of every layer (and its batch shard, where the data axis is
+    wider than 1), the psum layers all-reduced; the bytes each collective
+    received counted here, against the report's."""
+    torch = run.torch
+    from repro_torch.core import (EngineConfig, MeshPolicy, UniformEngine,
+                                  compile_network, init_network_weights,
+                                  networks, shard_batch)
+    spec, dev = run.spec, run.dev
+    layers = networks.dcgan()
+    if spec["reduced"]:
+        layers = networks.scale_channels(layers, div=32)
+    first = layers[0]
+    ws = [w.to(dev) for w in init_network_weights(
+        layers, torch.Generator().manual_seed(7))]
+    x = torch.randn((spec["batch"], *first.in_spatial, first.cin),
+                    generator=torch.Generator().manual_seed(8)).to(dev)
+    eng = UniformEngine(EngineConfig(
+        method="pallas", device=dev, mesh=mesh, policy=MeshPolicy(
+            model_axis="model",
+            min_channel_block=spec["min_channel_block"])))
+    fn, report = compile_network(layers, eng, batch=spec["batch"])
+    sent = []
+    xs = shard_batch(x, mesh)
+    with torch.inference_mode(), counted_collectives(sent):
+        y, got, cold_s = run.path(lambda: fn(ws, xs))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        fn(ws, xs)
+        run.sync()
+        warm_s = time.perf_counter() - t0
+        base, _ = compile_network(layers, UniformEngine(device=dev))
+        want = shard_batch(base(ws, x), mesh)
+    rel = _rel_err(y, want)
+    rows = [(l.name, l.local_cin, l.local_cout, l.collective,
+             l.collective_bytes) for l in report.layers]
+    want_sent = [("all_reduce" if r[3] == "psum" else r[3], r[4])
+                 for r in rows if r[3]]
+    run.rows.append({"run": "dcgan_chain", "mesh": mesh.shape,
+                     "per_rank_batch": report.per_device_batch,
+                     "layers": rows, "collective_bytes":
+                     report.collective_bytes, "sent": sent,
+                     "launches": got, "kernel_launches":
+                     report.kernel_launches, "cold_s": cold_s,
+                     "warm_s": warm_s, "rel_err_vs_unsharded": rel,
+                     "tol": SHARDED_TOL})
+    check(any(r[3] == "psum" for r in rows), f"no layer sharded: {rows}")
+    check(sent == want_sent, f"collectives received {sent}, the report "
+          f"lists {want_sent}")
+    check(got == {"deconv_fwd": len(layers), "conv_fwd": 0, "deconv_dw": 0,
+                  "deconv_dx": 0}
+          and sum(got.values()) == report.kernel_launches,
+          f"DCGAN chain launched {got}, report {report.kernel_launches}")
+    check(rel <= SHARDED_TOL, f"DCGAN chain on the model axis vs unsharded:"
+          f" {rel:.3g} above {SHARDED_TOL}")
+
+
+def _checksum(run: RankRun, params):
+    """Per-leaf float64 sums: equal on every rank iff the params are."""
+    torch = run.torch
+    from repro_torch import tree
+    return torch.stack([torch.stack([t.double().sum(), t.double().abs().sum(),
+                                     (t.double() ** 2).sum()])
+                        for t in tree.leaves(params)])
+
+
+def sharded_dp_train(run: RankRun, mesh, arch: str, steps: int,
+                     compress_runs) -> None:
+    """``steps`` data-parallel train steps of ``arch`` per compression
+    setting, each rank on its shard of the global batch: launches per step
+    a train step's, losses finite, params moved and equal on every rank
+    after every step; the int8 run's final losses against the f32 run's."""
+    torch = run.torch
+    import dataclasses as dc
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import UniformEngine, shard_batch
+    from repro_torch.data import DcnnBatches, VolumeBatches
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import dcnn
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import dp_trainer as DP
+    from repro_torch.sharding import mesh as SM
+    spec, dev = run.spec, run.dev
+    cfg = get_config(arch)
+    if spec["reduced"]:
+        cfg = cfg.reduced()
+    batch = spec["gan_batch"] if arch == "dcgan" else spec["batch"]
+    cfg = dc.replace(cfg, dcnn_batch=batch)
+    if arch == "v-net":
+        data = VolumeBatches(batch, dcnn._vnet_spatial(cfg), prefetch=False,
+                             device=dev)
+    else:
+        last = dcnn._scaled_layers(cfg)[-1]
+        data = DcnnBatches(batch, cfg.dcnn_z, (*last.out_spatial, last.cout),
+                           prefetch=False, device=dev)
+    batches = [shard_batch(data.make_batch(i), mesh) for i in range(steps)]
+    want = ST.train_step_launches(cfg)
+    engine = UniformEngine(method="pallas", device=dev)
+    opt = AdamWConfig(lr=2e-3, weight_decay=0.0)
+    group = mesh.group("data")
+    final = {}
+    for compress in compress_runs:
+        p0 = ST.real_params(cfg, torch.Generator().manual_seed(0), dev)
+        if arch == "v-net":
+            state = adamw_init(p0, opt)
+            step = ST.make_dp_vnet_train_step(cfg, opt, mesh, engine,
+                                              compress)
+        else:
+            state = (adamw_init(p0["gen"], opt), adamw_init(p0["disc"], opt))
+            step = ST.make_dp_gan_train_step(cfg, opt, mesh, engine,
+                                             compress)
+        carry = [p0, state, DP.init_error_state(p0, mesh.shape["data"])]
+        wire = DP.grad_wire_bytes(p0, compress)
+        # what the step hands dist.all_reduce: the int8 path sums int32
+        # (4 B per element, as f32) plus one f32 scale per leaf; each loss
+        # is one f32 mean
+        n_leaves = len(tree.leaves(p0))
+        want_grad_bytes = (4 * wire["param_count"]
+                           + (4 * n_leaves if compress else 0))
+        per_step = []
+        for i, b in enumerate(batches):
+            def one(b=b):
+                return step(*carry, b)
+            sent = []
+            with counted_collectives(sent):
+                (p, state, err, metrics), got, seconds = run.path(one)
+            carry = [p, state, err]
+            sums = _checksum(run, p)
+            same = bool(torch.equal(SM.all_reduce(sums, group, "max"),
+                                    SM.all_reduce(sums, group, "min")))
+            metrics = {k: float(v) for k, v in metrics.items()}
+            sent_bytes = sum(n for _, n in sent)
+            per_step.append({"metrics": metrics, "launches": got,
+                             "step_s": seconds, "params_equal": same,
+                             "sent_bytes": sent_bytes})
+            check(got == want, f"dp {arch} step launched {got}, a train "
+                  f"step {want}")
+            check(all(math.isfinite(v) for v in metrics.values()),
+                  f"dp {arch} step: {metrics}")
+            check(same, f"dp {arch}: params differ between ranks")
+            check(sent_bytes == want_grad_bytes + 4 * len(metrics),
+                  f"dp {arch} step handed the all-reduces {sent_bytes} B, "
+                  f"expected {want_grad_bytes} + {4 * len(metrics)}")
+            if (i == 0 and not compress and arch == "dcgan"
+                    and mesh.shape["data"] > 1):
+                per_step[0]["vs_one_process"] = dp_step_vs_one_process(
+                    run, cfg, opt, engine, data.make_batch(0),
+                    mesh.shape["data"], state, metrics)
+        moved = max(float((a - b).abs().max())
+                    for a, b in zip(tree.leaves(p0), tree.leaves(carry[0])))
+        check(moved > 0.0, f"dp {arch}: params did not move")
+        final[compress] = per_step[-1]["metrics"]
+        sent_grad = per_step[-1]["sent_bytes"] - 4 * len(final[compress])
+        run.rows.append({
+            "run": f"dp_{arch}", "mesh": mesh.shape, "compress": compress,
+            "global_batch": batch, "per_rank_batch": batch //
+            mesh.shape["data"], "steps": per_step, "params_moved": moved,
+            "wire": wire, "sent_grad_bytes": sent_grad,
+            "sent_ratio": wire["grads_bytes"] / sent_grad})
+        del carry, p0, state
+    if len(final) == 2:
+        for k in final[True]:
+            d = abs(final[True][k] - final[False][k])
+            check(d < DP_GAN_TOL, f"dp {arch}: final {k} int8 vs f32 "
+                  f"differ by {d:.3g}")
+
+
+def dp_step_vs_one_process(run: RankRun, cfg, opt, engine, whole, n_data,
+                           dp_state, dp_metrics) -> dict:
+    """The first f32 DP GAN step against one process's GAN steps from the
+    same params: AdamW's first moment after one step is ``(1 - b1) * g``,
+    so the DP step's must equal the mean of one process's steps on each
+    rank's shard (the same kernels at the same shapes: only the
+    reduction differs), and its losses their mean, within
+    ``SHARDED_TOL``.  A sum in place of the mean, a wrong scale or a lost
+    gradient is off by a factor.  One process's step on the whole batch
+    gives the same gradients up to f32 sums at another batch size, whose
+    rounding the generator's cancelling gradients magnify (they pass back
+    through both networks' relu / leaky_relu masks): held within
+    ``DP_WHOLE_BATCH_TOL``.  Params are not compared, since AdamW's first
+    step is ``lr * g / (|g| + eps)`` and flips with the sign of near-zero
+    gradients."""
+    torch = run.torch
+    from repro_torch import tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw_init
+    step = ST.make_gan_train_step(cfg, opt, engine)
+
+    def first(batch):
+        p = ST.real_params(cfg, torch.Generator().manual_seed(0), run.dev)
+        state = (adamw_init(p["gen"], opt), adamw_init(p["disc"], opt))
+        _, state, metrics = step(p, state, batch)
+        return ([tree.leaves(s.m) for s in state],
+                {k: float(v) for k, v in metrics.items()})
+
+    per = next(iter(whole.values())).shape[0] // n_data
+    parts = [first({k: v[r * per:(r + 1) * per] for k, v in whole.items()})
+             for r in range(n_data)]
+    mean_m = [[sum(part[0][n][i] for part in parts) / n_data
+               for i in range(len(parts[0][0][n]))] for n in range(2)]
+    mean_loss = {k: sum(part[1][k] for part in parts) / n_data
+                 for k in parts[0][1]}
+    whole_m, whole_loss = first(whole)
+    dp_m = [tree.leaves(s.m) for s in dp_state]
+
+    def rel(got, want):
+        return {name: max(float((a - b).abs().max()) for a, b in zip(g, w))
+                / max(float(b.abs().max()) for b in w)
+                for name, g, w in zip(("gen", "disc"), got, want)}
+
+    out = {"shards": {"first_moment_rel_err": rel(dp_m, mean_m),
+                      "loss_abs_err": {k: abs(dp_metrics[k] - v)
+                                       for k, v in mean_loss.items()},
+                      "tol": SHARDED_TOL},
+           "whole_batch": {"first_moment_rel_err": rel(dp_m, whole_m),
+                           "loss_abs_err": {k: abs(dp_metrics[k] - v)
+                                            for k, v in whole_loss.items()},
+                           "tol": DP_WHOLE_BATCH_TOL},
+           # one process alone: its shards' mean against its whole batch
+           "one_process_split_rel_err": rel(mean_m, whole_m)}
+    for name, tol in (("shards", SHARDED_TOL),
+                      ("whole_batch", DP_WHOLE_BATCH_TOL)):
+        errs = out[name]
+        check(all(v <= tol for v in errs["first_moment_rel_err"].values())
+              and all(v <= tol for v in errs["loss_abs_err"].values()),
+              f"DP GAN step vs one process ({name}): {errs}")
+    return out
+
+
+def sharded_rank(rank: int, world: int, backend: str, rendezvous: str,
+                 job: str, spec: dict, out_dir: str) -> None:
+    """One rank of the sharded phase, spawned by ``torch.multiprocessing``:
+    joins the world (``file://`` rendezvous), runs its job's sharded runs
+    on the card's device 0, and writes what it measured and recorded to
+    ``out_dir``.  A failed check raises, which fails the phase."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import pickle
+
+    import torch
+
+    from repro_torch.launch import mesh as M
+    run = RankRun(rank, spec)
+    if run.dev.type == "cuda":
+        torch.cuda.set_device(run.dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    M.init_world(backend, init_method=f"file://{rendezvous}",
+                 world_size=world, rank=rank, timeout_s=SHARDED_TIMEOUT)
+    try:
+        data = M.make_host_mesh()
+        if job == "nccl":
+            sharded_vnet_serve(run, data, "")
+            sharded_dp_train(run, data, "dcgan", 2, (True,))
+        else:       # "multi": a world of 2 or more
+            sharded_vnet_serve(run, data, "")
+            sharded_dcgan_chain(run, M.make_host_mesh(model=2))
+            sharded_dp_train(run, data, "dcgan", 3, (True, False))
+            sharded_dp_train(run, data, "v-net", 1, (True,))
+    finally:
+        M.leave_world()
+    out = {"rank": rank, "backend": backend, "rows": run.rows,
+           "launches": run.launches, "recorded": run.recorded}
+    (Path(out_dir) / f"{job}.rank{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def spawn_world(job: str, world: int, backend: str, spec: dict) -> list:
+    """Run ``job`` on ``world`` spawned ranks and return each rank's
+    results; a rank that raises, exits or runs over ``SHARDED_TIMEOUT``
+    fails the phase, and no rank outlives the call."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as tmp
+    with tempfile.TemporaryDirectory() as td:
+        ctx = tmp.start_processes(
+            sharded_rank, args=(world, backend, f"{td}/rendezvous", job,
+                                spec, td),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + SHARDED_TIMEOUT
+        try:
+            while not ctx.join(timeout=max(0.1, deadline
+                                           - time.monotonic())):
+                check(time.monotonic() < deadline, f"sharded {job}: ranks "
+                      f"ran over {SHARDED_TIMEOUT} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        return [pickle.loads(Path(td, f"{job}.rank{r}.pkl").read_bytes())
+                for r in range(world)]
+
+
+def sharded_geometries(spec: dict):
+    """The sharded path's layer geometries beyond the other paths', as
+    (model, layer, batch): forwards, and layers that train (whose dw and dx
+    run too).  V-Net at 2 per rank, the DCGAN chain's channel shards at
+    the batch, the DP GAN's networks at 32 per rank."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine as E
+    from repro_torch.core import networks
+    from repro_torch.launch import steps as ST
+    half = spec["batch"] // 2
+    vnet = networks.vnet_graph(in_spatial=spec["vnet_spatial"],
+                               chans=spec["vnet_chans"]).layers
+    chain = networks.dcgan()
+    if spec["reduced"]:
+        chain = networks.scale_channels(chain, div=32)
+    parts = E._partition_layers(chain, E.MeshPolicy(
+        model_axis="model", min_channel_block=spec["min_channel_block"]), 2)
+    shards = [dc.replace(l, cin=pt.local_cin, cout=pt.local_cout)
+              for l, pt in zip(chain, parts)]
+    cfg = get_config("dcgan")
+    if spec["reduced"]:
+        cfg = cfg.reduced()
+    gan = [(f"dcgan_dp_{name}", l, spec["gan_batch"] // 2)
+           for name, graph in ST.train_graphs(cfg).items()
+           for l in graph.layers]
+    forward = ([("vnet_dp", l, half) for l in vnet]
+               + [("dcgan_mp2", l, spec["batch"]) for l in shards] + gan)
+    train = [("vnet_dp", l, half) for l in vnet] + gan
+    return forward, train
+
+
+def multi_card(cli, detail: dict, name: str, smi: str) -> int:
+    """``--cards N``: the sharded phase's multi-rank runs over NCCL, one
+    rank per card (V-Net data-parallel, the DCGAN chain on a 2-way model
+    axis, DP GAN steps int8 and f32, a DP V-Net step), every check as in
+    the one-card phase; then the result line."""
+    import torch
+    check(torch.cuda.device_count() >= cli.cards,
+          f"--cards {cli.cards}: {torch.cuda.device_count()} cards")
+    phase(f"sharded ({cli.cards} cards, NCCL)")
+    t0 = time.perf_counter()
+    ranks = spawn_world("multi", cli.cards, "nccl",
+                        dict(SHARDED_SPEC, one_card=False))
+    detail["sharded_cards"] = {"cards": cli.cards, "card": smi,
+                               "wall_s": time.perf_counter() - t0,
+                               "ranks": [r_["rows"] for r_ in ranks]}
+    for res in ranks:
+        for row in res["rows"]:
+            print(json.dumps({"sharded": "multi", "backend": "nccl",
+                              "rank": res["rank"], **row}))
+        print(json.dumps({"sharded_rank_launches": "multi",
+                          "rank": res["rank"], "launches": res["launches"]}))
+        check(all(v_ > 0 for v_ in res["launches"].values()),
+              f"rank {res['rank']} launched {res['launches']}")
+    print(json.dumps({"sharded_cards_s": detail["sharded_cards"]["wall_s"],
+                      "card": smi}))
+    if cli.json is not None:
+        cli.json.parent.mkdir(parents=True, exist_ok=True)
+        cli.json.write_text(json.dumps(detail, indent=1))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def main() -> int:
@@ -294,6 +866,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", type=Path, default=None,
                         help="write every check and time to this file")
+    parser.add_argument("--cards", type=int, default=1,
+                        help="with more than 1: build, then run only the "
+                             "sharded phase's multi-rank runs over NCCL, "
+                             "one rank per card")
     cli = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -405,6 +981,8 @@ def main() -> int:
         check(len(units) == len(build.compile_units()),
               f"ptxas reported {len(units)} of "
               f"{len(build.compile_units())} objects")
+    if cli.cards > 1:
+        return multi_card(cli, detail, name, smi)
 
     # -- helpers --------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -506,12 +1084,16 @@ def main() -> int:
     train_layers += [(f"3d_gan_{name}", l, gan3d_cfg.dcnn_batch)
                      for name, graph in ST.train_graphs(gan3d_cfg).items()
                      for l in graph.layers]
+    # the sharded path's geometries: V-Net at 2 per rank, the DCGAN chain's
+    # channel shards, the DP GAN's networks at 32 per rank
+    sharded_fwd, sharded_train = sharded_geometries(SHARDED_SPEC)
+    train_layers += sharded_train
 
     # every forward geometry of the main paths, served (batch 4) and
     # trained (V-Net trains at the served shapes)
     main_layers = distinct([("dcgan", l, BATCH) for l in dcgan_layers]
                            + [("vnet", l, BATCH) for l in vnet_layers]
-                           + paper_layers + train_layers)
+                           + paper_layers + train_layers + sharded_fwd)
 
     # -- 3. kernels against their plain versions ------------------------------
     phase("kernels vs plain versions")
@@ -1100,32 +1682,11 @@ def main() -> int:
     # the main path's calls of each wrapper by call shape and path,
     # recorded while the serve and train runs below are on (``recording``
     # names the path), so that each kernel's times cover exactly the
-    # launches it counts, and each path's share of them
+    # launches it counts, and each path's share of them; the sharded
+    # phase's ranks record their own and hand them back
     recorded: dict = {}
     recording = [None]
-
-    def signature(kname, a, b, kw):
-        return (kname, tuple(a.shape), a.dtype, tuple(b.shape), b.dtype,
-                tuple(sorted((k, (tuple(v.shape), v.dtype)
-                              if torch.is_tensor(v) else v)
-                             for k, v in kw.items())))
-
-    def recorder(mod, kname):
-        real = getattr(mod, kname)
-
-        def wrapped(a, b, **kw):
-            if recording[0] and a.is_cuda:
-                # int8 weights' launches are the int8 entries' own
-                key = signature(kname + "_int8" * (b.dtype == torch.int8),
-                                a, b, kw)
-                paths = recorded.setdefault(key, {})
-                paths[recording[0]] = paths.get(recording[0], 0) + 1
-            return real(a, b, **kw)
-        setattr(mod, kname, wrapped)
-
-    for mod, kname in ((dk, "deconv_fwd"), (ck, "conv_fwd"),
-                       (dk, "deconv_dw"), (dk, "deconv_dx")):
-        recorder(mod, kname)
+    record_calls(dk, ck, recorded, recording)
 
     # -- 4. serve -------------------------------------------------------------
     phase("serve")
@@ -1686,6 +2247,53 @@ def main() -> int:
                   f"above {r_['tol']}")
     del p_q, gen_q, qgrads, qlogs
     torch.cuda.empty_cache()
+
+    # -- 4s. sharded -------------------------------------------------------
+    # the multi-GPU path on torch.distributed, its ranks spawned here (the
+    # kernels are built already; each rank loads the same library) and all
+    # on device 0: one rank over NCCL (V-Net served data-parallel at batch
+    # 4, two int8-compressed DP GAN steps of DCGAN at batch 64), then two
+    # ranks sharing the card over gloo, which stages every collective's
+    # CUDA tensors through the host, so none of these times is NCCL's
+    # (V-Net at 2 per rank against the unsharded engine, the DCGAN chain
+    # on a 2-way model axis with its collectives' bytes counted, three DP
+    # GAN steps at 32 per rank int8 and f32, one DP V-Net step at 2 per
+    # rank).  Each rank sets the counts to 0 before each run and reads them
+    # after; its calls by shape come back for the times phase
+    phase("sharded")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sharded_launches = dict.fromkeys(ST.LAUNCH_COUNTERS, 0)
+    detail["sharded"] = {"card": smi, "note": "gloo ranks share one card "
+                         "and stage collectives through the host: not "
+                         "NCCL's times"}
+    t_phase = time.perf_counter()
+    for job, world, backend in (("nccl", 1, "nccl"), ("multi", 2, "gloo")):
+        t0 = time.perf_counter()
+        ranks = spawn_world(job, world, backend, SHARDED_SPEC)
+        detail["sharded"][job] = {"world": world, "backend": backend,
+                                  "wall_s": time.perf_counter() - t0,
+                                  "ranks": [r_["rows"] for r_ in ranks]}
+        check(sorted(r_["rank"] for r_ in ranks) == list(range(world)),
+              f"sharded {job}: ranks {[r_['rank'] for r_ in ranks]}")
+        for res in ranks:
+            for row in res["rows"]:
+                print(json.dumps({"sharded": job, "backend": backend,
+                                  "rank": res["rank"], **row}))
+            print(json.dumps({"sharded_rank_launches": job,
+                              "rank": res["rank"],
+                              "launches": res["launches"]}))
+            for k_, v_ in res["launches"].items():
+                sharded_launches[k_] += v_
+            for key, paths in res["recorded"].items():
+                mine = recorded.setdefault(key, {})
+                for path, n_ in paths.items():
+                    mine[path] = mine.get(path, 0) + n_
+    detail["sharded_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"sharded_launches": sharded_launches,
+                      "sharded_s": detail["sharded_s"], "card": smi}))
+    check(all(v_ > 0 for v_ in sharded_launches.values()),
+          f"the sharded path launched {sharded_launches}")
 
     # -- 4p. paper benchmarks ----------------------------------------------
     # the GP-GAN and 3D-GAN generators at full width (batch 4) through
@@ -2858,15 +3466,19 @@ def main() -> int:
         "deconv_fwd": {"serve": launches["deconv"],
                        "train": train_launches["deconv_fwd"],
                        "serve_fallback": fb_launches["deconv"],
-                       "paper_benchmarks": paper_launches["deconv_fwd"]},
+                       "paper_benchmarks": paper_launches["deconv_fwd"],
+                       "sharded": sharded_launches["deconv_fwd"]},
         "conv_fwd": {"serve": launches["conv"],
                      "train": train_launches["conv_fwd"],
                      "serve_fallback": fb_launches["conv"],
-                     "paper_benchmarks": paper_launches["conv_fwd"]},
+                     "paper_benchmarks": paper_launches["conv_fwd"],
+                     "sharded": sharded_launches["conv_fwd"]},
         "deconv_dw": {"train": train_launches["deconv_dw"],
-                      "paper_benchmarks": paper_launches["deconv_dw"]},
+                      "paper_benchmarks": paper_launches["deconv_dw"],
+                      "sharded": sharded_launches["deconv_dw"]},
         "deconv_dx": {"train": train_launches["deconv_dx"],
-                      "paper_benchmarks": paper_launches["deconv_dx"]},
+                      "paper_benchmarks": paper_launches["deconv_dx"],
+                      "sharded": sharded_launches["deconv_dx"]},
         "deconv_fwd_int8": {"serve_quantized": q_launches["deconv"]},
         "conv_fwd_int8": {"serve_quantized": q_launches["conv"]}}
     summary = {"kernels": [

@@ -14,6 +14,11 @@ Leaves are the tensors of a tree (``repro_torch.tree`` order: params,
 AdamW moments, QTensor payloads and scales, the step), stored as numpy
 arrays; bfloat16 tensors are stored as their 16-bit patterns and the
 manifest keeps the torch dtype.
+
+Checkpoints hold full tensors: under a ``torch.distributed`` world one
+rank saves (rank 0, the params being replicated).  ``restore`` with
+``specs`` and a ``sharding.mesh.Mesh`` gives each rank of any world size its
+own block of every leaf (elastic rescale).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.sharding.partition import logical_to_spec
 
 
 def _cheap_checksum(a: np.ndarray) -> int:
@@ -161,10 +167,18 @@ class Checkpointer:
         except Exception:
             return False
 
-    def restore(self, step: int, template):
-        """A tree shaped like ``template`` (a tree of tensors) from the
-        checkpoint at ``step``; each leaf lands on its template leaf's
-        device."""
+    def restore(self, step: int, template, specs=None, mesh=None):
+        """A tree shaped like ``template`` (a tree of full-shape tensors)
+        from the checkpoint at ``step``; each leaf lands on its template
+        leaf's device.
+
+        ``specs`` (a tree matching ``template`` whose leaves are tuples of
+        logical axis names or mesh axis names, one per leading dim) with
+        ``mesh`` gives each leaf as this rank's block: a dim named by an
+        axis is cut into that axis's extent and the rank keeps the block
+        at its coordinate, whatever world size saved the checkpoint.  A
+        dim the axis does not divide stays whole
+        (``sharding.logical_to_spec``)."""
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         tmpl = _tree.leaves(template)
@@ -172,11 +186,48 @@ class Checkpointer:
             raise ValueError(f"checkpoint {step} holds "
                              f"{len(manifest['leaves'])} leaves, the "
                              f"template {len(tmpl)}")
+        spec_leaves = ([None] * len(tmpl) if specs is None
+                       else _tree.leaves(specs, is_leaf=_is_spec))
+        if len(spec_leaves) != len(tmpl):
+            raise ValueError(f"{len(spec_leaves)} specs for "
+                             f"{len(tmpl)} leaves")
+        if specs is not None and mesh is None:
+            raise ValueError("restoring by specs needs the mesh")
         leaves = []
-        for i, (spec, t) in enumerate(zip(manifest["leaves"], tmpl)):
-            a = np.load(d / f"leaf_{i:05d}.npy")
-            if list(t.shape) != spec["shape"]:
+        for i, (meta, t, spec) in enumerate(zip(manifest["leaves"], tmpl,
+                                                spec_leaves)):
+            a = np.load(d / f"leaf_{i:05d}.npy", mmap_mode="r")
+            if list(t.shape) != meta["shape"]:
                 raise ValueError(f"leaf {i}: checkpoint shape "
-                                 f"{spec['shape']} != {list(t.shape)}")
-            leaves.append(_from_host(a, spec["dtype"], t.device))
+                                 f"{meta['shape']} != {list(t.shape)}")
+            if spec is not None:
+                a = a[_block(mesh, logical_to_spec(mesh, spec, a.shape),
+                             a.shape)]
+            leaves.append(_from_host(a, meta["dtype"], t.device))
         return _tree.unflatten(template, leaves)
+
+
+def _is_spec(x) -> bool:
+    """A spec leaf: a plain tuple of axis names, ``None`` or tuples of
+    names."""
+    return (isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x))
+
+
+def _block(mesh, spec: tuple, shape) -> tuple:
+    """The index of this rank's block of an array of ``shape`` under a
+    partition spec (row-major over a dim's axes, as JAX lays them)."""
+    index = []
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            index.append(slice(None))
+            continue
+        axes = (axes,) if isinstance(axes, str) else axes
+        n, k = 1, 0
+        for a in axes:
+            n, k = n * mesh.shape[a], k * mesh.shape[a] + mesh.coords[a]
+        per = shape[dim] // n
+        index.append(slice(k * per, (k + 1) * per))
+    return tuple(index)

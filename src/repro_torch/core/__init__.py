@@ -8,11 +8,11 @@ into a callable and its per-layer schedule; ``deconv_nd``/``conv_nd`` are
 thin wrappers over memoized default engines.  The submodules hold the
 paper's models: ``networks`` (the four benchmarks), ``sparsity`` (Fig. 1),
 ``tiling`` (Table II, Fig. 6a and the Hopper planner) and ``comparison``
-(Fig. 7).
+(Fig. 7).  ``MeshPolicy`` and ``shard_batch`` partition compiled
+schedules over a ``repro_torch.sharding.mesh.Mesh``.
 
-The reference's ``MeshPolicy`` is not here: the mesh comes with the
-multi-GPU item of the roadmap.  Importing this package neither builds nor
-loads the CUDA library; the first kernel launch does.
+Importing this package neither builds nor loads the CUDA library; the
+first kernel launch does.
 """
 
 from repro_torch.core.functional import (  # noqa: F401
@@ -37,6 +37,7 @@ from repro_torch.core.engine import (  # noqa: F401
     EngineConfig,
     EngineError,
     LayerSchedule,
+    MeshPolicy,
     ScheduleError,
     ScheduleReport,
     UniformEngine,
@@ -47,6 +48,7 @@ from repro_torch.core.engine import (  # noqa: F401
     conv_output_shape,
     default_engine,
     init_network_weights,
+    shard_batch,
     uniform_conv_method,
 )
 from repro_torch.core.networks import UniformLayer  # noqa: F401

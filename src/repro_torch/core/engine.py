@@ -29,8 +29,16 @@ quantization of each layer's input on the device, its scale folded into
 the weights'.  The reference lowerings dequantize the weights up front
 and fake-quantize the activations instead (``_dequant_host``).  A
 ``repro_torch.tune.TunedPlanCache`` in ``EngineConfig(tuned_plans=...)``
-gives the planner the autotuner's measured plans first.  The mesh comes
-with a later ROADMAP item.
+gives the planner the autotuner's measured plans first.
+
+With ``EngineConfig(mesh=..., policy=MeshPolicy(...))`` the engine is
+mesh-aware (``repro_torch.sharding.mesh``): ``compile_network`` partitions
+a chain over the mesh, the batch over the data axis and, with a model
+axis, the channels Megatron-style (a layer's Cout sharded, the next
+layer's Cin contracted and all-reduced), and a graph over the data axis
+alone.  Each rank's ``apply`` takes its shard of the batch
+(``shard_batch``) and returns its shard of the output, as DDP does; the
+report's rows are then per rank.
 """
 
 from __future__ import annotations
@@ -56,7 +64,9 @@ from repro_torch.core.functional import (  # noqa: F401 (re-export)
     insertion_sparsity,
     pop_pallas_knobs,
 )
+from repro_torch import tree as _tree
 from repro_torch.kernels import common as _kcommon
+from repro_torch.sharding import mesh as _mesh
 from repro_torch.quant import qint8 as _q8
 from repro_torch.quant.precision import Precision
 
@@ -93,6 +103,24 @@ class VmemBudgetError(ScheduleError):
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshPolicy:
+    """How ``compile_network`` partitions a network over the engine's mesh.
+
+    ``batch_axis`` shards the batch dim of every activation (pure data
+    parallelism).  ``model_axis``, when set, also shards channels
+    Megatron-style: a layer whose ``Cout`` divides the axis computes a
+    channel shard of its output, the NEXT layer contracts its sharded
+    ``Cin`` and all-reduces the partial outputs (pairs alternate down the
+    chain; a trailing channel-sharded output is all-gathered).  Layers
+    whose channels do not divide the axis, or would fall below
+    ``min_channel_block`` per rank, stay replicated.
+    """
+    batch_axis: str = "data"
+    model_axis: str | None = None
+    min_channel_block: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """The uniform engine's compile-time configuration.
 
@@ -117,7 +145,9 @@ class EngineConfig:
     before the heuristic, unless the entry's shared memory exceeds this
     config's budget; like ``Telemetry`` it hashes by identity.  ``device``
     is where the engine runs: ``"cuda"`` by default; ``"cpu"`` runs the
-    kernels' plain versions.
+    kernels' plain versions.  ``mesh`` (a ``repro_torch.sharding.mesh.Mesh``)
+    makes ``compile_network`` partition its schedules per ``policy``;
+    ``engine.conv``/``engine.deconv`` called directly stay one rank's.
     """
     method: str = "pallas"
     preferred_element_type: Any = None
@@ -129,6 +159,8 @@ class EngineConfig:
     telemetry: Any = None
     device: Any = "cuda"
     tuned_plans: Any = None
+    mesh: Any = None
+    policy: MeshPolicy = MeshPolicy()
 
     def __post_init__(self):
         if self.method not in METHODS:
@@ -154,6 +186,22 @@ class EngineConfig:
             raise ValueError(f"preferred_element_type must be float32 or "
                              f"bfloat16, got {pet!r}")
         object.__setattr__(self, "device", torch.device(self.device))
+        if self.policy.model_axis == self.policy.batch_axis:
+            raise ValueError(
+                f"model_axis and batch_axis are both "
+                f"{self.policy.batch_axis!r}: channel partials would psum "
+                f"across different batch shards")
+        if self.mesh is not None:
+            names = self.mesh.axis_names
+            if self.policy.batch_axis not in names:
+                raise ValueError(
+                    f"batch_axis {self.policy.batch_axis!r} not in mesh "
+                    f"axes {names}")
+            if (self.policy.model_axis is not None
+                    and self.policy.model_axis not in names):
+                raise ValueError(
+                    f"model_axis {self.policy.model_axis!r} not in mesh "
+                    f"axes {names}")
 
     @property
     def conv_method(self) -> str:
@@ -489,6 +537,9 @@ class LayerSchedule:
 
     Merge nodes get rows too (``op`` is the merge kind, ``plan`` is None,
     zero blocks), so the report lists every node the callable executes.
+    Under a mesh the plan, blocks, shared memory and MACs are one rank's:
+    its channel shard (``local_cin``/``local_cout``) at its batch, and
+    ``collective_bytes`` is the payload it hands the layer's collective.
     """
     name: str
     op: str                            # "deconv" | "conv" | "concat" | "add"
@@ -510,11 +561,23 @@ class LayerSchedule:
     dtype: str = "float32"
     splits: int = 1                    # slices of the forward's reduction
     precision: str = "f32"             # resolved Precision.describe()
+    local_cin: int = 0                 # one rank's channels (0: all)
+    local_cout: int = 0
+    collective: str | None = None      # "psum" | "all_gather" | None
+    collective_bytes: int = 0          # per-rank payload entering it
+
+    def __post_init__(self):
+        if not self.local_cin:
+            object.__setattr__(self, "local_cin", self.cin)
+        if not self.local_cout:
+            object.__setattr__(self, "local_cout", self.cout)
 
     def describe(self) -> str:
         plan = self.plan.describe() if self.plan is not None else "merge"
         if self.splits > 1:
             plan += f"_split{self.splits}"
+        coll = (f" {self.collective}{self.collective_bytes}B"
+                if self.collective else "")
         return (f"{self.name:<18s} {self.op:<6s} "
                 f"{'x'.join(map(str, self.in_spatial)):>11s}x{self.cin:<4d}-> "
                 f"{'x'.join(map(str, self.out_spatial)):>11s}x{self.cout:<4d} "
@@ -523,15 +586,21 @@ class LayerSchedule:
                 f"ep:{self.epilogue:<10s} {self.dtype:<9s} "
                 f"pr:{self.precision:<13s} "
                 f"{plan:<32s} blocks{self.blocks:>7d} "
-                f"zeros{self.sparsity:.0%}")
+                f"zeros{self.sparsity:.0%}{coll}")
 
 
 @dataclasses.dataclass(frozen=True)
 class ScheduleReport:
-    """The whole network's compiled schedule at batch ``batch``."""
+    """The whole network's compiled schedule at batch ``batch``.
+
+    Under a mesh ``batch`` is the global batch and the rows are one rank's
+    (``per_device_batch``); the cross-rank traffic is exactly the channel
+    partition's collectives listed per row (``collective_bytes``)."""
     engine: EngineConfig
     layers: tuple[LayerSchedule, ...]
     batch: int = 1
+    data_parallel: int = 1             # batch-axis mesh extent
+    model_parallel: int = 1            # model-axis mesh extent (1 = off)
 
     @property
     def blocks(self) -> int:
@@ -550,6 +619,15 @@ class ScheduleReport:
         return len({l.plan for l in self.layers if l.plan is not None})
 
     @property
+    def collective_bytes(self) -> int:
+        """Per-rank payload bytes entering collectives, per forward."""
+        return sum(l.collective_bytes for l in self.layers)
+
+    @property
+    def per_device_batch(self) -> int:
+        return self.batch // self.data_parallel
+
+    @property
     def kernel_launches(self) -> int:
         """Hand-kernel launches per forward: one per layer node with work
         (blocks) on ``"pallas"``, none on a reference lowering."""
@@ -562,11 +640,23 @@ class ScheduleReport:
                 f"batch={self.batch} layers={len(self.layers)} "
                 f"plans={self.unique_plans} blocks={self.blocks} "
                 f"macs={self.macs} peak_smem={self.peak_smem_bytes}")
+        if self.data_parallel * self.model_parallel > 1:
+            head += (f" mesh=dp{self.data_parallel}xmp{self.model_parallel} "
+                     f"coll_bytes={self.collective_bytes}")
         return "\n".join([head] + ["  " + l.describe() for l in self.layers])
 
 
 def _schedule_layer(layer: _networks.UniformLayer, engine: UniformEngine,
-                    batch: int, dtype: torch.dtype) -> LayerSchedule:
+                    batch: int, dtype: torch.dtype, *,
+                    local_cin: int | None = None,
+                    local_cout: int | None = None,
+                    collective: str | None = None,
+                    collective_bytes: int = 0) -> LayerSchedule:
+    full = layer
+    if local_cin or local_cout:
+        # the plan one rank runs: its channel shard
+        layer = dataclasses.replace(layer, cin=local_cin or layer.cin,
+                                    cout=local_cout or layer.cout)
     g = layer.groups
     sp3, k3, s3, p3, dil3 = _lift_geometry(layer)
     # the resolved policy (the layer's override, else the config's) sets
@@ -593,7 +683,9 @@ def _schedule_layer(layer: _networks.UniformLayer, engine: UniformEngine,
         splits = blocks = 0
     return LayerSchedule(
         name=layer.name, op=layer.op, in_spatial=layer.in_spatial,
-        out_spatial=layer.out_spatial, cin=layer.cin, cout=layer.cout,
+        out_spatial=layer.out_spatial, cin=full.cin, cout=full.cout,
+        local_cin=layer.cin, local_cout=layer.cout, collective=collective,
+        collective_bytes=collective_bytes,
         kernel=layer.kernel, stride=layer.stride, plan=plan, blocks=blocks,
         smem_bytes=plan.step_smem_bytes,
         macs=0 if layer.empty else batch * layer.valid_macs,
@@ -686,6 +778,183 @@ def _graph_apply_fn(graph: _networks.UniformGraph, engine: UniformEngine):
     return apply
 
 
+# ---------------------------------------------------------------------------
+# Mesh partitioning — batch over "data", optionally Cout/Cin over "model".
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _LayerPartition:
+    """One layer's placement: its weight's partition spec (one mesh axis
+    name or ``None`` per dim), the channel extents one rank holds, and the
+    collective (if any) that follows the layer."""
+    w_spec: tuple
+    local_cin: int
+    local_cout: int
+    collective: str | None             # "psum" | "all_gather" | None
+
+
+def _partition_layers(layers, policy: MeshPolicy,
+                      model_size: int) -> list[_LayerPartition]:
+    """Megatron-style alternation down the chain: shard a layer's Cout when
+    it divides the model axis, contract the NEXT layer's (then-sharded) Cin
+    and psum its partial outputs; a trailing channel-sharded output is
+    all_gathered so the compiled callable always returns full channels."""
+    parts = []
+    act_sharded = False
+    for i, l in enumerate(layers):
+        cin_l, cout_l, coll = l.cin, l.cout, None
+        spec = [None] * (l.rank + 2)
+        if act_sharded:
+            # input channels arrive sharded: each rank contracts its Cin
+            # block into FULL-Cout partial sums, reduced right after
+            spec[l.rank] = policy.model_axis
+            cin_l = l.cin // model_size
+            coll = "psum"
+            act_sharded = False
+        elif (model_size > 1 and l.cout % model_size == 0
+              and l.cout // model_size >= policy.min_channel_block):
+            spec[l.rank + 1] = policy.model_axis
+            cout_l = l.cout // model_size
+            act_sharded = True
+            if i == len(layers) - 1:
+                coll = "all_gather"
+        parts.append(_LayerPartition(
+            w_spec=tuple(spec), local_cin=cin_l,
+            local_cout=cout_l, collective=coll))
+    return parts
+
+
+def _collective_bytes(layer, part: _LayerPartition, per_dev_batch: int,
+                      act_bytes: int) -> int:
+    """Per-rank payload entering the layer's collective: the tensor the
+    rank hands ``all_reduce`` or ``all_gather``."""
+    if part.collective is None:
+        return 0
+    chans = (layer.cout if part.collective == "psum" else part.local_cout)
+    return act_bytes * per_dev_batch * math.prod(layer.out_spatial) * chans
+
+
+def _mesh_extents(cfg: EngineConfig, batch: int) -> tuple[int, int]:
+    """The data- and model-axis extents; a compile batch the data axis does
+    not divide raises."""
+    mesh, policy = cfg.mesh, cfg.policy
+    dp = mesh.shape[policy.batch_axis]
+    mp = mesh.shape[policy.model_axis] if policy.model_axis else 1
+    if batch % dp:
+        raise ScheduleError(
+            f"compile batch {batch} does not divide the {dp}-way "
+            f"{policy.batch_axis!r} mesh axis")
+    return dp, mp
+
+
+def shard_batch(batch, mesh, axis: str = "data"):
+    """This rank's block of a global batch (a tensor, an array or a tree of
+    them) along ``axis``: the slice of the leading dim a sharded
+    ``compile_network`` callable or a data-parallel step takes."""
+    n, i = mesh.shape[axis], mesh.coords[axis]
+
+    def cut(x):
+        if x.shape[0] % n:
+            raise ScheduleError(f"batch {x.shape[0]} does not divide the "
+                                f"{n}-way {axis!r} mesh axis")
+        per = x.shape[0] // n
+        return x[i * per:(i + 1) * per]
+
+    return _tree.tree_map(cut, batch)
+
+
+def _local_weight(w: torch.Tensor, spec: tuple, index: int,
+                  size: int) -> torch.Tensor:
+    """This rank's block of a full weight under its partition spec."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            n = w.shape[dim] // size
+            w = w.narrow(dim, index * n, n)
+    return w
+
+
+def _compile_sharded(layers, engine: UniformEngine, batch: int,
+                     dtype: torch.dtype):
+    """A chain partitioned over the engine's mesh: each rank runs its batch
+    shard through its channel shard of every layer, with the partition's
+    all-reduces and all-gathers between, and the per-rank report."""
+    cfg = engine.config
+    mesh, policy = cfg.mesh, cfg.policy
+    dp, mp = _mesh_extents(cfg, batch)
+    parts = _partition_layers(layers, policy, mp)
+    per_dev_batch = batch // dp
+    # activation bytes entering the collectives: the storage dtype, else
+    # the activations' own
+    act_bytes = (cfg.preferred_element_type or dtype).itemsize
+    report = ScheduleReport(
+        engine=cfg, batch=batch, data_parallel=dp, model_parallel=mp,
+        layers=tuple(
+            _schedule_layer(l, engine, per_dev_batch, dtype,
+                            local_cin=pt.local_cin, local_cout=pt.local_cout,
+                            collective=pt.collective,
+                            collective_bytes=_collective_bytes(
+                                l, pt, per_dev_batch, act_bytes))
+            for l, pt in zip(layers, parts)))
+    m_index = mesh.coords[policy.model_axis] if policy.model_axis else 0
+
+    def apply(ws, x):
+        if len(ws) != len(layers):
+            raise ScheduleError(f"expected {len(layers)} weight arrays, got "
+                                f"{len(ws)}")
+        if any(isinstance(e, dict) for e in ws):
+            raise ScheduleError(
+                "channel-partitioned chains take bare weight arrays; "
+                "quantized {'w_q', 'scale'} entries are only supported on "
+                "unsharded chains and (data-parallel) graph schedules")
+        h = x.to(engine.device)
+        for layer, w, part in zip(layers, ws, parts):
+            w = _local_weight(w, part.w_spec, m_index, mp).to(
+                device=h.device, dtype=h.dtype)
+            epi = layer.epilogue
+            if part.collective == "psum" and not epi.is_identity:
+                # a channel-contracting layer produces PARTIAL sums: its
+                # epilogue does not commute with the reduction, so it runs
+                # after the all-reduce, outside the kernel
+                op = engine.deconv if layer.op == "deconv" else engine.conv
+                h = op(h, w, layer.stride, layer.padding,
+                       dilation=layer.dilation, groups=layer.groups)
+                h = _mesh.all_reduce(h, mesh.group(policy.model_axis))
+                h = _kcommon.apply_epilogue(h, None, epi.activation,
+                                            epi.alpha)
+                continue
+            h = engine(layer, h, w)
+            if part.collective == "psum":
+                h = _mesh.all_reduce(h, mesh.group(policy.model_axis))
+            elif part.collective == "all_gather":
+                h = _mesh.all_gather(h, mesh.group(policy.model_axis),
+                                     dim=h.dim() - 1)
+        return h
+
+    return apply, report
+
+
+def _graph_rows(graph: _networks.UniformGraph, engine: UniformEngine,
+                batch: int, dtype: torch.dtype):
+    return tuple(_schedule_layer(nd, engine, batch, dtype)
+                 if isinstance(nd, _networks.UniformLayer)
+                 else _schedule_merge(nd, graph, dtype)
+                 for nd in (graph.nodes[n] for n in graph.order))
+
+
+def _compile_graph_sharded(graph: _networks.UniformGraph,
+                           engine: UniformEngine, batch: int,
+                           dtype: torch.dtype):
+    """A graph over the mesh's data axis alone: each rank walks the whole
+    DAG on its batch shard with the weights replicated (skip tensors never
+    cross ranks).  The rows carry one rank's accounting, the report's
+    ``batch`` stays global, as on the chain path."""
+    dp, _ = _mesh_extents(engine.config, batch)
+    report = ScheduleReport(
+        engine=engine.config, batch=batch, data_parallel=dp,
+        layers=_graph_rows(graph, engine, batch // dp, dtype))
+    return _graph_apply_fn(graph, engine), report
+
+
 def compile_network(layers: Sequence[_networks.UniformLayer]
                     | _networks.UniformGraph,
                     engine: UniformEngine | EngineConfig | str,
@@ -708,9 +977,19 @@ def compile_network(layers: Sequence[_networks.UniformLayer]
     (``repro_torch.quant.quantize_weights``); ``report``'s ``precision``
     column shows each layer's resolved policy.
     Merge nodes own no weights; on ``"pallas"`` epilogues run inside the
-    kernels, on a reference lowering on each op's output.  With telemetry
-    ``apply`` comes wrapped in ``obs.instrument_apply``: each call is
-    timed into ``engine_dispatch_seconds`` and counted.
+    kernels, on a reference lowering on each op's output.
+
+    With a mesh-aware engine (``EngineConfig(mesh=..., policy=...)``)
+    ``apply`` runs on every rank of the mesh: it takes the rank's shard of
+    the batch (``shard_batch``) and the FULL weights, and returns the
+    rank's shard of the output.  A chain partitions per the policy's model
+    axis (bare weight tensors only); a graph over the batch axis alone,
+    weights replicated, since its skip merges would otherwise gather at
+    every node.  The report's rows are then per rank, at the per-rank
+    batch.
+
+    With telemetry ``apply`` comes wrapped in ``obs.instrument_apply``:
+    each call is timed into ``engine_dispatch_seconds`` and counted.
     """
     engine = engine if isinstance(engine, UniformEngine) else as_engine(engine)
     tel = engine.config.telemetry
@@ -718,11 +997,14 @@ def compile_network(layers: Sequence[_networks.UniformLayer]
     if isinstance(layers, _networks.UniformGraph):
         graph = layers
         tag = f"graph:{graph.output}"
-        rows = tuple(_schedule_layer(nd, engine, batch, dtype)
-                     if isinstance(nd, _networks.UniformLayer)
-                     else _schedule_merge(nd, graph, dtype)
-                     for nd in (graph.nodes[n] for n in graph.order))
-        apply = _graph_apply_fn(graph, engine)
+        if engine.config.mesh is not None:
+            apply, report = _compile_graph_sharded(graph, engine, batch,
+                                                   dtype)
+        else:
+            report = ScheduleReport(engine=engine.config, batch=batch,
+                                    layers=_graph_rows(graph, engine, batch,
+                                                       dtype))
+            apply = _graph_apply_fn(graph, engine)
     else:
         chain = tuple(layers)
         if not chain:
@@ -734,17 +1016,22 @@ def compile_network(layers: Sequence[_networks.UniformLayer]
                     f"{prev.out_spatial}x{prev.cout} != "
                     f"{nxt.in_spatial}x{nxt.cin}")
         tag = f"chain:{chain[0].name}x{len(chain)}"
-        rows = tuple(_schedule_layer(l, engine, batch, dtype) for l in chain)
+        if engine.config.mesh is not None:
+            apply, report = _compile_sharded(chain, engine, batch, dtype)
+        else:
+            report = ScheduleReport(
+                engine=engine.config, batch=batch,
+                layers=tuple(_schedule_layer(l, engine, batch, dtype)
+                             for l in chain))
 
-        def apply(ws, x):
-            if len(ws) != len(chain):
-                raise ScheduleError(f"expected {len(chain)} weight entries, "
-                                    f"got {len(ws)}")
-            h = x.to(engine.device)
-            for layer, entry in zip(chain, ws):
-                h = _run_layer(engine, layer, entry, h)
-            return h
-    report = ScheduleReport(engine=engine.config, layers=rows, batch=batch)
+            def apply(ws, x):
+                if len(ws) != len(chain):
+                    raise ScheduleError(f"expected {len(chain)} weight "
+                                        f"entries, got {len(ws)}")
+                h = x.to(engine.device)
+                for layer, entry in zip(chain, ws):
+                    h = _run_layer(engine, layer, entry, h)
+                return h
     if tel is not None:
         from repro_torch.obs.report import instrument_apply  # opt-in only
         dt = time.perf_counter() - t0

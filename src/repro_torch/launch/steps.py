@@ -7,20 +7,33 @@ a step, forward and backward, runs on the engine's hand kernels through
 the ops' autograd ``Function``s; the losses, the z-projection, the
 discriminator head and AdamW are plain tensor code.
 
+``make_dp_gan_train_step`` and ``make_dp_vnet_train_step`` are their
+data-parallel siblings (``runtime.dp_trainer``): each rank runs the step
+on its shard of the batch, the losses are averaged over the data axis and
+the gradients reduced by ``dp_trainer.reduce_grads`` (through int8 with
+error feedback when ``compress``), and every rank applies the same
+AdamW update; ``fold_dp_step`` fits one to the ``Trainer``.
+
 ``train_step_launches`` derives from the model graphs how many times each
-hand-kernel wrapper launches in one step, so a run on the card can check
-that the step went through the kernels and nowhere else.
+hand-kernel wrapper launches in one step (on each rank, at its batch), so
+a run on the card can check that the step went through the kernels and
+nowhere else.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch import tree as _tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import networks
+from repro_torch.core.engine import shard_batch
+from repro_torch.sharding import mesh as _mesh
 from repro_torch.models import dcnn as D
 from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.runtime import dp_trainer as DP
 
 
 # the hand-kernel wrappers whose launches a train step counts
@@ -35,6 +48,17 @@ def _init_ws(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
         return {"vnet": D.init_vnet(cfg, generator, device)}
     return {"gen": D.init_generator(cfg, generator, device),
             "disc": D.init_discriminator(cfg, generator, device)}
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of ``real_params``' tree, leaf for leaf (the JAX
+    package's ``split_params(...)[1]``)."""
+    if cfg.family != "dcnn":
+        raise NotImplementedError(f"{cfg.family!r} models are ROADMAP item "
+                                  f"15 (the LM stack)")
+    if cfg.dcnn == "v_net":
+        return {"vnet": D.vnet_axes(cfg)}
+    return {"gen": D.generator_axes(cfg), "disc": D.discriminator_axes(cfg)}
 
 
 def real_params(cfg: ModelConfig, generator: torch.Generator,
@@ -75,27 +99,39 @@ def make_gan_train_step(cfg: ModelConfig, opt: AdamWConfig, engine=None):
     engine = D._engine(engine)
 
     def train_step(params, opt_state, batch):
-        gen_p, disc_p = params["gen"], params["disc"]
-        gen_s, disc_s = opt_state
-        with torch.enable_grad():
-            gp = _wanting_grad(gen_p)
-            fake = D.generator_forward(gp, cfg, batch["z"], engine)
-            d_fake = D.discriminator_forward(
-                _tree.tree_map(torch.Tensor.detach, disc_p), cfg, fake,
-                engine)
-            g_loss = D.bce(d_fake, torch.ones_like(d_fake))
-            g_grads = _grads(g_loss, gp)
-            dp = _wanting_grad(disc_p)
-            d_real = D.discriminator_forward(dp, cfg, batch["real"], engine)
-            d_fake = d_fake.detach()
-            d_loss = 0.5 * (D.bce(d_real, torch.ones_like(d_real))
-                            + D.bce(d_fake, torch.zeros_like(d_fake)))
-            d_grads = _grads(d_loss, dp)
-        new_gen, gen_s = adamw_update(g_grads, gen_s, gen_p, opt)
-        new_disc, disc_s = adamw_update(d_grads, disc_s, disc_p, opt)
-        return ({"gen": new_gen, "disc": new_disc}, (gen_s, disc_s),
-                {"g_loss": g_loss.detach(), "d_loss": d_loss.detach()})
+        g_loss, d_loss, grads = _gan_grads(params, cfg, batch, engine)
+        return _gan_update(params, opt_state, grads, opt,
+                           {"g_loss": g_loss, "d_loss": d_loss})
     return train_step
+
+
+def _gan_grads(params, cfg: ModelConfig, batch, engine):
+    """``(g_loss, d_loss, {"gen": g_grads, "disc": d_grads})`` of one GAN
+    step on ``batch``, the losses detached."""
+    gen_p, disc_p = params["gen"], params["disc"]
+    with torch.enable_grad():
+        gp = _wanting_grad(gen_p)
+        fake = D.generator_forward(gp, cfg, batch["z"], engine)
+        d_fake = D.discriminator_forward(
+            _tree.tree_map(torch.Tensor.detach, disc_p), cfg, fake, engine)
+        g_loss = D.bce(d_fake, torch.ones_like(d_fake))
+        g_grads = _grads(g_loss, gp)
+        dp = _wanting_grad(disc_p)
+        d_real = D.discriminator_forward(dp, cfg, batch["real"], engine)
+        d_fake = d_fake.detach()
+        d_loss = 0.5 * (D.bce(d_real, torch.ones_like(d_real))
+                        + D.bce(d_fake, torch.zeros_like(d_fake)))
+        d_grads = _grads(d_loss, dp)
+    return (g_loss.detach(), d_loss.detach(),
+            {"gen": g_grads, "disc": d_grads})
+
+
+def _gan_update(params, opt_state, grads, opt: AdamWConfig, metrics):
+    gen_s, disc_s = opt_state
+    new_gen, gen_s = adamw_update(grads["gen"], gen_s, params["gen"], opt)
+    new_disc, disc_s = adamw_update(grads["disc"], disc_s, params["disc"],
+                                    opt)
+    return {"gen": new_gen, "disc": new_disc}, (gen_s, disc_s), metrics
 
 
 def make_vnet_train_step(cfg: ModelConfig, opt: AdamWConfig, engine=None):
@@ -103,14 +139,94 @@ def make_vnet_train_step(cfg: ModelConfig, opt: AdamWConfig, engine=None):
     engine = D._engine(engine)
 
     def train_step(params, opt_state, batch):
-        with torch.enable_grad():
-            p = _wanting_grad(params)
-            logits = D.vnet_forward(p["vnet"], cfg, batch["vol"], engine)
-            loss = D.dice_loss(logits, batch["labels"])
-            grads = _grads(loss, p)
+        loss, grads = _vnet_grads(params, cfg, batch, engine)
         new_p, new_s = adamw_update(grads, opt_state, params, opt)
-        return new_p, new_s, {"loss": loss.detach()}
+        return new_p, new_s, {"loss": loss}
     return train_step
+
+
+def _vnet_grads(params, cfg: ModelConfig, batch, engine):
+    with torch.enable_grad():
+        p = _wanting_grad(params)
+        logits = D.vnet_forward(p["vnet"], cfg, batch["vol"], engine)
+        loss = D.dice_loss(logits, batch["labels"])
+        grads = _grads(loss, p)
+    return loss.detach(), grads
+
+
+# -- explicit data-parallel DCNN steps (runtime.dp_trainer) ------------------
+
+def make_dp_gan_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh,
+                           engine=None, compress: bool = True):
+    """Data-parallel GAN step on the engine: each rank runs the GAN step's
+    gradients on its batch shard (on ``"pallas"``, every conv and deconv
+    on the hand kernels), the losses are averaged and the gradients
+    reduced over the mesh's data axis (through int8 with error feedback
+    when ``compress``), and every rank applies the same AdamW
+    update.  ``step(params, opt_state, err, batch)``, ``err`` from
+    ``dp_trainer.init_error_state({"gen": ..., "disc": ...}, n_data)``."""
+    engine = D._engine(engine)
+    group = mesh.group("data")
+
+    def local_step(params, opt_state, err, batch):
+        g_loss, d_loss, grads = _gan_grads(params, cfg, batch, engine)
+        g_loss = _mesh.pmean(g_loss, group)
+        d_loss = _mesh.pmean(d_loss, group)
+        grads, err = DP.reduce_grads(grads, err, group, compress)
+        params, opt_state, metrics = _gan_update(
+            params, opt_state, grads, opt,
+            {"g_loss": g_loss, "d_loss": d_loss})
+        return params, opt_state, err, metrics
+
+    return DP.make_dp_step(local_step, mesh)
+
+
+def make_dp_vnet_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh,
+                            engine=None, compress: bool = True):
+    """V-Net sibling of ``make_dp_gan_train_step``: each rank's dice + CE
+    gradients from its volume shard, reduced over the data axis."""
+    engine = D._engine(engine)
+    group = mesh.group("data")
+
+    def local_step(params, opt_state, err, batch):
+        loss, grads = _vnet_grads(params, cfg, batch, engine)
+        loss = _mesh.pmean(loss, group)
+        grads, err = DP.reduce_grads(grads, err, group, compress)
+        new_p, new_s = adamw_update(grads, opt_state, params, opt)
+        return new_p, new_s, err, {"loss": loss}
+
+    return DP.make_dp_step(local_step, mesh)
+
+
+def round_batch_to_mesh(cfg: ModelConfig, n_data: int) -> ModelConfig:
+    """Round ``dcnn_batch`` up to a multiple of the data axis's extent, so
+    every rank gets an equal shard."""
+    if cfg.dcnn_batch % n_data == 0:
+        return cfg
+    return dataclasses.replace(
+        cfg, dcnn_batch=-(-cfg.dcnn_batch // n_data) * n_data)
+
+
+def fold_dp_step(dp_step, n_data: int, params, mesh=None):
+    """Fit a dp step to the ``Trainer``'s three-argument contract by
+    folding the error-feedback state into the optimizer state:
+    ``step(params, (opt_state, err), batch) -> (params, (opt_state, err),
+    metrics)``.  Returns ``(step_fn, err_state)``.  With ``mesh`` the
+    folded step takes the global batch (a data pipeline's) and hands the
+    dp step this rank's shard of it."""
+    err0 = DP.init_error_state(params, n_data)
+
+    def step(params, state, batch):
+        opt_state, err = state
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
+        params, opt_state, err, metrics = dp_step(params, opt_state, err,
+                                                  batch)
+        if not isinstance(metrics, dict):
+            metrics = {"loss": metrics}
+        return params, (opt_state, err), metrics
+
+    return step, err0
 
 
 def _graph_launches(graph, input_needs_grad: bool):

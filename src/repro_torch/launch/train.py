@@ -10,6 +10,22 @@ Every conv and deconv runs on the hand kernels on the CUDA device; with
 package's ``--deconv-method`` has one ported value, ``pallas``).
 Checkpoints go to ``--checkpoint-dir`` (``checkpoints/`` by default,
 git-ignored); ``--resume`` continues from the newest valid one.
+
+``--dp`` trains data-parallel through ``runtime.dp_trainer``: every rank
+of the world runs the step on its shard of the global batch (rounded up
+to a multiple of the data axis) and the gradients are reduced as int8
+values with error feedback, summed as int32 (``--no-dp-compress``: an
+f32 mean).  The world is the one
+``torchrun`` describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``), or this
+process alone when none is set; the backend is NCCL on the card and gloo
+with ``--device cpu``.  ``--model-parallel`` takes 1 only: the DP steps
+partition no parameter over a model axis (ROADMAP item 15), so ranks on
+it would duplicate one another's work.  A ``--dp`` run keeps its
+checkpoints apart (``<dir>-dp``, one directory per rank: each rank's
+error-feedback residual is its own).
+
+    torchrun --nproc_per_node=2 -m repro_torch.launch.train --arch dcgan \
+        --reduced --dp --device cpu --steps 3
 """
 
 from __future__ import annotations
@@ -33,7 +49,21 @@ def main(argv=None):
     ap.add_argument("--telemetry", metavar="OUT_JSONL", default=None,
                     help="record step-time metrics + spans to this JSONL "
                          "event log")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model-axis extent of the --dp mesh; only 1 until "
+                         "the parameters are partitioned over it")
+    ap.add_argument("--dp", action="store_true",
+                    help="explicit data-parallel trainer over the world "
+                         "(int8-compressed gradient all-reduce)")
+    ap.add_argument("--no-dp-compress", action="store_true",
+                    help="with --dp: plain f32 gradient all-reduce")
     args = ap.parse_args(argv)
+    if args.model_parallel != 1:
+        raise NotImplementedError(
+            "--model-parallel: the DP steps partition no parameter over a "
+            "model axis yet (ROADMAP item 15), so only 1 is supported")
+
+    import os
 
     import torch
 
@@ -41,9 +71,11 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.core.engine import UniformEngine
     from repro_torch.data import DcnnBatches, VolumeBatches
+    from repro_torch.launch import mesh as M
     from repro_torch.launch import steps as ST
     from repro_torch.models import dcnn as D
     from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.dp_trainer import record_dp_metrics
     from repro_torch.runtime.train_loop import Trainer, TrainLoopConfig
 
     telemetry = (obs.Telemetry.create(jsonl_path=args.telemetry)
@@ -51,32 +83,70 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    engine = UniformEngine(method=cfg.dcnn_method, device=args.device)
-    device = engine.device
+    device = torch.device(args.device)
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    engine = UniformEngine(method=cfg.dcnn_method, device=device)
     opt = AdamWConfig(lr=args.lr)
+    mesh, joined = None, False
+    if args.dp:
+        joined = M.init_world(M.backend_for(device))
+        mesh = M.make_host_mesh(model=args.model_parallel)
+        n_data = mesh.shape["data"]
+        cfg = ST.round_batch_to_mesh(cfg, n_data)
+        args.checkpoint_dir += "-dp"
+        if mesh.size > 1:
+            args.checkpoint_dir = os.path.join(args.checkpoint_dir,
+                                               f"rank{mesh.rank}")
     params = ST.real_params(cfg, torch.Generator().manual_seed(0), device)
+    compress = not args.no_dp_compress
     if cfg.dcnn == "v_net":
         data = VolumeBatches(cfg.dcnn_batch, D._vnet_spatial(cfg),
                              device=device)
-        step_fn = ST.make_vnet_train_step(cfg, opt, engine)
-        opt_state = adamw_init(params, opt)
+        if mesh is not None:
+            step_fn, err = ST.fold_dp_step(ST.make_dp_vnet_train_step(
+                cfg, opt, mesh, engine, compress), n_data, params, mesh)
+            opt_state = (adamw_init(params, opt), err)
+        else:
+            step_fn = ST.make_vnet_train_step(cfg, opt, engine)
+            opt_state = adamw_init(params, opt)
     else:
         layers = D._scaled_layers(cfg)
         data = DcnnBatches(cfg.dcnn_batch, cfg.dcnn_z,
                            (*layers[-1].out_spatial, layers[-1].cout),
                            device=device)
-        step_fn = ST.make_gan_train_step(cfg, opt, engine)
         opt_state = (adamw_init(params["gen"], opt),
                      adamw_init(params["disc"], opt))
+        if mesh is not None:
+            step_fn, err = ST.fold_dp_step(ST.make_dp_gan_train_step(
+                cfg, opt, mesh, engine, compress), n_data, params, mesh)
+            opt_state = (opt_state, err)
+        else:
+            step_fn = ST.make_gan_train_step(cfg, opt, engine)
+    if mesh is not None:
+        print(f"dp trainer: rank {mesh.rank} of {mesh.shape}, "
+              f"{'int8' if compress else 'f32'} all-reduce, global batch "
+              f"{cfg.dcnn_batch}")
+        if telemetry is not None:
+            acct = record_dp_metrics(telemetry, params, compress=compress,
+                                     n_data=n_data)
+            print(f"dp wire (modelled int8): grads={acct['grads_bytes']}B "
+                  f"collective={acct['collective_bytes']}B "
+                  f"({acct['compress_ratio']:.2f}x compression)")
     trainer = Trainer(step_fn, params, opt_state, data,
                       TrainLoopConfig(total_steps=args.steps,
                                       checkpoint_every=args.checkpoint_every,
                                       checkpoint_dir=args.checkpoint_dir),
                       telemetry=telemetry)
-    if args.resume:
-        resumed = trainer.maybe_resume()
-        print(f"resume: {'ok, step=' + str(trainer.step) if resumed else 'no checkpoint found'}")
-    trainer.run()
+    try:
+        if args.resume:
+            resumed = trainer.maybe_resume()
+            print(f"resume: {'ok, step=' + str(trainer.step) if resumed else 'no checkpoint found'}")
+        trainer.run()
+    finally:
+        if joined:
+            M.leave_world()
     print(f"finished at step {trainer.step}; "
           f"stragglers={trainer.straggler_events}")
     if telemetry is not None:

@@ -16,7 +16,10 @@ Parameter trees are the JAX package's, as dicts of tensors:
 ``{"convs": [{"w"}, ...], "head"}`` for the discriminator and
 ``{"enc", "dec", "head"}`` for V-Net.  Initialisers draw from an explicit
 ``torch.Generator`` onto ``device`` (``"cuda"`` unless the caller asks for
-the CPU).  The engine defaults to the ``"pallas"`` method (the hand
+the CPU); ``generator_axes``, ``discriminator_axes`` and ``vnet_axes``
+give the same trees' logical axes (``sharding.conv_weight_axes`` on the
+conv weights, as the JAX initialisers annotate them), which
+``checkpoint.Checkpointer.restore`` resolves against a mesh.  The engine defaults to the ``"pallas"`` method (the hand
 kernels, the only one ported); the JAX models default to ``iom_phase``.
 """
 
@@ -32,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import networks
 from repro_torch.core.engine import UniformEngine, as_engine, compile_network
 from repro_torch.models import layers as L
+from repro_torch.sharding.partition import constrain, conv_weight_axes
 
 DEFAULT_METHOD = "pallas"
 
@@ -65,23 +69,44 @@ def _generator_graph(dcnn: str, reduced: bool) -> networks.UniformGraph:
     return networks.chain_graph(glayers)
 
 
-def init_generator(cfg: ModelConfig, generator: torch.Generator,
-                   device="cuda"):
+def _drawn(generator: torch.Generator, device):
+    """A leaf maker that draws each leaf (``init`` a normal's scale, or
+    ``"zeros"``) in the order the tree asks for them."""
+    def leaf(shape, logical, init):
+        if init == "zeros":
+            return L.zeros_init(shape, device=device)
+        return L.dense_init(generator, shape, scale=init, device=device)
+    return leaf
+
+
+def _axes(shape, logical, init):
+    return tuple(logical)
+
+
+def _generator_tree(cfg: ModelConfig, leaf):
     layers = _scaled_layers(cfg)
     first = layers[0]
     proj_out = math.prod(first.in_spatial) * first.cin
     params = {
-        "proj": L.dense_init(generator, (cfg.dcnn_z, proj_out), scale=0.02,
-                             device=device),
+        "proj": leaf((cfg.dcnn_z, proj_out), (None, None), 0.02),
         "deconvs": [],
     }
     for l in layers:
         params["deconvs"].append({
-            "w": L.dense_init(generator, (*l.kernel, l.cin, l.cout),
-                              scale=0.02, device=device),
-            "b": L.zeros_init((l.cout,), device=device),
+            "w": leaf((*l.kernel, l.cin, l.cout), conv_weight_axes(l.rank),
+                      0.02),
+            "b": leaf((l.cout,), ("model",), "zeros"),
         })
     return params
+
+
+def init_generator(cfg: ModelConfig, generator: torch.Generator,
+                   device="cuda"):
+    return _generator_tree(cfg, _drawn(generator, device))
+
+
+def generator_axes(cfg: ModelConfig):
+    return _generator_tree(cfg, _axes)
 
 
 def generator_forward(params, cfg: ModelConfig, z, engine=None):
@@ -97,6 +122,7 @@ def generator_forward(params, cfg: ModelConfig, z, engine=None):
     h = torch.matmul(z, params["proj"].to(z.dtype))
     h = h.reshape(h.shape[0], *first.in_spatial, first.cin)
     h = torch.relu(h)
+    h = constrain(h, "batch", *([None] * (first.rank + 1)))
     apply, _ = compile_network(graph, engine, batch=h.shape[0])
     ws = {l.name: dict(p) for l, p in zip(glayers, params["deconvs"])}
     return apply(ws, h)
@@ -137,20 +163,26 @@ def _discriminator_graph(dcnn: str, reduced: bool) -> networks.UniformGraph:
     return networks.chain_graph(convs)
 
 
-def init_discriminator(cfg: ModelConfig, generator: torch.Generator,
-                       device="cuda"):
+def _discriminator_tree(cfg: ModelConfig, leaf):
     layers = _scaled_layers(cfg)
     rank = layers[0].rank
     chans = _disc_chans(layers)
     convs = []
     for i in range(len(chans) - 1):
         convs.append({
-            "w": L.dense_init(generator, (*(3,) * rank, chans[i],
-                                          chans[i + 1]),
-                              scale=0.02, device=device)})
+            "w": leaf((*(3,) * rank, chans[i], chans[i + 1]),
+                      conv_weight_axes(rank), 0.02)})
     return {"convs": convs,
-            "head": L.dense_init(generator, (chans[-1], 1), scale=0.02,
-                                 device=device)}
+            "head": leaf((chans[-1], 1), (None, None), 0.02)}
+
+
+def init_discriminator(cfg: ModelConfig, generator: torch.Generator,
+                       device="cuda"):
+    return _discriminator_tree(cfg, _drawn(generator, device))
+
+
+def discriminator_axes(cfg: ModelConfig):
+    return _discriminator_tree(cfg, _axes)
 
 
 def discriminator_forward(params, cfg: ModelConfig, x, engine=None):
@@ -203,23 +235,30 @@ def _vnet_weights(params, graph: networks.UniformGraph):
     return ws
 
 
-def init_vnet(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+def _vnet_tree(cfg: ModelConfig, leaf):
     enc_spec = _vnet_chans(cfg)
-    enc = [{"w": L.dense_init(generator, (3, 3, 3, ci, co), scale=0.05,
-                              device=device)}
-           for ci, co in enc_spec]
+    # V-Net replicates its weights (its channels are skip-tied, so data
+    # parallelism is its scaling story); the axes still come from the
+    # shared conv-weight annotation
+    axes = conv_weight_axes(3, cout=None)
+    enc = [{"w": leaf((3, 3, 3, ci, co), axes, 0.05)} for ci, co in enc_spec]
     dec = []
     # decoder mirrors: deconv from co -> ci (skip concat) -> conv merge
     for ci, co in reversed(enc_spec[1:]):
         dec.append({
-            "up_w": L.dense_init(generator, (3, 3, 3, co, ci), scale=0.05,
-                                 device=device),
-            "merge_w": L.dense_init(generator, (3, 3, 3, 2 * ci, ci),
-                                    scale=0.05, device=device),
+            "up_w": leaf((3, 3, 3, co, ci), axes, 0.05),
+            "merge_w": leaf((3, 3, 3, 2 * ci, ci), axes, 0.05),
         })
-    head = L.dense_init(generator, (1, 1, 1, enc_spec[0][1], 2), scale=0.05,
-                        device=device)
+    head = leaf((1, 1, 1, enc_spec[0][1], 2), axes, 0.05)
     return {"enc": enc, "dec": dec, "head": head}
+
+
+def init_vnet(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+    return _vnet_tree(cfg, _drawn(generator, device))
+
+
+def vnet_axes(cfg: ModelConfig):
+    return _vnet_tree(cfg, _axes)
 
 
 def vnet_forward(params, cfg: ModelConfig, vol, engine=None):
