@@ -114,6 +114,26 @@ Phases, any failure of which exits non-zero before the result line:
      the bucket (``InjectedCompileError`` named), a NaN row is quarantined
      and the rest re-run, and both engines failing completes every
      request with a typed ``DispatchFailedError``;
+     serve (LM) — the LM serving slice at full width, llama3.2-1b and
+     then qwen2-vl-2b (the first freed before the second is built):
+     weights from a seeded CPU generator copied to the card, the port's
+     ``Server(max_batch=8, max_len=128)`` answering 8 requests of 4-16
+     tokens (16 new tokens each) on the card and on the CPU, with TF32
+     on in cuBLAS (the LM forward scopes IEEE f32 itself): prefill
+     logits within 1e-4 of max |logit| of the CPU's, greedy tokens equal
+     up to a first divergence whose CPU top-2 margin is within 1e-2 of
+     max |logit| (compared no further), each decode call's logits up to
+     that step within 1e-2 of max |logit| of the CPU's (bf16 rounding
+     ties), and with an f32 decode cache the same batch's tokens equal
+     and its decode logits within 1e-4, the timed batches' tokens equal
+     to the first's, the reference's KV-cache continuation check at its
+     rtol 5e-2 with its atol 5e-3 taken relative to max |logit| (the
+     reference's own arithmetic fails the absolute atol at full width
+     too: ``scripts/continuation_witness.py``) and within 1e-5 with an
+     f32 cache, no hand-kernel launch; prefill ms,
+     decode ms per step (host clock around a synchronized call), tokens/s,
+     the decode byte bound, peak memory and one profiled decode step's
+     kernels and device-busy ms, beside the card's name and power limit;
   5. times — each kernel at every call shape the main path gave it (CUDA
      events; the serve and train runs record each wrapper's calls by
      shape) beside its plain version, one cuDNN call computing the same
@@ -188,6 +208,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -367,6 +388,30 @@ def record_calls(dk, ck, recorded: dict, recording: list) -> None:
     for mod, kname in ((dk, "deconv_fwd"), (ck, "conv_fwd"),
                        (dk, "deconv_dw"), (dk, "deconv_dx")):
         recorder(mod, kname)
+
+
+def lm_first_divergence(got, want, logits, tol: float):
+    """The first decode step at which two runs' greedy tokens differ (None
+    if they never do), after checking that at that step every differing
+    row's top-2 logit margin in ``logits[step]`` ([B, V], the reference
+    run's) lies within ``tol`` of its max |logit|: a rounding tie.  Rows
+    and steps after it are not compared."""
+    for step in range(max(len(w) for w in want)):
+        rows = [i for i, (g, w) in enumerate(zip(got, want))
+                if step < len(w) and g[step] != w[step]]
+        if not rows:
+            continue
+        for i in rows:
+            row = logits[step][i]
+            top2 = row.topk(2).values
+            margin = float(top2[0] - top2[1])
+            check(margin <= tol * float(row.abs().max()),
+                  f"request {i} step {step}: tokens {got[i][step]} != "
+                  f"{want[i][step]} with a top-2 margin of {margin:.3g}")
+        return step
+    check([len(g) for g in got] == [len(w) for w in want],
+          f"token counts {[len(g) for g in got]}")
+    return None
 
 
 def phase(name: str) -> None:
@@ -2644,6 +2689,259 @@ def main() -> int:
                       "all_failed_typed": len(got)}))
     del esrv
     torch.cuda.empty_cache()
+
+    # -- 4l. serve (LM) ----------------------------------------------------
+    # the LM serving slice at full width: llama3.2-1b, then qwen2-vl-2b
+    # (M-RoPE), each through the port's Server (8 requests of 4-16 tokens
+    # drawn as launch/serve.py draws them, 16 new tokens each) on the card
+    # and on the CPU from the same seeded weights.  TF32 is on in cuBLAS
+    # for the phase: the LM forward scopes IEEE f32 itself.  Counts set to
+    # 0 before the phase and read after it: the LM path launches no hand
+    # kernel
+    phase("serve (LM)")
+    from repro_torch.models import attention as LMA
+    from repro_torch.models import transformer as LMT
+    from repro_torch.runtime.serve_loop import Request as LMRequest
+    from repro_torch.runtime.serve_loop import Server as LMServer
+
+    LM_PREFILL_TOL, LM_DECODE_TOL = 1e-4, 1e-2
+    LM_RTOL, LM_ATOL = 5e-2, 5e-3
+    lm_forward, lm_init_cache = LMT.forward, LMT.init_cache
+
+    def lm_submit(srv, vocab):
+        rng = np.random.RandomState(0)
+        for _ in range(8):
+            plen = int(rng.randint(4, 17))
+            srv.submit(LMRequest(
+                prompt=[int(t_) for t_ in rng.randint(0, vocab, plen)],
+                max_new_tokens=16))
+
+    def lm_serve(params, lm_cfg, device, seen=None, f32_cache=False):
+        """One batch of the phase's requests through a new Server on
+        ``device``: the server and its tokens; ``seen`` collects every
+        forward call's last-position logits (prefill, then each decode
+        call).  ``f32_cache`` makes the decode cache f32 (the Server's
+        is bf16), so that the decode rounds nothing to bf16."""
+        srv = LMServer(params, lm_cfg, max_batch=8, max_len=128,
+                       device=device)
+        lm_submit(srv, lm_cfg.vocab)
+
+        def recording(*args, **kw):
+            logits, cache = lm_forward(*args, **kw)
+            seen.append(logits[:, -1].float().cpu())
+            return logits, cache
+
+        def f32_init_cache(*args, **kw):
+            cache = lm_init_cache(*args, **kw)
+            return {**cache, "kv": tuple(v.float() for v in cache["kv"])}
+        if seen is not None:
+            LMT.forward = recording
+        if f32_cache:
+            LMT.init_cache = f32_init_cache
+        try:
+            return srv, srv.step()
+        finally:
+            LMT.forward, LMT.init_cache = lm_forward, lm_init_cache
+
+    def lm_decode_errs(out_dev, out_cpu, seen_dev, seen_cpu):
+        """The first divergence of the card's tokens from the CPU's (a
+        tie within the decode tolerance, or None) and each decode call's
+        logits' max |diff| / max |logit| while both runs read the same
+        tokens (through that step)."""
+        diverged = lm_first_divergence(out_dev, out_cpu, seen_cpu,
+                                       LM_DECODE_TOL)
+        last = len(seen_cpu) - 1 if diverged is None else diverged
+        return diverged, [float((seen_dev[k] - seen_cpu[k]).abs().max()
+                                / seen_cpu[k].abs().max())
+                          for k in range(1, last + 1)]
+
+    def lm_prefilled(params, lm_cfg, toks, max_len,
+                     cache_dtype=torch.bfloat16):
+        """A ``max_len`` decode cache holding the f32 prefill of ``toks``
+        [B, S], at position S."""
+        _, pc = LMT.forward(params, lm_cfg, {"tokens": toks},
+                            mode="prefill", param_dtype=torch.float32)
+        kv = LMA.init_kv_cache(lm_cfg, toks.shape[0], max_len,
+                               lm_cfg.n_layers, dtype=cache_dtype,
+                               device=toks.device)
+        for big, small in zip(kv, pc["kv"]):
+            big[:, :, :toks.shape[1]] = small.to(big.dtype)
+        return {"kv": kv, "pos": toks.shape[1]}
+
+    def lm_continuation(params, lm_cfg, device, cache_dtype=torch.bfloat16):
+        """Logits of one token decoded from a spliced prefill cache against
+        a prefill over the extended sequence (``tests/test_models.py::
+        test_decode_matches_prefill_continuation`` at full width):
+        ``of_tol``, the largest |diff| / (atol + rtol |logit|) with atol
+        5e-3 of max |logit| and rtol 5e-2; the same with the reference
+        test's absolute atol; max |diff| / max |logit|."""
+        with torch.inference_mode():
+            toks = torch.arange(16, device=device).reshape(2, 8) \
+                % lm_cfg.vocab
+            seven = torch.full((2, 1), 7, device=device)
+            full, _ = LMT.forward(params, lm_cfg,
+                                  {"tokens": torch.cat([toks, seven], 1)},
+                                  mode="prefill", param_dtype=torch.float32)
+            dec, _ = LMT.forward(
+                params, lm_cfg, {"tokens": seven}, mode="decode",
+                cache=lm_prefilled(params, lm_cfg, toks, 16, cache_dtype),
+                param_dtype=torch.float32)
+            diff, scale = (dec - full).abs(), float(full.abs().max())
+            rtol_part = LM_RTOL * full.abs()
+            return {"of_tol": float((diff / (LM_ATOL * scale
+                                             + rtol_part)).max()),
+                    "of_absolute_tol": float((diff / (LM_ATOL
+                                                      + rtol_part)).max()),
+                    "rel_err": float(diff.max()) / scale,
+                    "max_logit": scale}
+
+    def lm_profile_decode(params, lm_cfg):
+        """One decode step of 8 rows at position 16 under torch.profiler:
+        its CUDA kernels (memory copies included) and their summed
+        device time."""
+        PA = torch.profiler.ProfilerActivity
+        with torch.inference_mode():
+            toks = torch.zeros((8, 16), dtype=torch.long, device=dev)
+            cache = lm_prefilled(params, lm_cfg, toks, 128)
+
+            def step():
+                LMT.forward(params, lm_cfg, {"tokens": toks[:, :1]},
+                            mode="decode", cache=dict(cache),
+                            param_dtype=torch.float32)
+            step()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[PA.CPU, PA.CUDA]) as pr:
+                step()
+                torch.cuda.synchronize()
+        ev = [e for e in pr.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        return {"kernels": len(ev),
+                "device_busy_ms": sum(e.device_time_total
+                                      for e in ev) / 1e3}
+
+    def synced(fn, times):
+        """``fn`` timed on the host clock between two synchronizations."""
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    zero_counts()
+    detail["serve_lm"] = {}
+    for lm_arch in ("llama3.2-1b", "qwen2-vl-2b"):
+        t_model = time.perf_counter()
+        lm_cfg = get_config(lm_arch)
+        params_cpu = ST.real_params(
+            lm_cfg, torch.Generator().manual_seed(0), "cpu")
+        weight_bytes = sum(v.numel() * v.element_size()
+                           for v in tree.leaves(params_cpu))
+        # the previous model freed: what the earlier phases hold, < 1 GB
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        check(held_gb < 1.0, f"{lm_arch}: {held_gb:.2f} GB held on the "
+              f"card before its weights")
+        torch.cuda.reset_peak_memory_stats()
+        params_dev = tree.tree_map(lambda v: v.to(dev), params_cpu)
+        # the gates' batch on the card, then on the CPU
+        seen_dev, seen_cpu = [], []
+        out_dev = lm_serve(params_dev, lm_cfg, dev, seen_dev)[1]
+        out_cpu = lm_serve(params_cpu, lm_cfg, "cpu", seen_cpu)[1]
+        check(len(seen_dev) == len(seen_cpu) == 17,
+              f"{lm_arch}: {len(seen_dev)} card and {len(seen_cpu)} CPU "
+              f"forward calls, not 1 prefill + 16 decode")
+        pre_err = float((seen_dev[0] - seen_cpu[0]).abs().max()
+                        / seen_cpu[0].abs().max())
+        check(pre_err <= LM_PREFILL_TOL,
+              f"{lm_arch}: prefill logits {pre_err:.3g} of max |logit| "
+              f"from the CPU's")
+        # each decode call's logits while both runs read the same tokens,
+        # at the decode tolerance: two implementations of the reference's
+        # bf16 cache and probs round near-equal f32 values apart (the JAX
+        # package's and the port's CPU decodes lie 2.0e-3 / 2.3e-3 of max
+        # |logit| apart, scripts/continuation_witness.py); then the same
+        # batch with an f32 decode cache, which rounds nothing to bf16,
+        # at the prefill's tolerance
+        diverged, dec_errs = lm_decode_errs(out_dev, out_cpu, seen_dev,
+                                            seen_cpu)
+        dec_err = max(dec_errs, default=0.0)
+        check(dec_err <= LM_DECODE_TOL,
+              f"{lm_arch}: decode logits {dec_errs} of max |logit| from "
+              f"the CPU's")
+        f32_dev, f32_cpu = [], []
+        f32_div, f32_errs = lm_decode_errs(
+            lm_serve(params_dev, lm_cfg, dev, f32_dev, True)[1],
+            lm_serve(params_cpu, lm_cfg, "cpu", f32_cpu, True)[1],
+            f32_dev, f32_cpu)
+        f32_err = max(f32_errs, default=0.0)
+        check(f32_div is None and f32_err <= LM_PREFILL_TOL,
+              f"{lm_arch}: with an f32 decode cache, first divergence "
+              f"{f32_div}, decode logits {f32_errs} of max |logit|")
+        # a warm batch with each call synchronized (prefill ms, decode ms
+        # per step), then one as the server runs it (tokens/s)
+        srv = lm_serve(params_dev, lm_cfg, dev)[0]
+        pre_ms, dec_ms = [], []
+        srv._prefill = synced(srv._prefill, pre_ms)
+        srv._decode = synced(srv._decode, dec_ms)
+        lm_submit(srv, lm_cfg.vocab)
+        check(srv.step() == out_dev,
+              f"{lm_arch}: a second batch served other tokens")
+        t0 = time.perf_counter()
+        out_e2e = lm_serve(params_dev, lm_cfg, dev)[1]
+        batch_s = time.perf_counter() - t0
+        check(out_e2e == out_dev,
+              f"{lm_arch}: the timed batch served other tokens")
+        prof = lm_profile_decode(params_dev, lm_cfg)
+        prof["idle_share"] = 1 - prof["device_busy_ms"] / statistics.median(
+            dec_ms)
+        # the reference's KV-cache check at full width: one token decoded
+        # from a spliced cache against a prefill over the extended
+        # sequence, at its rtol and its atol taken relative to max |logit|
+        # (the absolute 5e-3 was sized for the reduced model's logits,
+        # ~0.7 at most); the same with an f32 cache, whose rounding is
+        # then the only difference; and the CPU's, reported
+        cont = {"bf16": lm_continuation(params_dev, lm_cfg, dev),
+                "f32_cache": lm_continuation(params_dev, lm_cfg, dev,
+                                             torch.float32),
+                "cpu_bf16": lm_continuation(params_cpu, lm_cfg, "cpu")}
+        check(cont["bf16"]["of_tol"] <= 1.0,
+              f"{lm_arch}: decode vs prefill continuation {cont['bf16']}")
+        check(cont["f32_cache"]["rel_err"] <= 1e-5,
+              f"{lm_arch}: with an f32 cache {cont['f32_cache']}")
+        lm_row = {"serve_lm": lm_arch, "card": smi,
+                  "params": LMT.param_count(params_cpu),
+                  "weight_bytes": weight_bytes, "batch": 8,
+                  "new_tokens": 16, "prefill_rel_err": pre_err,
+                  "prefill_tol": LM_PREFILL_TOL,
+                  "decode_rel_err": dec_err, "decode_calls_compared":
+                  len(dec_errs), "decode_tol": LM_DECODE_TOL,
+                  "decode_f32_cache_rel_err": f32_err,
+                  "first_divergence": diverged,
+                  "continuation": cont,
+                  "prefill_ms": statistics.median(pre_ms),
+                  "decode_ms_per_step": statistics.median(dec_ms),
+                  "decode_ms_per_step_min": min(dec_ms),
+                  "decode_bound_ms": 1e3 * weight_bytes / PEAK_BYTES,
+                  "decode_profile": prof,
+                  "batch_s": batch_s,
+                  "tokens_per_s": sum(map(len, out_e2e)) / batch_s,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "held_before_gb": held_gb,
+                  "model_s": time.perf_counter() - t_model}
+        print(json.dumps(lm_row))
+        detail["serve_lm"][lm_arch] = dict(lm_row, tokens=out_dev)
+        # the timing wrappers hold srv's own methods: collect the cycle
+        del params_dev, params_cpu, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lm_launches = counts()
+    print(json.dumps({"serve_lm_launches": lm_launches}))
+    check(not any(lm_launches.values()),
+          f"the LM path launched hand kernels: {lm_launches}")
 
     # -- 5. times -------------------------------------------------------------
     phase("times")

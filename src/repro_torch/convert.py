@@ -7,8 +7,9 @@ a structural map.  The JAX side hands over
 ``jax.tree_util.tree_map(np.asarray, weights)``; this module turns it into
 tensors on a device and refuses any entry whose shape does not match its
 layer.  ``params_from_numpy`` does the same for a model's
-training tree (``{"gen", "disc"}`` or ``{"vnet"}``) and
-``adamw_state_from_numpy`` for its AdamW state.
+parameter tree (``{"gen", "disc"}``, ``{"vnet"}``, or an LM's
+``{"embed", "final_norm", "layers", ...}`` with its ``AttnParams`` and
+``MlpParams``) and ``adamw_state_from_numpy`` for its AdamW state.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from repro_torch import tree as _tree
 from repro_torch.core import networks as _networks
 from repro_torch.core.engine import ScheduleError
 from repro_torch.launch.steps import _init_ws
+from repro_torch.models.attention import AttnParams
+from repro_torch.models.mlp import MlpParams
 from repro_torch.optim.adamw import AdamWState, QTensor
 
 
@@ -103,16 +106,22 @@ def weights_from_numpy(tree, device, dtype: torch.dtype | None = None, *,
     return out
 
 
+_NAMED = {cls._fields: cls
+          for cls in (QTensor, AdamWState, AttnParams, MlpParams)}
+
+
 def _tree_from_numpy(node, device, dtype):
     """Nested dicts/lists/NamedTuples of arrays -> the same of tensors
-    (NamedTuples of the JAX package become the port's by field names)."""
+    (NamedTuples of the JAX package become the port's by field names;
+    ``None``, a plain MLP's absent gate, stays ``None``)."""
+    if node is None:
+        return None
     if isinstance(node, dict):
         return {k: _tree_from_numpy(v, device, dtype) for k, v in node.items()}
     if hasattr(node, "_fields"):
         kids = {f: _tree_from_numpy(getattr(node, f), device, dtype)
                 for f in node._fields}
-        kind = {("q", "scale"): QTensor,
-                ("step", "m", "v"): AdamWState}.get(tuple(node._fields))
+        kind = _NAMED.get(tuple(node._fields))
         if kind is None:
             raise WeightShapeError(f"unknown tree node {type(node).__name__}"
                                    f"{node._fields}")
@@ -123,6 +132,8 @@ def _tree_from_numpy(node, device, dtype):
 
 
 def _shapes(node):
+    if node is None:
+        return None
     if isinstance(node, dict):
         return {k: _shapes(v) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
@@ -138,10 +149,10 @@ def _check_like(got, want, what: str) -> None:
 
 def params_from_numpy(tree, device, dtype: torch.dtype | None = None, *,
                       cfg):
-    """A model's training tree from the JAX package (``{"gen", "disc"}`` or
-    ``{"vnet"}``, as numpy arrays) -> tensors on ``device``, checked leaf
-    for leaf against the shapes ``launch.steps.real_params(cfg, ...)``
-    gives."""
+    """A model's parameter tree from the JAX package (``{"gen", "disc"}``,
+    ``{"vnet"}`` or an LM's, as numpy arrays) -> tensors on ``device``,
+    checked leaf for leaf against the shapes ``launch.steps.real_params(
+    cfg, ...)`` gives."""
     out = _tree_from_numpy(tree, device, dtype)
     _check_like(out, _init_ws(cfg, None, device="meta"), "params")
     return out

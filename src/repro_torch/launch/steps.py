@@ -1,4 +1,5 @@
-"""DCNN train-step builders (the DCNN part of JAX ``launch/steps.py``).
+"""Step builders of JAX ``launch/steps.py``: the DCNN train steps and the
+LM serve steps.
 
 ``make_gan_train_step`` and ``make_vnet_train_step`` return
 ``step(params, opt_state, batch) -> (params, opt_state, metrics)``, the
@@ -18,6 +19,10 @@ AdamW update; ``fold_dp_step`` fits one to the ``Trainer``.
 hand-kernel wrapper launches in one step (on each rank, at its batch), so
 a run on the card can check that the step went through the kernels and
 nowhere else.
+
+``make_serve_step`` gives an LM's prefill and decode steps in bf16;
+``real_params`` draws an LM's parameters too (the dense and VLM families:
+``models.transformer``).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from repro_torch.core import networks
 from repro_torch.core.engine import shard_batch
 from repro_torch.sharding import mesh as _mesh
 from repro_torch.models import dcnn as D
+from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.runtime import dp_trainer as DP
 
@@ -42,8 +48,7 @@ LAUNCH_COUNTERS = ("deconv_fwd", "conv_fwd", "deconv_dw", "deconv_dx")
 
 def _init_ws(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     if cfg.family != "dcnn":
-        raise NotImplementedError(f"{cfg.family!r} models are ROADMAP item "
-                                  f"15 (the LM stack)")
+        return T.init_params(cfg, generator, device)
     if cfg.dcnn == "v_net":
         return {"vnet": D.init_vnet(cfg, generator, device)}
     return {"gen": D.init_generator(cfg, generator, device),
@@ -54,8 +59,8 @@ def param_axes(cfg: ModelConfig):
     """The logical axes of ``real_params``' tree, leaf for leaf (the JAX
     package's ``split_params(...)[1]``)."""
     if cfg.family != "dcnn":
-        raise NotImplementedError(f"{cfg.family!r} models are ROADMAP item "
-                                  f"15 (the LM stack)")
+        raise NotImplementedError(f"an LM's logical axes come with the "
+                                  f"dry-run slice of ROADMAP item 15")
     if cfg.dcnn == "v_net":
         return {"vnet": D.vnet_axes(cfg)}
     return {"gen": D.generator_axes(cfg), "disc": D.discriminator_axes(cfg)}
@@ -284,3 +289,22 @@ def train_step_launches(cfg: ModelConfig) -> dict[str, int]:
         fake["deconv_dx"] += l.op == "deconv"
     real = _graph_launches(graphs["disc"], input_needs_grad=False)
     return {k: gen[k] + fake[k] + real[k] for k in LAUNCH_COUNTERS}
+
+
+def make_serve_step(cfg: ModelConfig, kind: str):
+    """An LM's serve step at bf16 weights: ``kind="prefill"`` gives
+    ``step(params, batch) -> (token, cache)``, otherwise ``step(params,
+    cache, batch) -> (token, cache)``; the token is each row's greedy
+    argmax."""
+    if kind == "prefill":
+        def prefill_step(params, batch):
+            logits, cache = T.forward(params, cfg, batch, mode="prefill",
+                                      param_dtype=torch.bfloat16)
+            return torch.argmax(logits[:, -1], dim=-1), cache
+        return prefill_step
+
+    def decode_step(params, cache, batch):
+        logits, cache = T.forward(params, cfg, batch, mode="decode",
+                                  cache=cache, param_dtype=torch.bfloat16)
+        return torch.argmax(logits[:, -1], dim=-1), cache
+    return decode_step

@@ -81,6 +81,9 @@ def main(argv=None):
     telemetry = (obs.Telemetry.create(jsonl_path=args.telemetry)
                  if args.telemetry else None)
     cfg = get_config(args.arch)
+    if cfg.family != "dcnn":
+        raise NotImplementedError(f"training {cfg.name} is the LM training "
+                                  f"slice of ROADMAP item 15")
     if args.reduced:
         cfg = cfg.reduced()
     device = torch.device(args.device)

@@ -1,0 +1,155 @@
+"""GQA/MQA attention with RoPE / M-RoPE, chunked softmax (no O(S^2)
+materialisation), KV caches and cross-attention (JAX
+``models/attention.py``).
+
+The dtypes are the reference's: scores and softmax in f32, the probs cast
+to ``v``'s dtype, their product with ``v`` summed in f32 and cast to
+``v``'s dtype.  In decode ``v`` is the bf16 cache, so probs and outputs
+round to bf16 there.  A decode step writes its keys and values into the
+cache in place (the reference donates the cache instead); the write
+index is clamped into the cache as ``jax.lax.dynamic_update_slice``
+clamps it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+_NEG = -1e30
+_Q_CHUNK = 512
+
+
+class AttnParams(NamedTuple):
+    wq: torch.Tensor     # [D, Hq, hd]
+    wk: torch.Tensor     # [D, Hkv, hd]
+    wv: torch.Tensor     # [D, Hkv, hd]
+    wo: torch.Tensor     # [Hq, hd, D]
+
+
+def init_attention(generator: torch.Generator, cfg: ModelConfig,
+                   device="cuda", d_model=None, n_heads=None, n_kv=None,
+                   stack: tuple[int, ...] = ()) -> AttnParams:
+    """One attention block's weights, or ``stack`` of them stacked in
+    front (the reference's ``[L, ...]`` leaves)."""
+    d = d_model or cfg.d_model
+    hq = n_heads or cfg.n_heads
+    hkv = n_kv or cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+
+    def w(shape, scale):
+        return L.dense_init(generator, (*stack, *shape), scale=scale,
+                            device=device)
+
+    return AttnParams(
+        wq=w((d, hq, hd), 1.0 / math.sqrt(d)),
+        wk=w((d, hkv, hd), 1.0 / math.sqrt(d)),
+        wv=w((d, hkv, hd), 1.0 / math.sqrt(d)),
+        wo=w((hq, hd, d), 1.0 / math.sqrt(hq * hd)),
+    )
+
+
+def _split_gqa(q, n_kv):
+    b, s, hq, hd = q.shape
+    return q.reshape(b, s, n_kv, hq // n_kv, hd)
+
+
+def _softmax_attend(q, k, v, mask):
+    """q [B,Sq,Hkv,G,hd]; k/v [B,T,Hkv,hd]; mask [B or 1,Sq,T] or None."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) * scale
+    if mask is not None:
+        neg = torch.where(mask, 0.0, _NEG)
+        scores = scores + neg[:, None, None]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(v.dtype)
+
+
+def _attend_chunked(q, k, v, *, causal: bool, q_offset: int = 0):
+    """Query chunks one after another, so scores never exceed
+    O(chunk * T).  q [B,Sq,Hkv,G,hd]; k/v [B,T,Hkv,hd]."""
+    sq = q.shape[1]
+    t = k.shape[1]
+    chunk = min(_Q_CHUNK, sq)
+    if sq % chunk != 0:
+        chunk = sq  # irregular small seqs: single chunk
+    t_idx = torch.arange(t, device=q.device)
+    outs = []
+    for start in range(0, sq, chunk):
+        mask = None
+        if causal:
+            q_idx = q_offset + start + torch.arange(chunk, device=q.device)
+            mask = (t_idx[None, :] <= q_idx[:, None])[None]
+        outs.append(_softmax_attend(q[:, start:start + chunk], k, v, mask))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """``new`` [B, s, ...] into ``cache`` [B, T, ...] at ``pos`` along the
+    sequence, in place; the index clamped into the cache."""
+    start = min(max(pos, 0), cache.shape[1] - new.shape[1])
+    cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
+
+
+def attention(p: AttnParams, x: torch.Tensor, cfg: ModelConfig, *,
+              cos=None, sin=None, causal=True, kv_cache=None,
+              cache_pos: int | None = None, xattn_kv=None):
+    """Returns (out, new_kv_cache).
+
+    modes:
+      * prefill: x [B,S,D]; kv_cache None -> the cache returned is (k, v)
+      * decode: x [B,1,D]; kv_cache (k_cache, v_cache) [B,T,Hkv,hd], which
+        this call writes at ``cache_pos`` (an int) in place and returns
+      * cross-attention: xattn_kv = (k, v) precomputed from an encoder.
+    """
+    b, s, d = x.shape
+    hkv = p.wk.shape[1]
+
+    def project(w):
+        return (x @ w.to(x.dtype).reshape(d, -1)).reshape(
+            b, s, w.shape[1], w.shape[2])
+
+    q = project(p.wq)
+    if xattn_kv is None:
+        k, v = project(p.wk), project(p.wv)
+        if cos is not None:
+            q = L.apply_rope(q, cos, sin)
+            k = L.apply_rope(k, cos, sin)
+        new_cache = (k, v)
+        if kv_cache is not None:
+            ck, cv = kv_cache
+            _write(ck, k, cache_pos)
+            _write(cv, v, cache_pos)
+            new_cache = (ck, cv)
+            k, v = ck, cv
+    else:
+        k, v = xattn_kv
+        if cos is not None:
+            q = L.apply_rope(q, cos, sin)
+        new_cache = None
+
+    qg = _split_gqa(q, hkv)
+    if kv_cache is not None and s == 1:
+        # decode: mask positions beyond cache_pos
+        mask = (torch.arange(k.shape[1], device=x.device) <= cache_pos)
+        out = _softmax_attend(qg, k, v, mask[None, None])
+    else:
+        out = _attend_chunked(qg, k, v, causal=causal and xattn_kv is None)
+    out = out.reshape(b, s, -1).to(x.dtype)
+    y = out @ p.wo.to(x.dtype).reshape(-1, d)
+    return y, new_cache
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                  dtype=torch.bfloat16, device="cuda"):
+    hd = cfg.resolved_head_dim
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, hd)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))

@@ -4,7 +4,8 @@ The JAX package walks its parameter and optimizer trees with
 ``jax.tree_util``; the port keeps the same trees (dicts of tensors, lists
 of layers, NamedTuple states) and walks them here.  Dict keys are visited
 in sorted order, as ``jax.tree_util`` visits them, so a flattened tree
-lists its leaves in the same order in both packages.
+lists its leaves in the same order in both packages; ``None`` is an empty
+subtree there and here (a plain MLP's absent ``w_gate``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Any, Callable
 def _children(node, is_leaf):
     if is_leaf is not None and is_leaf(node):
         return None
+    if node is None:
+        return []
     if isinstance(node, dict):
         return [node[k] for k in sorted(node)]
     if isinstance(node, (list, tuple)):
@@ -46,6 +49,8 @@ def unflatten(template, values, is_leaf=None):
     def build(node):
         if _children(node, is_leaf) is None:
             return next(it)
+        if node is None:
+            return None
         if isinstance(node, dict):
             done = {k: build(node[k]) for k in sorted(node)}
             return {k: done[k] for k in node}

@@ -179,14 +179,34 @@ def _toy_trainer(tmp_path, steps=12, ck_every=100):
                                    checkpoint_dir=str(tmp_path)))
 
 
-def test_straggler_watchdog_via_fault_script(tmp_path):
+class _FakeClock:
+    """A host clock that advances 0.5 ms per read, and by the scripted
+    time when a slow event sleeps: the watchdog then sees the script's
+    stragglers and nothing of the machine's load."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        self.t += 5e-4
+        return self.t
+
+    def sleep(self, s):
+        self.t += s
+
+
+def test_straggler_watchdog_via_fault_script(tmp_path, monkeypatch):
     """Scripted slow steps trip the watchdog a deterministic number of
     times."""
+    from repro_torch.runtime import train_loop
+
+    clock = _FakeClock()
+    monkeypatch.setattr(train_loop, "time", clock)
     tr = _toy_trainer(tmp_path, steps=10)
     tr.step_fn(tr.params, tr.opt_state, torch.ones(4))   # warm up
     script = FaultScript([
         FaultEvent("slow", at_call=6, channel="step", count=2, factor=0.3),
-    ])
+    ], sleep=clock.sleep)
     tr.step_fn = script.wrap_step(tr.step_fn)
     tr.run()
     assert tr.step == 10

@@ -365,8 +365,9 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     assert np.isfinite(rec["g_loss"]) and np.isfinite(rec["d_loss"])
     assert "finished at step 10" in capsys.readouterr().out
     assert trainer.ckpt.latest_valid_step() == 10
-    with pytest.raises(KeyError, match="item 15"):
-        get_config("llama3.2-1b")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        launch_train.main(["--arch", "llama3.2-1b", "--reduced", "--device",
+                           "cpu", "--checkpoint-dir", str(tmp_path)])
 
 
 def test_params_from_numpy_refuses_a_tree_of_another_model():
