@@ -114,26 +114,41 @@ Phases, any failure of which exits non-zero before the result line:
      the bucket (``InjectedCompileError`` named), a NaN row is quarantined
      and the rest re-run, and both engines failing completes every
      request with a typed ``DispatchFailedError``;
-     serve (LM) — the LM serving slice at full width, llama3.2-1b and
-     then qwen2-vl-2b (the first freed before the second is built):
-     weights from a seeded CPU generator copied to the card, the port's
+     serve (LM) — the LM serving path at full width (``LM_SERVE``, one
+     model after another, each freed before the next is built):
+     llama3.2-1b, qwen2-vl-2b, xlstm-350m, zamba2-2.7b and whisper-tiny
+     at full depth, dbrx-132b at 2 of 40 layers and arctic-480b at 1 of
+     35: seeded weights (the new five drawn on the card), the port's
      ``Server(max_batch=8, max_len=128)`` answering 8 requests of 4-16
-     tokens (16 new tokens each) on the card and on the CPU, with TF32
-     on in cuBLAS (the LM forward scopes IEEE f32 itself): prefill
-     logits within 1e-4 of max |logit| of the CPU's, greedy tokens equal
-     up to a first divergence whose CPU top-2 margin is within 1e-2 of
-     max |logit| (compared no further), each decode call's logits up to
-     that step within 1e-2 of max |logit| of the CPU's (bf16 rounding
-     ties), and with an f32 decode cache the same batch's tokens equal
-     and its decode logits within 1e-4, the timed batches' tokens equal
-     to the first's, the reference's KV-cache continuation check at its
-     rtol 5e-2 with its atol 5e-3 taken relative to max |logit| (the
-     reference's own arithmetic fails the absolute atol at full width
-     too: ``scripts/continuation_witness.py``) and within 1e-5 with an
-     f32 cache, no hand-kernel launch; prefill ms,
-     decode ms per step (host clock around a synchronized call), tokens/s,
-     the decode byte bound, peak memory and one profiled decode step's
-     kernels and device-busy ms, beside the card's name and power limit;
+     tokens (16 new tokens each) on the card and on the CPU (arctic's
+     CPU: the prefill and 2 decode calls fed the card's tokens), with
+     TF32 on in cuBLAS (the LM forward scopes IEEE f32 itself): prefill
+     logits within the model's f32 tolerance of max |logit| of the CPU's
+     (1e-4; xlstm-350m 1e-2, whose sLSTM recurrences move its logits
+     2.4e-3 on the CPU when only the summation order changes:
+     ``scripts/lm_noise_floor.py``), greedy tokens equal up to a first
+     divergence whose CPU top-2 margin is within 1e-2 of max |logit|
+     (compared no further), each decode call's logits up to that step
+     within 1e-2 of max |logit| of the CPU's (bf16 rounding ties), each
+     and with an f32 decode cache the same batch's tokens equal (for
+     xlstm-350m up to a tie), its
+     decode logits within the f32 tolerance and each CPU decode call also
+     run on the card fed the CPU's cache, within 1e-4; a MoE routing decision
+     that differs between the card and the CPU must be a tie (its k-th
+     and (k+1)-th router probabilities within 1e-3), and the logits and
+     tokens are compared up to the call before the first; the timed
+     batches' tokens equal to the first's, the reference's KV-cache
+     continuation check at its rtol 5e-2 with its atol 5e-3 taken
+     relative to max |logit| (the reference's own arithmetic fails the
+     absolute atol at full width too:
+     ``scripts/continuation_witness.py``; a MoE token routed otherwise
+     at a bf16 tie, 1e-2, is not compared) and with an f32 cache within
+     the model's continuation tolerance (1e-5; zamba2-2.7b 1e-4,
+     xlstm-350m 1e-2, their noise floors), no hand-kernel launch;
+     prefill ms, decode ms per step (host
+     clock around a synchronized call), tokens/s, the decode byte bound,
+     peak memory and one profiled decode step's kernels and device-busy
+     ms, beside the card's name and power limit;
   5. times — each kernel at every call shape the main path gave it (CUDA
      events; the serve and train runs record each wrapper's calls by
      shape) beside its plain version, one cuDNN call computing the same
@@ -218,6 +233,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -233,6 +249,42 @@ PEAK_INT8_OPS = 1979e12
 # values are exact in bf16)
 PEAK_TF32 = 494.7e12
 PEAK_BYTES = 3.35e12
+
+
+class LmCell(NamedTuple):
+    """One model of the serve (LM) phase."""
+    arch: str
+    layers: int | None = None      # layers served (None: all)
+    # CPU forward calls compared: None, the whole batch through the
+    # Server; else the prefill and the first decode calls, fed the card's
+    # tokens
+    cpu_calls: int | None = None
+    card_draw: bool = True         # weights drawn on the card (else host)
+    # the gates of its end-to-end f32 comparisons with the CPU (prefill,
+    # f32-cache decode) and of its f32-cache continuation: at or above
+    # the model's own f32 noise floor, how far its logits move on the CPU
+    # when only the summation order changes
+    # (scripts/lm_noise_floor.py: 8 vs 3 host threads)
+    f32_tol: float = 1e-4
+    cont_tol: float = 1e-5
+
+
+# the serve (LM) phase's models, in order.  zamba2-2.7b's floor is
+# 5.8e-5 (prefill) and 3.0e-5 (f32 continuation on the CPU): 54 layers
+# deep.  xlstm-350m's is 2.4e-3 (prefill; 5.3e-3 by the third decode
+# call, the JAX package 2.4e-3 from the port on the same parameters):
+# its sLSTM recurrences amplify f32 rounding a thousandfold, so its end-
+# to-end comparisons are read at the decode tolerance and its arithmetic
+# is held by the teacher-forced decode check (every model's, 1e-4)
+LM_SERVE = (
+    LmCell("llama3.2-1b", card_draw=False),
+    LmCell("qwen2-vl-2b", card_draw=False),
+    LmCell("xlstm-350m", f32_tol=1e-2, cont_tol=1e-2),
+    LmCell("zamba2-2.7b", cont_tol=1e-4),
+    LmCell("whisper-tiny"),
+    LmCell("dbrx-132b", layers=2),
+    LmCell("arctic-480b", layers=1, cpu_calls=3),
+)
 # the forward block's route for each (x, w) operand pair (igemm.cuh), and
 # the passes of the TF32 route per activation type: what each launch's C
 # entry must report it launched (launch_key)
@@ -2691,22 +2743,33 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4l. serve (LM) ----------------------------------------------------
-    # the LM serving slice at full width: llama3.2-1b, then qwen2-vl-2b
-    # (M-RoPE), each through the port's Server (8 requests of 4-16 tokens
-    # drawn as launch/serve.py draws them, 16 new tokens each) on the card
-    # and on the CPU from the same seeded weights.  TF32 is on in cuBLAS
-    # for the phase: the LM forward scopes IEEE f32 itself.  Counts set to
-    # 0 before the phase and read after it: the LM path launches no hand
-    # kernel
+    # the LM serving path at full width, one model after another (each
+    # freed before the next is built; LM_SERVE): llama3.2-1b, qwen2-vl-2b
+    # (M-RoPE), xlstm-350m, zamba2-2.7b (hybrid), whisper-tiny (enc-dec)
+    # at full depth, dbrx-132b and arctic-480b (MoE) at full width and cut
+    # depth.  Each goes through the port's Server (8 requests of 4-16
+    # tokens drawn as launch/serve.py draws them, 16 new tokens each) on
+    # the card and on the CPU from the same seeded weights.  TF32 is on in
+    # cuBLAS for the phase: the LM forward scopes IEEE f32 itself.  Counts
+    # set to 0 before the phase and read after it: the LM path launches no
+    # hand kernel
     phase("serve (LM)")
-    from repro_torch.models import attention as LMA
+    from repro_torch.models import moe as LMMOE
     from repro_torch.models import transformer as LMT
     from repro_torch.runtime.serve_loop import Request as LMRequest
     from repro_torch.runtime.serve_loop import Server as LMServer
+    from repro_torch.runtime.serve_loop import splice as lm_splice
 
     LM_PREFILL_TOL, LM_DECODE_TOL = 1e-4, 1e-2
     LM_RTOL, LM_ATOL = 5e-2, 5e-3
-    lm_forward, lm_init_cache = LMT.forward, LMT.init_cache
+    # a routing decision may differ between the card and the CPU only at
+    # a tie: its k-th and (k+1)-th router probabilities this close; and
+    # between a bf16-cache decode and an f32 prefill (the continuation),
+    # where the cache's rounding (2^-9) moves the router's input a
+    # thousandfold more, within a bf16 tie
+    LM_ROUTE_TIE, LM_ROUTE_TIE_BF16 = 1e-3, 1e-2
+    lm_forward, lm_init_cache, lm_moe = LMT.forward, LMT.init_cache, \
+        LMMOE.moe
 
     def lm_submit(srv, vocab):
         rng = np.random.RandomState(0)
@@ -2716,84 +2779,190 @@ def main() -> int:
                 prompt=[int(t_) for t_ in rng.randint(0, vocab, plen)],
                 max_new_tokens=16))
 
-    def lm_serve(params, lm_cfg, device, seen=None, f32_cache=False):
+    def lm_f32_cache(cache):
+        """``cache`` with every tensor in it f32: kv, cross keys and
+        values, the conv caches."""
+        return {k: v if k == "pos" else tree.tree_map(torch.Tensor.float, v)
+                for k, v in cache.items()}
+
+    def lm_route(p, x, lm_cfg):
+        """A MoE layer's routing of ``x``'s tokens: each token's top_k
+        experts (ascending) and its margin, the k-th minus the (k+1)-th
+        router probability."""
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ p.w_router.float(), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)
+        k = lm_cfg.top_k
+        return (top.indices[:, :k].sort(dim=-1).values.cpu(),
+                (top.values[:, k - 1] - top.values[:, k]).cpu())
+
+    def lm_to(tree_, device):
+        """A batch or cache (``pos`` an int) on ``device``."""
+        return {k: v if k == "pos" else tree.tree_map(
+            lambda a: a.to(device), v) for k, v in tree_.items()}
+
+    @contextlib.contextmanager
+    def lm_recording(seen=None, routes=None, f32_cache=False, shadow=None):
+        """Within: every forward call's last-position logits appended to
+        ``seen`` (prefill, then each decode call), each call's MoE routing
+        (one entry per layer) to ``routes``, and ``f32_cache`` makes the
+        decode cache f32 (the Server's kv is bf16), so that the decode
+        rounds nothing to bf16.  ``shadow`` (a list, with the card's
+        parameters as its first item) runs each CPU decode call on the
+        card too, first, fed a copy of the CPU's cache and batch, and
+        appends its last-position logits: the card's arithmetic of that
+        call on the CPU's very inputs."""
+        def forward(params, lm_cfg, batch, **kw):
+            if shadow and kw.get("mode") == "decode":
+                logits, _ = lm_forward(
+                    shadow[0], lm_cfg, lm_to(batch, dev),
+                    **dict(kw, cache=lm_to(kw["cache"], dev)))
+                shadow.append(logits[:, -1].float().cpu())
+            if routes is not None:
+                routes.append([])
+            logits, cache = lm_forward(params, lm_cfg, batch, **kw)
+            if seen is not None:
+                seen.append(logits[:, -1].float().cpu())
+            return logits, cache
+
+        def moe(p, x, lm_cfg):
+            if routes:
+                routes[-1].append(lm_route(p, x, lm_cfg))
+            return lm_moe(p, x, lm_cfg)
+        LMT.forward, LMMOE.moe = forward, moe
+        if f32_cache:
+            LMT.init_cache = lambda *a, **kw: lm_f32_cache(
+                lm_init_cache(*a, **kw))
+        try:
+            yield
+        finally:
+            LMT.forward, LMT.init_cache, LMMOE.moe = (
+                lm_forward, lm_init_cache, lm_moe)
+
+    def lm_serve(params, lm_cfg, device, seen=None, routes=None,
+                 f32_cache=False, shadow=None):
         """One batch of the phase's requests through a new Server on
-        ``device``: the server and its tokens; ``seen`` collects every
-        forward call's last-position logits (prefill, then each decode
-        call).  ``f32_cache`` makes the decode cache f32 (the Server's
-        is bf16), so that the decode rounds nothing to bf16."""
+        ``device``: the server and its tokens."""
         srv = LMServer(params, lm_cfg, max_batch=8, max_len=128,
                        device=device)
         lm_submit(srv, lm_cfg.vocab)
-
-        def recording(*args, **kw):
-            logits, cache = lm_forward(*args, **kw)
-            seen.append(logits[:, -1].float().cpu())
-            return logits, cache
-
-        def f32_init_cache(*args, **kw):
-            cache = lm_init_cache(*args, **kw)
-            return {**cache, "kv": tuple(v.float() for v in cache["kv"])}
-        if seen is not None:
-            LMT.forward = recording
-        if f32_cache:
-            LMT.init_cache = f32_init_cache
-        try:
+        with lm_recording(seen, routes, f32_cache, shadow):
             return srv, srv.step()
-        finally:
-            LMT.forward, LMT.init_cache = lm_forward, lm_init_cache
 
-    def lm_decode_errs(out_dev, out_cpu, seen_dev, seen_cpu):
-        """The first divergence of the card's tokens from the CPU's (a
-        tie within the decode tolerance, or None) and each decode call's
-        logits' max |diff| / max |logit| while both runs read the same
-        tokens (through that step)."""
-        diverged = lm_first_divergence(out_dev, out_cpu, seen_cpu,
-                                       LM_DECODE_TOL)
-        last = len(seen_cpu) - 1 if diverged is None else diverged
-        return diverged, [float((seen_dev[k] - seen_cpu[k]).abs().max()
-                                / seen_cpu[k].abs().max())
-                          for k in range(1, last + 1)]
+    def lm_forced(params, lm_cfg, tokens, calls, seen, routes,
+                  f32_cache=False, shadow=None):
+        """The phase's batch on the CPU through the Server's own prefill,
+        splice and decode, for ``calls`` forward calls (the prefill, then
+        decode calls fed ``tokens``, the card's, teacher-forced): each
+        request's greedy tokens of those calls."""
+        srv = LMServer(params, lm_cfg, max_batch=8, max_len=128,
+                       device="cpu")
+        lm_submit(srv, lm_cfg.vocab)
+        toks, _ = srv._pad_batch([t_.item for t_ in srv._queue.take(8)])
+        b, s = toks.shape
+        with torch.inference_mode(), lm_recording(seen, routes, f32_cache,
+                                                  shadow):
+            _, pc = srv._prefill(params, {"tokens": toks,
+                                          **srv._extra_for(b, s)})
+            cache = srv._splice(LMT.init_cache(params, lm_cfg, b, 128),
+                                pc, s)
+            for step in range(calls - 1):
+                tok = torch.tensor([row[step] for row in tokens])
+                _, cache = srv._decode(params, cache, {
+                    "tokens": tok[:, None], **srv._extra_for(b, 1)})
+        return [[int(seen[c][i].argmax()) for c in range(calls)]
+                for i in range(b)]
+
+    def lm_flips(routes_dev, routes_cpu):
+        """The (call, layer, token) routing decisions that differ between
+        two runs, each with the second run's margin."""
+        out = []
+        for c, (calls_d, calls_c) in enumerate(zip(routes_dev, routes_cpu)):
+            for layer, ((e_d, _), (e_c, m_c)) in enumerate(zip(calls_d,
+                                                                calls_c)):
+                for tok in (e_d != e_c).any(dim=-1).nonzero()[:, 0].tolist():
+                    out.append({"call": c, "layer": layer, "token": tok,
+                                "margin": float(m_c[tok])})
+        return out
+
+    def lm_compare(lm_arch, out_dev, out_cpu, seen_dev, seen_cpu,
+                   routes_dev, routes_cpu, tol):
+        """The card's run against the CPU's: the routing decisions that
+        differ (each must be a tie), the first divergence of the greedy
+        tokens (a tie within the decode tolerance, or None) and each decode
+        call's logits' max |diff| / max |logit| (gated at ``tol``) while
+        both runs read the same tokens and the same routing: through the
+        call before the first that routes a token otherwise (its flipped
+        token's layer outputs enter the later calls' caches)."""
+        flips = lm_flips(routes_dev, routes_cpu)
+        check(all(f["margin"] <= LM_ROUTE_TIE for f in flips),
+              f"{lm_arch}: routing decisions differ beyond a tie: {flips}")
+        calls = min([len(seen_cpu)] + [f["call"] for f in flips])
+        diverged = lm_first_divergence([r[:calls] for r in out_dev],
+                                       [r[:calls] for r in out_cpu],
+                                       seen_cpu, LM_DECODE_TOL)
+        last = calls - 1 if diverged is None else diverged
+        errs = [float((seen_dev[k] - seen_cpu[k]).abs().max()
+                      / seen_cpu[k].abs().max()) for k in range(1, last + 1)]
+        check(max(errs, default=0.0) <= tol,
+              f"{lm_arch}: decode logits {errs} of max |logit| from the "
+              f"CPU's (routing flips {flips})")
+        return diverged, errs, flips
+
+    def lm_batch(lm_cfg, toks):
+        """A forward batch of ``toks`` [B, S] (Whisper's frames zeros, as
+        the Server gives them)."""
+        batch = {"tokens": toks}
+        if lm_cfg.family == "encdec":
+            batch["enc_embeds"] = torch.zeros(
+                (toks.shape[0], lm_cfg.enc_seq, lm_cfg.d_model),
+                device=toks.device)
+        return batch
 
     def lm_prefilled(params, lm_cfg, toks, max_len,
                      cache_dtype=torch.bfloat16):
         """A ``max_len`` decode cache holding the f32 prefill of ``toks``
-        [B, S], at position S."""
-        _, pc = LMT.forward(params, lm_cfg, {"tokens": toks},
+        [B, S], at position S (its kv in ``cache_dtype``)."""
+        _, pc = LMT.forward(params, lm_cfg, lm_batch(lm_cfg, toks),
                             mode="prefill", param_dtype=torch.float32)
-        kv = LMA.init_kv_cache(lm_cfg, toks.shape[0], max_len,
-                               lm_cfg.n_layers, dtype=cache_dtype,
-                               device=toks.device)
-        for big, small in zip(kv, pc["kv"]):
-            big[:, :, :toks.shape[1]] = small.to(big.dtype)
-        return {"kv": kv, "pos": toks.shape[1]}
+        cache = LMT.init_cache(params, lm_cfg, toks.shape[0], max_len)
+        if cache_dtype == torch.float32:
+            cache = lm_f32_cache(cache)
+        return lm_splice(cache, pc, toks.shape[1])
 
     def lm_continuation(params, lm_cfg, device, cache_dtype=torch.bfloat16):
-        """Logits of one token decoded from a spliced prefill cache against
-        a prefill over the extended sequence (``tests/test_models.py::
-        test_decode_matches_prefill_continuation`` at full width):
-        ``of_tol``, the largest |diff| / (atol + rtol |logit|) with atol
-        5e-3 of max |logit| and rtol 5e-2; the same with the reference
-        test's absolute atol; max |diff| / max |logit|."""
-        with torch.inference_mode():
+        """Logits of one token decoded from a spliced prefill cache or
+        state against a prefill over the extended sequence
+        (``tests/test_models.py::test_decode_matches_prefill_continuation``
+        at full width): ``of_tol``, the largest |diff| / (atol + rtol
+        |logit|) with atol 5e-3 of max |logit| and rtol 5e-2; the same
+        with the reference test's absolute atol; max |diff| / max |logit|;
+        for a MoE model the decoded token's routing decisions that differ
+        from the prefill's, with their margins."""
+        routes = []
+        with torch.inference_mode(), lm_recording(routes=routes):
             toks = torch.arange(16, device=device).reshape(2, 8) \
                 % lm_cfg.vocab
             seven = torch.full((2, 1), 7, device=device)
-            full, _ = LMT.forward(params, lm_cfg,
-                                  {"tokens": torch.cat([toks, seven], 1)},
-                                  mode="prefill", param_dtype=torch.float32)
+            full, _ = LMT.forward(params, lm_cfg, lm_batch(
+                lm_cfg, torch.cat([toks, seven], 1)), mode="prefill",
+                param_dtype=torch.float32)
             dec, _ = LMT.forward(
                 params, lm_cfg, {"tokens": seven}, mode="decode",
                 cache=lm_prefilled(params, lm_cfg, toks, 16, cache_dtype),
                 param_dtype=torch.float32)
-            diff, scale = (dec - full).abs(), float(full.abs().max())
-            rtol_part = LM_RTOL * full.abs()
-            return {"of_tol": float((diff / (LM_ATOL * scale
-                                             + rtol_part)).max()),
-                    "of_absolute_tol": float((diff / (LM_ATOL
-                                                      + rtol_part)).max()),
-                    "rel_err": float(diff.max()) / scale,
-                    "max_logit": scale}
+        diff, scale = (dec - full).abs(), float(full.abs().max())
+        rtol_part = LM_RTOL * full.abs()
+        # calls: the extended prefill, the cache's prefill, the decode;
+        # the extended prefill's rows 8 and 17 are the decoded token's
+        last = [(e[8::9], m[8::9]) for e, m in routes[0]]
+        return {"of_tol": float((diff / (LM_ATOL * scale
+                                         + rtol_part)).max()),
+                "of_absolute_tol": float((diff / (LM_ATOL
+                                                  + rtol_part)).max()),
+                "rel_err": float(diff.max()) / scale,
+                "max_logit": scale,
+                "routing_flips": lm_flips([routes[2]], [last])}
 
     def lm_profile_decode(params, lm_cfg):
         """One decode step of 8 rows at position 16 under torch.profiler:
@@ -2830,54 +2999,94 @@ def main() -> int:
             return out
         return call
 
+    def lm_params(lm_cfg, card_draw):
+        """The model's seeded weights on the card and on the CPU: drawn on
+        the card (a CUDA generator) and copied to the host, or drawn on
+        the host and copied to the card."""
+        if card_draw:
+            on_dev = ST.real_params(
+                lm_cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            return on_dev, tree.tree_map(lambda v: v.cpu(), on_dev)
+        on_cpu = ST.real_params(lm_cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+        return tree.tree_map(lambda v: v.to(dev), on_cpu), on_cpu
+
     torch.backends.cuda.matmul.allow_tf32 = True
     zero_counts()
     detail["serve_lm"] = {}
-    for lm_arch in ("llama3.2-1b", "qwen2-vl-2b"):
+    t_phase = time.perf_counter()
+    for cell in LM_SERVE:
+        lm_arch, cpu_calls = cell.arch, cell.cpu_calls
         t_model = time.perf_counter()
         lm_cfg = get_config(lm_arch)
-        params_cpu = ST.real_params(
-            lm_cfg, torch.Generator().manual_seed(0), "cpu")
-        weight_bytes = sum(v.numel() * v.element_size()
-                           for v in tree.leaves(params_cpu))
+        full_layers = lm_cfg.n_layers
+        if cell.layers is not None:        # full width, depth cut
+            lm_cfg = dataclasses.replace(lm_cfg, n_layers=cell.layers)
         # the previous model freed: what the earlier phases hold, < 1 GB
         held_gb = torch.cuda.memory_allocated() / 1e9
         check(held_gb < 1.0, f"{lm_arch}: {held_gb:.2f} GB held on the "
               f"card before its weights")
         torch.cuda.reset_peak_memory_stats()
-        params_dev = tree.tree_map(lambda v: v.to(dev), params_cpu)
-        # the gates' batch on the card, then on the CPU
-        seen_dev, seen_cpu = [], []
-        out_dev = lm_serve(params_dev, lm_cfg, dev, seen_dev)[1]
-        out_cpu = lm_serve(params_cpu, lm_cfg, "cpu", seen_cpu)[1]
-        check(len(seen_dev) == len(seen_cpu) == 17,
-              f"{lm_arch}: {len(seen_dev)} card and {len(seen_cpu)} CPU "
-              f"forward calls, not 1 prefill + 16 decode")
+        params_dev, params_cpu = lm_params(lm_cfg, cell.card_draw)
+        leaves = tree.leaves(params_cpu)
+        weight_bytes = sum(v.numel() * v.element_size() for v in leaves)
+        # the f32 serve casts every lower-precision weight to f32 (arctic's
+        # bf16): a copy written and read again on each call
+        cast_bytes = sum(8 * v.numel() for v in leaves
+                         if v.dtype != torch.float32)
+        # the gates' batch on the card, then on the CPU (all 17 calls, or
+        # ``cpu_calls`` of them fed the card's tokens); the CPU's f32-cache
+        # decode calls also run on the card, fed the CPU's cache
+        calls = 17 if cpu_calls is None else cpu_calls
+        runs, shadow = {}, [params_dev]
+        for key, f32_cache in (("bf16_cache", False), ("f32_cache", True)):
+            seen_dev, seen_cpu, r_dev, r_cpu = [], [], [], []
+            out_dev = lm_serve(params_dev, lm_cfg, dev, seen_dev, r_dev,
+                               f32_cache)[1]
+            out_cpu = (lm_serve(params_cpu, lm_cfg, "cpu", seen_cpu, r_cpu,
+                                f32_cache, shadow if f32_cache else None)[1]
+                       if cpu_calls is None else
+                       lm_forced(params_cpu, lm_cfg, out_dev, cpu_calls,
+                                 seen_cpu, r_cpu, f32_cache,
+                                 shadow if f32_cache else None))
+            check(len(seen_dev) == 17 and len(seen_cpu) == calls,
+                  f"{lm_arch}: {len(seen_dev)} card and {len(seen_cpu)} "
+                  f"CPU forward calls, not 1 prefill + 16 decode (CPU "
+                  f"{calls})")
+            runs[key] = (out_dev, seen_dev, seen_cpu, lm_compare(
+                lm_arch, out_dev, out_cpu, seen_dev, seen_cpu, r_dev, r_cpu,
+                LM_DECODE_TOL if key == "bf16_cache" else cell.f32_tol))
+        out_dev, seen_dev, seen_cpu, (diverged, dec_errs, flips) = \
+            runs["bf16_cache"]
+        # each decode call's arithmetic on the card, fed the CPU's f32
+        # cache and tokens: no rounding difference carried in from earlier
+        # calls, and none rounded apart into a bf16 cache (a bf16 kv read
+        # 1.1e-3-1.6e-3 of max |logit| so on llama3.2-1b, measured on one
+        # H100)
+        shadow_errs = [float((g - w).abs().max() / w.abs().max())
+                       for g, w in zip(shadow[1:], runs["f32_cache"][2][1:])]
+        check(len(shadow_errs) == calls - 1
+              and max(shadow_errs, default=0.0) <= LM_PREFILL_TOL,
+              f"{lm_arch}: decode calls fed the CPU's cache read "
+              f"{shadow_errs} of max |logit| from the CPU's")
+        # the f32 prefill's logits, with no exception; each decode call's
+        # logits while both runs read the same tokens and routing, at the
+        # decode tolerance with the bf16 cache: two implementations of the
+        # reference's bf16 cache and probs round near-equal f32 values
+        # apart (the JAX package's and the port's CPU decodes lie 2.0e-3 /
+        # 2.3e-3 of max |logit| apart, scripts/continuation_witness.py);
+        # with an f32 decode cache, which rounds nothing to bf16, at the
+        # model's f32 tolerance and no token may diverge
         pre_err = float((seen_dev[0] - seen_cpu[0]).abs().max()
                         / seen_cpu[0].abs().max())
-        check(pre_err <= LM_PREFILL_TOL,
+        check(pre_err <= cell.f32_tol,
               f"{lm_arch}: prefill logits {pre_err:.3g} of max |logit| "
               f"from the CPU's")
-        # each decode call's logits while both runs read the same tokens,
-        # at the decode tolerance: two implementations of the reference's
-        # bf16 cache and probs round near-equal f32 values apart (the JAX
-        # package's and the port's CPU decodes lie 2.0e-3 / 2.3e-3 of max
-        # |logit| apart, scripts/continuation_witness.py); then the same
-        # batch with an f32 decode cache, which rounds nothing to bf16,
-        # at the prefill's tolerance
-        diverged, dec_errs = lm_decode_errs(out_dev, out_cpu, seen_dev,
-                                            seen_cpu)
-        dec_err = max(dec_errs, default=0.0)
-        check(dec_err <= LM_DECODE_TOL,
-              f"{lm_arch}: decode logits {dec_errs} of max |logit| from "
-              f"the CPU's")
-        f32_dev, f32_cpu = [], []
-        f32_div, f32_errs = lm_decode_errs(
-            lm_serve(params_dev, lm_cfg, dev, f32_dev, True)[1],
-            lm_serve(params_cpu, lm_cfg, "cpu", f32_cpu, True)[1],
-            f32_dev, f32_cpu)
-        f32_err = max(f32_errs, default=0.0)
-        check(f32_div is None and f32_err <= LM_PREFILL_TOL,
+        # with the f32 cache no token may diverge, unless the model's own
+        # f32 noise reaches the decode tolerance (xlstm-350m): there a
+        # divergence at a tie, as with the bf16 cache
+        f32_div, f32_errs, f32_flips = runs["f32_cache"][3]
+        check(f32_div is None or cell.f32_tol >= LM_DECODE_TOL,
               f"{lm_arch}: with an f32 decode cache, first divergence "
               f"{f32_div}, decode logits {f32_errs} of max |logit|")
         # a warm batch with each call synchronized (prefill ms, decode ms
@@ -2898,33 +3107,53 @@ def main() -> int:
         prof["idle_share"] = 1 - prof["device_busy_ms"] / statistics.median(
             dec_ms)
         # the reference's KV-cache check at full width: one token decoded
-        # from a spliced cache against a prefill over the extended
-        # sequence, at its rtol and its atol taken relative to max |logit|
-        # (the absolute 5e-3 was sized for the reduced model's logits,
-        # ~0.7 at most); the same with an f32 cache, whose rounding is
-        # then the only difference; and the CPU's, reported
+        # from a spliced cache or state against a prefill over the
+        # extended sequence, at its rtol and its atol taken relative to
+        # max |logit| (the absolute 5e-3 was sized for the reduced model's
+        # logits, ~0.7 at most); the same with an f32 cache, whose
+        # rounding is then the only difference, at the model's
+        # continuation tolerance; and the CPU's, reported (not for a model
+        # whose CPU comparison is cut).  With the bf16 cache a MoE model's
+        # decoded token may route otherwise than in the prefill at a bf16
+        # tie, and then its logits are not compared; with the f32 cache
+        # it may not route otherwise
         cont = {"bf16": lm_continuation(params_dev, lm_cfg, dev),
                 "f32_cache": lm_continuation(params_dev, lm_cfg, dev,
                                              torch.float32),
-                "cpu_bf16": lm_continuation(params_cpu, lm_cfg, "cpu")}
-        check(cont["bf16"]["of_tol"] <= 1.0,
-              f"{lm_arch}: decode vs prefill continuation {cont['bf16']}")
-        check(cont["f32_cache"]["rel_err"] <= 1e-5,
-              f"{lm_arch}: with an f32 cache {cont['f32_cache']}")
+                "cpu_bf16": (lm_continuation(params_cpu, lm_cfg, "cpu")
+                             if cpu_calls is None else None)}
+        for key, gate, tol, tie in (
+                ("bf16", "of_tol", 1.0, LM_ROUTE_TIE_BF16),
+                ("f32_cache", "rel_err", cell.cont_tol, 0.0)):
+            c_flips = cont[key]["routing_flips"]
+            check(all(f["margin"] <= tie for f in c_flips),
+                  f"{lm_arch}: the continuation ({key}) routes beyond a "
+                  f"tie {cont[key]}")
+            check(bool(c_flips) or cont[key][gate] <= tol,
+                  f"{lm_arch}: decode vs prefill continuation ({key}) "
+                  f"{cont[key]}")
         lm_row = {"serve_lm": lm_arch, "card": smi,
                   "params": LMT.param_count(params_cpu),
+                  "layers": f"{lm_cfg.n_layers} of {full_layers}",
                   "weight_bytes": weight_bytes, "batch": 8,
                   "new_tokens": 16, "prefill_rel_err": pre_err,
-                  "prefill_tol": LM_PREFILL_TOL,
-                  "decode_rel_err": dec_err, "decode_calls_compared":
-                  len(dec_errs), "decode_tol": LM_DECODE_TOL,
-                  "decode_f32_cache_rel_err": f32_err,
-                  "first_divergence": diverged,
-                  "continuation": cont,
+                  "f32_tol": cell.f32_tol, "continuation_f32_tol":
+                  cell.cont_tol,
+                  "decode_rel_err": max(dec_errs, default=0.0),
+                  "decode_calls_compared": len(dec_errs),
+                  "decode_tol": LM_DECODE_TOL,
+                  "decode_f32_cache_rel_err": max(f32_errs, default=0.0),
+                  "decode_f32_cache_calls_compared": len(f32_errs),
+                  "decode_on_cpu_cache_rel_err": max(shadow_errs,
+                                                     default=0.0),
+                  "cpu_calls": calls, "first_divergence": diverged,
+                  "routing_flips": flips, "routing_flips_f32_cache":
+                  f32_flips, "continuation": cont,
                   "prefill_ms": statistics.median(pre_ms),
                   "decode_ms_per_step": statistics.median(dec_ms),
                   "decode_ms_per_step_min": min(dec_ms),
                   "decode_bound_ms": 1e3 * weight_bytes / PEAK_BYTES,
+                  "decode_cast_bytes": cast_bytes,
                   "decode_profile": prof,
                   "batch_s": batch_s,
                   "tokens_per_s": sum(map(len, out_e2e)) / batch_s,
@@ -2934,12 +3163,14 @@ def main() -> int:
         print(json.dumps(lm_row))
         detail["serve_lm"][lm_arch] = dict(lm_row, tokens=out_dev)
         # the timing wrappers hold srv's own methods: collect the cycle
-        del params_dev, params_cpu, srv
+        del params_dev, params_cpu, leaves, srv, runs, shadow
         gc.collect()
         torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     lm_launches = counts()
-    print(json.dumps({"serve_lm_launches": lm_launches}))
+    detail["serve_lm_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"serve_lm_launches": lm_launches,
+                      "serve_lm_s": detail["serve_lm_s"]}))
     check(not any(lm_launches.values()),
           f"the LM path launched hand kernels: {lm_launches}")
 

@@ -29,26 +29,27 @@ class ModelConfig:
     # MLP
     gated_mlp: bool = True
     mlp_activation: str = "silu"      # silu | gelu | relu2
-    # MoE (read by the MoE slice; n_experts/top_k select the family now)
+    # MoE (read by the serving path; router_aux_weight by the LM
+    # training slice)
     n_experts: int = 0
     top_k: int = 0
     residual_mlp: bool = False        # arctic: dense MLP parallel to MoE
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
-    # SSM (read by the xLSTM/SSM slice)
+    # SSM (xLSTM, Mamba-2; read by the serving path)
     ssm_block: str = ""               # "xlstm" | "mamba2"
     ssm_state: int = 0
     slstm_every: int = 0              # xlstm: every Nth layer is sLSTM
     ssm_chunk: int = 256
-    # hybrid (zamba2; read by the hybrid slice)
+    # hybrid (zamba2; read by the serving path)
     attn_every: int = 0               # shared attention block every N layers
-    # enc-dec (whisper; read by the enc-dec slice)
+    # enc-dec (whisper; read by the serving path)
     n_enc_layers: int = 0
     enc_seq: int = 1500               # stub frontend frames
-    # vlm (qwen2-vl; read by the serving slice)
+    # vlm (qwen2-vl; read by the serving path)
     mrope: bool = False
     mrope_sections: tuple[int, ...] = (16, 24, 24)
-    # positions / norm (read by the serving slice)
+    # positions / norm (read by the serving path)
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
     tie_embeddings: bool = False

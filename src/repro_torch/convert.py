@@ -8,8 +8,9 @@ a structural map.  The JAX side hands over
 tensors on a device and refuses any entry whose shape does not match its
 layer.  ``params_from_numpy`` does the same for a model's
 parameter tree (``{"gen", "disc"}``, ``{"vnet"}``, or an LM's
-``{"embed", "final_norm", "layers", ...}`` with its ``AttnParams`` and
-``MlpParams``) and ``adamw_state_from_numpy`` for its AdamW state.
+``{"embed", "final_norm", "layers", ...}`` with its ``AttnParams``,
+``MlpParams``, ``MoeParams``, ``MLstmParams``, ``SLstmParams`` and
+``Mamba2Params``, xLSTM's layers a list) and ``adamw_state_from_numpy`` for its AdamW state.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from repro_torch.core.engine import ScheduleError
 from repro_torch.launch.steps import _init_ws
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.mlp import MlpParams
+from repro_torch.models.moe import MoeParams
+from repro_torch.models.ssm import Mamba2Params, MLstmParams, SLstmParams
 from repro_torch.optim.adamw import AdamWState, QTensor
 
 
@@ -107,7 +110,8 @@ def weights_from_numpy(tree, device, dtype: torch.dtype | None = None, *,
 
 
 _NAMED = {cls._fields: cls
-          for cls in (QTensor, AdamWState, AttnParams, MlpParams)}
+          for cls in (QTensor, AdamWState, AttnParams, MlpParams, MoeParams,
+                      MLstmParams, SLstmParams, Mamba2Params)}
 
 
 def _tree_from_numpy(node, device, dtype):

@@ -1,7 +1,9 @@
 """Serve a small LM with batched requests (prefill + lock-step decode).
 
     python -m repro_torch.examples.serve_lm --arch llama3.2-1b
-(``--device cpu`` serves on the CPU)
+(``--device cpu`` serves on the CPU; ``--arch`` any of the ten LM
+configs at their reduced size, e.g. dbrx-132b, xlstm-350m, zamba2-2.7b,
+whisper-tiny)
 """
 
 from __future__ import annotations

@@ -5,9 +5,12 @@ over a request queue.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --no-reduced --requests 8 --new-tokens 16
 
-It runs on the CUDA device unless ``--device cpu`` is given.  The
-configuration is the reduced one unless ``--no-reduced`` asks for the
-full width (the reference's ``--reduced`` has no way to be turned off).
+``--arch`` takes any of the ten LM configs (``configs.ASSIGNED``, or
+their hyphenated names): dense, VLM, MoE, xLSTM, the Zamba2 hybrid and
+Whisper.  It runs on the CUDA device unless ``--device cpu`` is given.
+The configuration is the reduced one unless ``--no-reduced`` asks for
+the full width (the reference's ``--reduced`` has no way to be turned
+off).
 The weights are random, drawn from a seeded ``torch.Generator``, and the
 prompts are drawn as the reference draws them.
 """

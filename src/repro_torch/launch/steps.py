@@ -21,7 +21,7 @@ a run on the card can check that the step went through the kernels and
 nowhere else.
 
 ``make_serve_step`` gives an LM's prefill and decode steps in bf16;
-``real_params`` draws an LM's parameters too (the dense and VLM families:
+``real_params`` draws an LM's parameters too (every family of
 ``models.transformer``).
 """
 
@@ -46,9 +46,10 @@ from repro_torch.runtime import dp_trainer as DP
 LAUNCH_COUNTERS = ("deconv_fwd", "conv_fwd", "deconv_dw", "deconv_dx")
 
 
-def _init_ws(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+def _init_ws(cfg: ModelConfig, generator: torch.Generator, device="cuda",
+             dtype=torch.float32):
     if cfg.family != "dcnn":
-        return T.init_params(cfg, generator, device)
+        return T.init_params(cfg, generator, device, dtype)
     if cfg.dcnn == "v_net":
         return {"vnet": D.init_vnet(cfg, generator, device)}
     return {"gen": D.init_generator(cfg, generator, device),
@@ -69,10 +70,12 @@ def param_axes(cfg: ModelConfig):
 def real_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda"):
     """The model's parameter tree on ``device``, drawn from ``generator``
-    and cast to ``cfg.master_dtype``."""
+    (on its device: a CUDA generator draws on the card) and cast to
+    ``cfg.master_dtype``; an LM's leaves are cast as they are drawn, so
+    the f32 draw of a bf16 model is never held whole."""
     dt = getattr(torch, cfg.master_dtype)
     return _tree.tree_map(lambda v: v.to(dt),
-                          _init_ws(cfg, generator, device))
+                          _init_ws(cfg, generator, device, dt))
 
 
 def _wanting_grad(tree):

@@ -34,9 +34,10 @@ class AttnParams(NamedTuple):
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig,
                    device="cuda", d_model=None, n_heads=None, n_kv=None,
-                   stack: tuple[int, ...] = ()) -> AttnParams:
+                   stack: tuple[int, ...] = (),
+                   dtype=torch.float32) -> AttnParams:
     """One attention block's weights, or ``stack`` of them stacked in
-    front (the reference's ``[L, ...]`` leaves)."""
+    front (the reference's ``[L, ...]`` leaves), cast to ``dtype``."""
     d = d_model or cfg.d_model
     hq = n_heads or cfg.n_heads
     hkv = n_kv or cfg.n_kv_heads
@@ -44,7 +45,7 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig,
 
     def w(shape, scale):
         return L.dense_init(generator, (*stack, *shape), scale=scale,
-                            device=device)
+                            dtype=dtype, device=device)
 
     return AttnParams(
         wq=w((d, hq, hd), 1.0 / math.sqrt(d)),
@@ -98,6 +99,12 @@ def _write(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
     cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
 
 
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk", x, w) in x's dtype."""
+    b, s, d = x.shape
+    return (x @ w.to(x.dtype).reshape(d, -1)).reshape(b, s, *w.shape[1:])
+
+
 def attention(p: AttnParams, x: torch.Tensor, cfg: ModelConfig, *,
               cos=None, sin=None, causal=True, kv_cache=None,
               cache_pos: int | None = None, xattn_kv=None):
@@ -111,14 +118,9 @@ def attention(p: AttnParams, x: torch.Tensor, cfg: ModelConfig, *,
     """
     b, s, d = x.shape
     hkv = p.wk.shape[1]
-
-    def project(w):
-        return (x @ w.to(x.dtype).reshape(d, -1)).reshape(
-            b, s, w.shape[1], w.shape[2])
-
-    q = project(p.wq)
+    q = project_heads(x, p.wq)
     if xattn_kv is None:
-        k, v = project(p.wk), project(p.wv)
+        k, v = project_heads(x, p.wk), project_heads(x, p.wv)
         if cos is not None:
             q = L.apply_rope(q, cos, sin)
             k = L.apply_rope(k, cos, sin)

@@ -1,9 +1,10 @@
 """Shared model layers (JAX ``models/layers.py``): initialisers, norms,
 activations, rotary embeddings (M-RoPE included) and the embedding lookup.
 
-Weights are drawn from an explicit ``torch.Generator`` on the CPU and then
-moved to ``device``; the JAX package's logical sharding axes have no
-counterpart on one card.  ``device="meta"`` gives shapes without drawing.
+Weights are drawn in f32 from an explicit ``torch.Generator`` on the
+generator's device, then cast to ``dtype`` and moved to ``device``; the
+JAX package's logical sharding axes have no counterpart on one card.
+``device="meta"`` gives shapes without drawing.
 The norms and the rotation compute in f32 and cast back, as the
 reference's do.
 """
@@ -20,14 +21,17 @@ import torch.nn.functional as F
 def dense_init(generator: torch.Generator, shape: Sequence[int],
                scale: float | None = None, dtype=torch.float32,
                device="cuda") -> torch.Tensor:
-    """Normal(0, scale) weights; ``scale`` defaults to 1/sqrt(fan_in)."""
+    """Normal(0, scale) weights drawn in f32 and cast to ``dtype`` (as
+    the reference draws f32 and casts to the master dtype); ``scale``
+    defaults to 1/sqrt(fan_in)."""
     shape = tuple(shape)
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) > 1 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    v = torch.randn(shape, generator=generator, dtype=dtype) * scale
-    return v.to(device)
+    v = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device).mul_(scale)
+    return v.to(device=device, dtype=dtype)
 
 
 def zeros_init(shape: Sequence[int], dtype=torch.float32,
@@ -62,7 +66,7 @@ def layernorm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
 # rounded to x's dtype as XLA rounds them: in bf16 torch's fused silu and
 # gelu round once and differ from the reference in a third of the values.
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
+def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
@@ -80,7 +84,7 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "silu":
-        return _silu
+        return silu
     if name == "gelu":
         return _gelu_tanh
     if name == "relu2":

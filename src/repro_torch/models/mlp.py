@@ -20,16 +20,18 @@ class MlpParams(NamedTuple):
 
 def init_mlp(generator: torch.Generator, cfg: ModelConfig, device="cuda",
              d_model=None, d_ff=None, gated=None,
-             stack: tuple[int, ...] = ()) -> MlpParams:
+             stack: tuple[int, ...] = (), dtype=torch.float32) -> MlpParams:
     """One MLP's weights, or ``stack`` of them stacked in front (the
-    reference's ``[L, ...]`` leaves); each drawn at its own fan-in."""
+    reference's ``[L, ...]`` leaves); each drawn at its own fan-in and
+    cast to ``dtype``."""
     d = d_model or cfg.d_model
     f = d_ff or cfg.d_ff
     gated = cfg.gated_mlp if gated is None else gated
 
     def w(shape):
         return L.dense_init(generator, (*stack, *shape),
-                            scale=1.0 / math.sqrt(shape[0]), device=device)
+                            scale=1.0 / math.sqrt(shape[0]), dtype=dtype,
+                            device=device)
 
     return MlpParams(w_in=w((d, f)), w_gate=w((d, f)) if gated else None,
                      w_out=w((f, d)))

@@ -15,10 +15,13 @@ counters; the instruments keep the reference's names
 The batch keeps the reference's behaviour: prompts are left-padded with
 token 0 and attended over with no mask, positions counting from 0 across
 the pads, so a request's tokens depend on its batch-mates' prompt
-lengths.  Prefill runs f32 and returns an f32 cache, which is cast into
-the bf16 decode cache; ``step`` makes ``max_new`` decode calls and drops
-the last call's token.  The decode cache is written in place on the
-device.  Everything runs on ``device`` (the card by default), where the
+lengths (an SSM's prefill state runs over the unmasked pads too).
+Prefill runs f32 and returns an f32 cache; ``splice`` casts its keys and
+values into the bf16 decode cache and hands over its recurrent states
+(xLSTM, the hybrid's Mamba-2 layers) and Whisper's cross keys and values
+as they are, f32.  ``step`` makes ``max_new`` decode calls and drops the
+last call's token.  The decode cache is written in place on the device.
+Everything runs on ``device`` (the card by default), where the
 parameters must already be.  The reference's ``extra_batch`` argument,
 which it stores and never reads, has no counterpart.
 """
@@ -167,15 +170,30 @@ class Server:
 
     def _extra_for(self, b, s):
         extra = {}
+        if self.cfg.family == "encdec":
+            # the stub frontend's frame embeddings
+            extra["enc_embeds"] = torch.zeros(
+                (b, self.cfg.enc_seq, self.cfg.d_model), device=self.device)
         if self.cfg.mrope:
             extra["mrope_positions"] = torch.arange(
                 s, device=self.device)[None, None].expand(3, b, s)
         return extra
 
     def _splice(self, cache, prefill_cache, s: int):
-        """Copy the prefill kv into the serving cache at positions [0, s),
-        cast to the cache's dtype."""
+        return splice(cache, prefill_cache, s)
+
+
+def splice(cache, prefill_cache, s: int):
+    """The serving cache with the prefill's in it at positions [0, s):
+    the kv copied in (``[L or G, B, T, H, hd]``, cast to the cache's
+    dtype), ``states`` (xLSTM), ``ssm`` (hybrid) and ``cross`` (Whisper)
+    replaced by the prefill's."""
+    out = dict(cache)
+    if "kv" in prefill_cache:
         for big, small in zip(cache["kv"], prefill_cache["kv"]):
-            # big [L, B, T, H, hd]; small [L, B, s, H, hd]
             big[:, :, :s] = small.to(big.dtype)
-        return {**cache, "pos": s}
+    for key in ("states", "ssm", "cross"):
+        if key in prefill_cache:
+            out[key] = prefill_cache[key]
+    out["pos"] = s
+    return out

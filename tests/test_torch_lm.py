@@ -4,8 +4,9 @@ The same numpy inputs go through the JAX function and its counterpart in
 ``repro_torch`` at ``reduced()`` sizes: the layers (norms, activations,
 rotary and M-RoPE), the MLP, attention (prefill, chunked prefill, decode
 against a bf16 cache, GQA and MQA, cross-attention) and
-``transformer.forward`` of the dense and VLM configs, whose parameters
-are drawn once in numpy and carried to both packages (the port's through
+``transformer.forward`` of all ten configs (dense, VLM, MoE, xLSTM, the
+Zamba2 hybrid, Whisper enc-dec), whose parameters are drawn once in
+numpy and carried to both packages (the port's through
 ``convert.params_from_numpy``).  Tolerances are relative to max |y|:
 1e-5 for f32, 1e-3 for a decode that reads the bf16 cache (its rounding
 ties), 1e-2 for the bf16 serve steps.
@@ -34,7 +35,8 @@ from repro.models import attention as JA  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import mlp as JM  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
-from repro.sharding.partition import split_params  # noqa: E402
+from repro.runtime import serve_loop as jserve  # noqa: E402
+from jax_lm_helpers import exact_jit, numpy_params  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import ALL, ASSIGNED, get_config  # noqa: E402
 from repro_torch.convert import WeightShapeError, params_from_numpy  # noqa
@@ -43,10 +45,12 @@ from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import mlp as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.runtime.serve_loop import splice  # noqa: E402
 
-KEY = jax.random.PRNGKey(0)
 ARCHS = ["llama3_2_1b", "stablelm_1_6b", "minitron_8b", "granite_20b",
-         "qwen2_vl_2b"]
+         "qwen2_vl_2b", "arctic_480b", "dbrx_132b", "xlstm_350m",
+         "zamba2_2_7b", "whisper_tiny"]
+assert sorted(ARCHS) == sorted(ASSIGNED)
 B, S, MAX_LEN = 2, 8, 16
 
 
@@ -298,41 +302,6 @@ def test_softmax_attend_rounds_probs_to_the_cache_dtype():
 # The transformer, prefill and decode, on carried-over parameters
 # ---------------------------------------------------------------------------
 
-def _numpy_params(jcfg, seed):
-    """An LM parameter tree of the JAX package's structure (its
-    ``AttnParams``/``MlpParams``, ``None`` gates) with numpy leaves."""
-    shapes = jax.eval_shape(
-        lambda: split_params(JT.init_params(jcfg, KEY))[0])
-    rng = np.random.RandomState(seed)
-
-    def draw(path, sd):
-        name = jax.tree_util.keystr(path)
-        if "norm" in name:
-            return (1 + 0.1 * rng.standard_normal(sd.shape)).astype(
-                np.float32)
-        if "embed" in name or "lm_head" in name:
-            scale = 0.02
-        elif name.endswith("wo"):
-            scale = (sd.shape[1] * sd.shape[2]) ** -0.5
-        else:
-            scale = sd.shape[1] ** -0.5
-        return _draw(rng, sd.shape, scale)
-    return jax.tree_util.tree_map_with_path(draw, shapes)
-
-
-def _exact_jit(fn):
-    """``jax.jit(fn)``, compiled at its first call with every bf16
-    rounding of the program kept (no excess precision)."""
-    compiled = []
-
-    def call(*args):
-        if not compiled:
-            compiled.append(jax.jit(fn).lower(*args).compile(
-                compiler_options={"xla_allow_excess_precision": False}))
-        return compiled[0](*args)
-    return call
-
-
 class _Model:
     """One arch at reduced size: the carried-over parameters in both
     packages and the JAX forward jitted once per mode and dtype."""
@@ -340,16 +309,16 @@ class _Model:
     def __init__(self, arch):
         self.cfg = get_config(arch).reduced()
         self.jcfg = jax_config(arch).reduced()
-        tree_np = _numpy_params(self.jcfg, seed=5)
+        tree_np = numpy_params(self.jcfg, seed=5)
         self.params = params_from_numpy(tree_np, "cpu", cfg=self.cfg)
         self.jparams = jax.tree_util.tree_map(jnp.asarray, tree_np)
         jcfg = self.jcfg
         self.jprefill = {
-            dt: _exact_jit(lambda p, b, dt=dt: JT.forward(
+            dt: exact_jit(lambda p, b, dt=dt: JT.forward(
                 p, jcfg, b, mode="prefill", param_dtype=dt))
             for dt in (jnp.float32, jnp.bfloat16)}
         self.jdecode = {
-            dt: _exact_jit(lambda p, c, b, dt=dt: JT.forward(
+            dt: exact_jit(lambda p, c, b, dt=dt: JT.forward(
                 p, jcfg, b, mode="decode", cache=c, param_dtype=dt))
             for dt in (jnp.float32, jnp.bfloat16)}
 
@@ -362,6 +331,19 @@ class _Model:
             b["mrope_positions"] = np.broadcast_to(
                 np.stack([ar, ar // 2, ar % 3])[:, None], (3, B, S)).copy()
             b["prefix_embeds"] = _draw(rng, (B, 3, cfg.d_model), 0.02)
+        if cfg.family == "encdec":      # the stub frontend's frames
+            b["enc_embeds"] = _draw(rng, (B, cfg.enc_seq, cfg.d_model), 1.0)
+        return b
+
+    def decode_batch(self, tok, rng=None):
+        """A decode call's batch of token ``tok`` (numpy)."""
+        b = {"tokens": np.full((B, 1), tok)}
+        if self.cfg.mrope:
+            b["mrope_positions"] = np.zeros((3, B, 1), np.int64)
+        if self.cfg.family == "encdec":   # read by the reference only
+            b["enc_embeds"] = (np.zeros if rng is None else
+                               lambda sh: _draw(rng, sh, 1.0))(
+                (B, self.cfg.enc_seq, self.cfg.d_model)).astype(np.float32)
         return b
 
 
@@ -386,25 +368,35 @@ def _to_jax(batch):
 
 
 def _splice_jax(cache, pc, s):
-    kv = tuple(jax.lax.dynamic_update_slice_in_dim(
-        big, small.astype(big.dtype), 0, axis=2)
-        for big, small in zip(cache["kv"], pc["kv"]))
-    return {"kv": kv, "pos": jnp.asarray(s, jnp.int32)}
+    # the reference server's splice reads nothing of its server
+    return jserve.Server._splice(None, cache, pc, s)
 
 
-def _splice(cache, pc, s):
-    for big, small in zip(cache["kv"], pc["kv"]):
-        big[:, :, :s] = small.to(big.dtype)
-    return {**cache, "pos": s}
+def _cache_from_jax(node):
+    """A JAX decode cache (dicts, lists, tuples of arrays) as the port's:
+    tensors of the same dtypes, ``pos`` an int."""
+    if isinstance(node, dict):
+        return {k: (int(v) if k == "pos" else _cache_from_jax(v))
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_cache_from_jax(v) for v in node)
+    dt = torch.bfloat16 if node.dtype == jnp.bfloat16 else None
+    return t(np.asarray(node, np.float32), dt)
+
+
+def _cache_leaves(cache):
+    return tree.leaves({k: v for k, v in cache.items() if k != "pos"})
 
 
 @pytest.mark.parametrize("mode", ["prefill", "decode", "serve_bf16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_matches_jax(models, arch, mode):
     """Prefill logits at 1e-5 of max |logit|; two decode steps against
-    the spliced bf16 cache at 1e-3; the bf16 serve steps' logits at 1e-2
-    and their greedy tokens those logits' argmax (the JAX tokens
-    wherever its top-2 margin exceeds the tolerance)."""
+    the spliced decode cache (bf16 kv; the recurrent states and Whisper's
+    cross keys and values the f32 prefill's) at 1e-3; the bf16 serve
+    steps' logits at 1e-2 and their greedy tokens those logits' argmax
+    (the JAX tokens wherever its top-2 margin exceeds the tolerance).
+    Every cache leaf within 1e-2 of the reference's."""
     m = models(arch)
     rng = np.random.RandomState(6)
     batch = m.batch(rng)
@@ -416,36 +408,40 @@ def test_forward_matches_jax(models, arch, mode):
                            mode="prefill", param_dtype=pdt)
     jlogits, jpc = m.jprefill[jdt](m.jparams, _to_jax(batch))
     assert logits.shape == (B, 1, m.cfg.vocab) and pc["pos"] == S
-    assert pc["kv"][0].dtype == pdt                 # the prefill cache
+    # the prefill cache: kv and cross in the activations' dtype, the
+    # recurrent states f32, as the reference's
+    for got, want in zip(_cache_leaves(pc), _cache_leaves(jpc)):
+        assert str(got.dtype)[6:] == str(want.dtype)
+    assert "kv" not in pc or pc["kv"][0].dtype == pdt
     assert rel_err(logits, jlogits) <= tol
     if mode == "prefill":
         return
-    cache = _splice(T.init_cache(m.params, m.cfg, B, MAX_LEN), pc, S)
+    cache = splice(T.init_cache(m.params, m.cfg, B, MAX_LEN), pc, S)
     jcache = _splice_jax(JT.init_cache(m.jparams, m.jcfg, B, MAX_LEN),
                          jpc, S)
-    for got, small, want in zip(cache["kv"], pc["kv"], jcache["kv"]):
+    for got, small in zip(cache.get("kv", ()), pc.get("kv", ())):
         assert got.dtype == torch.bfloat16
         assert torch.equal(got[:, :, :S], small.to(torch.bfloat16))
         assert not got[:, :, S:].any()
-        # one bf16 step apart where the f32 prefill values straddle a
-        # rounding boundary
+    for key in ("states", "ssm", "cross"):          # handed over as they are
+        if key in pc:
+            assert cache[key] is pc[key]
+    # one bf16 step apart where the f32 prefill values straddle a
+    # rounding boundary
+    for got, want in zip(_cache_leaves(cache), _cache_leaves(jcache)):
         assert rel_err(got, np.asarray(want, np.float32)) <= 1e-2
     tol = 1e-2 if bf16 else 1e-3
     for step, tok in enumerate((7, 3)):
-        dbatch = {"tokens": np.full((B, 1), tok)}
-        if m.cfg.mrope:
-            dbatch["mrope_positions"] = np.zeros((3, B, 1), np.int64)
+        dbatch = m.decode_batch(tok)
         # the same inputs: the JAX cache as it stands
-        cache = {"kv": tuple(t(np.asarray(c, np.float32), torch.bfloat16)
-                             for c in jcache["kv"]),
-                 "pos": int(jcache["pos"])}
+        cache = _cache_from_jax(jcache)
         logits, cache = T.forward(m.params, m.cfg, _to_torch(dbatch),
                                   mode="decode", cache=cache,
                                   param_dtype=pdt)
         jlogits, jcache = m.jdecode[jdt](m.jparams, jcache, _to_jax(dbatch))
         assert cache["pos"] == int(jcache["pos"]) == S + step + 1
         assert rel_err(logits, jlogits) <= tol, step
-        for got, want in zip(cache["kv"], jcache["kv"]):
+        for got, want in zip(_cache_leaves(cache), _cache_leaves(jcache)):
             assert rel_err(got, np.asarray(want, np.float32)) <= 1e-2
     if bf16:
         prefill = ST.make_serve_step(m.cfg, "prefill")
@@ -453,7 +449,7 @@ def test_forward_matches_jax(models, arch, mode):
         want, _ = T.forward(m.params, m.cfg, _to_torch(batch),
                             mode="prefill", param_dtype=torch.bfloat16)
         assert torch.equal(tok, torch.argmax(want[:, -1], dim=-1))
-        jtok, _ = _exact_jit(JST.make_serve_step(m.jcfg, "prefill"))(
+        jtok, _ = exact_jit(JST.make_serve_step(m.jcfg, "prefill"))(
             m.jparams, _to_jax(batch))
         jl, _ = m.jprefill[jnp.bfloat16](m.jparams, _to_jax(batch))
         jl = np.asarray(jl[:, -1], np.float32)
@@ -461,12 +457,33 @@ def test_forward_matches_jax(models, arch, mode):
         clear = (top2[:, 1] - top2[:, 0]) > 1e-2 * np.abs(jl).max()
         assert (tok.numpy()[clear] == np.asarray(jtok)[clear]).all()
         decode = ST.make_serve_step(m.cfg, "decode")
-        cache = _splice(T.init_cache(m.params, m.cfg, B, MAX_LEN), pc, S)
-        dbatch = {"tokens": tok[:, None]}
-        if m.cfg.mrope:
-            dbatch["mrope_positions"] = torch.zeros(3, B, 1, dtype=torch.long)
-        tok2, cache = decode(m.params, cache, dbatch)
+        cache = splice(T.init_cache(m.params, m.cfg, B, MAX_LEN), pc, S)
+        dbatch = {k: v for k, v in _to_torch(m.decode_batch(0)).items()
+                  if k != "tokens"}
+        tok2, cache = decode(m.params, cache, {"tokens": tok[:, None],
+                                               **dbatch})
         assert tok2.shape == (B,) and cache["pos"] == S + 1
+
+
+def test_whisper_decode_ignores_enc_embeds(models):
+    """The reference re-encodes ``enc_embeds`` on every decode call and
+    never reads the result: its decode logits are the same for any
+    frames, and the port's (which encodes at prefill only and takes no
+    frames in decode) equal them."""
+    m = models("whisper_tiny")
+    rng = np.random.RandomState(8)
+    _, jpc = m.jprefill[jnp.float32](m.jparams, _to_jax(m.batch(rng)))
+    jcache = _splice_jax(JT.init_cache(m.jparams, m.jcfg, B, MAX_LEN),
+                         jpc, S)
+    cache = _cache_from_jax(jcache)
+    outs = [np.asarray(m.jdecode[jnp.float32](
+        m.jparams, jcache, _to_jax(m.decode_batch(5, r)))[0])
+        for r in (None, rng)]
+    assert np.array_equal(outs[0], outs[1])
+    got, _ = T.forward(m.params, m.cfg, {"tokens": torch.full((B, 1), 5)},
+                       mode="decode", cache=cache,
+                       param_dtype=torch.float32)
+    assert rel_err(got, outs[0]) <= 1e-3
 
 
 def test_decode_matches_prefill_continuation(models):
@@ -480,7 +497,7 @@ def test_decode_matches_prefill_continuation(models):
                         param_dtype=torch.float32)
     _, pc = T.forward(m.params, m.cfg, {"tokens": toks}, mode="prefill",
                       param_dtype=torch.float32)
-    cache = _splice(T.init_cache(m.params, m.cfg, 2, 16), pc, 8)
+    cache = splice(T.init_cache(m.params, m.cfg, 2, 16), pc, 8)
     dec, _ = T.forward(m.params, m.cfg, {"tokens": torch.full((2, 1), 7)},
                        mode="decode", cache=cache, param_dtype=torch.float32)
     np.testing.assert_allclose(dec.numpy(), full.numpy(), rtol=5e-2,
@@ -507,42 +524,56 @@ def test_init_cache_and_write_clamp_as_the_reference():
 # Parameter trees
 # ---------------------------------------------------------------------------
 
-FULL_PARAMS = {"llama3_2_1b": 1_235_814_400, "qwen2_vl_2b": 1_543_656_960}
+FULL_PARAMS = {"llama3_2_1b": 1_235_814_400, "qwen2_vl_2b": 1_543_656_960,
+               "xlstm_350m": 534_587_560, "zamba2_2_7b": 2_422_110_368,
+               "whisper_tiny": 37_015_680,
+               "dbrx_132b": 131_596_523_520, "arctic_480b": 476_850_275_328}
+# the MoE models as the card serves them, at full width and cut depth:
+# (layers, parameters)
+CUT_PARAMS = {"dbrx_132b": (2, 7_751_301_120),
+              "arctic_480b": (1, 14_069_945_344)}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_matches_abstract_params(arch):
     """At full width on the meta device: the port's tree is the JAX
-    ``abstract_params`` leaf for leaf (order, shapes), and so its
-    ``param_count`` and ``active_param_count``."""
-    cfg = get_config(arch)
-    shapes, _ = JST.abstract_params(jax_config(arch))
+    ``abstract_params`` leaf for leaf (order, shapes, NamedTuple types
+    by field names), and so its ``param_count`` and
+    ``active_param_count``."""
+    cfg, jcfg = get_config(arch), jax_config(arch)
+    shapes, _ = JST.abstract_params(jcfg)
     want = [tuple(s.shape) for s in jax.tree_util.tree_leaves(shapes)]
     params = ST.real_params(cfg, None, "meta")
     assert [tuple(p.shape) for p in tree.leaves(params)] == want
+    named = [type(n).__name__ for n in tree.leaves(
+        params, is_leaf=lambda x: hasattr(x, "_fields"))
+        if hasattr(n, "_fields")]
+    jnamed = [type(n).__name__ for n in jax.tree_util.tree_leaves(
+        shapes, is_leaf=lambda x: hasattr(x, "_fields"))
+        if hasattr(n, "_fields")]
+    assert named == jnamed
     n = int(sum(np.prod(s) for s in want))
-    assert T.param_count(params) == n
-    assert T.active_param_count(params, cfg) == n
-    if arch in FULL_PARAMS:
-        assert n == FULL_PARAMS[arch]
+    assert T.param_count(params) == n == FULL_PARAMS.get(arch, n)
+    active = T.active_param_count(params, cfg)
+    assert active == JT.active_param_count(shapes, jcfg)
+    assert (active < n) == (cfg.family == "moe")
+    assert all(p.dtype == getattr(torch, cfg.master_dtype)
+               for p in tree.leaves(params))
+    if arch in CUT_PARAMS:
+        layers, count = CUT_PARAMS[arch]
+        cut = dataclasses.replace(cfg, n_layers=layers)
+        assert T.param_count(ST.real_params(cut, None, "meta")) == count
 
 
 def test_params_from_numpy_checks_the_lm_tree():
     cfg = get_config("granite_20b").reduced()
-    tree_np = _numpy_params(jax_config("granite_20b").reduced(), 0)
+    tree_np = numpy_params(jax_config("granite_20b").reduced(), 0)
     params = params_from_numpy(tree_np, "cpu", cfg=cfg)
     assert params["layers"]["mlp"].w_gate is None       # plain MLP
     assert isinstance(params["layers"]["attn"], A.AttnParams)
     with pytest.raises(WeightShapeError, match="do not match"):
         params_from_numpy(tree_np, "cpu",
                           cfg=get_config("llama3_2_1b").reduced())
-
-
-@pytest.mark.parametrize("arch", sorted(set(ASSIGNED) - set(ARCHS)))
-def test_later_families_name_their_slice(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        ST.real_params(cfg, None, "meta")
 
 
 def test_train_mode_names_its_slice(models):

@@ -4,11 +4,18 @@ Both servers answer the same mixed-length batch with the same parameters
 (drawn in numpy, carried to the port with ``convert.params_from_numpy``)
 and must give the same tokens; at the first token that differs, if any,
 the top-2 logit margin must lie within the decode tolerance (1e-2 of max
-|logit|), and nothing after it is compared.  The admission path mirrors
-``tests/test_faults_serving.py``'s LM cases, and the reference behaviours
-the port keeps are pinned: unmasked left padding, one discarded decode
-call per batch, the f32 prefill cache cast into the bf16 decode cache.
+|logit|), and nothing after it is compared.  Every family serves: the dense and
+VLM configs, MoE (dbrx, arctic's residual MLP), xLSTM (its states
+spliced), the Zamba2 hybrid (its Mamba-2 states and grouped kv spliced)
+and Whisper (its cross keys and values spliced).  The admission path
+mirrors ``tests/test_faults_serving.py``'s LM cases, and the reference
+behaviours the port keeps are pinned: unmasked left padding (an SSM's
+prefill state runs over the pads too), one discarded decode call per
+batch, the f32 prefill cache cast into the bf16 decode cache.
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
@@ -19,12 +26,13 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402
+from jax_lm_helpers import numpy_params  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.runtime import serve_loop as jserve  # noqa: E402
-from repro.sharding.partition import split_params  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ASSIGNED, get_config  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import steps as ST  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.runtime.serve_loop import Request, Server  # noqa: E402
 from repro_torch.runtime.serving import (  # noqa: E402
@@ -32,7 +40,6 @@ from repro_torch.runtime.serving import (  # noqa: E402
     QueueFullError,
 )
 
-KEY = jax.random.PRNGKey(0)
 MARGIN_TOL = 1e-2
 
 
@@ -45,24 +52,6 @@ class FakeClock:
 
     def advance(self, s):
         self.t += s
-
-
-def _numpy_params(jcfg, seed):
-    """An LM parameter tree of the JAX package's structure, numpy leaves."""
-    shapes = jax.eval_shape(
-        lambda: split_params(JT.init_params(jcfg, KEY))[0])
-    rng = np.random.RandomState(seed)
-
-    def draw(path, sd):
-        name = jax.tree_util.keystr(path)
-        if "norm" in name:
-            return (1 + 0.1 * rng.standard_normal(sd.shape)).astype(
-                np.float32)
-        scale = (0.02 if "embed" in name or "lm_head" in name
-                 else (sd.shape[1] * sd.shape[2]) ** -0.5
-                 if name.endswith("wo") else sd.shape[1] ** -0.5)
-        return (scale * rng.standard_normal(sd.shape)).astype(np.float32)
-    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 def _requests(vocab, n=8, new=10, seed=0):
@@ -126,7 +115,7 @@ def lm():
     def get(arch):
         if arch not in models:
             jcfg = jax_config(arch).reduced()
-            tree_np = _numpy_params(jcfg, seed=3)
+            tree_np = numpy_params(jcfg, seed=3)
             models[arch] = (
                 params_from_numpy(tree_np, "cpu",
                                   cfg=get_config(arch).reduced()),
@@ -136,7 +125,9 @@ def lm():
     return get
 
 
-@pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen2_vl_2b"])
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen2_vl_2b",
+                                  "dbrx_132b", "arctic_480b", "xlstm_350m",
+                                  "zamba2_2_7b", "whisper_tiny"])
 def test_server_matches_the_jax_server(lm, arch, monkeypatch):
     params, cfg, jparams, jcfg = lm(arch)
     reqs = _requests(cfg.vocab)
@@ -153,6 +144,24 @@ def test_server_matches_the_jax_server(lm, arch, monkeypatch):
     # at these seeds no reference margin is near a tie: every token agrees
     assert compare_tokens(got, want, jseen) is None
     assert server.step() == [] and jsrv.step() == []
+
+
+@pytest.mark.parametrize("arch", ASSIGNED)
+def test_every_assigned_config_serves(arch):
+    """Every LM config of the reference serves through the port's
+    ``Server`` at its reduced size: a mixed-length batch, each request's
+    tokens in the vocabulary, and a second batch served the same."""
+    cfg = get_config(arch).reduced()
+    params = ST.real_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    server = Server(params, cfg, max_batch=4, max_len=32, device="cpu")
+    outs = []
+    for _ in range(2):
+        for prompt, new in _requests(cfg.vocab, n=3, new=5, seed=2):
+            server.submit(Request(prompt=prompt, max_new_tokens=new))
+        outs.append(server.step())
+    assert outs[0] == outs[1]
+    assert [len(o) for o in outs[0]] == [5] * 3
+    assert all(0 <= t < cfg.vocab for o in outs[0] for t in o)
 
 
 def test_compare_tokens_stops_at_a_tie_and_refuses_a_clear_flip():
@@ -185,6 +194,55 @@ def test_left_padding_is_attended_unmasked(lm):
     scale = float(padded.abs().max())
     assert float((both[0] - padded[0]).abs().max()) <= 1e-5 * scale
     assert float((both[0] - alone[0]).abs().max()) > 1e-3 * scale
+
+
+def test_ssm_prefill_state_runs_over_the_left_pads(lm):
+    """Kept from the reference: an xLSTM prompt batched with a longer one
+    carries its recurrent state through the zero pads, so its prefill
+    equals the zero-padded prompt served alone, not the prompt alone,
+    and so does the state the decode continues from."""
+    params, cfg, _, _ = lm("xlstm_350m")
+    server = Server(params, cfg, device="cpu")
+    toks, _ = server._pad_batch([Request([5, 6, 7]),
+                                 Request([9, 8, 7, 6, 5, 4, 3])])
+    with torch.inference_mode():
+        both, st_both = server._prefill(params, {"tokens": toks})
+        padded, st_pad = server._prefill(params,
+                                         {"tokens": toks[:1].clone()})
+        alone, _ = server._prefill(params, {"tokens": toks[:1, 4:].clone()})
+    scale = float(padded.abs().max())
+    assert float((both[0] - padded[0]).abs().max()) <= 1e-5 * scale
+    assert float((both[0] - alone[0]).abs().max()) > 1e-3 * scale
+    gla, tail = st_both["states"][1]               # an mLSTM layer's
+    assert torch.allclose(gla[:1], st_pad["states"][1][0], rtol=1e-5,
+                          atol=1e-6)
+    assert tail.dtype == torch.float32             # the f32 prefill's
+
+
+def test_splice_hands_over_states_and_cross(lm):
+    """``splice`` copies the hybrid's grouped kv into the bf16 cache and
+    replaces xLSTM's ``states``, the hybrid's ``ssm`` and Whisper's
+    ``cross`` with the prefill's, as the reference's ``_splice`` does."""
+    for arch, keys in (("xlstm_350m", ("states",)),
+                       ("zamba2_2_7b", ("ssm",)),
+                       ("whisper_tiny", ("cross",))):
+        params, cfg, jparams, jcfg = lm(arch)
+        server = Server(params, cfg, max_len=32, device="cpu")
+        toks = torch.arange(2 * 6).reshape(2, 6) % cfg.vocab
+        with torch.inference_mode():
+            _, pc = server._prefill(params, {"tokens": toks,
+                                             **server._extra_for(2, 6)})
+            cache = server._splice(T.init_cache(params, cfg, 2, 32), pc, 6)
+        assert cache["pos"] == 6
+        for key in keys:
+            assert cache[key] is pc[key]
+        if "kv" in pc:
+            big, small = cache["kv"][0], pc["kv"][0]
+            assert big.dtype == torch.bfloat16 and big.shape[2] == 32
+            assert torch.equal(big[:, :, :6], small.bfloat16())
+            assert not big[:, :, 6:].any()
+        jcache = JT.init_cache(jparams, jcfg, 2, 32)
+        assert sorted(cache) == sorted(jcache)
 
 
 def test_decode_calls_and_cache_dtypes(lm, monkeypatch):
@@ -282,16 +340,19 @@ def test_server_refuses_other_devices_and_families(lm):
     params, cfg, _, _ = lm("llama3_2_1b")
     with pytest.raises(ValueError, match="parameters are on cpu"):
         Server(params, cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        Server(params, get_config("dbrx-132b").reduced(), device="cpu")
+    with pytest.raises(ValueError, match="rnn"):
+        Server(params, dataclasses.replace(cfg, family="rnn"), device="cpu")
 
 
 # ---------------------------------------------------------------------------
 # The launcher and the example
 # ---------------------------------------------------------------------------
 
-def test_launcher_serves_on_the_cpu(capsys):
-    outs = launch_serve.main(["--arch", "llama3.2-1b", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "dbrx-132b", "xlstm-350m",
+                                  "zamba2-2.7b", "whisper-tiny"])
+def test_launcher_serves_on_the_cpu(capsys, arch):
+    """One config of each family."""
+    outs = launch_serve.main(["--arch", arch, "--device", "cpu",
                               "--requests", "3", "--new-tokens", "4"])
     assert [len(o) for o in outs] == [4, 4, 4]
     assert "served 3 requests, 12 tokens" in capsys.readouterr().out
@@ -300,10 +361,14 @@ def test_launcher_serves_on_the_cpu(capsys):
     assert not ap.parse_args(["--arch", "x", "--no-reduced"]).reduced
 
 
-def test_example_serves_on_the_cpu(capsys):
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "arctic-480b",
+                                  "xlstm-350m", "zamba2-2.7b",
+                                  "whisper-tiny"])
+def test_example_serves_on_the_cpu(capsys, arch):
+    """One config of each family."""
     from repro_torch.examples import serve_lm
-    outs = serve_lm.main(["--device", "cpu", "--arch", "qwen2-vl-2b"])
+    outs = serve_lm.main(["--device", "cpu", "--arch", arch])
     assert [len(o) for o in outs] == [12] * 6
     assert "served 6 reqs / 72 tokens" in capsys.readouterr().out
-    cfg = get_config("qwen2-vl-2b").reduced()
+    cfg = get_config(arch).reduced()
     assert all(0 <= t < cfg.vocab for o in outs for t in o)
