@@ -116,12 +116,14 @@ Phases, any failure of which exits non-zero before the result line:
      request with a typed ``DispatchFailedError``;
      serve (LM) — the LM serving path at full width (``LM_SERVE``, one
      model after another, each freed before the next is built):
-     llama3.2-1b, qwen2-vl-2b, xlstm-350m, zamba2-2.7b and whisper-tiny
-     at full depth, dbrx-132b at 2 of 40 layers and arctic-480b at 1 of
-     35: seeded weights (the new five drawn on the card), the port's
-     ``Server(max_batch=8, max_len=128)`` answering 8 requests of 4-16
-     tokens (16 new tokens each) on the card and on the CPU (arctic's
-     CPU: the prefill and 2 decode calls fed the card's tokens), with
+     llama3.2-1b, qwen2-vl-2b, xlstm-350m and whisper-tiny at full
+     depth, zamba2-2.7b at 12 of 54 layers (two shared-block groups;
+     cut for the script's time since the train (LM) phase), dbrx-132b at
+     2 of 40 layers and arctic-480b at 1 of 35: seeded weights (the new
+     five drawn on the card), the port's ``Server(max_batch=8,
+     max_len=128)`` answering 8 requests of 4-16 tokens (16 new tokens
+     each) on the card and on the CPU (arctic's CPU: the prefill and 2
+     decode calls fed the card's tokens), with
      TF32 on in cuBLAS (the LM forward scopes IEEE f32 itself): prefill
      logits within the model's f32 tolerance of max |logit| of the CPU's
      (1e-4; xlstm-350m 1e-2, whose sLSTM recurrences move its logits
@@ -149,6 +151,33 @@ Phases, any failure of which exits non-zero before the result line:
      clock around a synchronized call), tokens/s, the decode byte bound,
      peak memory and one profiled decode step's kernels and device-busy
      ms, beside the card's name and power limit;
+     train (LM) — the LM training path (``lm_train_phase``):
+     llama3.2-1b at full width and depth trained 4 steps at batch 8 x 128
+     through ``launch.train.main`` (checkpoints every 2 steps), then
+     resumed from step 2 by the launcher's ``--resume`` and run to step
+     4; the last step's loss and bf16 gradients held against the
+     port's CPU run from the card's parameters and batch
+     (each leaf within 5e-2 of its max |g|, the loss within 1e-2), step
+     1's at f32 (the f32 control, 1e-4) and twice on the card; step 1
+     leaves every parameter as it was (the cosine schedule's rate 0);
+     each AdamW update applied on the CPU to the card's gradients,
+     moments and parameters (every k-th element of each leaf) within 4
+     ulps of the card's; the resumed parameters bit-equal to the
+     uninterrupted run's when the card's two runs of step 1 are, else
+     within their spread; every gradient finite; step ms (host
+     clock around synchronized
+     steps), tokens/s, model FLOP/s against the bf16 peak, peak memory
+     and one profiled step's kernels and busy ms; then one teacher-forced
+     step of qwen2-vl-2b, xlstm-350m and whisper-tiny at full depth,
+     zamba2-2.7b at 12 of 54 layers and dbrx-132b at 1 of 40 (reduced
+     when the host cannot hold its CPU side), each at full width and 2 x
+     128 tokens (qwen2-vl-2b and dbrx-132b 1 x 128), bf16 and f32-control
+     gradients against the CPU above the model's floor (``LM_TRAIN``:
+     xlstm-350m's are chaotic and only reported; qwen2-vl-2b's and
+     dbrx-132b's f32 controls are left out for time), the MoE term too,
+     and the CPU run on the card's routing: its router probabilities
+     within 1e-2 of the card's, a token routed otherwise only at a tie
+     and on at most 1 in 16 tokens; no hand-kernel launch;
   5. times — each kernel at every call shape the main path gave it (CUDA
      events; the serve and train runs record each wrapper's calls by
      shape) beside its plain version, one cuDNN call computing the same
@@ -228,6 +257,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -270,8 +300,9 @@ class LmCell(NamedTuple):
 
 
 # the serve (LM) phase's models, in order.  zamba2-2.7b's floor is
-# 5.8e-5 (prefill) and 3.0e-5 (f32 continuation on the CPU): 54 layers
-# deep.  xlstm-350m's is 2.4e-3 (prefill; 5.3e-3 by the third decode
+# 5.8e-5 (prefill) and 3.0e-5 (f32 continuation on the CPU) at its 54
+# layers, its continuation gate kept at 12.  xlstm-350m's is 2.4e-3
+# (prefill; 5.3e-3 by the third decode
 # call, the JAX package 2.4e-3 from the port on the same parameters):
 # its sLSTM recurrences amplify f32 rounding a thousandfold, so its end-
 # to-end comparisons are read at the decode tolerance and its arithmetic
@@ -280,10 +311,85 @@ LM_SERVE = (
     LmCell("llama3.2-1b", card_draw=False),
     LmCell("qwen2-vl-2b", card_draw=False),
     LmCell("xlstm-350m", f32_tol=1e-2, cont_tol=1e-2),
-    LmCell("zamba2-2.7b", cont_tol=1e-4),
+    LmCell("zamba2-2.7b", layers=12, cont_tol=1e-4),
     LmCell("whisper-tiny"),
     LmCell("dbrx-132b", layers=2),
     LmCell("arctic-480b", layers=1, cpu_calls=3),
+)
+
+# the train (LM) phase: llama3.2-1b trained through launch.train at the
+# launcher's batch (8 x 128), then one teacher-forced step of each other
+# family (LM_TRAIN) at full width and LM_TRAIN_CELL_BATCH sequences (its
+# CPU side is the phase's cost)
+LM_TRAIN_ARCH = "llama3.2-1b"
+LM_TRAIN_STEPS = 4
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128
+LM_TRAIN_CELL_BATCH = 2
+# the steps whose bf16 gradients are held against the CPU: the last, the
+# first at parameters the updates have moved (one llama3.2-1b bf16
+# gradient takes the 8-core host of an H100 80GB HBM3 machine 62-83 s);
+# step 1's f32 control (37 s there) and repeat, and every step's update,
+# are held too
+LM_TRAIN_CPU_STEPS = (LM_TRAIN_STEPS,)
+# card vs CPU, each leaf's max |diff| / max |g|: the train step's bf16
+# gradients (its forward rounds to bf16 op by op, so each weight's
+# gradient is a bf16 value and a card and a CPU product round a near-tie
+# apart: the port's and the JAX package's CPU gradients lie 1.3e-2-2.5e-2
+# apart at reduced sizes, tests/test_torch_lm_train_steps.py), and the
+# f32 control of the same step, which rounds nothing to bf16
+LM_TRAIN_BF16_TOL, LM_TRAIN_F32_TOL = 5e-2, 1e-4
+LM_TRAIN_LOSS_TOL = 1e-2         # bf16 loss, card vs CPU, relative
+# a MoE routing decision of the bf16 step may differ between the card and
+# the CPU only at a tie: its k-th and (k+1)-th router probabilities this
+# close (the serve (LM) phase's bf16 tie).  One flipped token changes its
+# hidden state wholesale, and with it the untied head's gradient row of
+# its label (dbrx-132b: 0.65 of the leaf's max |g| on one H100), so
+# the CPU runs the card's routing (teacher-forced) and the flips are
+# counted and held to the tie; the CPU's router probabilities must lie
+# within the tie of the card's, and at most this share of the routed
+# tokens may flip (3 of 256 read on one H100)
+LM_TRAIN_ROUTE_TIE = 1e-2
+LM_TRAIN_FLIP_SHARE = 1 / 16
+# an AdamW update card vs CPU, in units in the last place of the largest
+# of the old and new parameter and the update at each element: the
+# moments agree bit for bit, the bias corrections' pow may round an ulp
+# apart on the card (4 ulps of max(|p|, |p_new|) measured on one H100)
+LM_TRAIN_ULPS = 4
+LM_TRAIN_SAMPLE = 1 << 22        # elements of each leaf the update check reads
+
+
+class LmTrainCell(NamedTuple):
+    """One model of the train (LM) phase's teacher-forced steps."""
+    arch: str
+    layers: int | None = None      # depth trained (None: all)
+    # the gates of its card-vs-CPU gradients (bf16 step, f32 control, None:
+    # not run), above the model's own floor on the CPU
+    # (scripts/lm_noise_floor.py --grads at 2 x 128; inf: reported only)
+    bf16_tol: float = LM_TRAIN_BF16_TOL
+    f32_tol: float | None = LM_TRAIN_F32_TOL
+    batch: int = LM_TRAIN_CELL_BATCH
+    # bytes of host memory its CPU side needs, in units of its f32
+    # parameters (params, gradients, the bf16 forward's casts and saves);
+    # 0: no check.  A model that does not fit runs at reduced() size
+    host_need: float = 0.0
+
+
+# xlstm-350m's full-width gradients are chaotic: on the 8-core host of
+# an H100 machine two thread counts move a leaf's f32 gradient 35x its
+# max |g| (the batch against the mean of its halves 50x; bf16 8x / 26x),
+# its loss 7e-4 / 6e-3 (scripts/lm_noise_floor.py --grads, 2 x 128), so
+# its gradients are reported, its loss and finiteness gated.
+# zamba2-2.7b at 12 layers: f32 5.4e-5, bf16 4.1e-2 / 5.1e-2 there.
+# qwen2-vl-2b's and dbrx-132b's f32 controls are left out for time
+# (qwen's read 4.7e-6 on one H100 and took that host 43 s), and both run
+# one sequence (their bf16 CPU gradients took 60 s at 2 x 128)
+LM_TRAIN = (
+    LmTrainCell("qwen2-vl-2b", f32_tol=None, batch=1),
+    LmTrainCell("xlstm-350m", bf16_tol=math.inf, f32_tol=None),
+    LmTrainCell("whisper-tiny"),
+    LmTrainCell("zamba2-2.7b", layers=12, bf16_tol=0.15, f32_tol=2e-4),
+    LmTrainCell("dbrx-132b", layers=1, f32_tol=None, batch=1,
+                host_need=3.0),
 )
 # the forward block's route for each (x, w) operand pair (igemm.cuh), and
 # the passes of the TF32 route per activation type: what each launch's C
@@ -956,6 +1062,407 @@ def multi_card(cli, detail: dict, name: str, smi: str) -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _mem_available() -> int:
+    """The host's available memory in bytes (``/proc/meminfo``)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
+def lm_train_phase(dev, smi: str, detail: dict, counts, zero_counts) -> None:
+    """The train (LM) phase: llama3.2-1b trained through
+    ``launch.train.main`` at full width and depth on the card, each step's
+    gradients and AdamW update held against the port's CPU, a resume from
+    step 2 bit-equal to the uninterrupted run, step times, peak memory and
+    one profiled step; then one teacher-forced step of each of
+    ``LM_TRAIN``.  No hand kernel may launch."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatches
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as LT
+    from repro_torch.models import moe as LMMOE
+    from repro_torch.models import transformer as LMT
+    from repro_torch.optim import AdamWConfig, AdamWState
+
+    phase("train (LM)")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    zero_counts()
+    t_phase = time.perf_counter()
+    out: dict = {"card": smi}
+    detail["train_lm"] = out
+    real_grads, real_adamw = ST.lm_grads, ST.adamw_update
+
+    def to(t_, device):
+        return tree.tree_map(lambda a: a.to(device), t_)
+
+    def leaf_errs(got, want):
+        """Each leaf's max |got - want| / max |want| (on ``got``'s
+        device)."""
+        errs = []
+        for g, w in zip(tree.leaves(got), tree.leaves(want)):
+            g, w = g.float(), w.to(g.device).float()
+            scale = float(w.abs().max())
+            errs.append(float((g - w).abs().max()) / scale if scale
+                        else float(g.abs().max()))
+        return errs
+
+    def ulps(got, want, *operands) -> float:
+        """max |got - want| in units in the last place of the largest of
+        them and ``operands`` at each element (f32, one device)."""
+        big = torch.maximum(got.abs(), want.abs())
+        for o in operands:
+            big = torch.maximum(big, o.abs())
+        ulp = torch.nextafter(big, torch.full_like(big, math.inf)) - big
+        return float(((got - want).abs() / ulp).max())
+
+    def finite(grads) -> bool:
+        return all(bool(torch.isfinite(g).all()) for g in tree.leaves(grads))
+
+    real_route = LMMOE.route
+
+    @contextlib.contextmanager
+    def routing(record=None, force=None):
+        """Within: each MoE call's expert choice and router probabilities
+        appended to ``record`` (the card's), or the choice taken from
+        ``force`` in call order (the CPU's, teacher-forced: its own router
+        probabilities, the card's experts).  Yields what the forced calls
+        saw: the tokens routed, the margin (k-th minus (k+1)-th
+        probability) of each whose own choice differs, and the largest
+        difference between its router probabilities and the card's."""
+        calls = iter(force or ())
+        seen = {"tokens": 0, "flips": [], "prob_err": 0.0}
+
+        def route(xf, w_router, k):
+            probs, top_p, top_e = real_route(xf, w_router, k)
+            if record is not None:
+                record.append((top_e.cpu(), probs.detach().cpu()))
+            if force is None:
+                return probs, top_p, top_e
+            want, card_probs = next(calls)
+            want = want.to(top_e.device)
+            seen["tokens"] += top_e.shape[0]
+            err = (probs.detach() - card_probs.to(probs.device)).abs()
+            seen["prob_err"] = max(seen["prob_err"], float(err.max()))
+            srt = torch.sort(probs, dim=-1, descending=True).values
+            moved = (want.sort(dim=-1).values
+                     != top_e.sort(dim=-1).values).any(dim=-1)
+            seen["flips"].extend(float(m) for m in
+                                 (srt[:, k - 1] - srt[:, k])[moved].tolist())
+            top_p = probs.gather(-1, want)
+            return probs, top_p / top_p.sum(dim=-1, keepdim=True), want
+
+        LMMOE.route = route
+        try:
+            yield seen
+        finally:
+            LMMOE.route = real_route
+
+    def grads_vs_cpu(params, cfg, batch, param_dtype, card=None):
+        """One step's gradients on the card (``card``, or computed) and on
+        the CPU from the same parameters and batch (the CPU without remat:
+        its values and gradients those with remat, bit for bit): losses,
+        MoE terms, the worst leaf's error, finiteness, seconds."""
+        t0 = time.perf_counter()
+        routes: list = []
+        if card is None:
+            with routing(record=routes):
+                card = real_grads(params, cfg, batch, param_dtype)
+        loss, metrics, g_dev = card
+        ok = finite(g_dev)
+        t1 = time.perf_counter()
+        # the forward's MoE calls come first, then the remat's again
+        with routing(force=routes[:cfg.n_layers] if routes else None) \
+                as seen:
+            loss_c, metrics_c, g_cpu = real_grads(
+                to(params, "cpu"), dataclasses.replace(cfg, remat=False),
+                to(batch, "cpu"), param_dtype)
+        t2 = time.perf_counter()
+        errs = leaf_errs(g_dev, g_cpu)
+        return {"loss": float(loss), "loss_cpu": float(loss_c),
+                "routed_tokens": seen["tokens"],
+                "routing_flips": len(seen["flips"]),
+                "routing_flip_margin": max(seen["flips"], default=0.0),
+                "router_prob_err": seen["prob_err"],
+                "loss_rel_err": abs(float(loss) - float(loss_c))
+                / abs(float(loss_c)),
+                "aux": float(metrics["aux"]),
+                "aux_cpu": float(metrics_c["aux"]),
+                "grad_rel_err": max(errs), "finite": ok,
+                "nonfinite_leaves": [i for i, g in enumerate(
+                    tree.leaves(g_dev)) if not bool(torch.isfinite(g).all())],
+                "worst_leaf": int(np.argmax(errs)),
+                "card_s": t1 - t0, "cpu_s": t2 - t1,
+                "compare_s": time.perf_counter() - t2}
+
+    def sample(t_):
+        """Every k-th element of ``t_`` (at most LM_TRAIN_SAMPLE and the
+        last), on the CPU."""
+        flat = t_.reshape(-1)
+        k = max(1, flat.numel() // LM_TRAIN_SAMPLE)
+        idx = torch.cat([torch.arange(0, flat.numel(), k, device=t_.device),
+                         torch.tensor([flat.numel() - 1], device=t_.device)])
+        return flat[idx].cpu()
+
+    # -- the main path: llama3.2-1b through the launcher ---------------------
+    cfg = get_config(LM_TRAIN_ARCH)
+    opt_bits = cfg.opt_state_bits
+    n_params = LMT.param_count(ST.real_params(cfg, None, "meta"))
+    steps: list = []                 # one record per recorded step
+    recording = [True]
+
+    def lm_grads(params, lm_cfg, batch, param_dtype=torch.bfloat16):
+        card = real_grads(params, lm_cfg, batch, param_dtype)
+        if not recording[0]:
+            return card
+        rec = {"step": len(steps) + 1, "finite": finite(card[2]),
+               "loss": float(card[0])}
+        steps.append(rec)
+        if rec["step"] == 1:
+            # the same gradients twice on the card: the floor of the
+            # resume's comparison
+            again = real_grads(params, lm_cfg, batch, param_dtype)
+            rec["repeat_bit_equal"] = all(
+                torch.equal(a, b) for a, b in zip(tree.leaves(card[2]),
+                                                  tree.leaves(again[2])))
+            rec["repeat_rel_err"] = max(leaf_errs(again[2], card[2]))
+            del again
+            # the f32 control: the step's forward at f32, card vs CPU
+            rec["f32_control"] = grads_vs_cpu(params, lm_cfg, batch,
+                                              torch.float32)
+        if rec["step"] in LM_TRAIN_CPU_STEPS:
+            rec.update(grads_vs_cpu(params, lm_cfg, batch, param_dtype,
+                                    card))
+        return card
+
+    def adamw_update(grads, state, params, opt, lr_scale=1.0):
+        new_p, new_s = real_adamw(grads, state, params, opt, lr_scale)
+        if not recording[0]:
+            return new_p, new_s
+        t0 = time.perf_counter()
+        rec = steps[-1]
+        rec["lr_scale"] = float(lr_scale)
+        if int(state.step) == 0:
+            rec["params_unchanged"] = all(
+                torch.equal(a, b) for a, b in zip(tree.leaves(new_p),
+                                                  tree.leaves(params)))
+        # the update applied on the CPU to the card's gradients, moments
+        # and parameters, on a sample of each leaf's elements (the update
+        # is elementwise)
+        worst = {"params": 0.0, "m": 0.0, "v": 0.0}
+        lr_cpu = torch.as_tensor(lr_scale).cpu()
+        t_ = (state.step + 1).to(torch.float32)
+        rec["bias_corrections_bit_equal"] = all(
+            torch.equal((1.0 - b ** t_).cpu(), 1.0 - b ** t_.cpu())
+            for b in (opt.b1, opt.b2))
+        for p, g, m, v, p2, m2, v2 in zip(*(
+                [sample(t_) for t_ in tree.leaves(x)]
+                for x in (params, grads, state.m, state.v, new_p, new_s.m,
+                          new_s.v))):
+            cp, cs = real_adamw([g], AdamWState(state.step.cpu(), [m], [v]),
+                                [p], opt, lr_cpu)
+            for key, got, want, old in (("params", p2, cp[0], p),
+                                        ("m", m2, cs.m[0], m),
+                                        ("v", v2, cs.v[0], v)):
+                worst[key] = max(worst[key], ulps(got, want, old,
+                                                  old - want))
+        rec["adamw_ulps"] = worst
+        rec["adamw_check_s"] = time.perf_counter() - t0
+        return new_p, new_s
+
+    check(opt_bits == 32, f"{LM_TRAIN_ARCH}: the update check reads f32 "
+          f"moments, not {opt_bits}-bit ones")
+    ST.lm_grads, ST.adamw_update = lm_grads, adamw_update
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    check(held_gb < 1.0, f"train (LM): {held_gb:.2f} GB held on the card")
+    ckroot = ROOT / "build" / "train_lm_checkpoints"
+    ckroot.mkdir(parents=True, exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ckroot) as ckdir:
+            argv = ["--arch", LM_TRAIN_ARCH, "--steps", str(LM_TRAIN_STEPS),
+                    "--checkpoint-every", "2", "--batch",
+                    str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ),
+                    "--checkpoint-dir", ckdir, "--device", dev.type]
+            t0 = time.perf_counter()
+            trainer = LT.main(argv)
+            out["run_s"] = time.perf_counter() - t0
+            recording[0] = False
+            final = to(trainer.params, "cpu")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            # resume from step 2: the newest checkpoint, step 4, removed
+            check(sorted(int(p.name.split("_")[1]) for p in
+                         Path(ckdir).glob("step_*")) == [2, 4],
+                  f"checkpoints {sorted(Path(ckdir).iterdir())}")
+            shutil.rmtree(Path(ckdir) / f"step_{LM_TRAIN_STEPS:08d}")
+            t0 = time.perf_counter()
+            resumed = LT.main(argv + ["--resume"])
+            out["resume_s"] = time.perf_counter() - t0
+            check(resumed.step == LM_TRAIN_STEPS,
+                  f"the resumed run ended at step {resumed.step}")
+            out["resume_bit_equal"] = all(
+                torch.equal(a.cpu(), b) for a, b in zip(
+                    tree.leaves(resumed.params), tree.leaves(final)))
+            out["resume_rel_err"] = max(leaf_errs(resumed.params, final))
+    finally:
+        ST.lm_grads, ST.adamw_update = real_grads, real_adamw
+    del final
+    out.update(params=n_params, steps=steps)
+    print(json.dumps({"train_lm": LM_TRAIN_ARCH, **out}))
+    check(len(steps) == LM_TRAIN_STEPS,
+          f"{len(steps)} recorded steps, not {LM_TRAIN_STEPS}")
+    check(steps[0].get("params_unchanged") is True,
+          "step 1 (the cosine schedule's rate 0) moved the parameters")
+    check(steps[0]["f32_control"]["grad_rel_err"] <= LM_TRAIN_F32_TOL
+          and steps[0]["f32_control"]["finite"],
+          f"the f32 control's gradients {steps[0]['f32_control']}")
+    for rec in steps:
+        check(rec["finite"], f"step {rec['step']}: gradients not finite")
+        check(rec["step"] not in LM_TRAIN_CPU_STEPS
+              or (rec["grad_rel_err"] <= LM_TRAIN_BF16_TOL
+                  and rec["loss_rel_err"] <= LM_TRAIN_LOSS_TOL),
+              f"step {rec['step']}: card vs CPU {rec}")
+        check(max(rec["adamw_ulps"].values()) <= LM_TRAIN_ULPS,
+              f"step {rec['step']}: AdamW update card vs CPU "
+              f"{rec['adamw_ulps']} ulps")
+    # the resume is the uninterrupted run bit for bit, unless the card's
+    # own gradients differ between two runs of one step: then no leaf of
+    # the resumed parameters may lie further from the uninterrupted run's,
+    # relative to its largest value, than the two runs' gradients lie
+    # apart (an AdamW step moves a parameter by a few times lr x the
+    # schedule's rate at most, whatever its gradient: 0.03 lr at step 4),
+    # and that spread is within the bf16 tolerance
+    first = steps[0]
+    check(out["resume_bit_equal"]
+          or (not first["repeat_bit_equal"]
+              and out["resume_rel_err"] <= first["repeat_rel_err"]
+              <= LM_TRAIN_BF16_TOL),
+          f"the resumed run's parameters differ from the uninterrupted "
+          f"run's ({out['resume_rel_err']:.3g}; two runs of step 1's "
+          f"gradients: bit-equal {first['repeat_bit_equal']}, "
+          f"{first['repeat_rel_err']:.3g})")
+
+    # step times, tokens/s, model FLOP/s, peak memory and one profiled
+    # step, on the resumed run's parameters and moments
+    step = ST.make_train_step(cfg, AdamWConfig(state_bits=opt_bits))
+    batch = TokenBatches(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                         prefetch=False, device=dev).make_batch(LM_TRAIN_STEPS)
+    params, state = resumed.params, resumed.opt_state
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    PA = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[PA.CPU, PA.CUDA]) as prof:
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    step_ms = statistics.median(times[1:])
+    busy_ms = sum(e.device_time_total for e in ev) / 1e3
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    out.update(peak_mem_gb=peak_gb, step_ms=step_ms, step_ms_all=times,
+               tokens_per_s=tokens / (step_ms / 1e3),
+               model_flops=flops,
+               mfu_bf16=flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
+               profile={"kernels": len(ev), "device_busy_ms": busy_ms,
+                        "idle_share": 1 - busy_ms / step_ms})
+    print(json.dumps({"train_lm_times": LM_TRAIN_ARCH, "card": smi,
+                      **{k: out[k] for k in ("peak_mem_gb", "step_ms",
+                                             "step_ms_all", "tokens_per_s",
+                                             "mfu_bf16", "profile")}}))
+    check(math.isfinite(float(metrics["loss"])),
+          f"a timed step's loss {float(metrics['loss'])}")
+    del params, state, metrics, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- one teacher-forced step of each other family ------------------------
+    out["cells"] = {}
+    for cell in LM_TRAIN:
+        t_model = time.perf_counter()
+        lm_cfg = get_config(cell.arch)
+        full_layers = lm_cfg.n_layers
+        if cell.layers is not None:
+            lm_cfg = dataclasses.replace(lm_cfg, n_layers=cell.layers)
+        row = {"train_lm_cell": cell.arch, "card": smi,
+               "batch": [cell.batch, LM_TRAIN_SEQ]}
+        if cell.host_need:
+            f32_bytes = 4 * LMT.param_count(
+                ST.real_params(lm_cfg, None, "meta"))
+            avail = _mem_available()
+            row.update(host_available_gb=avail / 1e9,
+                       host_need_gb=cell.host_need * f32_bytes / 1e9)
+            if avail < cell.host_need * f32_bytes:
+                lm_cfg = lm_cfg.reduced()
+                row["reduced"] = "the host cannot hold its CPU side"
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        check(held_gb < 1.0, f"{cell.arch}: {held_gb:.2f} GB held on the "
+              f"card before its weights")
+        torch.cuda.reset_peak_memory_stats()
+        params = ST.real_params(
+            lm_cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        batch = TokenBatches(lm_cfg.vocab, cell.batch, LM_TRAIN_SEQ,
+                             prefetch=False, extra_fn=LT.lm_extra(lm_cfg),
+                             device=dev).make_batch(0)
+        row.update(layers=f"{lm_cfg.n_layers} of {full_layers}",
+                   params=LMT.param_count(params),
+                   bf16=grads_vs_cpu(params, lm_cfg, batch, torch.bfloat16))
+        if cell.f32_tol is not None:
+            row["f32_control"] = grads_vs_cpu(params, lm_cfg, batch,
+                                              torch.float32)
+        row.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   model_s=time.perf_counter() - t_model,
+                   bf16_tol=str(cell.bf16_tol), f32_tol=cell.f32_tol)
+        print(json.dumps(row))
+        out["cells"][cell.arch] = row
+        for key, tol in (("bf16", cell.bf16_tol),
+                         ("f32_control", cell.f32_tol)):
+            if tol is None:
+                continue
+            r = row[key]
+            check(r["finite"] and r["grad_rel_err"] <= tol
+                  and r["loss_rel_err"] <= LM_TRAIN_LOSS_TOL,
+                  f"{cell.arch}: {key} card vs CPU {r}")
+            if lm_cfg.family == "moe":
+                check(r["aux"] > 0 and abs(r["aux"] - r["aux_cpu"])
+                      <= LM_TRAIN_LOSS_TOL * r["aux_cpu"]
+                      and r["routed_tokens"] > 0
+                      and r["router_prob_err"] <= LM_TRAIN_ROUTE_TIE
+                      and r["routing_flip_margin"] <= LM_TRAIN_ROUTE_TIE
+                      and r["routing_flips"]
+                      <= LM_TRAIN_FLIP_SHARE * r["routed_tokens"],
+                      f"{cell.arch}: {key} load-balance term or routing "
+                      f"{r}")
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = counts()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"train_lm_launches": launches,
+                      "train_lm_s": out["phase_s"]}))
+    check(not any(launches.values()),
+          f"the LM training path launched hand kernels: {launches}")
 
 
 def main() -> int:
@@ -3173,6 +3680,11 @@ def main() -> int:
                       "serve_lm_s": detail["serve_lm_s"]}))
     check(not any(lm_launches.values()),
           f"the LM path launched hand kernels: {lm_launches}")
+
+    # -- 4t. train (LM) ----------------------------------------------------
+    # llama3.2-1b trained through launch.train at full width and depth,
+    # then one teacher-forced step of each other family (lm_train_phase)
+    lm_train_phase(dev, smi, detail, counts, zero_counts)
 
     # -- 5. times -------------------------------------------------------------
     phase("times")

@@ -12,10 +12,18 @@ runs, the reference's KV-cache continuation (one token decoded from the
 spliced f32 cache of a 2 x 8 prefill against the prefill over the 9
 tokens) as max |diff| / max |logit|, and, with ``--jax``, the JAX
 package's prefill logits on the same parameters (carried leaf for leaf)
-against the port's.
+against the port's.  ``--grads`` gives the train step's floor instead:
+the gradients of the loss on one ``TokenBatches`` batch (``--batch`` x
+``--seq``, the launcher's 8 x 128), its forward at f32 and at bf16, each
+leaf's max |diff| / max |g| (the worst leaf's, per dtype) between the two
+thread counts, and between the whole batch's gradient and the mean of
+its two halves' (the same sum in another order: the CPU's f32 products
+may not split by thread at all), and the losses' relative differences.
 
     PYTHONPATH=src python scripts/lm_noise_floor.py --arch xlstm-350m --jax
     PYTHONPATH=src python scripts/lm_noise_floor.py --arch zamba2-2.7b
+    PYTHONPATH=src python scripts/lm_noise_floor.py --arch xlstm-350m \
+        --grads
 
 ``--layers`` cuts the depth (the widths stay the config's).
 """
@@ -110,6 +118,51 @@ def jax_prefill(params, cfg, toks):
     return torch.from_numpy(np.asarray(logits[:, -1], np.float32))
 
 
+def grads(params, cfg, batch_size: int, seq: int):
+    """Per dtype: (loss, gradient tree) of one train step's forward on
+    the first ``TokenBatches`` batch."""
+    from repro_torch.data import TokenBatches
+    from repro_torch.launch.train import lm_extra
+
+    b = TokenBatches(cfg.vocab, batch_size, seq, prefetch=False,
+                     extra_fn=lm_extra(cfg), device="cpu").make_batch(0)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        loss, _, g = ST.lm_grads(params, cfg, b, dt)
+        out[str(dt).split(".")[1]] = (float(loss), g, b)
+    return out
+
+
+def halves(params, cfg, b, dt):
+    """(loss, gradients) of ``b`` as the mean of its two halves'."""
+    h = b["tokens"].shape[0] // 2
+    parts = [ST.lm_grads(params, cfg, {k: (v[:, sl] if k == "mrope_positions"
+                                           else v[sl]) for k, v in b.items()},
+                         dt) for sl in (slice(0, h), slice(h, None))]
+    return (sum(float(p[0]) for p in parts) / 2,
+            tree.tree_map(lambda x, y: (x + y) / 2, parts[0][2], parts[1][2]))
+
+
+def grads_floor(params, cfg, args) -> dict:
+    torch.set_num_threads(args.threads)
+    base = grads(params, cfg, args.batch, args.seq)
+    torch.set_num_threads(args.other_threads)
+    other = grads(params, cfg, args.batch, args.seq)
+    row = {"arch": cfg.name, "layers": cfg.n_layers,
+           "threads": [args.threads, args.other_threads],
+           "batch": [args.batch, args.seq]}
+    for dt, (loss, g, b) in base.items():
+        loss_o, g_o, _ = other[dt]
+        row[f"grads_{dt}_threads_rel_err"] = max(
+            rel(a, b) for a, b in zip(tree.leaves(g_o), tree.leaves(g)))
+        row[f"loss_{dt}_threads_rel_err"] = abs(loss_o - loss) / abs(loss)
+        loss_h, g_h = halves(params, cfg, b, getattr(torch, dt))
+        row[f"grads_{dt}_halves_rel_err"] = max(
+            rel(a, b) for a, b in zip(tree.leaves(g_h), tree.leaves(g)))
+        row[f"loss_{dt}_halves_rel_err"] = abs(loss_h - loss) / abs(loss)
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
@@ -117,11 +170,21 @@ def main(argv=None):
     ap.add_argument("--threads", type=int, default=torch.get_num_threads())
     ap.add_argument("--other-threads", type=int, default=3)
     ap.add_argument("--jax", action="store_true")
+    ap.add_argument("--grads", action="store_true",
+                    help="the train step's gradients, f32 and bf16")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = ST.real_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    if args.grads:
+        # without remat: the same values and gradients, bit for bit
+        row = grads_floor(params, dataclasses.replace(cfg, remat=False),
+                          args)
+        print(json.dumps(row))
+        return row
     toks = torch.from_numpy(
         np.random.RandomState(0).randint(0, cfg.vocab, (8, 16)))
     torch.set_num_threads(args.threads)

@@ -39,9 +39,9 @@ from repro_torch.sharding.partition import logical_to_spec
 
 def _cheap_checksum(a: np.ndarray) -> int:
     # first/last bytes + length — catches truncation and swaps without a
-    # full hash over large arrays
-    b = a.tobytes()
-    return zlib.adler32(b[:4096] + b[-4096:]) ^ len(b)
+    # full hash over large arrays (nor a copy of them)
+    b = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    return zlib.adler32(b[:4096].tobytes() + b[-4096:].tobytes()) ^ b.size
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -49,10 +49,12 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        t = t.view(torch.int16)
-    return t.numpy().copy()
+    """A host copy of ``t`` that the caller may go on changing (one copy:
+    a card tensor's ``cpu()`` is one already)."""
+    h = t.detach().cpu()
+    if h.dtype == torch.bfloat16:
+        h = h.view(torch.int16)
+    return h.numpy().copy() if t.device.type == "cpu" else h.numpy()
 
 
 def _from_host(a: np.ndarray, dtype: str, device) -> torch.Tensor:

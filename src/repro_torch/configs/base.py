@@ -30,7 +30,7 @@ class ModelConfig:
     gated_mlp: bool = True
     mlp_activation: str = "silu"      # silu | gelu | relu2
     # MoE (read by the serving path; router_aux_weight by the LM
-    # training slice)
+    # training slice, 15.5)
     n_experts: int = 0
     top_k: int = 0
     residual_mlp: bool = False        # arctic: dense MLP parallel to MoE
@@ -53,15 +53,18 @@ class ModelConfig:
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    # distribution (read by the LM training and dry-run slices;
-    # master_dtype by real_params now)
+    # distribution (remat, opt_state_bits and master_dtype read by the
+    # LM training slice, 15.5; fsdp and scan_layers by the dry-run and
+    # partitioning slice, 15.6)
     fsdp: bool = False
     remat: bool = True
     scan_layers: bool = True
     opt_state_bits: int = 32          # 8 -> quantized Adam moments
     master_dtype: str = "float32"     # bfloat16 for arctic (memory)
     # hill-climb levers of the reference (defaults: the paper's baseline;
-    # read by the dry-run/hillclimb slice)
+    # remat_policy, xent_chunk and remat_segments read by the LM training
+    # slice, whose remat_policy "save_outs" waits for 15.6 with moe_impl,
+    # kv_seq_shard and moe_groups)
     remat_policy: str = "nothing"
     moe_impl: str = "dense_scatter"
     xent_chunk: int = 8192            # CE token-chunk

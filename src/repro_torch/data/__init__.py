@@ -1,1 +1,5 @@
-from repro_torch.data.pipeline import DcnnBatches, VolumeBatches  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    DcnnBatches,
+    TokenBatches,
+    VolumeBatches,
+)

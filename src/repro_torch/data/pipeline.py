@@ -1,9 +1,11 @@
-"""Deterministic synthetic DCNN batches (JAX ``data/pipeline.py``).
+"""Deterministic synthetic batches (JAX ``data/pipeline.py``): LM tokens,
+GAN and V-Net batches.
 
-Every batch is a pure function of (seed, step), made with the same numpy
-``RandomState`` recipe as the JAX package, so one seed gives the same
-batches in both packages and a run restarts from any step with no data
-state beyond the step counter.  A background thread keeps one batch ahead
+Every batch is a pure function of (seed, step) (and, for the LM stream,
+the process index), made with the same numpy ``RandomState`` recipe as
+the JAX package, so one seed gives the same batches in both packages and
+a run restarts from any step with no data state beyond the step
+counter.  A background thread keeps one batch ahead
 of the step function; batches are made as CPU tensors there and moved to
 ``device`` (``"cuda"`` unless the caller asks for the CPU) in ``next``.
 """
@@ -79,6 +81,51 @@ class _Batches:
     def close(self):
         if self._pf:
             self._pf.close()
+
+
+def _process() -> tuple[int, int]:
+    """(index, count) of this process in the ``torch.distributed`` world,
+    (0, 1) when none is initialised."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class TokenBatches(_Batches):
+    """Synthetic LM token stream: {tokens, labels} (int32, [B, S]) with
+    next-token labels; each process of a world makes its own shard of the
+    global batch.  ``extra_fn(step, local_batch, seq_len)`` adds entries
+    (numpy arrays: Whisper's frames, M-RoPE positions)."""
+
+    def __init__(self, vocab: int, global_batch: int, seq_len: int,
+                 seed: int = 0, start_step: int = 0, prefetch: bool = True,
+                 extra_fn=None, device="cuda"):
+        self.vocab = vocab
+        self.process_index, n_proc = _process()
+        if global_batch % n_proc:
+            raise ValueError(f"global batch {global_batch} is not a "
+                             f"multiple of the {n_proc} processes")
+        self.local_batch = global_batch // n_proc
+        self.seq_len = seq_len
+        self.extra_fn = extra_fn
+        super().__init__(seed, start_step, prefetch, device)
+
+    def numpy_batch(self, step: int) -> dict:
+        rng = np.random.RandomState(
+            (self.seed * 1_000_003 + step * 7919 + self.process_index)
+            % (2 ** 31))
+        # a learnable toy language: token t+1 = (a*t + b) mod vocab per row
+        a = rng.randint(1, 8, size=(self.local_batch, 1))
+        b = rng.randint(0, self.vocab, size=(self.local_batch, 1))
+        pos = np.arange(self.seq_len + 1)[None, :]
+        seq = (a * pos + b) % self.vocab
+        batch = {"tokens": seq[:, :-1].astype(np.int32),
+                 "labels": seq[:, 1:].astype(np.int32)}
+        if self.extra_fn is not None:
+            batch.update(self.extra_fn(step, self.local_batch,
+                                       self.seq_len))
+        return batch
 
 
 class DcnnBatches(_Batches):

@@ -20,9 +20,11 @@ hand-kernel wrapper launches in one step (on each rank, at its batch), so
 a run on the card can check that the step went through the kernels and
 nowhere else.
 
-``make_serve_step`` gives an LM's prefill and decode steps in bf16;
-``real_params`` draws an LM's parameters too (every family of
-``models.transformer``).
+``make_train_step`` gives an LM's train step (the bf16 forward's loss,
+its gradients on the master leaves from ``lm_grads``, AdamW at the
+cosine schedule's rate), ``make_serve_step`` its prefill and decode
+steps in bf16; ``real_params`` draws an LM's parameters too (every
+family of ``models.transformer``).
 """
 
 from __future__ import annotations
@@ -35,10 +37,11 @@ from repro_torch import tree as _tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import networks
 from repro_torch.core.engine import shard_batch
+from repro_torch.core.functional import ieee_f32
 from repro_torch.sharding import mesh as _mesh
 from repro_torch.models import dcnn as D
 from repro_torch.models import transformer as T
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
 from repro_torch.runtime import dp_trainer as DP
 
 
@@ -61,7 +64,7 @@ def param_axes(cfg: ModelConfig):
     package's ``split_params(...)[1]``)."""
     if cfg.family != "dcnn":
         raise NotImplementedError(f"an LM's logical axes come with the "
-                                  f"dry-run slice of ROADMAP item 15")
+                                  f"dry-run slice, ROADMAP item 15.6")
     if cfg.dcnn == "v_net":
         return {"vnet": D.vnet_axes(cfg)}
     return {"gen": D.generator_axes(cfg), "disc": D.discriminator_axes(cfg)}
@@ -87,6 +90,36 @@ def _wanting_grad(tree):
 def _grads(loss, tree):
     leaves = _tree.leaves(tree)
     return _tree.unflatten(tree, torch.autograd.grad(loss, leaves))
+
+
+def lm_grads(params, cfg: ModelConfig, batch, param_dtype=torch.bfloat16):
+    """``(loss, metrics, grads)`` of an LM's train forward on ``batch`` at
+    ``param_dtype``: the gradients of the loss on the master leaves (f32,
+    arctic's bf16), the loss and ``metrics`` (``aux``) detached.  The
+    backward runs inside ``functional.ieee_f32`` as the forward does, so
+    the f32 products of both (scores, gates, recurrences) are IEEE f32
+    whatever the process's TF32 flags."""
+    with torch.enable_grad(), ieee_f32():
+        p = _wanting_grad(params)
+        loss, metrics = T.forward(p, cfg, batch, mode="train",
+                                  param_dtype=param_dtype)
+        grads = _grads(loss, p)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamWConfig):
+    """An LM's train step ``step(params, opt_state, batch) -> (params,
+    opt_state, {"loss", "aux"})``: ``lm_grads`` of the bf16 forward, then
+    AdamW at ``lr_scale = cosine_schedule(opt_state.step)``, read before
+    the step counts up (so the first step's rate is 0 and it moves no
+    parameter, as the reference's)."""
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = lm_grads(params, cfg, batch)
+        lr = cosine_schedule(opt_state.step)
+        new_params, new_state = adamw_update(grads, opt_state, params, opt,
+                                             lr_scale=lr)
+        return new_params, new_state, {"loss": loss, **metrics}
+    return train_step
 
 
 def make_gan_train_step(cfg: ModelConfig, opt: AdamWConfig, engine=None):

@@ -1,15 +1,23 @@
-"""Training launcher for the DCNNs (the DCNN path of JAX
-``launch/train.py``).
+"""Training launcher (JAX ``launch/train.py``): the DCNNs and the LMs.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dcgan --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch v-net \\
         --steps 2 --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --steps 100 --batch 8 --seq 128
 
-Every conv and deconv runs on the hand kernels on the CUDA device; with
-``--device cpu`` the kernels' plain versions run instead (the JAX
-package's ``--deconv-method`` has one ported value, ``pallas``).
+A DCNN's convs and deconvs run on the hand kernels on the CUDA device;
+with ``--device cpu`` the kernels' plain versions run instead (the JAX
+package's ``--deconv-method`` has one ported value, ``pallas``).  An LM
+(any of the ten configs) trains on ``TokenBatches`` of ``--batch``
+sequences of ``--seq`` tokens through ``launch.steps.make_train_step``
+(the bf16 forward, AdamW with the config's moment bits at the cosine
+schedule's rate); its products are plain tensor code, no hand kernel.
+Whisper's frames are zeros, M-RoPE's three position streams the token
+positions, as in the reference.
 Checkpoints go to ``--checkpoint-dir`` (``checkpoints/`` by default,
-git-ignored); ``--resume`` continues from the newest valid one.
+git-ignored); ``--resume`` continues from the newest valid one, its
+batches from that step on.
 
 ``--dp`` trains data-parallel through ``runtime.dp_trainer``: every rank
 of the world runs the step on its shard of the global batch (rounded up
@@ -18,9 +26,10 @@ values with error feedback, summed as int32 (``--no-dp-compress``: an
 f32 mean).  The world is the one
 ``torchrun`` describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``), or this
 process alone when none is set; the backend is NCCL on the card and gloo
-with ``--device cpu``.  ``--model-parallel`` takes 1 only: the DP steps
-partition no parameter over a model axis (ROADMAP item 15), so ranks on
-it would duplicate one another's work.  A ``--dp`` run keeps its
+with ``--device cpu``.  ``--dp`` applies to the DCNNs only, as in the
+reference.  ``--model-parallel`` takes 1 only: no step partitions a
+parameter over a model axis yet (ROADMAP item 15.6), so ranks on it
+would duplicate one another's work.  A ``--dp`` run keeps its
 checkpoints apart (``<dir>-dp``, one directory per rank: each rank's
 error-feedback residual is its own).
 
@@ -33,12 +42,35 @@ from __future__ import annotations
 import argparse
 
 
+def lm_extra(cfg):
+    """The reference launcher's ``extra_fn`` for an LM's ``TokenBatches``:
+    Whisper's stub frames, zeros ``(b, enc_seq, d_model)`` f32; M-RoPE's
+    three position streams, the token positions ``(3, b, s)``."""
+    import numpy as np
+
+    def extra_fn(step, b, s):
+        extra = {}
+        if cfg.family == "encdec":
+            extra["enc_embeds"] = np.zeros((b, cfg.enc_seq, cfg.d_model),
+                                           np.float32)
+        if cfg.mrope:
+            extra["mrope_positions"] = np.ascontiguousarray(np.broadcast_to(
+                np.arange(s, dtype=np.int32)[None, None], (3, b, s)))
+        return extra
+    return extra_fn
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="dcgan | gp-gan | 3d-gan | v-net")
+                    help="dcgan | gp-gan | 3d-gan | v-net, or an LM config "
+                         "(llama3.2-1b, dbrx-132b, whisper-tiny, ...)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="LM sequences per step")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="LM tokens per sequence")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--checkpoint-dir", default="checkpoints")
     ap.add_argument("--checkpoint-every", type=int, default=50)
@@ -53,24 +85,25 @@ def main(argv=None):
                     help="model-axis extent of the --dp mesh; only 1 until "
                          "the parameters are partitioned over it")
     ap.add_argument("--dp", action="store_true",
-                    help="explicit data-parallel trainer over the world "
-                         "(int8-compressed gradient all-reduce)")
+                    help="dcnn archs: explicit data-parallel trainer over "
+                         "the world (int8-compressed gradient all-reduce)")
     ap.add_argument("--no-dp-compress", action="store_true",
                     help="with --dp: plain f32 gradient all-reduce")
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
         raise NotImplementedError(
-            "--model-parallel: the DP steps partition no parameter over a "
-            "model axis yet (ROADMAP item 15), so only 1 is supported")
+            "--model-parallel: no step partitions a parameter over a "
+            "model axis yet (ROADMAP item 15.6), so only 1 is supported")
 
     import os
 
     import torch
 
     from repro_torch import obs
+    from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import get_config
     from repro_torch.core.engine import UniformEngine
-    from repro_torch.data import DcnnBatches, VolumeBatches
+    from repro_torch.data import DcnnBatches, TokenBatches, VolumeBatches
     from repro_torch.launch import mesh as M
     from repro_torch.launch import steps as ST
     from repro_torch.models import dcnn as D
@@ -81,19 +114,15 @@ def main(argv=None):
     telemetry = (obs.Telemetry.create(jsonl_path=args.telemetry)
                  if args.telemetry else None)
     cfg = get_config(args.arch)
-    if cfg.family != "dcnn":
-        raise NotImplementedError(f"training {cfg.name} is the LM training "
-                                  f"slice of ROADMAP item 15")
     if args.reduced:
         cfg = cfg.reduced()
     device = torch.device(args.device)
     if device.type == "cuda" and "LOCAL_RANK" in os.environ:
         device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.cuda.set_device(device)
-    engine = UniformEngine(method=cfg.dcnn_method, device=device)
-    opt = AdamWConfig(lr=args.lr)
+    opt = AdamWConfig(lr=args.lr, state_bits=cfg.opt_state_bits)
     mesh, joined = None, False
-    if args.dp:
+    if args.dp and cfg.family == "dcnn":
         joined = M.init_world(M.backend_for(device))
         mesh = M.make_host_mesh(model=args.model_parallel)
         n_data = mesh.shape["data"]
@@ -102,11 +131,27 @@ def main(argv=None):
         if mesh.size > 1:
             args.checkpoint_dir = os.path.join(args.checkpoint_dir,
                                                f"rank{mesh.rank}")
-    params = ST.real_params(cfg, torch.Generator().manual_seed(0), device)
+    # an LM's weights are drawn on its device (a CUDA generator draws
+    # llama3.2-1b's 1.24 G in a blink, the host ~1.5e8 a second)
+    gen = torch.Generator(device=device if cfg.family != "dcnn" else "cpu")
+    params = ST.real_params(cfg, gen.manual_seed(0), device)
     compress = not args.no_dp_compress
-    if cfg.dcnn == "v_net":
+    # a resumed run's batches continue from the checkpoint's step (the
+    # reference's launcher restarts them at step 0)
+    start = 0
+    if args.resume:
+        start = Checkpointer(args.checkpoint_dir).latest_valid_step() or 0
+    if cfg.family == "dcnn":
+        engine = UniformEngine(method=cfg.dcnn_method, device=device)
+    if cfg.family != "dcnn":
+        data = TokenBatches(cfg.vocab, args.batch, args.seq,
+                            start_step=start, extra_fn=lm_extra(cfg),
+                            device=device)
+        step_fn = ST.make_train_step(cfg, opt)
+        opt_state = adamw_init(params, opt)
+    elif cfg.dcnn == "v_net":
         data = VolumeBatches(cfg.dcnn_batch, D._vnet_spatial(cfg),
-                             device=device)
+                             start_step=start, device=device)
         if mesh is not None:
             step_fn, err = ST.fold_dp_step(ST.make_dp_vnet_train_step(
                 cfg, opt, mesh, engine, compress), n_data, params, mesh)
@@ -118,7 +163,7 @@ def main(argv=None):
         layers = D._scaled_layers(cfg)
         data = DcnnBatches(cfg.dcnn_batch, cfg.dcnn_z,
                            (*layers[-1].out_spatial, layers[-1].cout),
-                           device=device)
+                           start_step=start, device=device)
         opt_state = (adamw_init(params["gen"], opt),
                      adamw_init(params["disc"], opt))
         if mesh is not None:

@@ -75,7 +75,10 @@ def _softmax_attend(q, k, v, mask):
 
 def _attend_chunked(q, k, v, *, causal: bool, q_offset: int = 0):
     """Query chunks one after another, so scores never exceed
-    O(chunk * T).  q [B,Sq,Hkv,G,hd]; k/v [B,T,Hkv,hd]."""
+    O(chunk * T).  q [B,Sq,Hkv,G,hd]; k/v [B,T,Hkv,hd].  Under autograd
+    each chunk of several is checkpointed, as in the reference: the
+    backward recomputes one chunk's scores at a time instead of saving
+    all S*T probs."""
     sq = q.shape[1]
     t = k.shape[1]
     chunk = min(_Q_CHUNK, sq)
@@ -88,7 +91,9 @@ def _attend_chunked(q, k, v, *, causal: bool, q_offset: int = 0):
         if causal:
             q_idx = q_offset + start + torch.arange(chunk, device=q.device)
             mask = (t_idx[None, :] <= q_idx[:, None])[None]
-        outs.append(_softmax_attend(q[:, start:start + chunk], k, v, mask))
+        qc = q[:, start:start + chunk]
+        outs.append(L.remat(_softmax_attend, qc, k, v, mask) if sq > chunk
+                    else _softmax_attend(qc, k, v, mask))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 

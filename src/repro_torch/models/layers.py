@@ -16,6 +16,7 @@ from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(generator: torch.Generator, shape: Sequence[int],
@@ -66,8 +67,27 @@ def layernorm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
 # rounded to x's dtype as XLA rounds them: in bf16 torch's fused silu and
 # gelu round once and differ from the reference in a third of the values.
 
+class _Silu(torch.autograd.Function):
+    """``x * (1 / (1 + exp(-x)))``, the reference's op sequence, with the
+    gradient ``jax.grad`` takes through its logistic, ``s + x s (1 - s)``:
+    autograd through the spelled-out sequence gives 0 * inf = NaN where
+    ``exp(-x)`` overflows (x < -88.7; dbrx-132b's expert gates reach it
+    at full width)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (x * g) * (s * (1 - s))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * (1 / (1 + torch.exp(-x)))
+    return _Silu.apply(x)
 
 
 def _relu2(x: torch.Tensor) -> torch.Tensor:
@@ -139,5 +159,19 @@ def mrope_cos_sin(positions3: torch.Tensor, head_dim: int,
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows ``ids`` of the embedding table: [V, D], [B, S] -> [B, S, D]."""
-    return table[ids]
+    """Rows ``ids`` of the embedding table: [V, D], [B, S] -> [B, S, D].
+    The backward adds a row's gradients in a fixed order (``F.embedding``
+    sorts the ids), where an indexing's backward adds them with atomics
+    (on the CPU too): the same gradient on every run."""
+    return F.embedding(ids, table)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, checkpointed while autograd records: nothing inside
+    is saved and the backward runs ``fn`` again (the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``); a plain call
+    otherwise."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)

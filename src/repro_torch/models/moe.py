@@ -18,7 +18,7 @@ every run.  arctic-480b adds a dense residual MLP in parallel
 On one card there is no mesh with a ``model`` axis, where the
 reference's ``moe_shardmap`` falls back to ``moe``: ``moe_dispatch``
 runs ``moe`` for both ``moe_impl`` values.  Expert parallelism is the
-parameter-partitioning slice of ROADMAP item 15.
+parameter-partitioning slice of ROADMAP item 15.6.
 """
 
 from __future__ import annotations
@@ -120,7 +120,9 @@ def moe(p: MoeParams, x: torch.Tensor, cfg: ModelConfig):
     tok = sort_idx // k
 
     buf = torch.zeros((e * c + 1, d), dtype=x.dtype, device=x.device)
-    buf[dest] = xf[tok]          # the overflow row alone takes several
+    # the overflow row alone takes several; each token's k copies are
+    # gathered with a deterministic backward (layers.embed_lookup)
+    buf[dest] = L.embed_lookup(xf, tok)
     buf = buf[:e * c].reshape(e, c, d)
 
     act = L.activation(cfg.mlp_activation)

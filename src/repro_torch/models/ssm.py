@@ -53,8 +53,13 @@ def gla_chunked(q, k, v, log_decay, chunk: int, state0=None):
     Returns (y [B,S,H,dv], final_state [B,H,dk,dv]), all f32.  The
     sequence is zero-padded to a multiple of ``chunk`` (a padded step
     has decay 1 and k = 0, so it leaves the state as it is) and y cropped
-    back.  Above the diagonal ``exp(b_l - b_m)`` may overflow: it is
-    masked out with ``where``, never multiplied by the mask."""
+    back.  Above the diagonal ``b_l - b_m`` is positive and its ``exp``
+    may overflow, so the exponent is masked to ``-inf`` before the
+    ``exp``: the reference masks after it, which leaves the forward's
+    values as these but makes its gradient NaN (a zero cotangent times
+    an infinite decay) once a chunk's decay sums past f32's ``exp`` limit
+    (zamba2's Mamba-2 decay, ~-0.7 a token at init, over its 256-token
+    chunk)."""
     b, s, h, dk = q.shape
     dv = v.shape[-1]
     q, k, v, log_decay = (a.float() for a in (q, k, v, log_decay))
@@ -77,8 +82,8 @@ def gla_chunked(q, k, v, log_decay, chunk: int, state0=None):
                                qi * torch.exp(bi)[..., None], state)
         # intra-chunk: att_lm = (q_l . k_m) exp(b_l - b_m), m <= l
         att = torch.einsum("blhk,bmhk->bhlm", qi, ki)
-        decay = torch.exp(bi[:, :, None] - bi[:, None, :])   # [B,L,M,H]
-        att = att * decay.permute(0, 3, 1, 2)
+        ldiff = (bi[:, :, None] - bi[:, None, :]).permute(0, 3, 1, 2)
+        att = att * torch.exp(torch.where(lower, ldiff, -math.inf))
         att = torch.where(lower, att, 0.0)
         y_intra = torch.einsum("bhlm,bmhv->blhv", att, vi)
         # state update with end-of-chunk decay alignment

@@ -13,11 +13,18 @@
 
 The parameter trees are the reference's leaf for leaf (its NamedTuples'
 names and field order, the xLSTM layer list), so weights cross
-unchanged.  Modes: prefill (last-position logits + cache) and decode
-(one token + cache); ``mode="train"`` is the LM training slice of ROADMAP
-item 15 and raises ``NotImplementedError`` naming it.  The layers run
-one after another in Python (the reference scans over them; without a
-trace to build, remat and scanning have no counterpart here).
+unchanged.  Modes: train (the loss, ``chunked_xent`` plus the MoE
+load-balance term), prefill (last-position logits + cache) and decode
+(one token + cache).  The layers run one after another in Python, where
+the reference scans over them.  In train mode ``cfg.remat`` checkpoints
+each layer's body where the reference's ``_remat`` does (saving nothing:
+the backward runs the layer again), ``cfg.remat_segments`` nests them in
+segments whose inputs alone are kept, and the attention's query chunks
+and the cross-entropy's token chunks are checkpointed as there; the
+values and gradients are those without remat, bit for bit.
+``remat_policy="save_outs"`` (keeping the out-projections' psums out of
+the backward) comes with the parameter partitioning of ROADMAP item
+15.6 and raises.
 
 A forward scopes IEEE f32 in cuBLAS itself (``functional.ieee_f32``), as
 the lowerings do: its results do not depend on the process's TF32 flags.
@@ -60,9 +67,13 @@ def check_family(cfg: ModelConfig) -> None:
 
 def _check_mode(cfg: ModelConfig, mode: str) -> None:
     check_family(cfg)
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is the LM training slice "
-                                  f"of ROADMAP item 15")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(mode)
+    if mode == "train" and cfg.remat and cfg.remat_policy == "save_outs":
+        raise NotImplementedError(
+            "remat_policy 'save_outs' saves the out-projections' psums, "
+            "which come with the parameter partitioning of ROADMAP item "
+            "15.6")
 
 
 # ---------------------------------------------------------------------------
@@ -235,31 +246,64 @@ def _stack(trees):
 # Backbone
 # ---------------------------------------------------------------------------
 
+def _remat(fn, cfg: ModelConfig, train: bool):
+    """``fn`` checkpointed per call under ``cfg.remat`` in train mode."""
+    if not (train and cfg.remat):
+        return fn
+    return lambda *args: L.remat(fn, *args)
+
+
 def backbone(params, cfg: ModelConfig, h, *, mode: str, cache=None,
              positions, mrope_positions=None, enc_out=None):
     """h [B,S,D] -> (h, new_cache, aux_loss).  ``enc_out`` (Whisper's
-    encoder output) is read by the prefill only."""
+    encoder output) is read by the prefill and train modes; train mode
+    builds no cache (``{}``)."""
     _check_mode(cfg, mode)
     cos, sin = _rope(cfg, positions, mrope_positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     fam = cfg.family
-    decode = mode == "decode"
+    decode, train = mode == "decode", mode == "train"
     pos = int(cache["pos"]) if decode else None
     new_pos = pos + 1 if decode else h.shape[1]
     layers = params["layers"]
 
     if fam in ("dense", "vlm", "moe"):
         kvs = cache["kv"] if decode else None
+
+        def block(lp, hh, kv=None):
+            """(h, kv, aux term) of one layer."""
+            if fam == "moe":
+                return _moe_block(lp, hh, cfg, cos, sin, kv, pos)
+            return (*_dense_block(lp, hh, cfg, cos, sin, kv, pos), None)
+
+        if train:
+            layer = _remat(block, cfg, train)
+
+            def run(lo, hi, hh, aa):
+                """Layers lo..hi-1, each remat'ed: (h, aux)."""
+                for i in range(lo, hi):
+                    hh, _, a = layer(_layer(layers, i), hh)
+                    if a is not None:
+                        aa = aa + a
+                return hh, aa
+
+            n, seg = cfg.n_layers, cfg.remat_segments
+            if seg and n % seg == 0 and seg < n:
+                # nested remat: the residual stream is kept once per
+                # segment (seg saves instead of L); the backward runs a
+                # segment's forward again, each layer remat'ed inside it
+                g = n // seg
+                for lo in range(0, n, g):
+                    h, aux = L.remat(run, lo, lo + g, h, aux)
+            else:
+                h, aux = run(0, n, h, aux)
+            return h, {}, aux
         out = []
         for i in range(cfg.n_layers):
             kv = (kvs[0][i], kvs[1][i]) if decode else None
-            if fam == "moe":
-                h, kv, a = _moe_block(_layer(layers, i), h, cfg, cos, sin,
-                                      kv, pos)
+            h, kv, a = block(_layer(layers, i), h, kv)
+            if a is not None:
                 aux = aux + a
-            else:
-                h, kv = _dense_block(_layer(layers, i), h, cfg, cos, sin,
-                                     kv, pos)
             out.append(kv)
         if not decode:
             kvs = (torch.stack([k for k, _ in out]),
@@ -276,52 +320,75 @@ def backbone(params, cfg: ModelConfig, h, *, mode: str, cache=None,
                 step = S.mlstm_decode if decode else S.mlstm_block
             h, st = step(lp, h, cfg, states[i])
             new_states.append(st)
+        if train:
+            return h, {}, aux
         return h, {"states": new_states, "pos": new_pos}, aux
 
     if fam == "hybrid":
         groups, per = cfg.n_layers // cfg.attn_every, cfg.attn_every
         sp = params["shared_attn"]
+        # train: each Mamba-2 layer remat'ed, the shared block not (as in
+        # the reference), no states kept
+        mamba = _remat(lambda lp, hh: S.mamba2_block(lp, hh, cfg)[0], cfg,
+                       train)
         new_ssm, new_kv = [], []
         for g in range(groups):
             sts = []
             for a in range(per):
                 lp = _layer(layers, g * per + a)
+                if train:
+                    h = mamba(lp, h)
+                    continue
                 if decode:
                     st = _tree.tree_map(lambda v: v[g, a], cache["ssm"])
                     h, st = S.mamba2_decode(lp, h, cfg, st)
                 else:
                     h, st = S.mamba2_block(lp, h, cfg)
                 sts.append(st)
-            new_ssm.append(_stack(sts))
+            if not train:
+                new_ssm.append(_stack(sts))
             # the shared attention block after each group
             kv = (cache["kv"][0][g], cache["kv"][1][g]) if decode else None
             h, kv = _attn_block(sp, h, cfg, cos, sin, kv, pos)
             h = h + mlp(sp["mlp"], L.rmsnorm(h, sp["norm2"], cfg.norm_eps),
                         cfg)
             new_kv.append(kv)
+        if train:
+            return h, {}, aux
         kvs = cache["kv"] if decode else _stack(new_kv)
         return h, {"ssm": _stack(new_ssm), "kv": kvs, "pos": new_pos}, aux
 
     # encdec
     kvs, cross = (cache["kv"], cache["cross"]) if decode else (None, None)
-    out = []
-    for i in range(cfg.n_layers):
-        lp = _layer(layers, i)
+
+    def dec_layer(lp, hh, kv_cache=None, xkv=None):
+        """(h, kv, cross kv) of one decoder layer."""
         a, kv = A.attention(
-            lp["self_attn"], L.rmsnorm(h, lp["norm1"], cfg.norm_eps), cfg,
-            cos=cos, sin=sin, cache_pos=pos,
-            kv_cache=(kvs[0][i], kvs[1][i]) if decode else None)
-        h = h + a
-        if decode:
-            xkv = (cross[0][i], cross[1][i])
-        else:
+            lp["self_attn"], L.rmsnorm(hh, lp["norm1"], cfg.norm_eps), cfg,
+            cos=cos, sin=sin, cache_pos=pos, kv_cache=kv_cache)
+        hh = hh + a
+        if xkv is None:
             xkv = tuple(A.project_heads(enc_out, w) for w in
                         (lp["cross_attn"].wk, lp["cross_attn"].wv))
         c, _ = A.attention(lp["cross_attn"],
-                           L.rmsnorm(h, lp["norm_x"], cfg.norm_eps), cfg,
+                           L.rmsnorm(hh, lp["norm_x"], cfg.norm_eps), cfg,
                            xattn_kv=xkv)
-        h = h + c
-        h = h + mlp(lp["mlp"], L.rmsnorm(h, lp["norm2"], cfg.norm_eps), cfg)
+        hh = hh + c
+        hh = hh + mlp(lp["mlp"], L.rmsnorm(hh, lp["norm2"], cfg.norm_eps),
+                      cfg)
+        return hh, kv, xkv
+
+    if train:
+        layer = _remat(lambda lp, hh: dec_layer(lp, hh)[0], cfg, train)
+        for i in range(cfg.n_layers):
+            h = layer(_layer(layers, i), h)
+        return h, {}, aux
+    out = []
+    for i in range(cfg.n_layers):
+        h, kv, xkv = dec_layer(
+            _layer(layers, i), h,
+            *(((kvs[0][i], kvs[1][i]), (cross[0][i], cross[1][i]))
+              if decode else ()))
         out.append((kv, xkv))
     if not decode:
         kvs = _stack([kv for kv, _ in out])
@@ -329,23 +396,27 @@ def backbone(params, cfg: ModelConfig, h, *, mode: str, cache=None,
     return h, {"kv": kvs, "cross": cross, "pos": new_pos}, aux
 
 
-def encode(params, cfg: ModelConfig, enc_embeds):
+def encode(params, cfg: ModelConfig, enc_embeds, train: bool = False):
     """Whisper encoder over stub frame embeddings [B, T, D]: bidirectional
-    attention with no rotary, then the final norm."""
-    h = enc_embeds + params["enc_pos"].to(enc_embeds.dtype)[None]
-    enc = params["encoder_layers"]
-    for i in range(cfg.n_enc_layers):
-        lp = _layer(enc, i)
+    attention with no rotary, then the final norm; ``train`` remats each
+    layer under ``cfg.remat``."""
+    def layer(lp, hh):
         a, _ = A.attention(lp["attn"],
-                           L.rmsnorm(h, lp["norm1"], cfg.norm_eps), cfg,
+                           L.rmsnorm(hh, lp["norm1"], cfg.norm_eps), cfg,
                            causal=False)
-        h = h + a
-        h = h + mlp(lp["mlp"], L.rmsnorm(h, lp["norm2"], cfg.norm_eps), cfg)
+        hh = hh + a
+        return hh + mlp(lp["mlp"], L.rmsnorm(hh, lp["norm2"], cfg.norm_eps),
+                        cfg)
+
+    h = enc_embeds + params["enc_pos"].to(enc_embeds.dtype)[None]
+    enc, layer = params["encoder_layers"], _remat(layer, cfg, train)
+    for i in range(cfg.n_enc_layers):
+        h = layer(_layer(enc, i), h)
     return L.rmsnorm(h, params["enc_final_norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
-# Heads / entry points
+# Heads / losses / entry points
 # ---------------------------------------------------------------------------
 
 def logits_fn(params, cfg: ModelConfig, h):
@@ -354,15 +425,63 @@ def logits_fn(params, cfg: ModelConfig, h):
     return h @ table.to(h.dtype).T
 
 
+def cross_entropy(logits, labels, mask=None):
+    """Mean (or ``mask``-weighted mean) token cross-entropy, in f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if mask is not None:
+        return torch.sum(loss * mask) / torch.clamp(torch.sum(mask),
+                                                    min=1.0)
+    return torch.mean(loss)
+
+
+_XENT_CHUNK = 8192
+
+
+def _xent_sum(hc, lc, table):
+    """Summed cross-entropy of one token chunk ``hc`` [C, D]."""
+    logits = (hc @ table.to(hc.dtype).T).float()
+    ll = torch.gather(logits, -1, lc.long()[:, None])[:, 0]
+    return torch.sum(torch.logsumexp(logits, dim=-1) - ll)
+
+
+def chunked_xent(params, cfg: ModelConfig, h, labels):
+    """Training cross-entropy without the whole [T, V] logits at once: the
+    reference's path without a mesh (its vocab-parallel path under a
+    ``model`` axis comes with ROADMAP item 15.6).  The final norm, then
+    the whole logits when the T = B*S tokens are at most ``cfg.xent_chunk``
+    or not a multiple of it; else a loop over chunks of that many tokens,
+    each checkpointed, summed in f32 and divided by T."""
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    table = params.get("lm_head", params["embed"])
+    b, s, d = h.shape
+    t = b * s
+    hf, lf = h.reshape(t, d), labels.reshape(t)
+    chunk = cfg.xent_chunk or _XENT_CHUNK
+    if t % chunk != 0 or t <= chunk:
+        return cross_entropy(hf @ table.to(h.dtype).T, lf)
+    acc = torch.zeros((), dtype=torch.float32, device=h.device)
+    for start in range(0, t, chunk):
+        sl = slice(start, start + chunk)
+        acc = acc + L.remat(_xent_sum, hf[sl], lf[sl], table)
+    return acc / t
+
+
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
             cache=None, param_dtype=torch.bfloat16):
-    """Unified entry point: ``(logits, cache)`` for ``mode`` "prefill"
-    (the last position's logits) or "decode" (one token against
-    ``cache``).
+    """Unified entry point: ``(loss, {"aux": aux})`` for ``mode`` "train"
+    (the mean next-token cross-entropy plus ``router_aux_weight`` times
+    the MoE load-balance term per layer), ``(logits, cache)`` for
+    "prefill" (the last position's logits) or "decode" (one token against
+    ``cache``).  Gradients of the train loss are taken by the caller
+    (``launch.steps.lm_grads``, inside ``functional.ieee_f32``).
 
-    batch keys: tokens [B,S]; enc_embeds [B,T,D] (encdec prefill; a
-    decode ignores it); mrope_positions [3,B,S] (vlm); prefix_embeds
-    [B,P,D] (vlm: stands in for the first P tokens).
+    batch keys: tokens [B,S]; labels [B,S] (train); enc_embeds [B,T,D]
+    (encdec train and prefill; a decode ignores it); mrope_positions
+    [3,B,S] (vlm); prefix_embeds [B,P,D] (vlm: stands in for the first P
+    tokens).
     """
     _check_mode(cfg, mode)
     with ieee_f32():
@@ -387,13 +506,18 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
                                          device=tokens.device)
 
         enc_out = None
-        if cfg.family == "encdec" and mode == "prefill":
+        if cfg.family == "encdec" and mode != "decode":
             enc_out = encode(params, cfg,
-                             batch["enc_embeds"].to(param_dtype))
+                             batch["enc_embeds"].to(param_dtype),
+                             train=mode == "train")
 
-        h, new_cache, _ = backbone(
+        h, new_cache, aux = backbone(
             params, cfg, h, mode=mode, cache=cache, positions=positions,
             mrope_positions=mrope_positions, enc_out=enc_out)
+        if mode == "train":
+            loss = chunked_xent(params, cfg, h, batch["labels"])
+            loss = loss + cfg.router_aux_weight * aux / max(cfg.n_layers, 1)
+            return loss, {"aux": aux}
         if mode == "prefill":
             h = h[:, -1:]
         return logits_fn(params, cfg, h), new_cache

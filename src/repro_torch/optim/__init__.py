@@ -5,6 +5,7 @@ from repro_torch.optim.adamw import (  # noqa: F401
     adamw_init,
     adamw_update,
 )
+from repro_torch.optim.schedule import cosine_schedule  # noqa: F401
 from repro_torch.optim.compress import (  # noqa: F401
     dequantize_int8,
     psum_int8,

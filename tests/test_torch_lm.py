@@ -577,9 +577,23 @@ def test_params_from_numpy_checks_the_lm_tree():
 
 
 def test_train_mode_names_its_slice(models):
+    """Train mode gives the loss, the JAX package's on the same
+    parameters and batch, and the MoE term (0 for a dense model); the one
+    remat policy the port leaves out, ``save_outs``, raises naming the
+    slice that brings it (ROADMAP item 15.6)."""
     m = models("llama3_2_1b")
-    with pytest.raises(NotImplementedError, match="LM training slice"):
-        T.forward(m.params, m.cfg, {"tokens": torch.zeros(1, 2).long()})
+    toks = np.random.RandomState(3).randint(0, m.cfg.vocab, (B, S + 1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss, metrics = T.forward(m.params, m.cfg, _to_torch(batch),
+                              param_dtype=torch.float32)
+    jloss, _ = jax.jit(lambda p, b: JT.forward(
+        p, m.jcfg, b, mode="train", param_dtype=jnp.float32))(
+        m.jparams, _to_jax(batch))
+    assert loss.shape == () and float(metrics["aux"]) == 0.0
+    assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    cfg = dataclasses.replace(m.cfg, remat_policy="save_outs")
+    with pytest.raises(NotImplementedError, match="15.6"):
+        T.forward(m.params, cfg, _to_torch(batch))
 
 
 def test_argmax_ties_take_the_first_index():

@@ -365,9 +365,13 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     assert np.isfinite(rec["g_loss"]) and np.isfinite(rec["d_loss"])
     assert "finished at step 10" in capsys.readouterr().out
     assert trainer.ckpt.latest_valid_step() == 10
-    with pytest.raises(NotImplementedError, match="item 15"):
-        launch_train.main(["--arch", "llama3.2-1b", "--reduced", "--device",
-                           "cpu", "--checkpoint-dir", str(tmp_path)])
+    # an LM trains through the same launcher (ROADMAP item 15.5)
+    lm = launch_train.main(
+        ["--arch", "llama3.2-1b", "--reduced", "--steps", "2", "--device",
+         "cpu", "--batch", "2", "--seq", "16", "--checkpoint-dir",
+         str(tmp_path / "lm")])
+    assert lm.step == 2 and lm.ckpt.latest_valid_step() == 2
+    assert "finished at step 2" in capsys.readouterr().out
 
 
 def test_params_from_numpy_refuses_a_tree_of_another_model():
