@@ -168,8 +168,9 @@ Phases, any failure of which exits non-zero before the result line:
      clock around synchronized
      steps), tokens/s, model FLOP/s against the bf16 peak, peak memory
      and one profiled step's kernels and busy ms; then one teacher-forced
-     step of qwen2-vl-2b, xlstm-350m and whisper-tiny at full depth,
-     zamba2-2.7b at 12 of 54 layers and dbrx-132b at 1 of 40 (reduced
+     step of xlstm-350m and whisper-tiny at full depth, qwen2-vl-2b at
+     14 of 28 layers (cut for the script's time with the sharded (LM)
+     phase), zamba2-2.7b at 12 of 54 and dbrx-132b at 1 of 40 (reduced
      when the host cannot hold its CPU side), each at full width and 2 x
      128 tokens (qwen2-vl-2b and dbrx-132b 1 x 128), bf16 and f32-control
      gradients against the CPU above the model's floor (``LM_TRAIN``:
@@ -178,6 +179,25 @@ Phases, any failure of which exits non-zero before the result line:
      and the CPU run on the card's routing: its router probabilities
      within 1e-2 of the card's, a token routed otherwise only at a tie
      and on at most 1 in 16 tokens; no hand-kernel launch;
+     sharded (LM) — the LM partitioned over a mesh (``lm_sharded_phase``):
+     two gloo ranks sharing the card (every collective staged through
+     the host, so no time is NCCL's), (a) llama3.2-1b at full width and
+     LM_SHARDED_LAYERS layers on (1 data x 2 model), a bf16 step and an
+     f32 control, (b) the same with FSDP on (2 x 1), (c) dbrx-132b at 1
+     of 40 layers, its 4 token groups and 8-bit moments on (1 x 2), an
+     f32 step; every case one ``make_train_step`` step on each rank,
+     held against the same step unpartitioned here on the card (c's MoE
+     as the plain one-process ``moe_shardmap``, routed as the ranks
+     routed): the loss and each leaf's gradients on every k-th element
+     (f32 1e-4 of a leaf's max |g|, bf16 at the train (LM) phase's
+     measured floor, 3.2e-2), the new parameters in units of the step's
+     lr (f32 within 0.35; bf16 within one Adam sign flip, on at most a
+     quarter of a leaf's elements), (c)'s 8-bit moment codes at most 1
+     apart and scales within 1e-4, the ranks' replicated samples equal,
+     no hand-kernel launch on any rank (each wrapper's count set to 0
+     just before its step and read just after); per rank the step ms,
+     the collectives by axis (calls, bytes), peak GB and its parameter
+     bytes against the whole model's;
   5. times — each kernel at every call shape the main path gave it (CUDA
      events; the serve and train runs record each wrapper's calls by
      shape) beside its plain version, one cuDNN call computing the same
@@ -230,8 +250,8 @@ Phases, any failure of which exits non-zero before the result line:
 
 ``--cards N`` (N > 1) runs phases 1 and 2, then only the sharded phase's
 multi-rank runs over NCCL with one rank per card (a 2 x 2 mesh for the
-chain at N = 4), and ends with the result line; it prints no kernels
-line.
+chain at N = 4) and the sharded (LM) phase's two ranks over NCCL on two
+cards, and ends with the result line; it prints no kernels line.
 
 The line before the last is the ``{"kernels": [...]}`` summary: each
 kernel's ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums
@@ -379,12 +399,15 @@ class LmTrainCell(NamedTuple):
 # max |g| (the batch against the mean of its halves 50x; bf16 8x / 26x),
 # its loss 7e-4 / 6e-3 (scripts/lm_noise_floor.py --grads, 2 x 128), so
 # its gradients are reported, its loss and finiteness gated.
-# zamba2-2.7b at 12 layers: f32 5.4e-5, bf16 4.1e-2 / 5.1e-2 there.
+# zamba2-2.7b at 12 layers (two shared-block groups, the fewest that
+# reuse the shared block): f32 5.4e-5, bf16 4.1e-2 / 5.1e-2 there.
 # qwen2-vl-2b's and dbrx-132b's f32 controls are left out for time
 # (qwen's read 4.7e-6 on one H100 and took that host 43 s), and both run
-# one sequence (their bf16 CPU gradients took 60 s at 2 x 128)
+# one sequence (their bf16 CPU gradients took 60 s at 2 x 128); qwen2-vl-2b
+# at 14 of 28 layers, a uniform dense stack (its CPU side took 63 s at
+# 28: the script's time)
 LM_TRAIN = (
-    LmTrainCell("qwen2-vl-2b", f32_tol=None, batch=1),
+    LmTrainCell("qwen2-vl-2b", layers=14, f32_tol=None, batch=1),
     LmTrainCell("xlstm-350m", bf16_tol=math.inf, f32_tol=None),
     LmTrainCell("whisper-tiny"),
     LmTrainCell("zamba2-2.7b", layers=12, bf16_tol=0.15, f32_tol=2e-4),
@@ -509,6 +532,48 @@ SHARDED_SPEC = {"device": "cuda", "one_card": True, "reduced": False,
                 "vnet_chans": (16, 32, 64, 128, 256), "batch": 4,
                 "gan_batch": 64, "min_channel_block": 8}
 
+# the sharded (LM) phase: one world of 2 ranks on the card (gloo, every
+# collective staged through the host; --cards: NCCL, one rank per card),
+# its cases (lm_sharded_cases) each held against the same step run
+# unpartitioned in the parent.  llama3.2-1b at full width and
+# LM_SHARDED_LAYERS of 16 layers (time), LM_SHARDED_BATCH x LM_TRAIN_SEQ
+# tokens; dbrx-132b at 1 of 40 (two ranks' blocks, gradients and moments
+# on one card), one sequence
+LM_SHARDED_LAYERS = 2
+LM_SHARDED_BATCH = 2
+LM_SHARDED_MOE_LAYERS = 1
+# the AdamW step count the compared update starts from: the cosine
+# schedule's rate 0.5 (step 0's is 0, which would move nothing)
+LM_SHARDED_OPT_STEP = 50
+# partitioned vs unpartitioned on the card, each leaf's max |diff| / max
+# |g| over the sampled elements: f32 (sums split over ranks), and bf16
+# at the train (LM) phase's measured floor of two bf16 runs of one step
+# (card vs CPU: 2.65e-2-3.15e-2 of a leaf's max |g|); the bf16 loss as
+# that phase's.
+LM_SHARDED_BF16_TOL, LM_SHARDED_F32_TOL = 3.2e-2, 1e-4
+# the new parameters, in units of the step's lr: from fresh moments Adam
+# moves every element with |g| >> eps by lm_adam_step() (0.433 lr at step
+# 51) whatever |g| is, so a skipped or wrong update puts nearly every
+# element of a leaf that has a gradient that far (or twice) apart.  A
+# sound run differs only where the gradient's sign or its size against
+# eps is at the noise: in f32 by at most LM_SHARDED_F32_UPDATE lr (the
+# card read 0.086-0.254), in bf16 by up to one sign flip (2 x 0.433 lr)
+# on at most LM_SHARDED_BF16_APART of a leaf's sampled elements beyond
+# LM_SHARDED_APART lr (the card read 6.1e-2-9.2e-2)
+LM_SHARDED_F32_UPDATE = 0.35
+LM_SHARDED_APART = 1e-3
+LM_SHARDED_BF16_APART = 0.25
+LM_SHARDED_SAMPLE = 1 << 20     # elements of each leaf compared (every k-th)
+
+
+def lm_adam_step() -> float:
+    """|m_hat / sqrt(v_hat)| of AdamW's update at step
+    LM_SHARDED_OPT_STEP + 1 from zero moments, for |g| >> eps."""
+    from repro_torch.optim import AdamWConfig
+    opt, t = AdamWConfig(), LM_SHARDED_OPT_STEP + 1
+    return ((1 - opt.b1) / (1 - opt.b1 ** t)
+            / math.sqrt((1 - opt.b2) / (1 - opt.b2 ** t)))
+
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
@@ -578,6 +643,17 @@ def phase(name: str) -> None:
 
 # -- the sharded phase's ranks ----------------------------------------------
 
+def launch_counts(dk, ck) -> dict:
+    """Each hand-kernel wrapper's launch count (``dk``, ``ck``: the
+    deconv and conv kernel modules)."""
+    return {"deconv_fwd": dk.launches, "conv_fwd": ck.launches,
+            "deconv_dw": dk.dw_launches, "deconv_dx": dk.dx_launches}
+
+
+def zero_launch_counts(dk, ck) -> None:
+    dk.launches = ck.launches = dk.dw_launches = dk.dx_launches = 0
+
+
 class RankRun:
     """One rank's runs of the sharded path: each wrapper's launch count
     set to 0 just before a run and read just after, its calls recorded by
@@ -599,9 +675,7 @@ class RankRun:
         self.rows = []
 
     def counts(self) -> dict:
-        dk, ck = self.dk, self.ck
-        return {"deconv_fwd": dk.launches, "conv_fwd": ck.launches,
-                "deconv_dw": dk.dw_launches, "deconv_dx": dk.dx_launches}
+        return launch_counts(self.dk, self.ck)
 
     def sync(self):
         if self.dev.type == "cuda":
@@ -610,8 +684,7 @@ class RankRun:
     def path(self, fn):
         """``fn()`` as a run of the sharded path: ``(its result, its
         launches per wrapper, its seconds)``."""
-        dk, ck = self.dk, self.ck
-        dk.launches = ck.launches = dk.dw_launches = dk.dx_launches = 0
+        zero_launch_counts(self.dk, self.ck)
         self.recording[0] = "sharded"
         t0 = time.perf_counter()
         out = fn()
@@ -969,18 +1042,20 @@ def sharded_rank(rank: int, world: int, backend: str, rendezvous: str,
     (Path(out_dir) / f"{job}.rank{rank}.pkl").write_bytes(pickle.dumps(out))
 
 
-def spawn_world(job: str, world: int, backend: str, spec: dict) -> list:
-    """Run ``job`` on ``world`` spawned ranks and return each rank's
-    results; a rank that raises, exits or runs over ``SHARDED_TIMEOUT``
-    fails the phase, and no rank outlives the call."""
+def spawn_world(job: str, world: int, backend: str, spec: dict,
+                target=None) -> list:
+    """Run ``job`` on ``world`` spawned ranks (``target``, by default
+    ``sharded_rank``) and return each rank's results; a rank that raises,
+    exits or runs over ``SHARDED_TIMEOUT`` fails the phase, and no rank
+    outlives the call."""
     import pickle
     import tempfile
 
     import torch.multiprocessing as tmp
     with tempfile.TemporaryDirectory() as td:
         ctx = tmp.start_processes(
-            sharded_rank, args=(world, backend, f"{td}/rendezvous", job,
-                                spec, td),
+            target or sharded_rank,
+            args=(world, backend, f"{td}/rendezvous", job, spec, td),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + SHARDED_TIMEOUT
         try:
@@ -1030,6 +1105,390 @@ def sharded_geometries(spec: dict):
     return forward, train
 
 
+# -- the sharded (LM) phase ---------------------------------------------------
+
+def lm_sharded_cases(spec: dict) -> list[dict]:
+    """(a) llama3.2-1b on (1 data x 2 model), a bf16 step and an f32
+    control; (b) the same with FSDP on (2 data x 1 model); (c) dbrx-132b
+    at its moe_groups=4 and 8-bit moments on (1 x 2), one f32 step
+    teacher-forced to the ranks' routing."""
+    llama = {"arch": "llama3.2-1b", "layers": spec["layers"],
+             "batch": LM_SHARDED_BATCH}
+    return [{"name": "a_bf16", "mesh": "tp", "dtype": "bfloat16", **llama},
+            {"name": "a_f32", "mesh": "tp", "dtype": "float32", **llama},
+            {"name": "b_bf16", "mesh": "dp", "dtype": "bfloat16",
+             "fsdp": True, **llama},
+            {"name": "b_f32", "mesh": "dp", "dtype": "float32",
+             "fsdp": True, **llama},
+            {"name": "c_moe", "mesh": "tp", "dtype": "float32",
+             "arch": "dbrx-132b", "layers": spec["moe_layers"], "batch": 1,
+             "moe": True}]
+
+
+def lm_sharded_setup(case: dict, spec: dict, dev):
+    """(config, global batch on ``dev``, AdamWConfig) of a case."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamWConfig
+    cfg = get_config(case["arch"])
+    if spec["reduced"]:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, n_layers=min(case["layers"],
+                                                cfg.n_layers),
+                              fsdp=case.get("fsdp", cfg.fsdp))
+    toks = torch.randint(0, cfg.vocab, (case["batch"], LM_TRAIN_SEQ + 1),
+                         generator=torch.Generator().manual_seed(7))
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    return cfg, batch, AdamWConfig(state_bits=cfg.opt_state_bits)
+
+
+def lm_sample_index(numel: int):
+    """Every k-th flat index of a leaf (at most LM_SHARDED_SAMPLE, and the
+    last)."""
+    import torch
+    k = max(1, numel // LM_SHARDED_SAMPLE)
+    return torch.cat([torch.arange(0, numel, k),
+                      torch.tensor([numel - 1])]).unique()
+
+
+def lm_block_samples(t, whole_shape, index):
+    """The sampled elements of a whole leaf of ``whole_shape`` that lie in
+    this rank's block ``t`` (at ``index``, ``partition.block_index``):
+    (their positions in the sample, their values on the CPU, f32)."""
+    import torch
+    flat = lm_sample_index(math.prod(whole_shape))
+    coords = torch.unravel_index(flat, tuple(whole_shape))
+    mine = torch.ones_like(flat, dtype=torch.bool)
+    local = []
+    index = tuple(index) + (slice(None),) * (len(whole_shape) - len(index))
+    for c, sl, n in zip(coords, index, whole_shape):
+        lo = sl.start or 0
+        hi = n if sl.stop is None else sl.stop
+        mine &= (c >= lo) & (c < hi)
+        local.append(c - lo)
+    sel = mine.nonzero()[:, 0]
+    vals = t[tuple(c[sel].to(t.device) for c in local)]
+    return sel, vals.float().cpu()
+
+
+@contextlib.contextmanager
+def lm_routes(record: list | None = None, force=None):
+    """Within: each MoE routing's experts appended to ``record``, or taken
+    from ``force`` in call order (the router's own probabilities at
+    those experts, renormalised: teacher-forced)."""
+    from repro_torch.models import moe as MOE
+    real, calls = MOE.route, iter(force or ())
+
+    def route(xf, w_router, k):
+        probs, top_p, top_e = real(xf, w_router, k)
+        if record is not None:
+            record.append(top_e.cpu())
+        if force is None:
+            return probs, top_p, top_e
+        want = next(calls).to(top_e.device)
+        top_p = probs.gather(-1, want)
+        return probs, top_p / top_p.sum(dim=-1, keepdim=True), want
+
+    MOE.route = route
+    try:
+        yield
+    finally:
+        MOE.route = real
+
+
+def lm_sharded_step(cfg, opt, box: list, batch, dtype, mesh, dev, keep):
+    """One ``make_train_step`` step at AdamW step LM_SHARDED_OPT_STEP of
+    the parameters in ``box`` (which it empties: two ranks' full-width
+    dbrx-132b blocks share one card).  ``keep(kind, i, t)`` takes what
+    the caller compares of leaf ``i`` (``"grads"``, as the step hands
+    them to its update, ``"params"``, the new 8-bit moments' ``"m_q"``).
+    Returns (loss, aux, the new 8-bit moments' scales or None)."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import adamw_init
+    params = box.pop()
+    state = adamw_init(params, opt)
+    state = state._replace(step=torch.full((), LM_SHARDED_OPT_STEP,
+                                           dtype=torch.int32, device=dev))
+    real = ST.adamw_update
+
+    def capture(grads, *a, **kw):
+        for i, g in enumerate(grads):
+            keep("grads", i, g)
+        return real(grads, *a, **kw)
+    ST.adamw_update = capture
+    try:
+        new_p, new_s, m = ST.make_train_step(
+            cfg, opt, mesh, getattr(torch, dtype))(params, state, batch)
+    finally:
+        ST.adamw_update = real
+    del params, state
+    for i, x in enumerate(tree.leaves(new_p)):
+        keep("params", i, x)
+    scales = None
+    if opt.state_bits == 8:
+        moms = tree.leaves(new_s.m, is_leaf=lambda x: hasattr(x, "scale"))
+        for i, q in enumerate(moms):
+            keep("m_q", i, q.q)
+        scales = [float(q.scale) for q in moms]
+    return float(m["loss"]), float(m["aux"]), scales
+
+
+def lm_sharded_rank(rank: int, world: int, backend: str, rendezvous: str,
+                    job: str, spec: dict, out_dir: str) -> None:
+    """One rank of the sharded (LM) phase (spawned): each case's
+    partitioned step on its blocks, timed, its collectives counted by
+    axis, its hand-kernel launches (each wrapper's count set to 0 just
+    before the step and read just after), its peak memory; and its
+    blocks' samples of the gradients, new parameters and (8-bit)
+    moments, which the parent holds against the unpartitioned step."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import pickle
+
+    if spec["one_card"]:
+        # two ranks' blocks, gradients and moments share one card (NCCL's
+        # ranks, a card each, keep the default allocator)
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.kernels.conv import kernel as ck
+    from repro_torch.kernels.deconv import kernel as dk
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as ST
+    from repro_torch.sharding import mesh as SM
+    from repro_torch.sharding import partition as P
+    dev = (torch.device("cuda", 0 if spec["one_card"] else rank)
+           if spec["device"] == "cuda" else torch.device("cpu"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    M.init_world(backend, init_method=f"file://{rendezvous}",
+                 world_size=world, rank=rank, timeout_s=SHARDED_TIMEOUT)
+    rows = []
+    try:
+        meshes = {"tp": M.make_host_mesh(model=2),
+                  "dp": M.make_host_mesh(model=1)}
+        for case in lm_sharded_cases(spec):
+            mesh = meshes[case["mesh"]]
+            cfg, batch, opt = lm_sharded_setup(case, spec, dev)
+            specs = ST.param_specs(cfg, mesh)
+            whole = ST.real_params(cfg, None, "meta")
+            gen = torch.Generator(device=dev).manual_seed(0)
+            box = [ST.real_params(cfg, gen, dev, mesh)]
+            param_bytes = sum(t.numel() * t.element_size()
+                              for t in tree.leaves(box[0]))
+            spec_l = tree.leaves(specs, is_leaf=P.is_logical_leaf)
+            shapes = [tuple(w.shape) for w in tree.leaves(whole)]
+            idx = [P.block_index(mesh, sp, sh)
+                   for sp, sh in zip(spec_l, shapes)]
+            kept = {"grads": {}, "params": {}, "m_q": {}}
+
+            def keep(kind, i, t_, idx=idx, shapes=shapes, kept=kept):
+                kept[kind][i] = lm_block_samples(t_, shapes[i], idx[i])
+            routes: list = []
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            SM.reset_collective_stats()
+            zero_launch_counts(dk, ck)
+            t0 = time.perf_counter()
+            with lm_routes(record=routes):
+                loss, aux, scales = lm_sharded_step(
+                    cfg, opt, box, batch, case["dtype"], mesh, dev, keep)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            launches = launch_counts(dk, ck)
+            stats = SM.collective_stats()
+            row = {
+                "case": case["name"], "rank": rank, "backend": backend,
+                "coords": mesh.coords, "loss": loss, "aux": aux,
+                "step_ms": 1e3 * seconds, "launches": launches,
+                "collectives": {f"{op}/{'+'.join(ax)}": {"calls": n,
+                                                         "bytes": b}
+                                for (op, ax), (n, b) in stats.items()},
+                "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                            if dev.type == "cuda" else None),
+                "param_bytes": param_bytes,
+                "whole_param_bytes": sum(t.numel() * t.element_size()
+                                         for t in tree.leaves(whole)),
+                "routes": routes if rank == 0 else None,
+                **{k: [v_[i] for i in sorted(v_)] for k, v_ in kept.items()},
+                "m_scale": scales}
+            rows.append(row)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        M.leave_world()
+    Path(out_dir, f"{job}.rank{rank}.pkl").write_bytes(
+        pickle.dumps({"rank": rank, "rows": rows}))
+
+
+def lm_sharded_phase(smi: str, detail: dict, backend: str = "gloo",
+                     one_card: bool = True, spec: dict | None = None) -> None:
+    """The sharded (LM) phase: the cases on a spawned world of 2 ranks,
+    then each against the same step unpartitioned here on the card."""
+    import torch
+
+    from repro_torch.kernels.conv import kernel as ck
+    from repro_torch.kernels.deconv import kernel as dk
+    spec = spec or {"device": "cuda", "one_card": one_card,
+                    "reduced": False, "layers": LM_SHARDED_LAYERS,
+                    "moe_layers": LM_SHARDED_MOE_LAYERS}
+    dev = torch.device("cuda", 0) if spec["device"] == "cuda" \
+        else torch.device("cpu")
+    t_phase = time.perf_counter()
+    out = {"card": smi, "backend": backend,
+           "note": ("gloo ranks share one card and stage collectives "
+                    "through the host: not NCCL's times"
+                    if backend == "gloo" else "NCCL, one rank per card")}
+    detail["sharded_lm"] = out
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    ranks = spawn_world("lm", 2, backend, spec, target=lm_sharded_rank)
+    out["ranks_s"] = time.perf_counter() - t_phase
+    by_case = {}
+    out["ranks"] = []
+    for res in ranks:
+        for row in res["rows"]:
+            by_case.setdefault(row["case"], []).append(row)
+            rec = {"sharded_lm": row["case"], "rank": row["rank"],
+                   "backend": backend, "coords": row["coords"],
+                   "step_ms": row["step_ms"], "launches": row["launches"],
+                   "peak_gb": row["peak_gb"],
+                   "param_bytes": row["param_bytes"],
+                   "whole_param_bytes": row["whole_param_bytes"],
+                   "collectives": row["collectives"]}
+            out["ranks"].append(rec)
+            print(json.dumps({**rec, "card": smi, "times": out["note"]}))
+            check(not any(row["launches"].values()),
+                  f"{row['case']} rank {row['rank']} launched hand "
+                  f"kernels: {row['launches']}")
+    for case in lm_sharded_cases(spec):
+        rows = sorted(by_case[case["name"]], key=lambda r: r["rank"])
+        check(len({r["loss"] for r in rows}) == 1,
+              f"{case['name']}: the ranks' losses {[r['loss'] for r in rows]}")
+        zero_launch_counts(dk, ck)
+        res = lm_sharded_reference(case, rows, spec, dev)
+        res["launches"] = launch_counts(dk, ck)
+        out[case["name"]] = res
+        print(json.dumps({"sharded_lm_vs_one": case["name"], **res,
+                          "card": smi}))
+        bf16 = case["dtype"] == "bfloat16"
+        tol = LM_SHARDED_BF16_TOL if bf16 else LM_SHARDED_F32_TOL
+        check(res["loss_rel_err"] <= (LM_TRAIN_LOSS_TOL if bf16 else tol),
+              f"{case['name']}: loss {res['loss_rel_err']:.3g}")
+        check(res["grad_rel_err"] <= tol,
+              f"{case['name']}: gradients {res['grad_rel_err']:.3g} > {tol}")
+        check(res["replicas_equal"],
+              f"{case['name']}: ranks' replicated samples differ")
+        check(not any(res["launches"].values()),
+              f"{case['name']}: the unpartitioned step launched hand "
+              f"kernels: {res['launches']}")
+        if case.get("moe"):
+            check(res["routing_calls"] == res["routing_calls_ranks"],
+                  f"{case['name']}: {res['routing_calls']} routings, the "
+                  f"ranks' {res['routing_calls_ranks']}")
+            check(res["moment_scale_rel_err"] <= tol and
+                  res["moment_code_diff"] <= 1,
+                  f"{case['name']}: 8-bit moments {res}")
+        most = 2 * lm_adam_step() + 0.01 if bf16 else LM_SHARDED_F32_UPDATE
+        share = LM_SHARDED_BF16_APART if bf16 else 1.0
+        check(res["update_lr_err"] <= most
+              and res["update_apart_share"] <= share,
+              f"{case['name']}: new parameters {res['update_lr_err']:.3g} "
+              f"lr apart (limit {most:.3g}), {res['update_apart_share']:.3g}"
+              f" of a leaf's elements beyond {LM_SHARDED_APART} lr "
+              f"(limit {share})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"sharded_lm_s": out["phase_s"], "card": smi}))
+
+
+def lm_sharded_reference(case: dict, rows: list, spec: dict, dev) -> dict:
+    """The case's step unpartitioned on ``dev`` (dbrx-132b's MoE as the
+    plain single-process ``moe_shardmap``, routed as the ranks routed),
+    against the ranks' samples: each leaf's max |diff| / max |g| (and of
+    the new parameters, in units of the step's update)."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim import cosine_schedule
+    cfg, batch, opt = lm_sharded_setup(case, spec, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    box = [ST.real_params(cfg, gen, dev)]
+    real_sm = MOE.moe_shardmap
+    if case.get("moe"):
+        MOE.moe_shardmap = lambda p, x, c: MOE.moe_shardmap_plain(
+            p, x, c, 1, 1)
+    forced = rows[0]["routes"] if case.get("moe") else None
+    seen: list = []
+    kept = {"grads": {}, "params": {}, "m_q": {}}
+
+    def keep(kind, i, t_):
+        """The sampled elements of the whole leaf, and its max |t|."""
+        kept[kind][i] = (t_.reshape(-1)[lm_sample_index(t_.numel()).to(
+            t_.device)].float().cpu(), float(t_.abs().max()))
+    try:
+        with lm_routes(record=seen, force=forced):
+            loss, aux, scales = lm_sharded_step(
+                cfg, opt, box, batch, case["dtype"], None, dev, keep)
+    finally:
+        MOE.moe_shardmap = real_sm
+    lr = opt.lr * float(cosine_schedule(torch.tensor(LM_SHARDED_OPT_STEP)))
+
+    def compare(key, scale_by=None):
+        """The worst leaf's max |diff| / scale, whether the ranks'
+        replicated samples agree, and the largest share of a leaf's
+        sampled elements more than LM_SHARDED_APART scales apart."""
+        worst, replicas, apart = 0.0, True, 0.0
+        for i in sorted(kept[key]):
+            want, wmax = kept[key][i]
+            got = torch.full_like(want, float("nan"))
+            for r in rows:
+                sel, vals = r[key][i]
+                if bool((~torch.isnan(got[sel])).any()):
+                    replicas &= bool(torch.equal(
+                        got[sel][~torch.isnan(got[sel])],
+                        vals[~torch.isnan(got[sel])]))
+                got[sel] = vals
+            assert not bool(torch.isnan(got).any()), (key, i)
+            scale = scale_by or wmax or 1.0
+            diff = (got - want).abs() / scale
+            worst = max(worst, float(diff.max()))
+            apart = max(apart, float((diff > LM_SHARDED_APART).float()
+                                     .mean()))
+        return worst, replicas, apart
+
+    g_err, g_rep, _ = compare("grads")
+    p_err, p_rep, p_apart = compare("params", scale_by=lr)
+    res = {"loss": rows[0]["loss"], "loss_one": loss,
+           "loss_rel_err": abs(rows[0]["loss"] - loss) / abs(loss),
+           "aux": rows[0]["aux"], "aux_one": aux,
+           "grad_rel_err": g_err, "update_lr_err": p_err,
+           "update_apart_share": p_apart,
+           "replicas_equal": g_rep and p_rep, "update_lr": lr,
+           "param_bytes_share": [r["param_bytes"] / r["whole_param_bytes"]
+                                 for r in rows]}
+    if case.get("moe"):
+        res["routing_calls"] = len(seen)
+        res["routing_calls_ranks"] = len(rows[0]["routes"])
+        q_err, _, _ = compare("m_q", scale_by=1.0)
+        res["moment_code_diff"] = q_err
+        res["moment_scale_rel_err"] = max(
+            abs(a - b) / max(b, 1e-30)
+            for a, b in zip(rows[0]["m_scale"], scales))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
 def multi_card(cli, detail: dict, name: str, smi: str) -> int:
     """``--cards N``: the sharded phase's multi-rank runs over NCCL, one
     rank per card (V-Net data-parallel, the DCGAN chain on a 2-way model
@@ -1055,6 +1514,8 @@ def multi_card(cli, detail: dict, name: str, smi: str) -> int:
               f"rank {res['rank']} launched {res['launches']}")
     print(json.dumps({"sharded_cards_s": detail["sharded_cards"]["wall_s"],
                       "card": smi}))
+    phase(f"sharded (LM) ({cli.cards} cards, NCCL)")
+    lm_sharded_phase(smi, detail, backend="nccl", one_card=False)
     if cli.json is not None:
         cli.json.parent.mkdir(parents=True, exist_ok=True)
         cli.json.write_text(json.dumps(detail, indent=1))
@@ -1243,8 +1704,11 @@ def lm_train_phase(dev, smi: str, detail: dict, counts, zero_counts) -> None:
                                     card))
         return card
 
-    def adamw_update(grads, state, params, opt, lr_scale=1.0):
-        new_p, new_s = real_adamw(grads, state, params, opt, lr_scale)
+    def adamw_update(grads, state, params, opt, lr_scale=1.0, **kw):
+        # the gradients sampled first: the step's update frees them
+        g_sampled = ([sample(t_) for t_ in tree.leaves(grads)]
+                     if recording[0] else None)
+        new_p, new_s = real_adamw(grads, state, params, opt, lr_scale, **kw)
         if not recording[0]:
             return new_p, new_s
         t0 = time.perf_counter()
@@ -1263,10 +1727,11 @@ def lm_train_phase(dev, smi: str, detail: dict, counts, zero_counts) -> None:
         rec["bias_corrections_bit_equal"] = all(
             torch.equal((1.0 - b ** t_).cpu(), 1.0 - b ** t_.cpu())
             for b in (opt.b1, opt.b2))
-        for p, g, m, v, p2, m2, v2 in zip(*(
-                [sample(t_) for t_ in tree.leaves(x)]
-                for x in (params, grads, state.m, state.v, new_p, new_s.m,
-                          new_s.v))):
+        p_, m_, v_, p2_, m2_, v2_ = (
+            [sample(t_) for t_ in tree.leaves(x)]
+            for x in (params, state.m, state.v, new_p, new_s.m, new_s.v))
+        for p, g, m, v, p2, m2, v2 in zip(p_, g_sampled, m_, v_, p2_, m2_,
+                                          v2_):
             cp, cs = real_adamw([g], AdamWState(state.step.cpu(), [m], [v]),
                                 [p], opt, lr_cpu)
             for key, got, want, old in (("params", p2, cp[0], p),
@@ -2567,11 +3032,10 @@ def main() -> int:
     from repro_torch.runtime.train_loop import Trainer, TrainLoopConfig
 
     def counts():
-        return {"deconv_fwd": dk.launches, "conv_fwd": ck.launches,
-                "deconv_dw": dk.dw_launches, "deconv_dx": dk.dx_launches}
+        return launch_counts(dk, ck)
 
     def zero_counts():
-        dk.launches = ck.launches = dk.dw_launches = dk.dx_launches = 0
+        zero_launch_counts(dk, ck)
 
     def train_setup(arch, device, eng, batch=None, seed=0):
         cfg = train_cfgs[arch]
@@ -3685,6 +4149,13 @@ def main() -> int:
     # llama3.2-1b trained through launch.train at full width and depth,
     # then one teacher-forced step of each other family (lm_train_phase)
     lm_train_phase(dev, smi, detail, counts, zero_counts)
+
+    # -- 4u. sharded (LM) --------------------------------------------------
+    # the LM's parameters partitioned over a model axis and FSDP: two gloo
+    # ranks on the card (lm_sharded_phase); no hand kernel may launch, on
+    # a rank or in the reference here
+    phase("sharded (LM)")
+    lm_sharded_phase(smi, detail)
 
     # -- 5. times -------------------------------------------------------------
     phase("times")

@@ -15,10 +15,15 @@ AdamW moments, QTensor payloads and scales, the step), stored as numpy
 arrays; bfloat16 tensors are stored as their 16-bit patterns and the
 manifest keeps the torch dtype.
 
-Checkpoints hold full tensors: under a ``torch.distributed`` world one
-rank saves (rank 0, the params being replicated).  ``restore`` with
-``specs`` and a ``sharding.mesh.Mesh`` gives each rank of any world size its
-own block of every leaf (elastic rescale).
+Checkpoints hold full tensors.  A ``Checkpointer`` made with ``specs``
+(a partition-spec tree of the saved tree) and a ``sharding.mesh.Mesh``
+saves a partitioned tree whole: every rank gathers each leaf's blocks
+(a collective: all of them call ``save``) and rank 0 writes; ``wait``
+ends with a barrier, so every rank then sees the written checkpoint.
+Without a mesh, under a world of replicated params, one rank saves.
+``restore`` with specs and a mesh gives each rank of any world size its
+own block of every leaf (elastic rescale): a checkpoint written by 2
+ranks restores on 1 and on 4.
 """
 
 from __future__ import annotations
@@ -32,9 +37,16 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as _tree
-from repro_torch.sharding.partition import logical_to_spec
+from repro_torch.sharding import mesh as _mesh
+from repro_torch.sharding.partition import (
+    is_logical_leaf,
+    local_block,
+    logical_to_spec,
+    spec_axes,
+)
 
 
 def _cheap_checksum(a: np.ndarray) -> int:
@@ -66,7 +78,8 @@ def _from_host(a: np.ndarray, dtype: str, device) -> torch.Tensor:
 
 class Checkpointer:
     def __init__(self, directory: str | os.PathLike, async_save: bool = True,
-                 keep: int = 3, keep_last_n: int | None = None):
+                 keep: int = 3, keep_last_n: int | None = None,
+                 specs=None, mesh=None):
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.async_save = async_save
@@ -76,6 +89,9 @@ class Checkpointer:
         if self.keep < 1:
             raise ValueError(f"keep_last_n must be >= 1, got {self.keep}")
         self._thread: threading.Thread | None = None
+        if specs is not None and mesh is None:
+            raise ValueError("a partitioned checkpointer needs the mesh")
+        self.specs, self.mesh = specs, mesh
 
     @property
     def keep_last_n(self) -> int:
@@ -85,19 +101,39 @@ class Checkpointer:
 
     def save(self, step: int, tree, blocking: bool = False):
         leaves = _tree.leaves(tree)
+        if self.specs is not None:
+            leaves = [self._whole(t, spec) for t, spec in zip(
+                leaves, _tree.leaves(self.specs, is_leaf=is_logical_leaf))]
+            if self.mesh.rank != 0:
+                return
         host = [(_to_host(t), _dtype_name(t.dtype)) for t in leaves]
         if self.async_save and not blocking:
-            self.wait()
+            self._join()
             self._thread = threading.Thread(
                 target=self._write, args=(step, host), daemon=True)
             self._thread.start()
         else:
             self._write(step, host)
 
-    def wait(self):
+    def _whole(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """The whole tensor of which ``t`` is this rank's block."""
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                t = _mesh.gather(t, self.mesh, spec_axes(entry), dim)
+        return t
+
+    def _join(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+
+    def wait(self):
+        """The pending write done (on every rank of a partitioned
+        checkpointer: a barrier)."""
+        self._join()
+        if (self.mesh is not None and self.mesh.groups is not None
+                and dist.get_world_size() > 1):
+            dist.barrier()
 
     def _write(self, step: int, host):
         final = self.dir / f"step_{step:08d}"
@@ -170,17 +206,19 @@ class Checkpointer:
             return False
 
     def restore(self, step: int, template, specs=None, mesh=None):
-        """A tree shaped like ``template`` (a tree of full-shape tensors)
-        from the checkpoint at ``step``; each leaf lands on its template
-        leaf's device.
+        """A tree shaped like ``template`` from the checkpoint at
+        ``step``; each leaf lands on its template leaf's device.
 
         ``specs`` (a tree matching ``template`` whose leaves are tuples of
-        logical axis names or mesh axis names, one per leading dim) with
-        ``mesh`` gives each leaf as this rank's block: a dim named by an
-        axis is cut into that axis's extent and the rank keeps the block
-        at its coordinate, whatever world size saved the checkpoint.  A
-        dim the axis does not divide stays whole
-        (``sharding.logical_to_spec``)."""
+        logical axis names or mesh axis names, one per leading dim; the
+        checkpointer's own by default) with ``mesh`` gives each leaf as
+        this rank's block: a dim named by an axis is cut into that axis's
+        extent and the rank keeps the block at its coordinate, whatever
+        world size saved the checkpoint.  A dim the axis does not divide
+        stays whole (``sharding.logical_to_spec``).  A template leaf may
+        have the whole shape or the block's."""
+        if specs is None:
+            specs, mesh = self.specs, self.mesh
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         tmpl = _tree.leaves(template)
@@ -189,7 +227,7 @@ class Checkpointer:
                              f"{len(manifest['leaves'])} leaves, the "
                              f"template {len(tmpl)}")
         spec_leaves = ([None] * len(tmpl) if specs is None
-                       else _tree.leaves(specs, is_leaf=_is_spec))
+                       else _tree.leaves(specs, is_leaf=is_logical_leaf))
         if len(spec_leaves) != len(tmpl):
             raise ValueError(f"{len(spec_leaves)} specs for "
                              f"{len(tmpl)} leaves")
@@ -199,37 +237,17 @@ class Checkpointer:
         for i, (meta, t, spec) in enumerate(zip(manifest["leaves"], tmpl,
                                                 spec_leaves)):
             a = np.load(d / f"leaf_{i:05d}.npy", mmap_mode="r")
-            if list(t.shape) != meta["shape"]:
+            if spec is not None:
+                block = local_block(a, logical_to_spec(mesh, spec, a.shape),
+                                    mesh)
+                if list(t.shape) not in (meta["shape"], list(block.shape)):
+                    raise ValueError(f"leaf {i}: checkpoint shape "
+                                     f"{meta['shape']} (block "
+                                     f"{list(block.shape)}) != "
+                                     f"{list(t.shape)}")
+                a = block
+            elif list(t.shape) != meta["shape"]:
                 raise ValueError(f"leaf {i}: checkpoint shape "
                                  f"{meta['shape']} != {list(t.shape)}")
-            if spec is not None:
-                a = a[_block(mesh, logical_to_spec(mesh, spec, a.shape),
-                             a.shape)]
             leaves.append(_from_host(a, meta["dtype"], t.device))
         return _tree.unflatten(template, leaves)
-
-
-def _is_spec(x) -> bool:
-    """A spec leaf: a plain tuple of axis names, ``None`` or tuples of
-    names."""
-    return (isinstance(x, tuple) and not hasattr(x, "_fields") and all(
-        e is None or isinstance(e, str)
-        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
-        for e in x))
-
-
-def _block(mesh, spec: tuple, shape) -> tuple:
-    """The index of this rank's block of an array of ``shape`` under a
-    partition spec (row-major over a dim's axes, as JAX lays them)."""
-    index = []
-    for dim, axes in enumerate(spec):
-        if axes is None:
-            index.append(slice(None))
-            continue
-        axes = (axes,) if isinstance(axes, str) else axes
-        n, k = 1, 0
-        for a in axes:
-            n, k = n * mesh.shape[a], k * mesh.shape[a] + mesh.coords[a]
-        per = shape[dim] // n
-        index.append(slice(k * per, (k + 1) * per))
-    return tuple(index)

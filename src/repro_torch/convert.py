@@ -21,12 +21,13 @@ import torch
 from repro_torch import tree as _tree
 from repro_torch.core import networks as _networks
 from repro_torch.core.engine import ScheduleError
-from repro_torch.launch.steps import _init_ws
+from repro_torch.launch.steps import _init_ws, param_specs
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.mlp import MlpParams
 from repro_torch.models.moe import MoeParams
 from repro_torch.models.ssm import Mamba2Params, MLstmParams, SLstmParams
 from repro_torch.optim.adamw import AdamWState, QTensor
+from repro_torch.sharding.partition import shard_tree
 
 
 class WeightShapeError(ScheduleError):
@@ -152,14 +153,18 @@ def _check_like(got, want, what: str) -> None:
 
 
 def params_from_numpy(tree, device, dtype: torch.dtype | None = None, *,
-                      cfg):
+                      cfg, mesh=None):
     """A model's parameter tree from the JAX package (``{"gen", "disc"}``,
     ``{"vnet"}`` or an LM's, as numpy arrays) -> tensors on ``device``,
     checked leaf for leaf against the shapes ``launch.steps.real_params(
-    cfg, ...)`` gives."""
+    cfg, ...)`` gives; with ``mesh``, each leaf this rank's block
+    (``launch.steps.param_specs``)."""
     out = _tree_from_numpy(tree, device, dtype)
     _check_like(out, _init_ws(cfg, None, device="meta"), "params")
-    return out
+    if mesh is None:
+        return out
+    return _tree.tree_map(torch.Tensor.clone, shard_tree(
+        out, param_specs(cfg, mesh), mesh))
 
 
 def adamw_state_from_numpy(state, device, *, params):

@@ -85,6 +85,16 @@ def _make_mesh(sizes, axis_names) -> Mesh:
             g = dist.new_group(line)
             if rank in line:
                 groups[axis] = g
+    batch = tuple(a for a in ("pod", "data") if a in axis_names)
+    if len(batch) > 1:
+        # the batch axes together (FSDP, the data-parallel sums)
+        dims = [axis_names.index(a) for a in batch]
+        lines = layout.movedim(dims, list(range(-len(dims), 0))).reshape(
+            -1, math.prod(sizes[i] for i in dims))
+        for line in lines.tolist():
+            g = dist.new_group(line)
+            if rank in line:
+                groups[batch] = g
     return Mesh(sizes, axis_names, rank=rank, groups=groups)
 
 

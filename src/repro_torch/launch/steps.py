@@ -25,10 +25,22 @@ its gradients on the master leaves from ``lm_grads``, AdamW at the
 cosine schedule's rate), ``make_serve_step`` its prefill and decode
 steps in bf16; ``real_params`` draws an LM's parameters too (every
 family of ``models.transformer``).
+
+Given a mesh, an LM's train step is partitioned: every rank holds its
+block of each parameter and moment (``param_specs``, ``opt_shardings``:
+the reference's ``param_shardings`` of ``param_axes``), takes the global
+batch and keeps its batch-axes shard, gathers each leaf's FSDP shards
+over the batch axes (an all-gather whose backward reduce-scatters the
+gradient; a stacked layer where the layer loop takes it, every other
+leaf before the forward), runs the tensor-, vocab- and
+expert-parallel forward and backward, sums the gradients of the leaves
+that the batch axes replicate over them, and updates its blocks (an
+8-bit moment's scale the whole tensor's).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -39,9 +51,17 @@ from repro_torch.core import networks
 from repro_torch.core.engine import shard_batch
 from repro_torch.core.functional import ieee_f32
 from repro_torch.sharding import mesh as _mesh
+from repro_torch.sharding import partition as _part
 from repro_torch.models import dcnn as D
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
+from repro_torch.optim import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    cosine_schedule,
+)
+from repro_torch.optim.adamw import AdamWState, QTensor
 from repro_torch.runtime import dp_trainer as DP
 
 
@@ -63,22 +83,61 @@ def param_axes(cfg: ModelConfig):
     """The logical axes of ``real_params``' tree, leaf for leaf (the JAX
     package's ``split_params(...)[1]``)."""
     if cfg.family != "dcnn":
-        raise NotImplementedError(f"an LM's logical axes come with the "
-                                  f"dry-run slice, ROADMAP item 15.6")
+        return T.init_params(cfg, None, device=L.AXES)
     if cfg.dcnn == "v_net":
         return {"vnet": D.vnet_axes(cfg)}
     return {"gen": D.generator_axes(cfg), "disc": D.discriminator_axes(cfg)}
 
 
+def param_specs(cfg: ModelConfig, mesh):
+    """Each parameter's partition spec on ``mesh`` (the reference's
+    ``param_shardings(mesh, values, param_axes, cfg.fsdp)``)."""
+    return _part.param_shardings(mesh, _init_ws(cfg, None, device="meta"),
+                                 param_axes(cfg), cfg.fsdp)
+
+
+def opt_shardings(mesh, state: AdamWState, p_logical, fsdp: bool):
+    """An ``AdamWState``'s partition specs (the reference's): the moments
+    follow the parameters, a ``QTensor``'s payload too and its scale
+    replicated, the step replicated."""
+    axes = _tree.leaves(p_logical, is_leaf=_part.is_logical_leaf)
+    is_q = lambda x: isinstance(x, QTensor)  # noqa: E731
+
+    def mom(tree):
+        specs = []
+        for lg, v in zip(axes, _tree.leaves(tree, is_leaf=is_q)):
+            if is_q(v):
+                specs.append(QTensor(_part.logical_to_spec(
+                    mesh, lg, v.q.shape, fsdp), ()))
+            else:
+                specs.append(_part.logical_to_spec(mesh, lg, v.shape, fsdp))
+        return _tree.unflatten(tree, specs, is_leaf=is_q)
+
+    return AdamWState(step=(), m=mom(state.m), v=mom(state.v))
+
+
+def opt_specs(cfg: ModelConfig, mesh, opt: AdamWConfig):
+    """The partition specs of an ``adamw_init`` state of the whole
+    parameters (``opt_shardings``; a rank's blocks would resolve a dim
+    against its block's extent)."""
+    state = adamw_init(_init_ws(cfg, None, device="meta"), opt)
+    return opt_shardings(mesh, state, param_axes(cfg), cfg.fsdp)
+
+
 def real_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda"):
+                device="cuda", mesh=None):
     """The model's parameter tree on ``device``, drawn from ``generator``
     (on its device: a CUDA generator draws on the card) and cast to
     ``cfg.master_dtype``; an LM's leaves are cast as they are drawn, so
-    the f32 draw of a bf16 model is never held whole."""
+    the f32 draw of a bf16 model is never held whole.  With ``mesh`` (an
+    LM's) each leaf is drawn whole, then cut to this rank's block
+    (``param_specs``, ``layers.drawing_blocks``): a partitioned run
+    starts from the unpartitioned run's weights."""
     dt = getattr(torch, cfg.master_dtype)
-    return _tree.tree_map(lambda v: v.to(dt),
-                          _init_ws(cfg, generator, device, dt))
+    with (L.drawing_blocks(mesh, cfg.fsdp) if mesh is not None
+          else contextlib.nullcontext()):
+        return _tree.tree_map(lambda v: v.to(dt),
+                              _init_ws(cfg, generator, device, dt))
 
 
 def _wanting_grad(tree):
@@ -92,32 +151,139 @@ def _grads(loss, tree):
     return _tree.unflatten(tree, torch.autograd.grad(loss, leaves))
 
 
-def lm_grads(params, cfg: ModelConfig, batch, param_dtype=torch.bfloat16):
+def shard_lm_batch(batch, mesh):
+    """This rank's shard of a global LM batch over the mesh's batch axes
+    (the rows of every entry; M-RoPE's ``[3, B, S]`` positions along
+    their second dim)."""
+    axes = mesh.batch_axes
+    n, i = _mesh.axis_size(mesh, axes), _mesh.axis_index(mesh, axes)
+
+    def cut(key, x):
+        dim = 1 if key == "mrope_positions" else 0
+        if x.shape[dim] % n:
+            raise _mesh.MeshError(f"batch {x.shape[dim]} does not divide "
+                                  f"the {n}-way batch axes")
+        per = x.shape[dim] // n
+        return x.narrow(dim, i * per, per)
+
+    return {k: None if v is None else cut(k, v) for k, v in batch.items()}
+
+
+def _spec_axes(spec) -> list[tuple[int, tuple[str, ...]]]:
+    """(dim, mesh axes) of each partitioned dim of ``spec``."""
+    return [(d, _part.spec_axes(e)) for d, e in enumerate(spec) if e]
+
+
+def _per_leaf(fn, tree, specs):
+    """``fn(leaf, spec)`` over ``tree``'s leaves and ``specs``' (a spec
+    tree of the same structure)."""
+    spec_leaves = _tree.leaves(specs, is_leaf=_part.is_logical_leaf)
+    return _tree.unflatten(tree, [fn(t, s) for t, s in
+                                  zip(_tree.leaves(tree), spec_leaves)])
+
+
+def _gather_fsdp(params, specs, mesh, cfg: ModelConfig):
+    """Each leaf whole along its dims partitioned over the batch axes
+    (``gather_from``: the backward reduce-scatters the gradient).  The
+    stacked layers of the families that loop over them
+    (``transformer._layer``) are gathered there, a layer at a time
+    (``transformer.FsdpLayers``); every other leaf here."""
+    batch = set(mesh.batch_axes)
+
+    def whole(t, spec):
+        for d, axes in _spec_axes(spec):
+            if set(axes) <= batch:
+                t = _mesh.gather_from(t, mesh, axes, d)
+        return t
+    if cfg.family not in ("dense", "vlm", "moe"):
+        return _per_leaf(whole, params, specs)
+    rest = {k: v for k, v in params.items() if k != "layers"}
+    out = _per_leaf(whole, rest, {k: specs[k] for k in rest})
+    # a layer's specs: the stacked leaves' without their leading dim
+    layer_specs = _tree.tree_map(lambda sp: sp[1:], specs["layers"],
+                                 is_leaf=_part.is_logical_leaf)
+    out["layers"] = T.FsdpLayers(
+        params["layers"], lambda lp: _per_leaf(whole, lp, layer_specs))
+    return out
+
+
+def _sum_replicated(grads, specs, mesh):
+    """The gradients of the leaves the batch axes replicate, summed over
+    them (each rank's is its batch shard's part; the FSDP leaves' sums
+    came with their gathers' backward)."""
+    batch = mesh.batch_axes
+
+    def total(g, spec):
+        named = {a for _, axes in _spec_axes(spec) for a in axes}
+        return g if named & set(batch) else _mesh.psum(g, mesh, batch)
+    return _per_leaf(total, grads, specs)
+
+
+def absmax_fns(specs, mesh) -> list:
+    """Per leaf, the 8-bit moments' whole-tensor maximum from a rank's
+    block maximum: a MAX all-reduce over each group of axes that
+    partitions the leaf (``None`` for a whole leaf)."""
+    def fn(groups):
+        def whole(a):
+            for axes in groups:
+                a = _mesh.psum(a, mesh, axes, "max")
+            return a
+        return whole
+    return [fn([axes for _, axes in _spec_axes(spec)])
+            if _spec_axes(spec) else None
+            for spec in _tree.leaves(specs, is_leaf=_part.is_logical_leaf)]
+
+
+def lm_grads(params, cfg: ModelConfig, batch, param_dtype=torch.bfloat16,
+             mesh=None, specs=None):
     """``(loss, metrics, grads)`` of an LM's train forward on ``batch`` at
     ``param_dtype``: the gradients of the loss on the master leaves (f32,
     arctic's bf16), the loss and ``metrics`` (``aux``) detached.  The
     backward runs inside ``functional.ieee_f32`` as the forward does, so
     the f32 products of both (scores, gates, recurrences) are IEEE f32
-    whatever the process's TF32 flags."""
-    with torch.enable_grad(), ieee_f32():
+    whatever the process's TF32 flags.
+
+    With ``mesh`` and ``specs`` (``param_specs``), ``params`` are this
+    rank's blocks and ``batch`` its shard: the FSDP leaves are gathered
+    (``_gather_fsdp``), the loss is the global batch's, and each gradient
+    is the whole batch's, of this rank's block."""
+    with torch.enable_grad(), ieee_f32(), _part.use_mesh(mesh):
         p = _wanting_grad(params)
-        loss, metrics = T.forward(p, cfg, batch, mode="train",
+        full = p if mesh is None else _gather_fsdp(p, specs, mesh, cfg)
+        loss, metrics = T.forward(full, cfg, batch, mode="train",
                                   param_dtype=param_dtype)
         grads = _grads(loss, p)
+    if mesh is not None:
+        grads = _sum_replicated(grads, specs, mesh)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamWConfig):
+def make_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh=None,
+                    param_dtype=torch.bfloat16):
     """An LM's train step ``step(params, opt_state, batch) -> (params,
     opt_state, {"loss", "aux"})``: ``lm_grads`` of the bf16 forward, then
     AdamW at ``lr_scale = cosine_schedule(opt_state.step)``, read before
     the step counts up (so the first step's rate is 0 and it moves no
-    parameter, as the reference's)."""
+    parameter, as the reference's).  With ``mesh`` the step takes and
+    returns this rank's blocks of the parameters and moments and the
+    global batch, of which it keeps its own shard.  ``param_dtype``: the
+    forward's (``torch.float32`` for an f32 control)."""
+    specs = None if mesh is None else param_specs(cfg, mesh)
+    absmax = None if mesh is None else absmax_fns(specs, mesh)
+
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = lm_grads(params, cfg, batch)
+        if mesh is not None:
+            batch = shard_lm_batch(batch, mesh)
+        part = {} if mesh is None else {"mesh": mesh, "specs": specs}
+        loss, metrics, grads = lm_grads(params, cfg, batch,
+                                        param_dtype=param_dtype, **part)
         lr = cosine_schedule(opt_state.step)
+        more = {} if mesh is None else {"absmax": absmax}
+        # the step owns its gradients: the update frees each as it goes
+        grads = _tree.leaves(grads)
         new_params, new_state = adamw_update(grads, opt_state, params, opt,
-                                             lr_scale=lr)
+                                             lr_scale=lr, consume=True,
+                                             **more)
         return new_params, new_state, {"loss": loss, **metrics}
     return train_step
 

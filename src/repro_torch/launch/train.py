@@ -27,14 +27,26 @@ f32 mean).  The world is the one
 ``torchrun`` describes (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``), or this
 process alone when none is set; the backend is NCCL on the card and gloo
 with ``--device cpu``.  ``--dp`` applies to the DCNNs only, as in the
-reference.  ``--model-parallel`` takes 1 only: no step partitions a
-parameter over a model axis yet (ROADMAP item 15.6), so ranks on it
-would duplicate one another's work.  A ``--dp`` run keeps its
-checkpoints apart (``<dir>-dp``, one directory per rank: each rank's
-error-feedback residual is its own).
+reference.  ``--model-parallel N`` sets the mesh's model axis, as the
+reference's ``make_host_mesh(model=N)``: the DCNN ``--dp`` steps reduce
+over the data axis alone, so ranks along the model axis run the same
+step on the same shard (the reference's ``shard_map`` leaves the axis
+unmentioned).  A ``--dp`` run keeps its checkpoints apart (``<dir>-dp``,
+one directory per rank: each rank's error-feedback residual is its own).
+
+An LM under ``torchrun`` (or with ``--model-parallel`` above 1) trains
+partitioned on the ``(world / N, N)`` host mesh (``launch.steps.
+make_train_step(..., mesh)``): its parameters are drawn whole from the
+seed and each rank keeps its block (``param_specs``: FSDP over the data
+axis where the config sets ``fsdp``, heads, ff, vocab and experts over
+the model axis), every rank reads the same global batches and keeps its
+shard, and the checkpoint is the whole tree, written by rank 0 and
+restored as each rank's blocks.
 
     torchrun --nproc_per_node=2 -m repro_torch.launch.train --arch dcgan \
         --reduced --dp --device cpu --steps 3
+    torchrun --nproc_per_node=2 -m repro_torch.launch.train \
+        --arch llama3.2-1b --reduced --model-parallel 2 --device cpu
 """
 
 from __future__ import annotations
@@ -82,18 +94,14 @@ def main(argv=None):
                     help="record step-time metrics + spans to this JSONL "
                          "event log")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="model-axis extent of the --dp mesh; only 1 until "
-                         "the parameters are partitioned over it")
+                    help="model-axis extent of the mesh (an LM's heads, ff, "
+                         "vocab and experts partition over it)")
     ap.add_argument("--dp", action="store_true",
                     help="dcnn archs: explicit data-parallel trainer over "
                          "the world (int8-compressed gradient all-reduce)")
     ap.add_argument("--no-dp-compress", action="store_true",
                     help="with --dp: plain f32 gradient all-reduce")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            "--model-parallel: no step partitions a parameter over a "
-            "model axis yet (ROADMAP item 15.6), so only 1 is supported")
 
     import os
 
@@ -122,9 +130,17 @@ def main(argv=None):
         torch.cuda.set_device(device)
     opt = AdamWConfig(lr=args.lr, state_bits=cfg.opt_state_bits)
     mesh, joined = None, False
-    if args.dp and cfg.family == "dcnn":
+    lm_mesh = cfg.family != "dcnn" and (
+        args.model_parallel > 1 or int(os.environ.get("WORLD_SIZE", 1)) > 1)
+    if lm_mesh or (args.dp and cfg.family == "dcnn"):
         joined = M.init_world(M.backend_for(device))
-        mesh = M.make_host_mesh(model=args.model_parallel)
+        try:
+            mesh = M.make_host_mesh(model=args.model_parallel)
+        except M.MeshError:
+            if joined:
+                M.leave_world()
+            raise
+    if mesh is not None and not lm_mesh:
         n_data = mesh.shape["data"]
         cfg = ST.round_batch_to_mesh(cfg, n_data)
         args.checkpoint_dir += "-dp"
@@ -134,7 +150,9 @@ def main(argv=None):
     # an LM's weights are drawn on its device (a CUDA generator draws
     # llama3.2-1b's 1.24 G in a blink, the host ~1.5e8 a second)
     gen = torch.Generator(device=device if cfg.family != "dcnn" else "cpu")
-    params = ST.real_params(cfg, gen.manual_seed(0), device)
+    params = ST.real_params(cfg, gen.manual_seed(0), device,
+                            mesh if lm_mesh else None)
+    specs = None
     compress = not args.no_dp_compress
     # a resumed run's batches continue from the checkpoint's step (the
     # reference's launcher restarts them at step 0)
@@ -147,8 +165,11 @@ def main(argv=None):
         data = TokenBatches(cfg.vocab, args.batch, args.seq,
                             start_step=start, extra_fn=lm_extra(cfg),
                             device=device)
-        step_fn = ST.make_train_step(cfg, opt)
+        step_fn = ST.make_train_step(cfg, opt, mesh)
         opt_state = adamw_init(params, opt)
+        if mesh is not None:
+            specs = {"params": ST.param_specs(cfg, mesh),
+                     "opt": ST.opt_specs(cfg, mesh, opt)}
     elif cfg.dcnn == "v_net":
         data = VolumeBatches(cfg.dcnn_batch, D._vnet_spatial(cfg),
                              start_step=start, device=device)
@@ -172,7 +193,10 @@ def main(argv=None):
             opt_state = (opt_state, err)
         else:
             step_fn = ST.make_gan_train_step(cfg, opt, engine)
-    if mesh is not None:
+    if lm_mesh:
+        print(f"partitioned LM: rank {mesh.rank} of {mesh.shape}, "
+              f"fsdp={cfg.fsdp}, global batch {args.batch}")
+    elif mesh is not None:
         print(f"dp trainer: rank {mesh.rank} of {mesh.shape}, "
               f"{'int8' if compress else 'f32'} all-reduce, global batch "
               f"{cfg.dcnn_batch}")
@@ -186,7 +210,7 @@ def main(argv=None):
                       TrainLoopConfig(total_steps=args.steps,
                                       checkpoint_every=args.checkpoint_every,
                                       checkpoint_dir=args.checkpoint_dir),
-                      telemetry=telemetry)
+                      telemetry=telemetry, specs=specs, mesh=mesh)
     try:
         if args.resume:
             resumed = trainer.maybe_resume()

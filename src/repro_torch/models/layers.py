@@ -2,15 +2,28 @@
 activations, rotary embeddings (M-RoPE included) and the embedding lookup.
 
 Weights are drawn in f32 from an explicit ``torch.Generator`` on the
-generator's device, then cast to ``dtype`` and moved to ``device``; the
-JAX package's logical sharding axes have no counterpart on one card.
-``device="meta"`` gives shapes without drawing.
+generator's device, then cast to ``dtype`` and moved to ``device``.
+Each initialiser takes the leaf's logical sharding axes (the
+reference's, per dim of one layer's leaf; ``None`` for a dim left
+whole): ``device="meta"`` gives shapes without drawing, ``device=AXES``
+the logical axes instead of a tensor, a stacked leaf's leading dims
+``None``, so one initialiser draws either tree.  Inside
+``drawing_blocks(mesh, fsdp)`` each leaf is drawn whole and cut at once
+to this rank's block of it, so a partitioned model never holds more
+than one whole leaf.
+
+``blk_out`` is a block's out-projection, the reference's ``blk_out``
+checkpoint name: under ``remat`` with ``remat_policy="save_outs"``
+(``saves_outs``) its result is kept and the backward runs the block's
+work before it again, but not the projection, nor the all-reduce that
+follows it.
 The norms and the rotation compute in f32 and cast back, as the
 reference's do.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Sequence
 
@@ -18,31 +31,76 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as _tree
+from repro_torch.sharding.partition import local_block, logical_to_spec
+
+# the device that makes an initialiser give its leaf's logical axes
+AXES = "axes"
+
+Logical = Sequence[str | None]
+
+
+def _axes(shape, logical: Logical) -> tuple:
+    """``logical`` (one layer's leaf) with ``None`` for each leading
+    stacked dim of ``shape``."""
+    return (None,) * (len(shape) - len(logical)) + tuple(logical)
+
+
+_BLOCKS: list = []
+
+
+@contextlib.contextmanager
+def drawing_blocks(mesh, fsdp: bool):
+    """Inside the block each initialiser returns this rank's block of
+    its leaf on ``mesh`` (``logical_to_spec`` of its axes, FSDP when
+    ``fsdp``), cut from the leaf drawn whole."""
+    _BLOCKS.append((mesh, fsdp))
+    try:
+        yield
+    finally:
+        _BLOCKS.pop()
+
+
+def _block(v: torch.Tensor, logical: Logical) -> torch.Tensor:
+    if not _BLOCKS or v.device.type == "meta":
+        return v
+    mesh, fsdp = _BLOCKS[-1]
+    spec = logical_to_spec(mesh, _axes(v.shape, logical), v.shape, fsdp)
+    return local_block(v, spec, mesh).clone()
+
 
 def dense_init(generator: torch.Generator, shape: Sequence[int],
                scale: float | None = None, dtype=torch.float32,
-               device="cuda") -> torch.Tensor:
+               device="cuda", logical: Logical = ()) -> torch.Tensor:
     """Normal(0, scale) weights drawn in f32 and cast to ``dtype`` (as
     the reference draws f32 and casts to the master dtype); ``scale``
     defaults to 1/sqrt(fan_in)."""
     shape = tuple(shape)
+    if device == AXES:
+        return _axes(shape, logical)
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) > 1 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     v = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device).mul_(scale)
-    return v.to(device=device, dtype=dtype)
+    return _block(v.to(device=device, dtype=dtype), logical)
 
 
 def zeros_init(shape: Sequence[int], dtype=torch.float32,
-               device="cuda") -> torch.Tensor:
-    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+               device="cuda", logical: Logical = ()) -> torch.Tensor:
+    if device == AXES:
+        return _axes(shape, logical)
+    return _block(torch.zeros(tuple(shape), dtype=dtype, device=device),
+                  logical)
 
 
 def ones_init(shape: Sequence[int], dtype=torch.float32,
-              device="cuda") -> torch.Tensor:
-    return torch.ones(tuple(shape), dtype=dtype, device=device)
+              device="cuda", logical: Logical = ()) -> torch.Tensor:
+    if device == AXES:
+        return _axes(shape, logical)
+    return _block(torch.ones(tuple(shape), dtype=dtype, device=device),
+                  logical)
 
 
 def rmsnorm(x: torch.Tensor, gain: torch.Tensor,
@@ -166,6 +224,16 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids, table)
 
 
+def vocab_parallel_lookup(table: torch.Tensor, ids: torch.Tensor,
+                          v0: int) -> torch.Tensor:
+    """This rank's part of the lookup of ``ids`` in its rows ``v0 ..
+    v0 + len(table)`` of a vocab-sharded table: the rows it holds, zeros
+    elsewhere (the caller sums the parts over the model axis)."""
+    mine = (ids >= v0) & (ids < v0 + table.shape[0])
+    h = embed_lookup(table, torch.where(mine, ids - v0, 0))
+    return torch.where(mine[..., None], h, 0)
+
+
 def remat(fn, *args):
     """``fn(*args)``, checkpointed while autograd records: nothing inside
     is saved and the backward runs ``fn`` again (the reference's
@@ -175,3 +243,69 @@ def remat(fn, *args):
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+# -- remat_policy "save_outs" -----------------------------------------------
+
+def saves_outs(cfg) -> bool:
+    """True where ``cfg`` remats with the ``save_outs`` policy."""
+    return bool(cfg.remat) and cfg.remat_policy == "save_outs"
+
+
+def _mm_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``o [..., K] @ w [K, N]`` as one 2-D product."""
+    return (o.reshape(-1, o.shape[-1]) @ w).reshape(*o.shape[:-1],
+                                                    w.shape[-1])
+
+
+class _SavedOut(torch.autograd.Function):
+    """``core(*args) @ w``, saving only the inputs: the backward runs
+    ``core`` again for the projection's input and takes the projection's
+    gradients as autograd's 2-D product takes them (``dy w^T`` and
+    ``o^T dy``), without the product itself."""
+
+    @staticmethod
+    def forward(ctx, core, skeleton, w, *flat):
+        with torch.no_grad():
+            o = core(*_tree.unflatten(skeleton, flat))
+        ctx.core, ctx.skeleton = core, skeleton
+        ctx.save_for_backward(w, *flat)
+        return _mm_out(o, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, *flat = ctx.saved_tensors
+        ins = [t.detach().requires_grad_(t.requires_grad) for t in flat]
+        with torch.enable_grad():
+            o = ctx.core(*_tree.unflatten(ctx.skeleton, ins))
+        o2, dy2 = o.reshape(-1, o.shape[-1]), dy.reshape(-1, dy.shape[-1])
+        do = dy2.mm(w.t()).reshape(o.shape)
+        dw = o2.detach().t().mm(dy2)
+        want = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(o, want, do, allow_unused=True)
+                   if want else ())
+        grads = [next(got) if t.requires_grad else None for t in ins]
+        return (None, None, dw, *grads)
+
+
+def blk_out(cfg, core, args: tuple, w: torch.Tensor) -> torch.Tensor:
+    """A block's out-projection ``core(*args) @ w`` (``w`` [K, N] already
+    in the activations' dtype; ``args`` trees of tensors, ``core``'s
+    other inputs in its closure).  Where ``cfg`` ``saves_outs`` and
+    autograd records, the result is kept and the backward runs ``core``
+    again (``_SavedOut``); otherwise a plain product."""
+    if not (saves_outs(cfg) and torch.is_grad_enabled()):
+        return _mm_out(core(*args), w)
+    flat = _tree.leaves(args)
+    skeleton = _tree.unflatten(args, [0] * len(flat))
+    return _SavedOut.apply(core, skeleton, w, *flat)
+
+
+def blk_region(cfg, core, *args):
+    """A block's work up to an output that needs no projection (the MoE
+    combine): checkpointed where ``cfg`` ``saves_outs`` and autograd
+    records, so its result is kept and the backward runs it again; a
+    plain call otherwise."""
+    if saves_outs(cfg) and torch.is_grad_enabled():
+        return remat(core, *args)
+    return core(*args)

@@ -17,6 +17,19 @@ reference's op sequence (``layers.silu``), so bf16 rounds as XLA's does.
 The prefill's conv tail (the last three pre-conv inputs) comes from the
 projection the block has already computed; the reference computes that
 projection a second time, with equal values.
+
+On a mesh with a ``model`` axis (train mode) the blocks are
+tensor-parallel under the reference's logical axes.  mLSTM: each rank's
+columns of ``w_up`` (its block of the concatenated ``[a | z]``) are
+gathered, the rank keeps its channel block of ``a`` and ``z``, its
+conv channels and its rows of ``wq``/``wk``/``wv``/``w_gates`` give
+partial products summed over the axis, the recurrence runs on every
+head on every rank, and the rank's channels of the gated output go
+through its rows of ``w_down`` (an all-reduce).  sLSTM: the recurrence
+on every rank, the MLP column- and row-parallel.  Mamba-2: ``w_in``'s
+column blocks gathered, the SSM on every rank, the rank's channels of
+the gated output through its rows of ``w_out``.  A leaf whose dim the
+axis does not divide stays whole, and its product runs on every rank.
 """
 
 from __future__ import annotations
@@ -30,8 +43,27 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.attention import project_heads
+from repro_torch.sharding import mesh as _mesh
+from repro_torch.sharding.partition import current_mesh
 
 _CONV = 4           # the depthwise causal conv's width
+MODEL = ("model",)
+
+
+def _model_shard(sharded: bool):
+    """(mesh, axis size, this rank's index) where a block's leaves are
+    this rank's blocks, else (None, 1, 0)."""
+    if not sharded:
+        return None, 1, 0
+    mesh = current_mesh()
+    return (mesh, _mesh.axis_size(mesh, MODEL),
+            _mesh.axis_index(mesh, MODEL))
+
+
+def _own(t: torch.Tensor, start: int, n: int, r: int) -> torch.Tensor:
+    """Rank ``r``'s block of ``n`` channels of ``t``'s last dim, from
+    ``start``."""
+    return t[..., start + r * n:start + (r + 1) * n]
 
 
 def _softplus(x):
@@ -162,39 +194,46 @@ def init_mlstm(generator: torch.Generator, cfg: ModelConfig, device="cuda",
     h = cfg.n_heads
     dk = dv = di // h
 
-    def w(shape, scale=None):
+    def w(shape, logical, scale=None):
         return L.dense_init(generator, shape, scale=scale, dtype=dtype,
-                            device=device)
+                            device=device, logical=logical)
 
+    heads = ("model", None, None)
     return MLstmParams(
         norm=L.ones_init((d,), dtype, device),
-        w_up=w((d, 2 * di)),
-        conv=w((_CONV, di), 0.5),
-        wq=w((di, h, dk)),
-        wk=w((di, h, dk)),
-        wv=w((di, h, dv)),
-        w_gates=w((di, 2 * h)),
+        w_up=w((d, 2 * di), ("fsdp", "model")),
+        conv=w((_CONV, di), (None, "model"), 0.5),
+        wq=w((di, h, dk), heads),
+        wk=w((di, h, dk), heads),
+        wv=w((di, h, dv), heads),
+        w_gates=w((di, 2 * h), ("model", None)),
         b_gates=L.zeros_init((2 * h,), dtype, device),
         head_norm=L.ones_init((h, dv), dtype, device),
-        w_down=w((di, d)),
+        w_down=w((di, d), ("model", "fsdp")),
     )
 
 
 def _mlstm_qkv(p: MLstmParams, x, cfg, conv_cache=None):
     """(q, k, v_ext, log_f, z, new_conv, a): the reference's six and the
-    conv's input ``a``, whose tail a prefill keeps."""
-    h0 = L.rmsnorm(x, p.norm, cfg.norm_eps)
-    up = h0 @ p.w_up.to(x.dtype)
+    conv's input ``a``, whose tail a prefill keeps (on a model axis: this
+    rank's channels of ``z`` and ``a``)."""
+    mesh, m, r = _model_shard(p.wq.shape[0] != 2 * cfg.d_model)
+    h0 = _mesh.copy_to(L.rmsnorm(x, p.norm, cfg.norm_eps), mesh, MODEL)
+    up = _mesh.gather_from(h0 @ p.w_up.to(x.dtype), mesh, MODEL, -1)
     di = up.shape[-1] // 2
-    a, z = up[..., :di], up[..., di:]
+    a, z = _own(up, 0, di // m, r), _own(up, di, di // m, r)
     a_c, new_conv = causal_conv1d(a, p.conv, conv_cache)
     a_c = L.silu(a_c)
     dk = p.wq.shape[-1]
     nh = p.wq.shape[1]
-    q = project_heads(a_c, p.wq)
-    k = project_heads(a_c, p.wk) / math.sqrt(dk)
-    v = project_heads(a, p.wv)
-    gates = a_c.float() @ p.w_gates.float() + p.b_gates
+
+    def part(t):
+        """A product over this rank's channels, summed over the axis."""
+        return _mesh.reduce_from(t, mesh, MODEL)
+    q = part(project_heads(a_c, p.wq))
+    k = part(project_heads(a_c, p.wk)) / math.sqrt(dk)
+    v = part(project_heads(a, p.wv))
+    gates = part(a_c.float() @ p.w_gates.float()) + p.b_gates
     i_g = torch.sigmoid(gates[..., :nh])                 # input gate
     log_f = _log_sigmoid(gates[..., nh:] + 3.0)          # forget gate (log)
     k = k * i_g[..., None].to(k.dtype)
@@ -204,12 +243,15 @@ def _mlstm_qkv(p: MLstmParams, x, cfg, conv_cache=None):
 
 
 def _mlstm_out(p: MLstmParams, y_ext, z, x, cfg):
+    mesh, m, r = _model_shard(p.wq.shape[0] != 2 * cfg.d_model)
     dv = p.wv.shape[-1]
     y, n = y_ext[..., :dv], y_ext[..., dv:]
     y = y / torch.clamp(torch.abs(n), min=1.0)
     y = L.rmsnorm(y, p.head_norm, cfg.norm_eps).to(x.dtype)
-    y = y.reshape(*y.shape[:-2], -1) * L.silu(z)
-    return x + y @ p.w_down.to(x.dtype)
+    y = y.reshape(*y.shape[:-2], -1)
+    y = _own(_mesh.copy_to(y, mesh, MODEL), 0, y.shape[-1] // m, r)
+    out = L._mm_out(y * L.silu(z), p.w_down.to(x.dtype))
+    return x + _mesh.reduce_from(out, mesh, MODEL, "blk_out")
 
 
 def mlstm_block(p: MLstmParams, x, cfg: ModelConfig, state=None):
@@ -250,17 +292,18 @@ def init_slstm(generator: torch.Generator, cfg: ModelConfig, device="cuda",
     dh = d // h
     f = 2 * d
 
-    def w(shape):
-        return L.dense_init(generator, shape, dtype=dtype, device=device)
+    def w(shape, logical):
+        return L.dense_init(generator, shape, dtype=dtype, device=device,
+                            logical=logical)
 
     return SLstmParams(
         norm=L.ones_init((d,), dtype, device),
-        w_x=w((d, 4 * d)),
-        w_r=w((h, dh, 4 * dh)),
+        w_x=w((d, 4 * d), ("fsdp", None)),
+        w_r=w((h, dh, 4 * dh), (None, None, None)),
         bias=L.zeros_init((4 * d,), dtype, device),
-        w_mlp_in=w((d, f)),
-        w_mlp_gate=w((d, f)),
-        w_mlp_out=w((f, d)),
+        w_mlp_in=w((d, f), ("fsdp", "model")),
+        w_mlp_gate=w((d, f), ("fsdp", "model")),
+        w_mlp_out=w((f, d), ("model", "fsdp")),
         norm2=L.ones_init((d,), dtype, device),
     )
 
@@ -298,11 +341,13 @@ def slstm_block(p: SLstmParams, x, cfg: ModelConfig, state=None):
         state = _slstm_cell(p, xt[:, step], state, cfg)
         hs.append(state[0])
     x = x + torch.stack(hs, dim=1).to(x.dtype)
-    # post MLP
-    h2 = L.rmsnorm(x, p.norm2, cfg.norm_eps)
+    # post MLP (column- and row-parallel on a model axis)
+    mesh, _, _ = _model_shard(p.w_mlp_in.shape[1] != 2 * cfg.d_model)
+    h2 = _mesh.copy_to(L.rmsnorm(x, p.norm2, cfg.norm_eps), mesh, MODEL)
     g = h2 @ p.w_mlp_gate.to(x.dtype)
     u = h2 @ p.w_mlp_in.to(x.dtype)
-    return x + (L.silu(g) * u) @ p.w_mlp_out.to(x.dtype), state
+    out = L._mm_out(L.silu(g) * u, p.w_mlp_out.to(x.dtype))
+    return x + _mesh.reduce_from(out, mesh, MODEL, "blk_out"), state
 
 
 def slstm_decode(p: SLstmParams, x, cfg: ModelConfig, state):
@@ -339,31 +384,37 @@ def init_mamba2(generator: torch.Generator, cfg: ModelConfig, device="cuda",
     front."""
     d, di, h, hp, n = _m2_dims(cfg)
 
-    def w(shape, scale=None):
+    def w(shape, logical, scale=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
         return L.dense_init(generator, (*stack, *shape), scale=scale,
-                            dtype=dtype, device=device)
+                            dtype=dtype, device=device, logical=logical)
 
     def const(init, shape):
         return init((*stack, *shape), dtype, device)
 
     return Mamba2Params(
         norm=const(L.ones_init, (d,)),
-        w_in=w((d, 2 * di + 2 * n + h)),
-        conv=w((_CONV, di + 2 * n), 0.5),
+        w_in=w((d, 2 * di + 2 * n + h), ("fsdp", "model")),
+        conv=w((_CONV, di + 2 * n), (None, None), 0.5),
         a_log=const(L.zeros_init, (h,)),
         dt_bias=const(L.zeros_init, (h,)),
         d_skip=const(L.ones_init, (h,)),
-        w_out=w((di, d)),
+        w_out=w((di, d), ("model", "fsdp")),
     )
 
 
-def _m2_proj(p: Mamba2Params, x, cfg, conv_cache=None):
+def _m2_proj(p: Mamba2Params, x, cfg, conv_cache=None, normed=False):
     """(q, k, v, log_decay, xs, z, new_conv, xbc): the reference's seven
-    and the conv's input ``xbc``, whose tail a prefill keeps."""
+    and the conv's input ``xbc``, whose tail a prefill keeps (``normed``:
+    ``x`` is the block's normed input already).  On a model axis the
+    ranks' column blocks of the projection are gathered, and everything
+    after it runs whole on every rank (1 / n of its gradient each)."""
     d, di, h, hp, n = _m2_dims(cfg)
-    h0 = L.rmsnorm(x, p.norm, cfg.norm_eps)
-    up = h0 @ p.w_in.to(x.dtype)
+    mesh, m, _ = _model_shard(p.w_in.shape[1] != 2 * di + 2 * n + h)
+    h0 = x if normed else L.rmsnorm(x, p.norm, cfg.norm_eps)
+    h0 = _mesh.copy_to(h0, mesh, MODEL)
+    up = _mesh.scale_grad(_mesh.gather_from(h0 @ p.w_in.to(x.dtype), mesh,
+                                            MODEL, -1), 1 / m)
     z = up[..., :di]
     xbc_in = up[..., di:di + di + 2 * n]
     dt_raw = up[..., di + di + 2 * n:]
@@ -383,12 +434,29 @@ def _m2_proj(p: Mamba2Params, x, cfg, conv_cache=None):
     return q, k, v, log_decay, xs, z, new_conv, xbc_in
 
 
-def _m2_out(p: Mamba2Params, y, xs, z, x, cfg):
+def _m2_gated(p: Mamba2Params, y, xs, z, x, cfg):
+    """The block's output before ``w_out``: the skip and the z gate."""
     d, di, h, hp, n = _m2_dims(cfg)
     y = y + xs.float() * p.d_skip[None, None, :, None]
     y = y.reshape(*y.shape[:2], di).to(x.dtype)
-    y = y * L.silu(z)
-    return x + y @ p.w_out.to(x.dtype)
+    return y * L.silu(z)
+
+
+def _m2_rows(p: Mamba2Params, y: torch.Tensor, cfg) -> torch.Tensor:
+    """This rank's channels of the gated output, for its rows of
+    ``w_out`` (all of them without a model axis)."""
+    mesh, m, r = _model_shard(p.w_out.shape[0] != _m2_dims(cfg)[1])
+    return _own(_mesh.copy_to(y, mesh, MODEL), 0, y.shape[-1] // m, r)
+
+
+def _m2_sum(p: Mamba2Params, out: torch.Tensor, cfg) -> torch.Tensor:
+    mesh, _, _ = _model_shard(p.w_out.shape[0] != _m2_dims(cfg)[1])
+    return _mesh.reduce_from(out, mesh, MODEL, "blk_out")
+
+
+def _m2_out(p: Mamba2Params, y, xs, z, x, cfg):
+    rows = _m2_rows(p, _m2_gated(p, y, xs, z, x, cfg), cfg)
+    return x + _m2_sum(p, L._mm_out(rows, p.w_out.to(x.dtype)), cfg)
 
 
 def mamba2_block(p: Mamba2Params, x, cfg: ModelConfig, state=None):
@@ -397,6 +465,18 @@ def mamba2_block(p: Mamba2Params, x, cfg: ModelConfig, state=None):
     st0 = state[0] if state is not None else None
     y, st = gla_chunked(q, k, v, log_decay, cfg.ssm_chunk, st0)
     return _m2_out(p, y, xs, z, x, cfg), (st, _conv_tail(xbc_in))
+
+
+def mamba2_train(p: Mamba2Params, x, cfg: ModelConfig):
+    """``mamba2_block``'s output alone, its out-projection a
+    ``layers.blk_out`` (kept under ``remat_policy="save_outs"``)."""
+    def core(h0, p):
+        q, k, v, log_decay, xs, z, _, _ = _m2_proj(p, h0, cfg, normed=True)
+        y, _ = gla_chunked(q, k, v, log_decay, cfg.ssm_chunk)
+        return _m2_rows(p, _m2_gated(p, y, xs, z, h0, cfg), cfg)
+    h0 = L.rmsnorm(x, p.norm, cfg.norm_eps)
+    out = L.blk_out(cfg, core, (h0, p), p.w_out.to(x.dtype))
+    return x + _m2_sum(p, out, cfg)
 
 
 def mamba2_decode(p: Mamba2Params, x, cfg: ModelConfig, state):

@@ -22,9 +22,28 @@ the backward runs the layer again), ``cfg.remat_segments`` nests them in
 segments whose inputs alone are kept, and the attention's query chunks
 and the cross-entropy's token chunks are checkpointed as there; the
 values and gradients are those without remat, bit for bit.
-``remat_policy="save_outs"`` (keeping the out-projections' psums out of
-the backward) comes with the parameter partitioning of ROADMAP item
-15.6 and raises.
+``remat_policy="save_outs"`` keeps each block's output after its
+out-projection and all-reduce (``layers.blk_out``) instead of
+checkpointing the whole layer: the backward runs the block's work again
+up to the projection, neither the projection nor its collective.
+
+On a mesh (``sharding.partition.use_mesh``; train mode only, the server
+runs on no mesh) each rank holds its blocks of the parameters and its
+shard of the batch.  FSDP gathers come from ``launch.steps``: the
+stacked layers of the dense, VLM and MoE families as an ``FsdpLayers``,
+whose layer is gathered where the loop takes it, inside the layer's
+remat (so one layer is whole at a time and the backward gathers it
+again), every other leaf before the forward.
+The embedding is vocab-parallel where the table's rows are sharded
+(each rank looks up the ids in its rows, the parts summed over the
+``model`` axis), the loss is ``_xent_vocab_parallel`` where the
+reference's is (a ``model`` axis whose extent divides the vocab), the
+attention, MLP, MoE and recurrent blocks are tensor- and
+expert-parallel (``models.attention``, ``mlp``, ``moe``, ``ssm``), and
+the token sum is summed over the batch axes before the division by the
+global token count.  A rank's backward takes the gradient of its own
+batch shard's part of the loss (``sharding.mesh.reduce_from`` over the
+batch axes); the step sums them.
 
 A forward scopes IEEE f32 in cuBLAS itself (``functional.ieee_f32``), as
 the lowerings do: its results do not depend on the process's TF32 flags.
@@ -43,6 +62,7 @@ with equal logits.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -55,8 +75,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.sharding import mesh as _mesh
+from repro_torch.sharding.partition import current_mesh
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+MODEL = ("model",)
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -69,11 +92,12 @@ def _check_mode(cfg: ModelConfig, mode: str) -> None:
     check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
-    if mode == "train" and cfg.remat and cfg.remat_policy == "save_outs":
+    mesh = current_mesh()
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return
+    if mode != "train":
         raise NotImplementedError(
-            "remat_policy 'save_outs' saves the out-projections' psums, "
-            "which come with the parameter partitioning of ROADMAP item "
-            "15.6")
+            f"{mode} on a model axis: the server runs on no mesh")
 
 
 # ---------------------------------------------------------------------------
@@ -117,18 +141,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
                 device="cuda", dtype=torch.float32) -> dict:
     """The model's parameters drawn from ``generator`` (on its device,
     each leaf cast to ``dtype`` as it is drawn, then moved to ``device``;
-    ``device="meta"`` gives shapes without drawing)."""
+    ``device="meta"`` gives shapes without drawing, ``device=L.AXES``
+    each leaf's logical axes, the reference's ``split_params(...)[1]``)."""
     check_family(cfg)
     d = cfg.d_model
+    vocab = ("model", "fsdp")
     params: dict[str, Any] = {
         "embed": L.dense_init(generator, (cfg.vocab, d), scale=0.02,
-                              dtype=dtype, device=device),
+                              dtype=dtype, device=device, logical=vocab),
         "final_norm": L.ones_init((d,), dtype, device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, (cfg.vocab, d),
                                          scale=0.02, dtype=dtype,
-                                         device=device)
+                                         device=device, logical=vocab)
     fam = cfg.family
     n = cfg.n_layers
     if fam in ("dense", "vlm"):
@@ -232,8 +258,20 @@ def _rope(cfg: ModelConfig, positions, mrope_positions=None):
     return L.rope_cos_sin(positions, hd, cfg.rope_theta)
 
 
+class FsdpLayers:
+    """A stacked ``[L, ...]`` layer tree of this rank's FSDP blocks and
+    ``gather``, which makes one layer's blocks whole (``launch.steps``:
+    an all-gather whose backward reduce-scatters)."""
+
+    def __init__(self, tree, gather):
+        self.tree, self.gather = tree, gather
+
+
 def _layer(tree, i):
-    """Layer ``i`` of a stacked ``[L, ...]`` tree."""
+    """Layer ``i`` of a stacked ``[L, ...]`` tree (of an ``FsdpLayers``,
+    gathered whole)."""
+    if isinstance(tree, FsdpLayers):
+        return tree.gather(_layer(tree.tree, i))
     return _tree.tree_map(lambda v: v[i], tree)
 
 
@@ -247,8 +285,10 @@ def _stack(trees):
 # ---------------------------------------------------------------------------
 
 def _remat(fn, cfg: ModelConfig, train: bool):
-    """``fn`` checkpointed per call under ``cfg.remat`` in train mode."""
-    if not (train and cfg.remat):
+    """``fn`` checkpointed per call under ``cfg.remat`` in train mode
+    (``save_outs``: not as a whole, its blocks' outputs kept by
+    ``layers.blk_out``)."""
+    if not (train and cfg.remat) or L.saves_outs(cfg):
         return fn
     return lambda *args: L.remat(fn, *args)
 
@@ -277,12 +317,14 @@ def backbone(params, cfg: ModelConfig, h, *, mode: str, cache=None,
             return (*_dense_block(lp, hh, cfg, cos, sin, kv, pos), None)
 
         if train:
-            layer = _remat(block, cfg, train)
+            # the layer taken inside its remat: an FSDP layer's gather too
+            layer = _remat(lambda i, hh: block(_layer(layers, i), hh), cfg,
+                           train)
 
             def run(lo, hi, hh, aa):
                 """Layers lo..hi-1, each remat'ed: (h, aux)."""
                 for i in range(lo, hi):
-                    hh, _, a = layer(_layer(layers, i), hh)
+                    hh, _, a = layer(i, hh)
                     if a is not None:
                         aa = aa + a
                 return hh, aa
@@ -327,9 +369,10 @@ def backbone(params, cfg: ModelConfig, h, *, mode: str, cache=None,
     if fam == "hybrid":
         groups, per = cfg.n_layers // cfg.attn_every, cfg.attn_every
         sp = params["shared_attn"]
+        shared_cfg = dataclasses.replace(cfg, remat_policy="nothing")
         # train: each Mamba-2 layer remat'ed, the shared block not (as in
         # the reference), no states kept
-        mamba = _remat(lambda lp, hh: S.mamba2_block(lp, hh, cfg)[0], cfg,
+        mamba = _remat(lambda lp, hh: S.mamba2_train(lp, hh, cfg), cfg,
                        train)
         new_ssm, new_kv = [], []
         for g in range(groups):
@@ -347,11 +390,12 @@ def backbone(params, cfg: ModelConfig, h, *, mode: str, cache=None,
                 sts.append(st)
             if not train:
                 new_ssm.append(_stack(sts))
-            # the shared attention block after each group
+            # the shared attention block after each group (never remat'ed:
+            # its out-projections are not kept apart either)
             kv = (cache["kv"][0][g], cache["kv"][1][g]) if decode else None
-            h, kv = _attn_block(sp, h, cfg, cos, sin, kv, pos)
+            h, kv = _attn_block(sp, h, shared_cfg, cos, sin, kv, pos)
             h = h + mlp(sp["mlp"], L.rmsnorm(h, sp["norm2"], cfg.norm_eps),
-                        cfg)
+                        shared_cfg)
             new_kv.append(kv)
         if train:
             return h, {}, aux
@@ -368,8 +412,7 @@ def backbone(params, cfg: ModelConfig, h, *, mode: str, cache=None,
             cos=cos, sin=sin, cache_pos=pos, kv_cache=kv_cache)
         hh = hh + a
         if xkv is None:
-            xkv = tuple(A.project_heads(enc_out, w) for w in
-                        (lp["cross_attn"].wk, lp["cross_attn"].wv))
+            xkv = A.cross_kv(lp["cross_attn"], enc_out, cfg)
         c, _ = A.attention(lp["cross_attn"],
                            L.rmsnorm(hh, lp["norm_x"], cfg.norm_eps), cfg,
                            xattn_kv=xkv)
@@ -448,25 +491,86 @@ def _xent_sum(hc, lc, table):
 
 
 def chunked_xent(params, cfg: ModelConfig, h, labels):
-    """Training cross-entropy without the whole [T, V] logits at once: the
-    reference's path without a mesh (its vocab-parallel path under a
-    ``model`` axis comes with ROADMAP item 15.6).  The final norm, then
-    the whole logits when the T = B*S tokens are at most ``cfg.xent_chunk``
-    or not a multiple of it; else a loop over chunks of that many tokens,
-    each checkpointed, summed in f32 and divided by T."""
+    """Training cross-entropy without the whole [T, V] logits at once.
+    The final norm, then on a mesh whose ``model`` extent divides the
+    vocab ``_xent_vocab_parallel``; otherwise the whole logits when the
+    T = B*S tokens are at most ``cfg.xent_chunk`` or not a multiple of
+    it, else a loop over chunks of that many tokens, each checkpointed,
+    summed in f32 and divided by T (on a mesh: the sum over the batch
+    axes, divided by the global T)."""
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     table = params.get("lm_head", params["embed"])
     b, s, d = h.shape
     t = b * s
     hf, lf = h.reshape(t, d), labels.reshape(t)
     chunk = cfg.xent_chunk or _XENT_CHUNK
-    if t % chunk != 0 or t <= chunk:
+    mesh = current_mesh()
+    if mesh is not None and "model" in mesh.axis_names \
+            and cfg.vocab % mesh.shape["model"] == 0:
+        return _xent_vocab_parallel(mesh, hf, lf, table, chunk)
+    if mesh is None and (t % chunk != 0 or t <= chunk):
         return cross_entropy(hf @ table.to(h.dtype).T, lf)
-    acc = torch.zeros((), dtype=torch.float32, device=h.device)
-    for start in range(0, t, chunk):
-        sl = slice(start, start + chunk)
-        acc = acc + L.remat(_xent_sum, hf[sl], lf[sl], table)
-    return acc / t
+    if t % chunk != 0 or t <= chunk:
+        acc = _xent_sum(hf, lf, table)
+    else:
+        acc = torch.zeros((), dtype=torch.float32, device=h.device)
+        for start in range(0, t, chunk):
+            sl = slice(start, start + chunk)
+            acc = acc + L.remat(_xent_sum, hf[sl], lf[sl], table)
+    if mesh is None:
+        return acc / t
+    batch = mesh.batch_axes
+    return (_mesh.reduce_from(acc, mesh, batch)
+            / (t * _mesh.axis_size(mesh, batch)))
+
+
+def _xent_vocab_parallel(mesh, hf, lf, table, chunk):
+    """The reference's vocab-parallel cross-entropy (Megatron-style):
+    this rank's tokens ``hf`` [T_loc, D] against its rows of the table,
+    in chunks of ``chunk`` tokens (each checkpointed), the logsumexp
+    distributed over the ``model`` axis (a max of the gradient-free
+    per-rank maxima, then a sum), the label logit taken on the one rank
+    whose rows hold it; the token sum summed over the batch axes and
+    divided by the global token count."""
+    batch = mesh.batch_axes
+    t_loc, d = hf.shape
+    v_loc = table.shape[0]
+    v0 = _mesh.axis_index(mesh, MODEL) * v_loc
+    hf = _mesh.copy_to(hf, mesh, MODEL)
+    tbl = table.to(hf.dtype)
+    c = chunk if t_loc % chunk == 0 and t_loc > chunk else t_loc
+
+    def body(hc, lc, tbl):
+        logits = (hc @ tbl.T).float()
+        mx = _mesh.psum(logits.detach().amax(dim=-1), mesh, MODEL, "max")
+        ssum = _mesh.reduce_from(
+            torch.sum(torch.exp(logits - mx[:, None]), dim=-1), mesh, MODEL)
+        lse = mx + torch.log(ssum)
+        mine = (lc >= v0) & (lc < v0 + v_loc)
+        idx = torch.clamp(lc.long() - v0, 0, v_loc - 1)
+        ll = torch.gather(logits, -1, idx[:, None])[:, 0]
+        ll = _mesh.reduce_from(torch.where(mine, ll, 0.0), mesh, MODEL)
+        return torch.sum(lse - ll)
+
+    acc = torch.zeros((), dtype=torch.float32, device=hf.device)
+    for start in range(0, t_loc, c):
+        sl = slice(start, start + c)
+        acc = acc + L.remat(body, hf[sl], lf[sl], tbl)
+    acc = _mesh.reduce_from(acc, mesh, batch)
+    return acc / (t_loc * _mesh.axis_size(mesh, batch))
+
+
+def embed(params, cfg: ModelConfig, tokens, dtype):
+    """The token embeddings in ``dtype``: where the table's rows are
+    sharded over the ``model`` axis, each rank's lookup in its rows,
+    summed over the axis."""
+    table = params["embed"]
+    if table.shape[0] == cfg.vocab:
+        return L.embed_lookup(table, tokens).to(dtype)
+    mesh = current_mesh()
+    v0 = _mesh.axis_index(mesh, MODEL) * table.shape[0]
+    part = L.vocab_parallel_lookup(table, tokens, v0).to(dtype)
+    return _mesh.reduce_from(part, mesh, MODEL)
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
@@ -487,7 +591,7 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
     with ieee_f32():
         tokens = batch["tokens"]
         b, s = tokens.shape
-        h = L.embed_lookup(params["embed"], tokens).to(param_dtype)
+        h = embed(params, cfg, tokens, param_dtype)
 
         if batch.get("prefix_embeds") is not None:
             pe = batch["prefix_embeds"].to(h.dtype)
@@ -521,6 +625,38 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
         if mode == "prefill":
             h = h[:, -1:]
         return logits_fn(params, cfg, h), new_cache
+
+
+def cache_logical(cfg: ModelConfig, seq_shard: bool = False):
+    """The logical axes of ``init_cache``'s tree, the reference's (its
+    ``kv_seq_shard`` and ``seq_shard`` branches).  Axes only: the port's
+    server decodes on no mesh, so nothing cuts a cache by them yet.
+
+    ``seq_shard=True`` (long_500k: one sequence) puts the KV sequence dim
+    on the data axis instead of the batch dim; ``cfg.kv_seq_shard`` puts
+    it on the model axis where the KV heads cannot shard (MQA/GQA heads
+    fewer than the axis)."""
+    check_family(cfg)
+    seq = "seq" if seq_shard else None
+    bat = None if seq_shard else "batch"
+    if cfg.kv_seq_shard and not seq_shard:
+        kv = (None, bat, "model", None, None)
+    else:
+        kv = (None, bat, seq, "model", None)
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe"):
+        return {"kv": (kv, kv), "pos": ()}
+    if fam == "ssm":
+        return {"states": [
+            (("batch", None),) * 3 if _is_slstm(cfg, i)
+            else (("batch", None, None, None), ("batch", None, "model"))
+            for i in range(cfg.n_layers)], "pos": ()}
+    if fam == "hybrid":
+        return {"ssm": ((None, None, "batch", "model", None, None),
+                        (None, None, "batch", None, None)),
+                "kv": (kv, kv), "pos": ()}
+    cross = (None, "batch", None, "model", None)
+    return {"kv": (kv, kv), "cross": (cross, cross), "pos": ()}
 
 
 def init_cache(params, cfg: ModelConfig, batch: int, max_len: int):

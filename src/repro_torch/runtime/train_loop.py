@@ -49,12 +49,16 @@ def _block_until_ready(tree) -> None:
 
 class Trainer:
     def __init__(self, step_fn, params, opt_state, data,
-                 loop_cfg: TrainLoopConfig, telemetry=None):
+                 loop_cfg: TrainLoopConfig, telemetry=None, specs=None,
+                 mesh=None):
         """step_fn(params, opt_state, batch) -> (params, opt_state, metrics);
         data.next() -> batch; data restartable from a step index.
         ``telemetry`` (a ``repro_torch.obs.Telemetry``) records a
         ``train_step_seconds`` histogram, a ``train_stragglers_total``
-        counter and per-metric gauges at log points."""
+        counter and per-metric gauges at log points.  ``specs`` (the
+        partition specs of ``{"params": ..., "opt": ...}``) and ``mesh``
+        make the checkpoints whole trees of the ranks' blocks
+        (``Checkpointer``); every rank then runs the loop."""
         self.step_fn = step_fn
         self.params = params
         self.opt_state = opt_state
@@ -66,7 +70,8 @@ class Trainer:
         self._straggler_ctr = (telemetry.counter("train_stragglers_total")
                                if telemetry is not None else None)
         self.ckpt = Checkpointer(loop_cfg.checkpoint_dir,
-                                 async_save=loop_cfg.async_checkpoint)
+                                 async_save=loop_cfg.async_checkpoint,
+                                 specs=specs, mesh=mesh)
         self.step = 0
         self._saved_step = None
         self.metrics_log: list[dict] = []

@@ -493,17 +493,64 @@ def test_error_state_rows_cross_over():
         assert float(e[0].abs().max()) == float(e[2].abs().max()) == 0.0
 
 
-def test_launcher_refuses_a_model_axis():
-    """``--model-parallel`` above 1 would run ranks that duplicate each
-    other's steps (the DP steps partition no parameter over a model axis),
-    so the launcher refuses it before joining a world."""
-    import torch.distributed as dist
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
-    from repro_torch.launch import train as launch_train
-    with pytest.raises(NotImplementedError, match="model-parallel"):
-        launch_train.main(["--arch", "dcgan", "--reduced", "--dp",
-                           "--device", "cpu", "--model-parallel", "2"])
-    assert not dist.is_initialized()
+
+def _launch(argv, world: int = 2) -> list[str]:
+    """``python -m repro_torch.launch.train argv`` on ``world`` gloo ranks
+    that find each other through torchrun's variables; their outputs."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = _wait_all(procs)
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    return logs
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "dcgan"])
+def test_launcher_trains_on_a_model_axis(arch, tmp_path):
+    """``--model-parallel 2`` on a gloo world of 2 ranks.  An LM trains
+    partitioned over the model axis: rank 0 writes each checkpoint whole
+    (the embedding's every row), and a second run resumes from it on the
+    same world.  A DCNN's ``--dp`` steps run as the reference's launcher
+    runs them on that mesh: a data axis of 1, so both ranks along the
+    model axis take the same step on the same batch and end with the
+    same parameters."""
+    ck = tmp_path / "ck"
+    argv = ["--arch", arch, "--reduced", "--device", "cpu",
+            "--model-parallel", "2", "--checkpoint-dir", str(ck),
+            "--checkpoint-every", "2"]
+    if arch == "dcgan":
+        logs = _launch(argv + ["--dp", "--steps", "2"])
+        assert all("finished at step 2" in log for log in logs), logs
+        from repro_torch.checkpoint import Checkpointer
+        ranks = [Checkpointer(tmp_path / f"ck-dp/rank{r}") for r in (0, 1)]
+        assert [c.latest_valid_step() for c in ranks] == [2, 2]
+        d0, d1 = (tmp_path / f"ck-dp/rank{r}/step_00000002" for r in (0, 1))
+        for leaf in sorted(d0.glob("leaf_*.npy")):
+            np.testing.assert_array_equal(np.load(leaf),
+                                          np.load(d1 / leaf.name))
+        return
+    lm = ["--batch", "4", "--seq", "16"]
+    logs = _launch(argv + lm + ["--steps", "2"])
+    assert all("partitioned LM: rank" in log and "finished at step 2" in
+               log for log in logs), logs
+    cfg = get_config(arch).reduced()
+    manifest = json.loads((ck / "step_00000002/manifest.json").read_text())
+    shapes = [tuple(m["shape"]) for m in manifest["leaves"]]
+    assert (cfg.vocab, cfg.d_model) in shapes         # the embedding, whole
+    logs = _launch(argv + lm + ["--steps", "3", "--resume"])
+    assert all("resume: ok, step=2" in log and "finished at step 3" in log
+               for log in logs), logs
 
 
 def test_round_batch_to_mesh():

@@ -576,11 +576,11 @@ def test_params_from_numpy_checks_the_lm_tree():
                           cfg=get_config("llama3_2_1b").reduced())
 
 
-def test_train_mode_names_its_slice(models):
+def test_train_mode_gives_the_loss(models):
     """Train mode gives the loss, the JAX package's on the same
-    parameters and batch, and the MoE term (0 for a dense model); the one
-    remat policy the port leaves out, ``save_outs``, raises naming the
-    slice that brings it (ROADMAP item 15.6)."""
+    parameters and batch, and the MoE term (0 for a dense model), under
+    either remat policy (``save_outs`` keeps the blocks' outputs, the
+    loss the same)."""
     m = models("llama3_2_1b")
     toks = np.random.RandomState(3).randint(0, m.cfg.vocab, (B, S + 1))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -592,8 +592,9 @@ def test_train_mode_names_its_slice(models):
     assert loss.shape == () and float(metrics["aux"]) == 0.0
     assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
     cfg = dataclasses.replace(m.cfg, remat_policy="save_outs")
-    with pytest.raises(NotImplementedError, match="15.6"):
-        T.forward(m.params, cfg, _to_torch(batch))
+    saved, _ = T.forward(m.params, cfg, _to_torch(batch),
+                         param_dtype=torch.float32)
+    assert float(saved) == float(loss)
 
 
 def test_argmax_ties_take_the_first_index():

@@ -23,7 +23,7 @@ from repro.core import networks as JN  # noqa: E402
 from repro.launch import steps as JS  # noqa: E402
 from repro.sharding import partition as JP  # noqa: E402
 from repro_torch import tree  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ASSIGNED, get_config  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
 from repro_torch.core import networks as TN  # noqa: E402
 from repro_torch.launch import mesh as M  # noqa: E402
@@ -128,17 +128,19 @@ def test_conv_weight_axes_match_the_reference(rank):
 
 
 @pytest.mark.parametrize("reduced", [True, False])
-@pytest.mark.parametrize("arch", ["dcgan", "gp-gan", "3d-gan", "v-net"])
+@pytest.mark.parametrize("arch", ["dcgan", "gp-gan", "3d-gan", "v-net",
+                                  *ASSIGNED])
 def test_param_axes_cross_over(arch, reduced):
     """Each parameter's logical axes are the reference initialisers'
-    (``split_params``), leaf for leaf, and fit the parameter's rank."""
+    (``split_params``), leaf for leaf, and fit the parameter's rank: the
+    DCNNs' and every LM's (stacked layers with their leading ``None``,
+    as the port stacks them too; xLSTM's list of layers)."""
     jcfg, tcfg = jax_config(arch), get_config(arch)
     if reduced:
         jcfg, tcfg = jcfg.reduced(), tcfg.reduced()
     shapes, logical = JS.abstract_params(jcfg)
     want = jax.tree_util.tree_leaves(logical, is_leaf=JP.is_logical_leaf)
-    got = tree.leaves(TS.param_axes(tcfg),
-                      is_leaf=lambda x: isinstance(x, tuple))
+    got = tree.leaves(TS.param_axes(tcfg), is_leaf=TP.is_logical_leaf)
     assert got == [tuple(a) for a in want]
     dims = [s.ndim for s in jax.tree_util.tree_leaves(shapes)]
     assert [len(a) for a in got] == dims
