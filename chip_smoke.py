@@ -197,7 +197,12 @@ Phases, any failure of which exits non-zero before the result line:
      no hand-kernel launch on any rank (each wrapper's count set to 0
      just before its step and read just after); per rank the step ms,
      the collectives by axis (calls, bytes), peak GB and its parameter
-     bytes against the whole model's;
+     bytes against the whole model's; then llama3.2-1b served on the
+     same (1 x 2) ranks, head-parallel and split-KV (``kv_seq_shard``),
+     f32: a prefill of 2 x 128 tokens and 4 greedy decode steps, the
+     prefill's and each step's logits and the final cache (gathered)
+     within 1e-4 of max |x| of the same run unpartitioned here on the
+     card, the greedy tokens equal, no hand-kernel launch;
   5. times — each kernel at every call shape the main path gave it (CUDA
      events; the serve and train runs record each wrapper's calls by
      shape) beside its plain version, one cuDNN call computing the same
@@ -213,6 +218,15 @@ Phases, any failure of which exits non-zero before the result line:
      batch of each model end to end under each policy
      (every batch served by ``"pallas"``, no bucket fallen back), and
      whole train steps;
+     dry run — ``launch.dryrun``'s abstract steps (``dryrun_phase``, no
+     world, ``meta`` tensors): llama3.2-1b at the train (LM) phase's
+     shape on a 1 x 1 mesh, its argument bytes and FLOPs equal to one
+     real step's on the card (``FlopCounterMode``), its roofline beside
+     that phase's median step and peak memory; V-Net training at full
+     width, the kernel wrappers' dry tally equal to
+     ``train_step_launches`` and to the train phase's counted launches,
+     its roofline beside the measured step; llama3.2-1b ``train_4k`` on
+     the abstract 16 x 16 layout, traced ``ok``;
   6. runtime report — ``obs.measure_network`` of full-width V-Net and
      DCGAN at batch 4: every node alone (the device's time on CUDA
      events, the host's issue time beside it) against the calibrated f32
@@ -564,6 +578,13 @@ LM_SHARDED_F32_UPDATE = 0.35
 LM_SHARDED_APART = 1e-3
 LM_SHARDED_BF16_APART = 0.25
 LM_SHARDED_SAMPLE = 1 << 20     # elements of each leaf compared (every k-th)
+# the sharded (LM) phase's serve cases (lm_sharded_serve_cases): a prompt
+# of LM_TRAIN_SEQ tokens a row, then LM_SHARDED_SERVE_STEPS greedy decode
+# steps against a cache of LM_SHARDED_SERVE_LEN positions, f32 weights and
+# cache; logits, cache and tokens against the unpartitioned forward at
+# LM_SHARDED_F32_TOL of max |x|
+LM_SHARDED_SERVE_STEPS = 4
+LM_SHARDED_SERVE_LEN = LM_TRAIN_SEQ + 2 * LM_SHARDED_SERVE_STEPS
 
 
 def lm_adam_step() -> float:
@@ -1125,6 +1146,111 @@ def lm_sharded_cases(spec: dict) -> list[dict]:
              "moe": True}]
 
 
+def lm_sharded_serve_cases(spec: dict) -> list[dict]:
+    """llama3.2-1b at full width and LM_SHARDED_LAYERS layers served on
+    (1 data x 2 model): head-parallel (each rank its 4 of 8 KV heads'
+    cache), and split-KV (``kv_seq_shard``: every head, the cache's
+    positions cut over ``model``, the partial softmaxes combined)."""
+    llama = {"arch": "llama3.2-1b", "layers": spec["layers"],
+             "batch": LM_SHARDED_BATCH}
+    return [{"name": "serve_heads", **llama},
+            {"name": "serve_split_kv", "kv_seq_shard": True, **llama}]
+
+
+def lm_serve_setup(case: dict, spec: dict, dev):
+    """(config, prompt tokens on ``dev``) of a serve case: f32 weights."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(case["arch"])
+    if spec["reduced"]:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, n_layers=min(case["layers"],
+                                                cfg.n_layers),
+                              master_dtype="float32",
+                              kv_seq_shard=case.get("kv_seq_shard", False))
+    toks = torch.randint(0, cfg.vocab, (case["batch"], LM_TRAIN_SEQ),
+                         generator=torch.Generator().manual_seed(7))
+    return cfg, toks.to(dev)
+
+
+def lm_serve_run(cfg, toks, params, dev, mesh=None, specs=None):
+    """The prefill of ``toks`` and LM_SHARDED_SERVE_STEPS greedy decode
+    steps, on ``mesh`` (this rank's blocks; ``None``: one process): the
+    prefill's logits, the decode steps' logits, the greedy tokens and
+    the final cache (gathered whole on a mesh), each on the host, and
+    the prefill's and decode steps' ms.  The decode cache is the
+    prefill's, gathered whole over its heads and cut by
+    ``launch.steps.cache_specs`` (positions over ``model`` under
+    ``kv_seq_shard``)."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serve_loop import splice
+    from repro_torch.sharding import mesh as SM
+    from repro_torch.sharding import partition as P
+    rows, s = toks.shape
+    c_specs = None
+    if mesh is not None:
+        _, c_specs = ST.cache_specs(cfg, ShapeConfig(
+            "d", "decode", LM_SHARDED_SERVE_LEN, rows), mesh)
+
+    def whole(cache):
+        leaves = [t for t in tree.leaves(cache) if torch.is_tensor(t)]
+        if mesh is None:
+            return [t.cpu() for t in leaves]
+        out = []
+        for t, sp in zip(tree.leaves(cache), P.spec_leaves(c_specs, cache)):
+            if torch.is_tensor(t):
+                for d, e in enumerate(sp):
+                    if e is not None:
+                        t = SM.gather(t, mesh, P.spec_axes(e), d)
+                out.append(t.cpu())
+        return out
+
+    def forward(batch, mode, cache=None):
+        if mesh is None:
+            return T.forward(params, cfg, batch, mode=mode, cache=cache,
+                             param_dtype=torch.float32)
+        return ST.serve_forward(params, cfg, batch, mode, cache, mesh,
+                                specs, c_specs, torch.float32)
+
+    def synced():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+    t0 = synced()
+    logits, pcache = forward({"tokens": toks}, "prefill")
+    prefill_ms = 1e3 * (synced() - t0)
+    k, v = pcache["kv"]
+    if mesh is not None:
+        # the prefill's cache holds this rank's KV heads
+        k, v = (SM.gather(t, mesh, ("model",), 3) for t in (k, v))
+    cache = T.init_cache(None, cfg, rows, LM_SHARDED_SERVE_LEN, device=dev)
+    cache["kv"] = tuple(t.float() for t in cache["kv"])
+    cache = splice(cache, {"kv": (k, v)}, s)
+    if mesh is not None:
+        cache = tree.unflatten(cache, [
+            P.local_block(t, sp, mesh).clone() if torch.is_tensor(t) else t
+            for t, sp in zip(tree.leaves(cache),
+                             P.spec_leaves(c_specs, cache))])
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    toks_out, d_logits, d_ms = [tok.cpu()], [], []
+    for _ in range(LM_SHARDED_SERVE_STEPS):
+        t0 = synced()
+        lg, cache = forward({"tokens": tok[:, None]}, "decode", cache)
+        d_ms.append(1e3 * (synced() - t0))
+        d_logits.append(lg.cpu())
+        tok = torch.argmax(lg[:, -1], dim=-1)
+        toks_out.append(tok.cpu())
+    return {"prefill": logits.cpu(), "decode": d_logits,
+            "tokens": torch.stack(toks_out), "cache": whole(cache),
+            "prefill_ms": prefill_ms, "decode_ms": d_ms}
+
+
 def lm_sharded_setup(case: dict, spec: dict, dev):
     """(config, global batch on ``dev``, AdamWConfig) of a case."""
     import torch
@@ -1322,10 +1448,32 @@ def lm_sharded_rank(rank: int, world: int, backend: str, rendezvous: str,
             rows.append(row)
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
+        serve = []
+        for case in lm_sharded_serve_cases(spec):
+            mesh = meshes["tp"]
+            cfg, toks = lm_serve_setup(case, spec, dev)
+            params = ST.real_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev, mesh)
+            SM.reset_collective_stats()
+            zero_launch_counts(dk, ck)
+            res = lm_serve_run(cfg, toks, params, dev, mesh,
+                               ST.param_specs(cfg, mesh))
+            stats = SM.collective_stats()
+            res.update(case=case["name"], rank=rank,
+                       launches=launch_counts(dk, ck),
+                       collectives={f"{op}/{'+'.join(ax)}": {"calls": n,
+                                                             "bytes": b}
+                                    for (op, ax), (n, b) in stats.items()})
+            if rank:        # the rows are whole on every rank: keep one
+                res["prefill"] = None
+            serve.append(res)
+            del params
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
     finally:
         M.leave_world()
     Path(out_dir, f"{job}.rank{rank}.pkl").write_bytes(
-        pickle.dumps({"rank": rank, "rows": rows}))
+        pickle.dumps({"rank": rank, "rows": rows, "serve": serve}))
 
 
 def lm_sharded_phase(smi: str, detail: dict, backend: str = "gloo",
@@ -1405,8 +1553,76 @@ def lm_sharded_phase(smi: str, detail: dict, backend: str = "gloo",
               f"lr apart (limit {most:.3g}), {res['update_apart_share']:.3g}"
               f" of a leaf's elements beyond {LM_SHARDED_APART} lr "
               f"(limit {share})")
+    lm_sharded_serve_check(ranks, spec, dev, smi, backend, out)
     out["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps({"sharded_lm_s": out["phase_s"], "card": smi}))
+
+
+def lm_sharded_serve_check(ranks: list, spec: dict, dev, smi: str,
+                           backend: str, out: dict) -> None:
+    """Each serve case's ranks against the same prefill and greedy decode
+    unpartitioned here on ``dev``: the prefill's and every decode step's
+    logits and the final cache (gathered) within LM_SHARDED_F32_TOL of
+    max |x|, the greedy tokens equal, the ranks' tokens equal, no
+    hand-kernel launch."""
+    import torch
+
+    from repro_torch.kernels.conv import kernel as ck
+    from repro_torch.kernels.deconv import kernel as dk
+    from repro_torch.launch import steps as ST
+
+    def rel(got, want) -> float:
+        want = want.double()
+        return float((got.double() - want).abs().max()
+                     / want.abs().max().clamp_min(1e-30))
+    for case in lm_sharded_serve_cases(spec):
+        rows = sorted((r for res in ranks for r in res["serve"]
+                       if r["case"] == case["name"]),
+                      key=lambda r: r["rank"])
+        cfg, toks = lm_serve_setup(case, spec, dev)
+        params = ST.real_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        zero_launch_counts(dk, ck)
+        want = lm_serve_run(cfg, toks, params, dev)
+        one_launches = launch_counts(dk, ck)
+        del params
+        got = rows[0]
+        res = {"prefill_rel_err": rel(got["prefill"], want["prefill"]),
+               "decode_rel_err": max(rel(a, b) for a, b in
+                                     zip(got["decode"], want["decode"])),
+               "cache_rel_err": max(rel(a, b) for a, b in
+                                    zip(got["cache"], want["cache"])),
+               "cache_leaves": [len(got["cache"]), len(want["cache"])],
+               "tokens_equal": bool(torch.equal(got["tokens"],
+                                                want["tokens"])),
+               "ranks_tokens_equal": all(torch.equal(r["tokens"],
+                                                     got["tokens"])
+                                         for r in rows),
+               "prefill_ms": [r["prefill_ms"] for r in rows],
+               "decode_ms": [r["decode_ms"] for r in rows],
+               "one_prefill_ms": want["prefill_ms"],
+               "one_decode_ms": want["decode_ms"],
+               "launches": [r["launches"] for r in rows],
+               "one_launches": one_launches,
+               "collectives": [r["collectives"] for r in rows]}
+        out[case["name"]] = res
+        print(json.dumps({"sharded_lm_serve": case["name"], **res,
+                          "backend": backend, "card": smi}))
+        tol = LM_SHARDED_F32_TOL
+        check(res["prefill_rel_err"] <= tol and res["decode_rel_err"] <= tol
+              and res["cache_rel_err"] <= tol
+              and res["cache_leaves"][0] == res["cache_leaves"][1],
+              f"{case['name']}: partitioned serve vs one process {res}")
+        check(res["tokens_equal"] and res["ranks_tokens_equal"],
+              f"{case['name']}: greedy tokens differ {res}")
+        check(not any(v for r in res["launches"] + [one_launches]
+                      for v in r.values()),
+              f"{case['name']}: hand kernels launched {res['launches']}")
+        check(any(k.startswith("all_reduce") for k in got["collectives"]),
+              f"{case['name']}: no all-reduce over model "
+              f"{got['collectives']}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def lm_sharded_reference(case: dict, rows: list, spec: dict, dev) -> dict:
@@ -1928,6 +2144,125 @@ def lm_train_phase(dev, smi: str, detail: dict, counts, zero_counts) -> None:
                       "train_lm_s": out["phase_s"]}))
     check(not any(launches.values()),
           f"the LM training path launched hand kernels: {launches}")
+
+
+# -- the dry run phase ---------------------------------------------------------
+
+# the production cell it traces (rank 0 of the 16 x 16 layout, no world)
+DRYRUN_CELL = ("llama3.2-1b", "train_4k")
+
+
+def dryrun_phase(dev, smi: str, detail: dict) -> None:
+    """The dry run (``launch.dryrun``) against the steps it predicts:
+    (a) llama3.2-1b at full width and depth at the train (LM) phase's
+    shape on a 1 x 1 mesh without a world: its argument bytes and FLOPs
+    held exactly against one real step on the card (``FlopCounterMode``),
+    its roofline printed beside that phase's median step and peak memory;
+    (b) V-Net training at full width on a 1 x 1 mesh: the kernel
+    wrappers' dry tally held against ``train_step_launches`` and the
+    launches the train phase counted, its roofline beside the measured
+    step; (c) one production cell on the abstract 16 x 16 layout, which
+    must trace ``ok``.  Reads ``detail["train_lm"]``,
+    ``detail["train"]["v-net"]`` and ``detail["train_step_ms"]["v-net"]``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import TokenBatches
+    from repro_torch.launch import analysis as AN
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    phase("dry run")
+    t_phase = time.perf_counter()
+    out: dict = {"card": smi}
+    detail["dryrun"] = out
+    one = abstract_mesh((1, 1))
+    keys = ("compute_s", "memory_s", "collective_s", "step_s", "dominant")
+
+    # (a) llama3.2-1b, the train (LM) phase's shape
+    cfg = get_config(LM_TRAIN_ARCH)
+    shape = ShapeConfig("train_lm", "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+    t0 = time.perf_counter()
+    bundle = ST.build_bundle(cfg, shape, one)
+    _, rec = AN.analyse_step(bundle.fn, bundle.args, one, 1,
+                             alias=bundle.args[:2])
+    trace_s = time.perf_counter() - t0
+    opt = AdamWConfig(state_bits=cfg.opt_state_bits)
+    torch.cuda.empty_cache()
+    params = ST.real_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    state = adamw_init(params, opt)
+    batch = TokenBatches(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                         prefetch=False, device=dev).make_batch(0)
+    real_bytes = AN.tree_bytes((params, state, batch))
+    with FlopCounterMode(display=False) as fc:
+        ST.make_train_step(cfg, opt)(params, state, batch)
+    torch.cuda.synchronize()
+    real_flops = fc.get_total_flops()
+    del params, state, batch
+    torch.cuda.empty_cache()
+    lm = detail.get("train_lm", {})
+    rl = rec["roofline"]
+    out["llama"] = {
+        "shape": [LM_TRAIN_BATCH, LM_TRAIN_SEQ], "trace_s": trace_s,
+        "predicted": {**{k: rl[k] for k in keys},
+                      "step_ms": 1e3 * rl["step_s"],
+                      "total_per_device_gb":
+                          rec["memory"]["total_per_device"] / 1e9,
+                      "flops": rl["flops_per_device"]},
+        "memory": rec["memory"],
+        "measured": {"step_ms": lm.get("step_ms"),
+                     "peak_mem_gb": lm.get("peak_mem_gb")},
+        "argument_bytes": rec["memory"]["argument_bytes"],
+        "real_step_bytes": real_bytes,
+        "real_step_flops": real_flops}
+    print(json.dumps({"dryrun_llama": out["llama"]}))
+    check(rec["memory"]["argument_bytes"] == real_bytes,
+          f"dry run: llama's argument bytes {rec['memory']['argument_bytes']}"
+          f" against the real step's {real_bytes}")
+    check(rl["flops_per_device"] == real_flops,
+          f"dry run: llama's abstract FLOPs {rl['flops_per_device']} "
+          f"against the real step's {real_flops}")
+
+    # (b) V-Net training, its kernels' tally
+    cfg = get_config("v-net")
+    bundle = ST.build_bundle(cfg, None, one)
+    _, rec = AN.analyse_step(bundle.fn, bundle.args, one, 1,
+                             alias=bundle.args[:2])
+    tally = {k: v["calls"] for k, v in rec["kernels"].items()}
+    want = ST.train_step_launches(cfg)
+    counted = detail["train"]["v-net"]["counted_per_step"]
+    ms = detail["train_step_ms"]["v-net"]
+    rl = rec["roofline"]
+    out["vnet"] = {
+        "batch": cfg.dcnn_batch, "tally": tally, "kernels": rec["kernels"],
+        "train_step_launches": want, "counted_per_step": counted,
+        "predicted": {**{k: rl[k] for k in keys},
+                      "step_ms": 1e3 * rl["step_s"],
+                      "kernel_flops": rec["kernel_flops"],
+                      "total_per_device_gb":
+                          rec["memory"]["total_per_device"] / 1e9},
+        "measured": {"step_ms": ms,
+                     "median_ms_after_first": statistics.median(ms[1:])}}
+    print(json.dumps({"dryrun_vnet": out["vnet"]}))
+    check(tally == want and all(c == tally for c in counted),
+          f"dry run: V-Net's tally {tally}, train_step_launches {want}, "
+          f"counted per step {counted}")
+
+    # (c) one production cell on the abstract 16 x 16 layout
+    prod = DR.run_cell(*DRYRUN_CELL, False, probe=False)
+    out["production"] = {k: prod.get(k) for k in
+                         ("arch", "shape", "mesh", "status", "trace_s",
+                          "roofline", "memory", "error")}
+    print(json.dumps({"dryrun_production": out["production"]}))
+    check(prod["status"] == "ok",
+          f"dry run: {DRYRUN_CELL} on 16 x 16 is {prod['status']}: "
+          f"{prod.get('error')}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"dryrun_s": out["phase_s"], "card": smi}))
 
 
 def main() -> int:
@@ -3118,7 +3453,8 @@ def main() -> int:
             train_launches[k] += got_counts[k]
         train_steps[arch] = step_fn
         detail["train"][arch] = {"batch": cfg.dcnn_batch, "metrics": logs,
-                                 "launches_per_step": want}
+                                 "launches_per_step": want,
+                                 "counted_per_step": per_step}
         del first, second, params, state, fresh, fresh_state
     torch.cuda.empty_cache()
     print(json.dumps({"train_launches": train_launches}))
@@ -4515,6 +4851,12 @@ def main() -> int:
                           statistics.median(ms[1:])}))
         del params, state
     torch.cuda.empty_cache()
+
+    # -- 5d. dry run --------------------------------------------------------
+    # launch.dryrun's abstract steps against the train steps measured
+    # above (llama3.2-1b's of train (LM), V-Net's of train and times), and
+    # one production cell traced on the abstract 16 x 16 layout
+    dryrun_phase(dev, smi, detail)
 
     # -- 6. runtime report ------------------------------------------------------
     # obs.measure_network at full width, batch 4: every node of V-Net's graph

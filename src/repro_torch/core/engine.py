@@ -145,7 +145,9 @@ class EngineConfig:
     before the heuristic, unless the entry's shared memory exceeds this
     config's budget; like ``Telemetry`` it hashes by identity.  ``device``
     is where the engine runs: ``"cuda"`` by default; ``"cpu"`` runs the
-    kernels' plain versions.  ``mesh`` (a ``repro_torch.sharding.mesh.Mesh``)
+    kernels' plain versions; ``"meta"`` (``"pallas"`` only) traces shapes
+    alone (the dry run: the wrappers tally their calls, nothing runs).
+    ``mesh`` (a ``repro_torch.sharding.mesh.Mesh``)
     makes ``compile_network`` partition its schedules per ``policy``;
     ``engine.conv``/``engine.deconv`` called directly stay one rank's.
     """
@@ -237,8 +239,10 @@ class UniformEngine:
             raise EngineError("no CUDA device is available; pass "
                               "device='cpu' to run the kernels' plain "
                               "versions on the CPU")
-        if config.device.type not in ("cuda", "cpu"):
-            raise EngineError(f"unsupported device {config.device}")
+        if config.device.type not in ("cuda", "cpu") and not (
+                config.device.type == "meta" and config.method == "pallas"):
+            raise EngineError(f"unsupported device {config.device} for "
+                              f"{config.method!r}")
         self.config = config
         self.device = config.device
         self._plans: dict[tuple, _tiling.DeconvTilePlan] = {}

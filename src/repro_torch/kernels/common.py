@@ -16,6 +16,10 @@ and conv kernels and their plain versions cannot drift:
     ops' backward passes share.
 
 Everything here is pure Python or plain tensor code.
+
+``dry_tally`` counts the wrappers' calls on ``meta`` tensors (the dry
+run's abstract steps), apart from their launch counters: per wrapper,
+its calls and the MACs its kernel would execute on those shapes.
 """
 
 from __future__ import annotations
@@ -27,6 +31,34 @@ import math
 import torch
 
 from repro_torch.core.functional import _canon
+
+# the hand-kernel wrappers, as their tallies name them
+WRAPPERS = ("deconv_fwd", "conv_fwd", "deconv_dw", "deconv_dx")
+_DRY = {name: [0, 0] for name in WRAPPERS}
+
+
+def dry_tally() -> dict[str, dict[str, int]]:
+    """``{wrapper: {"calls", "macs"}}`` of the wrappers' ``meta`` calls
+    since ``reset_dry_tally``."""
+    return {k: {"calls": v[0], "macs": v[1]} for k, v in _DRY.items()}
+
+
+def reset_dry_tally() -> None:
+    for v in _DRY.values():
+        v[0] = v[1] = 0
+
+
+def count_dry(name: str, macs: int) -> None:
+    """One more ``meta`` call of wrapper ``name``, and ``macs`` more MACs."""
+    _DRY[name][0] += 1
+    _DRY[name][1] += int(macs)
+
+
+def tally_dry(name: str, macs: int, shape, dtype) -> torch.Tensor:
+    """A wrapper's ``meta`` call (``count_dry``) and the kernel's output
+    (``shape``, ``dtype``) on ``meta``.  Nothing runs."""
+    count_dry(name, macs)
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
 def canon_dilation(dilation, rank):

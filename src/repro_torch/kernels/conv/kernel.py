@@ -17,7 +17,10 @@ launched (``build.record_operands``), e.g. ``("int8", "int8", "s8", 1)``
 under int8 activations.
 
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises; on a ``meta`` tensor (the dry
+run) it returns the output's shape and dtype on ``meta`` and adds the
+call and its MACs (each output position, tap and channel pair of its
+group) to ``common.dry_tally``, with no launch.
 """
 
 from __future__ import annotations
@@ -86,6 +89,12 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
             groups=groups, pad_lo=pad_lo, out_spatial=out_spatial,
             scale=scale, bias=bias, activation=activation, alpha=alpha,
             out_dtype=out_dtype)
+    if x.device.type == "meta":
+        # each output position, each tap, each channel pair of its group
+        macs = n * math.prod(out_spatial) * math.prod(kernel) * (
+            ci // groups) * co
+        return _common.tally_dry("conv_fwd", macs, (n, *out_spatial, co),
+                                 out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no conv kernel for device {x.device}")
     plan = _tiling.plan_uniform_tiles(ci, co, mode="conv",

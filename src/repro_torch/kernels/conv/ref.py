@@ -6,13 +6,25 @@ of the strided input window against the tap's weights accumulates into the
 output; the epilogue and the cast follow.  It does not call ``F.conv3d``.
 The CPU path of the wrapper runs it, and ``chip_smoke.py`` holds the kernel
 against it on the card.
+
+``conv_reference`` is the op's reference lowering (the ``xla`` method,
+``functional.correlate``) and ``conv_loop_oracle`` the reference's
+float64 Python-loop oracle of the correlation, for tiny shapes.
 """
 
 from __future__ import annotations
 
 import itertools
 
+import numpy as np
 import torch
+
+from repro_torch.core.functional import (  # noqa: F401 (re-export)
+    _canon,
+    canon_padding,
+    conv_output_shape,
+    correlate,
+)
 
 from repro_torch.kernels import common as _common
 from repro_torch.kernels.build import default_out_dtype
@@ -56,3 +68,32 @@ def conv_fwd_plain(x, w, *, kernel, stride, dilation, groups, pad_lo,
     y = _common.apply_epilogue(y.reshape(n, *out_spatial, co), bias,
                                activation, alpha, scale)
     return y.to(out_dtype or default_out_dtype(x)).contiguous()
+
+
+def conv_reference(x, w, stride=1, padding=0, *,
+                   preferred_element_type=torch.float32):
+    """The op's reference lowering (channels-last, rank-generic,
+    correlation): ``functional.correlate``, in
+    ``preferred_element_type``."""
+    return correlate(x, w, stride, padding).to(preferred_element_type)
+
+
+def conv_loop_oracle(x, w, stride=1, padding=0) -> torch.Tensor:
+    """``y[n, o] += xpad[n, o*S + k] @ w[k]`` in float64 Python loops (the
+    JAX package's oracle) -- tiny shapes only."""
+    x = np.asarray(x, np.float64)
+    w = np.asarray(w, np.float64)
+    rank = x.ndim - 2
+    stride = _canon(stride, rank)
+    pads = canon_padding(padding, rank)
+    kernel = w.shape[:rank]
+    in_sp = x.shape[1:-1]
+    out_sp = conv_output_shape(in_sp, kernel, stride, pads)
+    xp = np.pad(x, [(0, 0)] + list(pads) + [(0, 0)])
+    y = np.zeros((x.shape[0], *out_sp, w.shape[-1]))
+    for n in range(x.shape[0]):
+        for o in itertools.product(*(range(v) for v in out_sp)):
+            for k in itertools.product(*(range(v) for v in kernel)):
+                i = tuple(oo * s + kk for oo, s, kk in zip(o, stride, k))
+                y[(n,) + o] += xp[(n,) + i] @ w[k]
+    return torch.from_numpy(y)

@@ -27,7 +27,12 @@ wrapper that launched its kernel on the card, and nothing else (a
 launched (``build.record_operands``), e.g. ``("float32", "int8", "tf32",
 2)`` for int8 weights.
 On a CPU tensor each wrapper runs the plain version (``ref.py``); on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises; on a ``meta`` tensor (the
+dry run) it returns the kernel's output shape and dtype on ``meta`` and
+adds the call and the MACs its kernel would execute to
+``common.dry_tally`` (the valid MACs, no inserted zero: each input
+position times each tap, ``functional.deconv_macs``), neither running
+the plain version nor launching.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import math
 import torch
 
 from repro_torch.core import tiling as _tiling
-from repro_torch.core.functional import deconv_output_shape
+from repro_torch.core.functional import deconv_macs, deconv_output_shape
 from repro_torch.core.tiling import DW_KERNEL_TILES, split_rows
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import common as _common
@@ -110,6 +115,11 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
             groups=groups, crop_lo=crop_lo, out_spatial=out_spatial,
             scale=scale, bias=bias, activation=activation, alpha=alpha,
             out_dtype=out_dtype)
+    if x.device.type == "meta":
+        return _common.tally_dry(
+            "deconv_fwd", deconv_macs((d, h, wd), kernel, ci // groups, co,
+                                      batch=n),
+            (n, *out_spatial, co), out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no deconv kernel for device {x.device}")
     plan = _tiling.plan_uniform_tiles(ci, co, mode="deconv",
@@ -185,6 +195,13 @@ def deconv_dw(a: torch.Tensor, b: torch.Tensor, *, kernel, stride,
         return _ref.deconv_dw_plain(
             a, b, kernel=kernel, stride=stride, dilation=dilation,
             groups=groups, lo=lo, transpose=transpose, out_dtype=out_dtype)
+    if a.device.type == "meta":
+        # each of a's positions, each tap, its group's channel pairs
+        taps = math.prod(kernel)
+        macs = a.shape[0] * math.prod(a.shape[1:4]) * taps * ac * bc // groups
+        return _common.tally_dry("deconv_dw", macs, (
+            (taps, bc // groups, ac) if transpose
+            else (taps, ac // groups, bc)), out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"no dw kernel for device {a.device}")
     if (block_a, block_c) not in DW_KERNEL_TILES:
@@ -238,4 +255,6 @@ def deconv_dx(dy: torch.Tensor, w_dx: torch.Tensor, *, kernel, stride,
                           block_co=block_co)
     if dy.device.type == "cuda":
         dx_launches += 1
+    elif dy.device.type == "meta":
+        _common.count_dry("deconv_dx", 0)     # its MACs are conv_fwd's
     return dx

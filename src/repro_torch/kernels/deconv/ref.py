@@ -11,13 +11,24 @@ cropped, run through the epilogue and cast.  It does not call
 ``deconv_dw_plain`` is the plain version of the dw kernel
 (``kernel.deconv_dw``): one ``einsum`` per tap of the unstrided operand
 against a strided window of the zero-padded other one.
+
+``deconv_reference`` is the op's reference lowering (the ``xla`` method,
+``functional.deconv_xla``) and ``deconv_loop_oracle`` the reference's
+float64 Python-loop oracle of the canonical definition, for tiny shapes.
 """
 
 from __future__ import annotations
 
 import itertools
 
+import numpy as np
 import torch
+
+from repro_torch.core.functional import (
+    canon_padding,
+    deconv_output_shape,
+    deconv_xla,
+)
 
 from repro_torch.kernels import common as _common
 from repro_torch.kernels.build import default_out_dtype
@@ -109,3 +120,32 @@ def deconv_dw_plain(a, b, *, kernel, stride, dilation, groups, lo,
     else:
         res = res.permute(0, 2, 1, 3).reshape(len(outs), ag, bc)
     return res.to(out_dtype or a.dtype).contiguous()
+
+
+def deconv_reference(x, w, stride, padding=0):
+    """The op's reference lowering (channels-last, rank-generic, f32
+    out): ``functional.deconv_xla``."""
+    return deconv_xla(x, w, stride, padding)
+
+
+def deconv_loop_oracle(x, w, stride, padding=0) -> torch.Tensor:
+    """``y[n, i*S + k] += x[n, i] @ w[k]`` in float64 Python loops, then
+    the ``padding`` crop (the JAX package's oracle) -- tiny shapes only."""
+    x = np.asarray(x, np.float64)
+    w = np.asarray(w, np.float64)
+    rank = x.ndim - 2
+    stride = (stride,) * rank if isinstance(stride, int) else tuple(stride)
+    pads = canon_padding(padding, rank)
+    kernel = w.shape[:rank]
+    in_sp = x.shape[1:-1]
+    out_sp = deconv_output_shape(in_sp, kernel, stride, 0)
+    y = np.zeros((x.shape[0], *out_sp, w.shape[-1]))
+    for n in range(x.shape[0]):
+        for i in itertools.product(*(range(v) for v in in_sp)):
+            for k in itertools.product(*(range(v) for v in kernel)):
+                o = tuple(ii * s + kk for ii, s, kk in zip(i, stride, k))
+                y[(n,) + o] += x[(n,) + i] @ w[k]
+    idx = (slice(None),) + tuple(slice(lo, d - hi)
+                                 for (lo, hi), d in zip(pads, out_sp)) \
+        + (slice(None),)
+    return torch.from_numpy(np.ascontiguousarray(y[idx]))

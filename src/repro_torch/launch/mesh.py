@@ -10,6 +10,10 @@ same order on every rank.  The world comes first, from ``init_world``:
 the backend is the caller's choice (``backend_for`` names ``"nccl"`` for
 a CUDA device and ``"gloo"`` for the CPU); nothing here picks one on its
 own.
+
+``make_production_mesh(world=False)`` builds the production layouts
+without a world, as rank 0 of them (``abstract_mesh``): the dry run
+traces a step there on ``meta`` tensors (``sharding.mesh``).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import os
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding.mesh import Mesh, MeshError  # noqa: F401
+from repro_torch.sharding.mesh import AbstractGroup, Mesh, MeshError  # noqa: F401
 
 HOST_AXES = ("data", "model")
 # the reference's production meshes: one pod of 16 x 16 chips, two pods
@@ -67,6 +71,13 @@ def leave_world() -> None:
     dist.destroy_process_group()
 
 
+def _batch_axes(axis_names) -> tuple[str, ...]:
+    """The batch axes that have a group of their own (FSDP, the
+    data-parallel sums), where there are more than one."""
+    batch = tuple(a for a in ("pod", "data") if a in axis_names)
+    return batch if len(batch) > 1 else ()
+
+
 def _make_mesh(sizes, axis_names) -> Mesh:
     if not dist.is_initialized():
         raise MeshError("no process group: call launch.mesh.init_world "
@@ -85,9 +96,8 @@ def _make_mesh(sizes, axis_names) -> Mesh:
             g = dist.new_group(line)
             if rank in line:
                 groups[axis] = g
-    batch = tuple(a for a in ("pod", "data") if a in axis_names)
-    if len(batch) > 1:
-        # the batch axes together (FSDP, the data-parallel sums)
+    batch = _batch_axes(axis_names)
+    if batch:
         dims = [axis_names.index(a) for a in batch]
         lines = layout.movedim(dims, list(range(-len(dims), 0))).reshape(
             -1, math.prod(sizes[i] for i in dims))
@@ -107,8 +117,25 @@ def make_host_mesh(model: int = 1, data: int | None = None) -> Mesh:
     return _make_mesh((data, model), HOST_AXES)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         world: bool = True) -> Mesh:
     """The reference's 16 x 16 (one pod, 256 ranks) or 2 x 16 x 16 (two
-    pods, 512 ranks) mesh; a world of another size raises ``MeshError``."""
+    pods, 512 ranks) mesh; a world of another size raises ``MeshError``.
+    ``world=False``: the layout without a world (``abstract_mesh``)."""
     sizes, axes = PRODUCTION_SHAPES[multi_pod]
+    if not world:
+        return abstract_mesh(sizes, axes)
     return _make_mesh(sizes, axes)
+
+
+def abstract_mesh(sizes, axis_names=HOST_AXES) -> Mesh:
+    """A mesh of ``sizes`` over ``axis_names`` without a world, as rank 0
+    of it: its groups (each axis's, and the batch axes') are
+    ``AbstractGroup``s, whose collectives take ``meta`` tensors only."""
+    shape = dict(zip(axis_names, sizes))
+    groups = {a: AbstractGroup((a,), n) for a, n in shape.items()}
+    batch = _batch_axes(axis_names)
+    if batch:
+        groups[batch] = AbstractGroup(batch,
+                                      math.prod(shape[a] for a in batch))
+    return Mesh(sizes, axis_names, groups=groups)

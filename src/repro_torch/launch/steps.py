@@ -35,18 +35,28 @@ gradient; a stacked layer where the layer loop takes it, every other
 leaf before the forward), runs the tensor-, vocab- and
 expert-parallel forward and backward, sums the gradients of the leaves
 that the batch axes replicate over them, and updates its blocks (an
-8-bit moment's scale the whole tensor's).
+8-bit moment's scale the whole tensor's).  Given a mesh, a serve step
+takes this rank's blocks of the parameters, the batch and the cache
+(``cache_specs``), gathers the FSDP leaves, and runs the partitioned
+prefill or decode (``models.transformer``).
+
+The dry run's assembly (the reference's): ``abstract_params``,
+``batch_specs``, ``cache_specs`` and ``input_specs`` give whole ``meta``
+trees and their partition specs; ``build_bundle`` gives one cell's step
+and this rank's ``meta`` blocks of its arguments (``Bundle``), with the
+reference's decode policy.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import Any, Callable
 
 import torch
 
 from repro_torch import tree as _tree
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import networks
 from repro_torch.core.engine import shard_batch
 from repro_torch.core.functional import ieee_f32
@@ -259,7 +269,7 @@ def lm_grads(params, cfg: ModelConfig, batch, param_dtype=torch.bfloat16,
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh=None,
-                    param_dtype=torch.bfloat16):
+                    param_dtype=torch.bfloat16, local_batch: bool = False):
     """An LM's train step ``step(params, opt_state, batch) -> (params,
     opt_state, {"loss", "aux"})``: ``lm_grads`` of the bf16 forward, then
     AdamW at ``lr_scale = cosine_schedule(opt_state.step)``, read before
@@ -267,12 +277,13 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh=None,
     parameter, as the reference's).  With ``mesh`` the step takes and
     returns this rank's blocks of the parameters and moments and the
     global batch, of which it keeps its own shard.  ``param_dtype``: the
-    forward's (``torch.float32`` for an f32 control)."""
+    forward's (``torch.float32`` for an f32 control).  ``local_batch``:
+    the step takes this rank's batch shard instead (the dry run's)."""
     specs = None if mesh is None else param_specs(cfg, mesh)
     absmax = None if mesh is None else absmax_fns(specs, mesh)
 
     def train_step(params, opt_state, batch):
-        if mesh is not None:
+        if mesh is not None and not local_batch:
             batch = shard_lm_batch(batch, mesh)
         part = {} if mesh is None else {"mesh": mesh, "specs": specs}
         loss, metrics, grads = lm_grads(params, cfg, batch,
@@ -493,20 +504,269 @@ def train_step_launches(cfg: ModelConfig) -> dict[str, int]:
     return {k: gen[k] + fake[k] + real[k] for k in LAUNCH_COUNTERS}
 
 
-def make_serve_step(cfg: ModelConfig, kind: str):
-    """An LM's serve step at bf16 weights: ``kind="prefill"`` gives
-    ``step(params, batch) -> (token, cache)``, otherwise ``step(params,
-    cache, batch) -> (token, cache)``; the token is each row's greedy
-    argmax."""
+def kv_seq_axes(c_specs) -> tuple[str, ...]:
+    """The mesh axes a cache's KV sequence dim is cut over, from its
+    specs (``cache_specs``): ``()`` where it is whole or there is no KV."""
+    if c_specs is None or "kv" not in c_specs:
+        return ()
+    spec = c_specs["kv"][0]
+    return _part.spec_axes(spec[2]) if len(spec) > 2 else ()
+
+
+def serve_forward(params, cfg: ModelConfig, batch, mode: str, cache=None,
+                  mesh=None, specs=None, c_specs=None,
+                  param_dtype=torch.bfloat16):
+    """``(logits, cache)`` of a prefill or decode ``T.forward``; with
+    ``mesh``, of this rank's blocks (``specs``: ``param_specs``;
+    ``c_specs``: the cache's, ``cache_specs``'), the FSDP leaves
+    gathered first, the logits whole over the vocab for this rank's
+    rows."""
+    with _part.use_mesh(mesh):
+        if mesh is not None and cfg.fsdp:
+            params = _gather_fsdp(params, specs, mesh, cfg)
+        return T.forward(params, cfg, batch, mode=mode, cache=cache,
+                         param_dtype=param_dtype,
+                         kv_seq=kv_seq_axes(c_specs))
+
+
+def make_serve_step(cfg: ModelConfig, kind: str, mesh=None, c_specs=None):
+    """An LM's serve step at bf16 weights: ``kind="prefill"`` gives ``step(params, batch) -> (token, cache)``,
+    otherwise ``step(params, cache, batch) -> (token, cache)``; the token
+    is each row's greedy argmax.  With ``mesh`` the step takes this
+    rank's blocks of the parameters (``param_specs``), of the batch and
+    of the cache (``c_specs``, ``cache_specs``'), gathers the FSDP
+    leaves, runs the partitioned forward and returns its rows' tokens and
+    its block of the cache."""
+    specs = None if mesh is None else param_specs(cfg, mesh)
+
+    def run(params, batch, mode, cache=None):
+        logits, cache = serve_forward(params, cfg, batch, mode, cache, mesh,
+                                      specs, c_specs)
+        return torch.argmax(logits[:, -1], dim=-1), cache
+
     if kind == "prefill":
         def prefill_step(params, batch):
-            logits, cache = T.forward(params, cfg, batch, mode="prefill",
-                                      param_dtype=torch.bfloat16)
-            return torch.argmax(logits[:, -1], dim=-1), cache
+            return run(params, batch, "prefill")
         return prefill_step
 
     def decode_step(params, cache, batch):
-        logits, cache = T.forward(params, cfg, batch, mode="decode",
-                                  cache=cache, param_dtype=torch.bfloat16)
-        return torch.argmax(logits[:, -1], dim=-1), cache
+        return run(params, batch, "decode", cache)
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract trees, specs and bundles (the dry run's assembly)
+# ---------------------------------------------------------------------------
+
+def abstract_params(cfg: ModelConfig):
+    """(the whole parameters as ``meta`` tensors in the initialisers'
+    dtype, their logical axes), without allocating."""
+    return _init_ws(cfg, None, device="meta"), param_axes(cfg)
+
+
+def _cast_master(cfg: ModelConfig, tree):
+    dt = getattr(torch, cfg.master_dtype)
+    return _tree.tree_map(lambda v: v.to(dt), tree)
+
+
+def meta_blocks(tree, specs, mesh):
+    """This rank's blocks of a whole ``meta`` tree under ``specs``, each
+    a ``meta`` tensor of its own (non-tensor leaves as they are)."""
+    out = []
+    for t, sp in zip(_tree.leaves(tree), _part.spec_leaves(specs, tree)):
+        if isinstance(t, torch.Tensor):
+            t = torch.empty(t[_part.block_index(mesh, sp, t.shape)].shape,
+                            dtype=t.dtype, device="meta")
+        out.append(t)
+    return _tree.unflatten(tree, out)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """(the whole batch of one input shape as ``meta`` tensors, its
+    partition specs): tokens int32 (and labels for train), Whisper's
+    bf16 ``enc_embeds``, M-RoPE's positions."""
+    gb, s = shape.global_batch, shape.seq_len
+    sq = s if shape.kind != "decode" else 1
+
+    def spec(logical, dims):
+        return _part.logical_to_spec(mesh, logical, dims)
+    batch = {"tokens": _meta((gb, sq), torch.int32)}
+    shard = {"tokens": spec(("batch", None), (gb, sq))}
+    if shape.kind == "train":
+        batch["labels"] = _meta((gb, s), torch.int32)
+        shard["labels"] = shard["tokens"]
+    if cfg.family == "encdec":
+        dims = (gb, cfg.enc_seq, cfg.d_model)
+        batch["enc_embeds"] = _meta(dims, torch.bfloat16)
+        shard["enc_embeds"] = spec(("batch", None, None), dims)
+    if cfg.mrope:
+        batch["mrope_positions"] = _meta((3, gb, sq), torch.int32)
+        shard["mrope_positions"] = spec((None, "batch", None), (3, gb, sq))
+    return batch, shard
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """(the whole decode cache of one input shape as ``meta`` tensors,
+    its partition specs by ``transformer.cache_logical``; one sequence
+    (``global_batch`` 1) cuts the KV sequence dim over ``data``)."""
+    gb = shape.global_batch
+    cache = T.init_cache(None, cfg, gb, shape.seq_len, device="meta")
+    logical = T.cache_logical(cfg, seq_shard=gb == 1)
+    return cache, _part.param_shardings(mesh, cache, logical,
+                                        fsdp_enabled=False)
+
+
+def input_specs(arch_or_cfg, shape_name: str = "train_4k", mesh=None):
+    """Whole ``meta`` stand-ins for every model input of one (arch x
+    shape) cell, and their partition specs:
+
+        specs, shardings = input_specs("llama3.2-1b", "train_4k", mesh)
+
+    ``mesh`` defaults to the 16 x 16 production layout, without a
+    world."""
+    from repro_torch.configs import SHAPES, get_config
+    cfg = (get_config(arch_or_cfg) if isinstance(arch_or_cfg, str)
+           else arch_or_cfg)
+    shape = SHAPES[shape_name]
+    if mesh is None:
+        from repro_torch.launch.mesh import make_production_mesh
+        mesh = make_production_mesh(world=False)
+    batch, shard = batch_specs(cfg, shape, mesh)
+    if shape.kind == "decode":
+        c_shapes, c_shard = cache_specs(cfg, shape, mesh)
+        return {"batch": batch, "cache": c_shapes}, \
+            {"batch": shard, "cache": c_shard}
+    return {"batch": batch}, {"batch": shard}
+
+
+@dataclasses.dataclass
+class Bundle:
+    """One cell's step and this rank's ``meta`` blocks of its arguments,
+    their partition specs (``in_shardings``, ``out_shardings``) and
+    ``meta``: the whole model's ``params`` and ``active_params``, the
+    step's ``kind``, the indices of the arguments it hands back in place
+    (``donate``, the reference's donation) and the config it runs
+    (``cfg``, after the decode policy)."""
+    fn: Callable
+    args: tuple
+    in_shardings: tuple
+    out_shardings: Any
+    meta: dict
+
+
+def decode_policy(cfg: ModelConfig, shape: ShapeConfig, mesh) -> ModelConfig:
+    """The reference's decode-bundle policy: FSDP off while a model shard
+    of the bf16 weights is at most 8 GB, and the KV cache's sequence dim
+    on the model axis where the KV heads do not divide it."""
+    model_size = mesh.shape.get("model", 1)
+    n_params = T.param_count(abstract_params(cfg)[0])
+    per_shard_gb = n_params * 2 / model_size / 1e9      # bf16 weights
+    kv_seq = (cfg.n_kv_heads > 0 and cfg.n_kv_heads % model_size != 0
+              and shape.global_batch > 1)
+    return dataclasses.replace(cfg, fsdp=cfg.fsdp and per_shard_gb > 8.0,
+                               kv_seq_shard=cfg.kv_seq_shard or kv_seq)
+
+
+def _dcnn_bundle(cfg: ModelConfig, mesh, opt: AdamWConfig) -> Bundle:
+    """The DCNN's data-parallel train step (``make_dp_*_train_step``,
+    uncompressed) over the mesh's ``data`` axis, the batch rounded up to
+    it, the ``model`` (and ``pod``) axis replicating it, as the port's
+    launcher runs a DCNN on a mesh; the reference's GSPMD partition
+    differs (``meta["partition"]``)."""
+    from repro_torch.core.engine import EngineConfig, UniformEngine
+    n_data = mesh.shape.get("data", 1)
+    cfg = round_batch_to_mesh(cfg, n_data)
+    engine = UniformEngine(EngineConfig(method=cfg.dcnn_method,
+                                        device="meta"))
+    p_shapes, p_logical = abstract_params(cfg)
+    p_shapes = _cast_master(cfg, p_shapes)
+    replicated = _tree.tree_map(lambda _: (), p_shapes)
+    b = cfg.dcnn_batch // n_data
+    if cfg.dcnn == "v_net":
+        sp = D._vnet_spatial(cfg)
+        batch = {"vol": _meta((b, *sp, 1), torch.float32),
+                 "labels": _meta((b, *sp), torch.int32)}
+        dp = make_dp_vnet_train_step(cfg, opt, mesh, engine=engine,
+                                     compress=False)
+        state = adamw_init(p_shapes, opt)
+    else:
+        layers = D._scaled_layers(cfg)
+        batch = {"z": _meta((b, cfg.dcnn_z), torch.float32),
+                 "real": _meta((b, *layers[-1].out_spatial,
+                                layers[-1].cout), torch.float32)}
+        dp = make_dp_gan_train_step(cfg, opt, mesh, engine=engine,
+                                    compress=False)
+        state = (adamw_init(p_shapes["gen"], opt),
+                 adamw_init(p_shapes["disc"], opt))
+
+    def step(params, opt_state, batch):
+        # uncompressed: no error-feedback state to carry
+        params, opt_state, _, metrics = dp(params, opt_state, None, batch)
+        return params, opt_state, metrics
+
+    b_shard = _tree.tree_map(lambda v: ("data",), batch)
+    return Bundle(
+        fn=step, args=(p_shapes, state, batch),
+        in_shardings=(replicated, None, b_shard),
+        out_shardings=(replicated, None, None),
+        meta={"params": T.param_count(p_shapes), "kind": "train",
+              "donate": (0, 1), "cfg": cfg,
+              "partition": f"data-parallel over data ({n_data}), "
+                           f"batch {cfg.dcnn_batch}; model axis "
+                           f"replicates"})
+
+
+def build_bundle(cfg: ModelConfig, shape: ShapeConfig | None, mesh,
+                 opt: AdamWConfig | None = None,
+                 policy: bool = True) -> Bundle:
+    """Everything needed to trace one (arch x shape) cell as one rank of
+    ``mesh``: the step and this rank's ``meta`` blocks of its arguments
+    (the whole batch's shard, the cache's block).  ``policy=False``:
+    ``cfg`` as it is, without the decode policy (a probe of a config the
+    policy has already set)."""
+    opt = opt or AdamWConfig(state_bits=cfg.opt_state_bits)
+    if cfg.family == "dcnn":
+        return _dcnn_bundle(cfg, mesh, opt)
+    if shape.kind == "decode" and policy:
+        cfg = decode_policy(cfg, shape, mesh)
+
+    p_shapes, p_logical = abstract_params(cfg)
+    p_shapes = _cast_master(cfg, p_shapes)
+    p_shard = _part.param_shardings(mesh, p_shapes, p_logical, cfg.fsdp)
+    params = meta_blocks(p_shapes, p_shard, mesh)
+    batch, b_shard = batch_specs(cfg, shape, mesh)
+    batch = meta_blocks(batch, b_shard, mesh)
+    meta = {"params": T.param_count(p_shapes),
+            "active_params": T.active_param_count(p_shapes, cfg),
+            "kind": shape.kind, "cfg": cfg}
+    # a mesh of one rank runs the unpartitioned step (the trainer's and
+    # the server's own)
+    step_mesh = mesh if mesh.size > 1 else None
+
+    if shape.kind == "train":
+        step = make_train_step(cfg, opt, step_mesh, local_batch=True)
+        state = adamw_init(params, opt)
+        os_shard = opt_specs(cfg, mesh, opt)
+        return Bundle(fn=step, args=(params, state, batch),
+                      in_shardings=(p_shard, os_shard, b_shard),
+                      out_shardings=(p_shard, os_shard, None),
+                      meta={**meta, "donate": (0, 1)})
+
+    if shape.kind == "prefill":
+        step = make_serve_step(cfg, "prefill", step_mesh)
+        return Bundle(fn=step, args=(params, batch),
+                      in_shardings=(p_shard, b_shard),
+                      out_shardings=None, meta={**meta, "donate": ()})
+
+    c_shapes, c_shard = cache_specs(cfg, shape, mesh)
+    step = make_serve_step(cfg, "decode", step_mesh, c_shard)
+    tok_out = _part.logical_to_spec(mesh, ("batch",), (shape.global_batch,))
+    return Bundle(fn=step, args=(params, meta_blocks(c_shapes, c_shard,
+                                                     mesh), batch),
+                  in_shardings=(p_shard, c_shard, b_shard),
+                  out_shardings=(tok_out, c_shard),
+                  meta={**meta, "donate": (1,)})

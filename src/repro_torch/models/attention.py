@@ -20,6 +20,20 @@ one KV head, qwen2-vl's two on a 4-way axis) and each rank takes the KV
 heads its own query heads read under GQA, their weights' gradients
 summed over the axis.  Where the query heads do not divide it either,
 every rank computes the whole block.
+
+A serve step on a mesh (``KvLayout``: prefill and decode) keeps each
+rank's KV cache in ``transformer.cache_logical``'s layout.  Head-
+parallel: the rank's KV heads, or every KV head where they stay whole
+(then each rank computes them all, and attends with those its query
+heads read).  Split-KV, where the cache's sequence dim is cut over mesh
+axes (``KvLayout.seq``: ``model`` under ``cfg.kv_seq_shard``, ``data``
+for one long sequence): the new token's keys and values go to the rank
+whose block holds its position; each rank attends over its positions
+(with every query head where the cut is over ``model``, gathered over
+it), and the softmax is combined over the cut's axes (``_attend_split``:
+the maximum, then the sum of the max-shifted terms, then the probs'
+product with V summed), each rank keeping its own heads.  On a mesh of
+one the decode is the unpartitioned one, op for op.
 """
 
 from __future__ import annotations
@@ -140,14 +154,16 @@ def _kv_heads(cfg: ModelConfig, hq_loc: int, r: int):
     return heads
 
 
-def _tp(p: AttnParams, cfg: ModelConfig, kv_cache):
+class KvLayout(NamedTuple):
+    """A serve step's KV cache on the mesh: ``seq``, the mesh axes its
+    sequence dim is cut over (``()``: whole on every rank)."""
+    seq: tuple[str, ...] = ()
+
+
+def _tp(p: AttnParams, cfg: ModelConfig):
     """The mesh when ``p`` holds this rank's heads only, else ``None``."""
     if p.wq.shape[1] == cfg.n_heads:
         return None
-    if kv_cache is not None:
-        raise NotImplementedError("attention over a model axis is "
-                                  "partitioned in train mode only: the "
-                                  "server runs on no mesh")
     return current_mesh()
 
 
@@ -161,17 +177,51 @@ def _kv_weights(p: AttnParams, cfg: ModelConfig, mesh):
     return tuple(_mesh.copy_to(w, mesh, MODEL)[:, sel] for w in (p.wk, p.wv))
 
 
-def cross_kv(p: AttnParams, enc_out: torch.Tensor, cfg: ModelConfig):
+def cross_kv(p: AttnParams, enc_out: torch.Tensor, cfg: ModelConfig,
+             serve: bool = False):
     """Cross-attention keys and values of ``enc_out`` for this rank's
-    heads (all of them without a model axis)."""
-    mesh = _tp(p, cfg, None)
+    heads (all of them without a model axis; in a serve step, all of
+    them where the KV heads stay whole, as its cache holds them)."""
+    mesh = _tp(p, cfg)
     enc = _mesh.copy_to(enc_out, mesh, MODEL)
-    return tuple(project_heads(enc, w) for w in _kv_weights(p, cfg, mesh))
+    ws = (p.wk, p.wv) if serve else _kv_weights(p, cfg, mesh)
+    return tuple(project_heads(enc, w) for w in ws)
+
+
+def _write_owned(cache: torch.Tensor, new: torch.Tensor, pos: int, mesh,
+                 seq: tuple[str, ...]) -> None:
+    """``new`` [B, 1, ...] into the rank's block ``cache`` [B, T_loc, ...]
+    of a cache cut over ``seq``, if its block holds ``pos`` (clamped into
+    the whole cache, as ``_write`` clamps)."""
+    t_loc = cache.shape[1]
+    n = _mesh.axis_size(mesh, seq)
+    pos = min(max(pos, 0), t_loc * n - 1)
+    if pos // t_loc == _mesh.axis_index(mesh, seq):
+        _write(cache, new, pos % t_loc)
+
+
+def _attend_split(q, k, v, valid, mesh, seq: tuple[str, ...]):
+    """One query position against a cache cut over ``seq``: q
+    [B,1,Hkv,G,hd]; k/v this rank's positions [B,T_loc,Hkv,hd]; valid
+    [T_loc].  The softmax over every rank's positions: the maximum of
+    the ranks' maxima, each rank's sum of ``exp(s - max)`` summed, each
+    rank's probs (rounded to ``v``'s dtype, as ``_softmax_attend``
+    rounds them) times its V summed, in f32, cast to ``v``'s dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) * scale
+    scores = scores + torch.where(valid, 0.0, _NEG)
+    mx = _mesh.psum(scores.amax(dim=-1, keepdim=True), mesh, seq, "max")
+    e = torch.exp(scores - mx)
+    probs = e / _mesh.psum(e.sum(dim=-1, keepdim=True), mesh, seq)
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).float(),
+                       v.float())
+    return _mesh.psum(out, mesh, seq).to(v.dtype)
 
 
 def attention(p: AttnParams, x: torch.Tensor, cfg: ModelConfig, *,
               cos=None, sin=None, causal=True, kv_cache=None,
-              cache_pos: int | None = None, xattn_kv=None):
+              cache_pos: int | None = None, xattn_kv=None,
+              kv_layout: KvLayout | None = None):
     """Returns (out, new_kv_cache).
 
     modes:
@@ -180,13 +230,32 @@ def attention(p: AttnParams, x: torch.Tensor, cfg: ModelConfig, *,
         this call writes at ``cache_pos`` (an int) in place and returns
       * cross-attention: xattn_kv = (k, v) precomputed from an encoder
         (``cross_kv``).
-    Where ``layers.blk_out`` keeps its result (``save_outs``, train) the
-    cache returned is ``None``.
+    ``kv_layout``: a serve step's on a mesh (see the module docstring);
+    ``None`` in train mode and without a mesh.  Where
+    ``layers.blk_out`` keeps its result (``save_outs``, train) the cache
+    returned is ``None``.
     """
     b, s, d = x.shape
-    mesh = _tp(p, cfg, kv_cache)
+    mesh = _tp(p, cfg)
     x = _mesh.copy_to(x, mesh, MODEL)
-    wk, wv = _kv_weights(p, cfg, mesh)
+    cm = current_mesh()
+    seq = kv_layout.seq if kv_layout is not None else ()
+    split = (kv_cache is not None and bool(seq)
+             and _mesh.axis_size(cm, seq) > 1)
+    # the query heads gathered over the model axis, where the cache's
+    # positions are cut over it and the weights' heads are
+    gather_q = split and mesh is not None and "model" in seq
+    kv_whole = p.wk.shape[1] == cfg.n_kv_heads
+    if kv_layout is None:
+        wk, wv = _kv_weights(p, cfg, mesh)
+        sel = None
+    else:
+        # a serve step's cache holds the rank's KV heads, or every one
+        # where they stay whole or its positions are cut over the axis
+        wk, wv = p.wk, p.wv
+        sel = (_kv_heads(cfg, p.wq.shape[1], _mesh.axis_index(cm, MODEL))
+               if mesh is not None and kv_whole and not gather_q else None)
+    gather_kv = gather_q and not kv_whole
     caches = []
 
     def core(x, wq, wk, wv, xattn_kv):
@@ -197,11 +266,16 @@ def attention(p: AttnParams, x: torch.Tensor, cfg: ModelConfig, *,
             if cos is not None:
                 q = L.apply_rope(q, cos, sin)
                 k = L.apply_rope(k, cos, sin)
+            if gather_kv:
+                k, v = (_mesh.gather(t, cm, MODEL, 2) for t in (k, v))
             caches.append((k, v))
             if kv_cache is not None:
                 ck, cv = kv_cache
-                _write(ck, k, cache_pos)
-                _write(cv, v, cache_pos)
+                for c, new in ((ck, k), (cv, v)):
+                    if split:
+                        _write_owned(c, new, cache_pos, cm, seq)
+                    else:
+                        _write(c, new, cache_pos)
                 caches[-1] = (ck, cv)
                 k, v = ck, cv
         else:
@@ -209,14 +283,28 @@ def attention(p: AttnParams, x: torch.Tensor, cfg: ModelConfig, *,
             if cos is not None:
                 q = L.apply_rope(q, cos, sin)
             caches.append(None)
+        if gather_q:
+            q = _mesh.gather(q, cm, MODEL, 2)
+        if sel is not None:
+            k, v = k[:, :, sel], v[:, :, sel]
         qg = _split_gqa(q, k.shape[2])
-        if kv_cache is not None and s == 1:
+        if split:
+            t_loc = k.shape[1]
+            t0 = _mesh.axis_index(cm, seq) * t_loc
+            valid = torch.arange(t0, t0 + t_loc, device=x.device) \
+                <= cache_pos
+            out = _attend_split(qg, k, v, valid, cm, seq)
+        elif kv_cache is not None and s == 1:
             # decode: mask positions beyond cache_pos
             mask = (torch.arange(k.shape[1], device=x.device) <= cache_pos)
             out = _softmax_attend(qg, k, v, mask[None, None])
         else:
             out = _attend_chunked(qg, k, v,
                                   causal=causal and xattn_kv is None)
+        if gather_q:
+            hl, r = wq.shape[1], _mesh.axis_index(cm, MODEL)
+            out = out.reshape(b, s, -1, out.shape[-1])[
+                :, :, r * hl:(r + 1) * hl]
         return out.reshape(b, s, -1).to(x.dtype)
 
     y = L.blk_out(cfg, core, (x, p.wq, wk, wv, xattn_kv),

@@ -159,7 +159,11 @@ def _group(xf, wr, wi, wg, wo, cfg: ModelConfig, e0: int, dtype):
     out = combine(weighted, sort_idx, k).to(dtype)
 
     # load-balance auxiliary loss (Switch/GShard form)
-    frac = torch.bincount(top_e.reshape(-1), minlength=e).float() / (t * k)
+    # the expert counts (bincount's, which has no meta kernel)
+    ids = top_e.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+    frac = counts.float() / (t * k)
     aux = e * torch.sum(frac * probs.mean(dim=0))
     return out, aux
 

@@ -30,6 +30,13 @@ on every rank, the MLP column- and row-parallel.  Mamba-2: ``w_in``'s
 column blocks gathered, the SSM on every rank, the rank's channels of
 the gated output through its rows of ``w_out``.  A leaf whose dim the
 axis does not divide stays whole, and its product runs on every rank.
+The serve steps (prefill, decode) keep the caches in
+``transformer.cache_logical``'s layout: the mLSTM's state whole and its
+conv cache the rank's channels, as the train path computes them; the
+Mamba-2 state the rank's heads where the axis divides them, so the
+serve path runs the SSM on those heads alone (``_m2_heads``; the conv
+cache whole), its gated output this rank's channels for its rows of
+``w_out``.
 """
 
 from __future__ import annotations
@@ -434,11 +441,11 @@ def _m2_proj(p: Mamba2Params, x, cfg, conv_cache=None, normed=False):
     return q, k, v, log_decay, xs, z, new_conv, xbc_in
 
 
-def _m2_gated(p: Mamba2Params, y, xs, z, x, cfg):
-    """The block's output before ``w_out``: the skip and the z gate."""
-    d, di, h, hp, n = _m2_dims(cfg)
-    y = y + xs.float() * p.d_skip[None, None, :, None]
-    y = y.reshape(*y.shape[:2], di).to(x.dtype)
+def _m2_gated(p: Mamba2Params, y, xs, z, x, cfg, heads=slice(None)):
+    """The block's output before ``w_out``: the skip and the z gate (of
+    the SSM heads ``heads``, whose channels ``y``, ``xs`` and ``z`` hold)."""
+    y = y + xs.float() * p.d_skip[heads][None, None, :, None]
+    y = y.reshape(*y.shape[:2], -1).to(x.dtype)
     return y * L.silu(z)
 
 
@@ -454,17 +461,49 @@ def _m2_sum(p: Mamba2Params, out: torch.Tensor, cfg) -> torch.Tensor:
     return _mesh.reduce_from(out, mesh, MODEL, "blk_out")
 
 
-def _m2_out(p: Mamba2Params, y, xs, z, x, cfg):
-    rows = _m2_rows(p, _m2_gated(p, y, xs, z, x, cfg), cfg)
+def _m2_out(p: Mamba2Params, y, xs, z, x, cfg, heads=None):
+    """The block's output; ``heads``: the serve path's SSM heads
+    (``_m2_heads``), whose channels are this rank's rows of ``w_out``."""
+    if heads is None:
+        rows = _m2_rows(p, _m2_gated(p, y, xs, z, x, cfg), cfg)
+    else:
+        rows = _m2_gated(p, y, xs, z, x, cfg, heads)
     return x + _m2_sum(p, L._mm_out(rows, p.w_out.to(x.dtype)), cfg)
+
+
+def _m2_heads(cfg: ModelConfig):
+    """The SSM heads a serve step runs on this rank: its block where the
+    ``model`` axis divides them (the state's layout), else ``None``
+    (every head, the train path's way)."""
+    mesh = current_mesh()
+    h = _m2_dims(cfg)[2]
+    if mesh is None or mesh.shape.get("model", 1) == 1 \
+            or h % mesh.shape["model"]:
+        return None
+    hl = h // mesh.shape["model"]
+    r = _mesh.axis_index(mesh, MODEL)
+    return slice(r * hl, (r + 1) * hl)
+
+
+def _m2_serve_proj(p: Mamba2Params, x, cfg, conv_cache=None):
+    """``_m2_proj``, its per-head values cut to ``_m2_heads`` (and ``z``
+    to their channels): (heads, q, k, v, log_decay, xs, z, new_conv,
+    xbc)."""
+    q, k, v, ld, xs, z, new_conv, xbc = _m2_proj(p, x, cfg, conv_cache)
+    heads = _m2_heads(cfg)
+    if heads is not None:
+        hp = _m2_dims(cfg)[3]
+        q, k, v, ld, xs = (t[:, :, heads] for t in (q, k, v, ld, xs))
+        z = z[..., heads.start * hp:heads.stop * hp]
+    return heads, q, k, v, ld, xs, z, new_conv, xbc
 
 
 def mamba2_block(p: Mamba2Params, x, cfg: ModelConfig, state=None):
     """Prefill: x [B,S,D]; returns (y, (gla_state, conv_tail))."""
-    q, k, v, log_decay, xs, z, _, xbc_in = _m2_proj(p, x, cfg)
+    heads, q, k, v, log_decay, xs, z, _, xbc_in = _m2_serve_proj(p, x, cfg)
     st0 = state[0] if state is not None else None
     y, st = gla_chunked(q, k, v, log_decay, cfg.ssm_chunk, st0)
-    return _m2_out(p, y, xs, z, x, cfg), (st, _conv_tail(xbc_in))
+    return _m2_out(p, y, xs, z, x, cfg, heads), (st, _conv_tail(xbc_in))
 
 
 def mamba2_train(p: Mamba2Params, x, cfg: ModelConfig):
@@ -481,9 +520,10 @@ def mamba2_train(p: Mamba2Params, x, cfg: ModelConfig):
 
 def mamba2_decode(p: Mamba2Params, x, cfg: ModelConfig, state):
     gla_st, conv_cache = state
-    q, k, v, log_decay, xs, z, new_conv, _ = _m2_proj(p, x, cfg, conv_cache)
+    heads, q, k, v, log_decay, xs, z, new_conv, _ = _m2_serve_proj(
+        p, x, cfg, conv_cache)
     st, y = gla_step(gla_st, q[:, 0], k[:, 0], v[:, 0], log_decay[:, 0])
-    return _m2_out(p, y[:, None], xs, z, x, cfg), (st, new_conv)
+    return _m2_out(p, y[:, None], xs, z, x, cfg, heads), (st, new_conv)
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device="cuda"):

@@ -27,9 +27,10 @@ out-projection and all-reduce (``layers.blk_out``) instead of
 checkpointing the whole layer: the backward runs the block's work again
 up to the projection, neither the projection nor its collective.
 
-On a mesh (``sharding.partition.use_mesh``; train mode only, the server
-runs on no mesh) each rank holds its blocks of the parameters and its
-shard of the batch.  FSDP gathers come from ``launch.steps``: the
+On a mesh (``sharding.partition.use_mesh``) each rank holds its blocks
+of the parameters and its shard of the batch (in a serve step, where
+the batch divides the batch axes; one long sequence is whole on every
+rank).  FSDP gathers come from ``launch.steps``: the
 stacked layers of the dense, VLM and MoE families as an ``FsdpLayers``,
 whose layer is gathered where the loop takes it, inside the layer's
 remat (so one layer is whole at a time and the backward gathers it
@@ -41,7 +42,12 @@ reference's is (a ``model`` axis whose extent divides the vocab), the
 attention, MLP, MoE and recurrent blocks are tensor- and
 expert-parallel (``models.attention``, ``mlp``, ``moe``, ``ssm``), and
 the token sum is summed over the batch axes before the division by the
-global token count.  A rank's backward takes the gradient of its own
+global token count.  A serve step on a mesh keeps each rank's block of
+the cache in ``cache_logical``'s layout (``models.attention``: head-
+parallel, or split-KV over ``kv_seq``, the mesh axes the KV cache's
+sequence dim is cut over; ``models.ssm``: the Mamba-2 state's heads),
+and its logits are gathered whole over the ``model`` axis where the
+table's rows are cut.  A rank's backward takes the gradient of its own
 batch shard's part of the loss (``sharding.mesh.reduce_from`` over the
 batch axes); the step sums them.
 
@@ -92,12 +98,6 @@ def _check_mode(cfg: ModelConfig, mode: str) -> None:
     check_family(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(mode)
-    mesh = current_mesh()
-    if mesh is None or mesh.shape.get("model", 1) == 1:
-        return
-    if mode != "train":
-        raise NotImplementedError(
-            f"{mode} on a model axis: the server runs on no mesh")
 
 
 # ---------------------------------------------------------------------------
@@ -225,22 +225,22 @@ def _extract_moe_leaves(values, field):
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _attn_block(p, h, cfg, cos, sin, kv=None, pos=None):
+def _attn_block(p, h, cfg, cos, sin, kv=None, pos=None, layout=None):
     """The attention half of a block: h + attn(norm1(h)), and its kv."""
     a, new_kv = A.attention(
         p["attn"], L.rmsnorm(h, p["norm1"], cfg.norm_eps), cfg,
-        cos=cos, sin=sin, kv_cache=kv, cache_pos=pos)
+        cos=cos, sin=sin, kv_cache=kv, cache_pos=pos, kv_layout=layout)
     return h + a, new_kv
 
 
-def _dense_block(lp, h, cfg, cos, sin, kv=None, pos=None):
-    h, new_kv = _attn_block(lp, h, cfg, cos, sin, kv, pos)
+def _dense_block(lp, h, cfg, cos, sin, kv=None, pos=None, layout=None):
+    h, new_kv = _attn_block(lp, h, cfg, cos, sin, kv, pos, layout)
     m = mlp(lp["mlp"], L.rmsnorm(h, lp["norm2"], cfg.norm_eps), cfg)
     return h + m, new_kv
 
 
-def _moe_block(lp, h, cfg, cos, sin, kv=None, pos=None):
-    h, new_kv = _attn_block(lp, h, cfg, cos, sin, kv, pos)
+def _moe_block(lp, h, cfg, cos, sin, kv=None, pos=None, layout=None):
+    h, new_kv = _attn_block(lp, h, cfg, cos, sin, kv, pos, layout)
     hn = L.rmsnorm(h, lp["norm2"], cfg.norm_eps)
     m, aux = MOE.moe_dispatch(lp["moe"], hn, cfg)
     if "res_mlp" in lp:
@@ -294,11 +294,15 @@ def _remat(fn, cfg: ModelConfig, train: bool):
 
 
 def backbone(params, cfg: ModelConfig, h, *, mode: str, cache=None,
-             positions, mrope_positions=None, enc_out=None):
+             positions, mrope_positions=None, enc_out=None, kv_seq=()):
     """h [B,S,D] -> (h, new_cache, aux_loss).  ``enc_out`` (Whisper's
     encoder output) is read by the prefill and train modes; train mode
-    builds no cache (``{}``)."""
+    builds no cache (``{}``).  ``kv_seq``: the mesh axes a decode
+    cache's KV sequence dim is cut over."""
     _check_mode(cfg, mode)
+    # a serve step's cache layout on a mesh (models.attention)
+    layout = (A.KvLayout(tuple(kv_seq)) if mode != "train"
+              and current_mesh() is not None else None)
     cos, sin = _rope(cfg, positions, mrope_positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     fam = cfg.family
@@ -313,8 +317,9 @@ def backbone(params, cfg: ModelConfig, h, *, mode: str, cache=None,
         def block(lp, hh, kv=None):
             """(h, kv, aux term) of one layer."""
             if fam == "moe":
-                return _moe_block(lp, hh, cfg, cos, sin, kv, pos)
-            return (*_dense_block(lp, hh, cfg, cos, sin, kv, pos), None)
+                return _moe_block(lp, hh, cfg, cos, sin, kv, pos, layout)
+            return (*_dense_block(lp, hh, cfg, cos, sin, kv, pos, layout),
+                    None)
 
         if train:
             # the layer taken inside its remat: an FSDP layer's gather too
@@ -393,7 +398,7 @@ def backbone(params, cfg: ModelConfig, h, *, mode: str, cache=None,
             # the shared attention block after each group (never remat'ed:
             # its out-projections are not kept apart either)
             kv = (cache["kv"][0][g], cache["kv"][1][g]) if decode else None
-            h, kv = _attn_block(sp, h, shared_cfg, cos, sin, kv, pos)
+            h, kv = _attn_block(sp, h, shared_cfg, cos, sin, kv, pos, layout)
             h = h + mlp(sp["mlp"], L.rmsnorm(h, sp["norm2"], cfg.norm_eps),
                         shared_cfg)
             new_kv.append(kv)
@@ -409,13 +414,15 @@ def backbone(params, cfg: ModelConfig, h, *, mode: str, cache=None,
         """(h, kv, cross kv) of one decoder layer."""
         a, kv = A.attention(
             lp["self_attn"], L.rmsnorm(hh, lp["norm1"], cfg.norm_eps), cfg,
-            cos=cos, sin=sin, cache_pos=pos, kv_cache=kv_cache)
+            cos=cos, sin=sin, cache_pos=pos, kv_cache=kv_cache,
+            kv_layout=layout)
         hh = hh + a
         if xkv is None:
-            xkv = A.cross_kv(lp["cross_attn"], enc_out, cfg)
+            xkv = A.cross_kv(lp["cross_attn"], enc_out, cfg,
+                             serve=layout is not None)
         c, _ = A.attention(lp["cross_attn"],
                            L.rmsnorm(hh, lp["norm_x"], cfg.norm_eps), cfg,
-                           xattn_kv=xkv)
+                           xattn_kv=xkv, kv_layout=layout)
         hh = hh + c
         hh = hh + mlp(lp["mlp"], L.rmsnorm(hh, lp["norm2"], cfg.norm_eps),
                       cfg)
@@ -463,9 +470,14 @@ def encode(params, cfg: ModelConfig, enc_embeds, train: bool = False):
 # ---------------------------------------------------------------------------
 
 def logits_fn(params, cfg: ModelConfig, h):
+    """The logits of ``h``, over the whole vocab: where the table's rows
+    are cut over the ``model`` axis, each rank's columns gathered."""
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     table = params.get("lm_head", params["embed"])
-    return h @ table.to(h.dtype).T
+    logits = h @ table.to(h.dtype).T
+    if table.shape[0] != cfg.vocab:
+        logits = _mesh.gather(logits, current_mesh(), MODEL, -1)
+    return logits
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -574,7 +586,7 @@ def embed(params, cfg: ModelConfig, tokens, dtype):
 
 
 def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
-            cache=None, param_dtype=torch.bfloat16):
+            cache=None, param_dtype=torch.bfloat16, kv_seq=()):
     """Unified entry point: ``(loss, {"aux": aux})`` for ``mode`` "train"
     (the mean next-token cross-entropy plus ``router_aux_weight`` times
     the MoE load-balance term per layer), ``(logits, cache)`` for
@@ -585,7 +597,8 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
     batch keys: tokens [B,S]; labels [B,S] (train); enc_embeds [B,T,D]
     (encdec train and prefill; a decode ignores it); mrope_positions
     [3,B,S] (vlm); prefix_embeds [B,P,D] (vlm: stands in for the first P
-    tokens).
+    tokens).  ``kv_seq``: on a mesh, the axes a decode cache's KV
+    sequence dim is cut over (``backbone``).
     """
     _check_mode(cfg, mode)
     with ieee_f32():
@@ -617,7 +630,8 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
 
         h, new_cache, aux = backbone(
             params, cfg, h, mode=mode, cache=cache, positions=positions,
-            mrope_positions=mrope_positions, enc_out=enc_out)
+            mrope_positions=mrope_positions, enc_out=enc_out,
+            kv_seq=kv_seq)
         if mode == "train":
             loss = chunked_xent(params, cfg, h, batch["labels"])
             loss = loss + cfg.router_aux_weight * aux / max(cfg.n_layers, 1)
@@ -629,8 +643,9 @@ def forward(params, cfg: ModelConfig, batch: dict, *, mode: str = "train",
 
 def cache_logical(cfg: ModelConfig, seq_shard: bool = False):
     """The logical axes of ``init_cache``'s tree, the reference's (its
-    ``kv_seq_shard`` and ``seq_shard`` branches).  Axes only: the port's
-    server decodes on no mesh, so nothing cuts a cache by them yet.
+    ``kv_seq_shard`` and ``seq_shard`` branches): a serve step on a mesh
+    holds each rank's block of the cache by them
+    (``launch.steps.cache_specs``).
 
     ``seq_shard=True`` (long_500k: one sequence) puts the KV sequence dim
     on the data axis instead of the batch dim; ``cfg.kv_seq_shard`` puts
@@ -659,11 +674,13 @@ def cache_logical(cfg: ModelConfig, seq_shard: bool = False):
     return {"kv": (kv, kv), "cross": (cross, cross), "pos": ()}
 
 
-def init_cache(params, cfg: ModelConfig, batch: int, max_len: int):
+def init_cache(params, cfg: ModelConfig, batch: int, max_len: int,
+               device=None):
     """Decode cache (zeros) for one new token against a ``max_len``
-    context, on the device of ``params``."""
+    context, on ``device`` (default: the device of ``params``;
+    ``"meta"``: shapes only)."""
     check_family(cfg)
-    dev = params["embed"].device
+    dev = device if device is not None else params["embed"].device
     bf16 = torch.bfloat16
     cache: dict[str, Any] = {"pos": max_len - 1}
     fam = cfg.family

@@ -30,6 +30,14 @@ backward.  Each axis-level call adds one to ``collective_stats()``'s
 count of its op on its axes, with the bytes this rank hands the backend;
 a ``tag`` names a kind of call apart (``"all_reduce_sum[blk_out]"``: the
 blocks' out-projection sums).
+
+A mesh without a world (``launch.mesh.abstract_mesh``, whose groups are
+``AbstractGroup``s) traces a step abstractly, as rank 0 of the layout:
+on a ``meta`` tensor each collective, plain or axis-level, returns a
+``meta`` tensor of its result's shape and dtype and records ``(op,
+axes, bytes)`` as an axis-level call over a world does (the plain ones
+too, so that the dry run sees the DCNN's data-parallel sums); on a real
+tensor it raises ``MeshError``, since no other rank holds data.
 """
 
 from __future__ import annotations
@@ -56,7 +64,8 @@ class Mesh:
     index on each axis, ``groups`` each axis to the process group of the
     ranks that differ from this one on that axis alone.  A mesh made with
     ``groups=None`` describes a layout without a world (the partition
-    arithmetic needs no more); its collectives raise."""
+    arithmetic needs no more); its collectives raise.  One whose groups
+    are ``AbstractGroup``s traces them (``launch.mesh.abstract_mesh``)."""
 
     def __init__(self, sizes, axis_names, *, rank: int = 0, groups=None):
         sizes, axis_names = tuple(sizes), tuple(axis_names)
@@ -92,6 +101,42 @@ class Mesh:
         return mesh_axes(self)["batch"]
 
 
+class AbstractGroup:
+    """The process group of ``axes`` (``size`` ranks) in a mesh without a
+    world: a collective over it traces (``trace``)."""
+
+    def __init__(self, axes: tuple[str, ...], size: int):
+        self.axes, self.size = tuple(axes), size
+
+    def trace(self, op: str, t: torch.Tensor, shape) -> torch.Tensor:
+        """``op`` on ``t`` over this group: recorded (unless the group is
+        one rank), and a ``meta`` tensor of the result's ``shape``; a
+        real ``t`` raises."""
+        if t.device.type != "meta":
+            raise MeshError(f"{op} over {self.axes} of a mesh without a "
+                            f"world takes meta tensors only, not "
+                            f"{t.device}")
+        if self.size > 1:
+            _record(op, self.axes, t)
+        return torch.empty(tuple(shape), dtype=t.dtype, device="meta")
+
+
+def _blocks_of(t: torch.Tensor, dim: int, n: int):
+    """``t``'s shape with ``dim`` cut into ``n`` blocks (one block's)."""
+    if t.shape[dim] % n:
+        raise MeshError(f"dim {dim} of {tuple(t.shape)} does not divide "
+                        f"into {n} blocks")
+    shape = list(t.shape)
+    shape[dim] //= n
+    return shape
+
+
+def _gathered(t: torch.Tensor, dim: int, n: int):
+    shape = list(t.shape)
+    shape[dim] *= n
+    return shape
+
+
 def _staged(t: torch.Tensor, group):
     """The tensor to hand the backend: a host copy of a CUDA tensor under
     gloo, else ``t`` itself."""
@@ -103,6 +148,8 @@ def _staged(t: torch.Tensor, group):
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """The elementwise ``op`` (``"sum"``, ``"max"`` or ``"min"``) of ``t``
     over the ranks of ``group``, as a new tensor on ``t``'s device."""
+    if isinstance(group, AbstractGroup):
+        return group.trace(f"all_reduce_{op}", t, t.shape)
     buf = _staged(t, group)
     buf = buf.clone() if buf is t else buf
     dist.all_reduce(buf, op=_REDUCE_OPS[op], group=group)
@@ -112,6 +159,8 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
 def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     """The ranks' ``t`` concatenated along ``dim`` in group-rank order
     (``all_gather(..., tiled=True)`` in JAX)."""
+    if isinstance(group, AbstractGroup):
+        return group.trace("all_gather", t, _gathered(t, dim, group.size))
     buf = _staged(t, group).contiguous()
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)
@@ -121,13 +170,18 @@ def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
 def pmean(t: torch.Tensor, group) -> torch.Tensor:
     """The mean of ``t`` over ``group``: a sum divided by the group's size
     (gloo has no averaging reduction)."""
-    return all_reduce(t, group) / dist.get_world_size(group)
+    n = (group.size if isinstance(group, AbstractGroup)
+         else dist.get_world_size(group))
+    return all_reduce(t, group) / n
 
 
 def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The sum of ``t`` over ``group``, of which this rank keeps its block
     along ``dim`` (block ``i`` of ``n`` equal ones for group rank ``i``).
     Under gloo: an ``all_reduce`` and a slice."""
+    if isinstance(group, AbstractGroup):
+        return group.trace("reduce_scatter", t,
+                           _blocks_of(t, dim, group.size))
     n = dist.get_world_size(group)
     if t.shape[dim] % n:
         raise MeshError(f"dim {dim} of {tuple(t.shape)} does not divide "
@@ -183,24 +237,32 @@ def psum(t: torch.Tensor, mesh, axes: tuple[str, ...],
     rank."""
     if axis_size(mesh, axes) == 1:
         return t
-    _record(f"all_reduce_{op}" + (f"[{tag}]" if tag else ""), axes, t)
-    return all_reduce(t, mesh.group(axes), op)
+    name = f"all_reduce_{op}" + (f"[{tag}]" if tag else "")
+    group = mesh.group(axes)
+    if isinstance(group, AbstractGroup):
+        return group.trace(name, t, t.shape)
+    _record(name, axes, t)
+    return all_reduce(t, group, op)
 
 
 def gather(t: torch.Tensor, mesh, axes: tuple[str, ...],
            dim: int) -> torch.Tensor:
     if axis_size(mesh, axes) == 1:
         return t
-    _record("all_gather", axes, t)
-    return all_gather(t, mesh.group(axes), dim)
+    group = mesh.group(axes)
+    if not isinstance(group, AbstractGroup):    # which records itself
+        _record("all_gather", axes, t)
+    return all_gather(t, group, dim)
 
 
 def scatter_sum(t: torch.Tensor, mesh, axes: tuple[str, ...],
                 dim: int) -> torch.Tensor:
     if axis_size(mesh, axes) == 1:
         return t
-    _record("reduce_scatter", axes, t)
-    return reduce_scatter(t, mesh.group(axes), dim)
+    group = mesh.group(axes)
+    if not isinstance(group, AbstractGroup):    # which records itself
+        _record("reduce_scatter", axes, t)
+    return reduce_scatter(t, group, dim)
 
 
 class _CopyTo(torch.autograd.Function):

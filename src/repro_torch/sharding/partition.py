@@ -149,16 +149,38 @@ def local_block(t, spec: Sequence, mesh):
     return t[block_index(mesh, spec, t.shape)]
 
 
+def spec_leaves(specs, like) -> list:
+    """``specs`` flattened to the structure of the tree ``like``: the spec
+    of each of its leaves, in its leaf order.  (A resolved spec whose
+    entries are all axis names reads as a leaf to ``is_logical_leaf``
+    even where it is a tuple of specs, as an sLSTM state's three
+    ``("data",)`` are; ``like`` tells them apart.)"""
+    out = []
+
+    def walk(sp, node):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(sp[k], node[k])
+        elif isinstance(node, (list, tuple)):
+            if len(sp) != len(node):
+                raise ValueError(f"{len(sp)} specs for {len(node)} "
+                                 f"subtrees")
+            for a, b in zip(sp, node):
+                walk(a, b)
+        else:
+            out.append(sp)
+    walk(specs, like)
+    return out
+
+
 def shard_tree(tree, specs, mesh):
     """Each leaf of ``tree`` cut to this rank's block by its spec in
     ``specs`` (a spec tree of the same structure)."""
     leaves = _tree.leaves(tree)
-    spec_leaves = _tree.leaves(specs, is_leaf=is_logical_leaf)
-    if len(leaves) != len(spec_leaves):
-        raise ValueError(f"{len(spec_leaves)} specs for {len(leaves)} "
-                         f"leaves")
     return _tree.unflatten(tree, [local_block(t, s, mesh) for t, s in
-                                  zip(leaves, spec_leaves)])
+                                  zip(leaves, spec_leaves(specs, tree))])
 
 
 def conv_weight_axes(rank: int, *, cin: str | None = None,
