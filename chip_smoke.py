@@ -22,7 +22,10 @@ Phases, any failure of which exits non-zero before the result line:
      for the same bits: a geometry split by the planner and forced
      unsplit, scalar copies (Ci 1, 3, 6; Co 2, 3), ragged rows and
      channel tiles, groups whose Cig is not a multiple of 4, forced
-     splits; then the backward: dw and both dx routes at every training
+     splits; and bf16 x bf16 with f32 output at reduction depths 864,
+     3,456 and 4,096, unsplit and split, run twice for the same bits and
+     held against float64 of the same bf16 operands (within 5e-5 of max
+     |y|); then the backward: dw and both dx routes at every training
      geometry (DCGAN generator and discriminator at batch 64, V-Net at
      batch 4, 3D-GAN's at batch 32), f32 and bf16 operands, against the
      plain versions summed in float64,
@@ -42,8 +45,9 @@ Phases, any failure of which exits non-zero before the result line:
      bits and held against the plain version summed in float64 (s8:
      within 1e-6, its sums exact; f32 x int8: within 5e-5); every forward
      launch's record names the kernel the C entry reports it launched,
-     and its passes (f32 x f32: igemm_kernel, the CUDA cores' FMAs; f32 x
-     int8: igemm_tf32_kernel in two passes; bf16 x int8 and bf16 x bf16:
+     and its passes (f32 x f32: igemm_kernel, the CUDA cores' FMAs; bf16
+     x bf16: igemm_bf16_kernel, mma.sync m16n8k16 on the bf16 tensor
+     cores; f32 x int8: igemm_tf32_kernel in two passes; bf16 x int8:
      igemm_tf32_kernel in one; int8 x int8: igemm_s8_kernel), checked per
      launch and over the run;
   4. serve — a ``DcnnServer`` answers 8 DCGAN seeds and 4 V-Net volumes at
@@ -210,7 +214,7 @@ Phases, any failure of which exits non-zero before the result line:
      dw and dx), and the bound, with each launch's tile, reduction
      slices and share of the bound (and, for the forwards, the wrapper's
      host time per call); the forward and dx shapes again in bf16 (the
-     TF32 route); the int8 launches at every quantized call shape the
+     bf16 route); the int8 launches at every quantized call shape the
      same way, with bf16 activations too, their library time cuDNN's on
      the dequantized f32 operands and their bound at the card's rate for
      their operand types (dense TF32 for f32 x int8, bf16 for bf16 x int8,
@@ -430,9 +434,10 @@ LM_TRAIN = (
 )
 # the forward block's route for each (x, w) operand pair (igemm.cuh), and
 # the passes of the TF32 route per activation type: what each launch's C
-# entry must report it launched (launch_key)
+# entry must report it launched (launch_key); bf16 x bf16 runs
+# igemm_bf16_kernel, never igemm_tf32_kernel
 PAIR_ROUTE = {("float32", "float32"): "fma",
-              ("bfloat16", "bfloat16"): "tf32",
+              ("bfloat16", "bfloat16"): "bf16",
               ("float32", "int8"): "tf32",
               ("bfloat16", "int8"): "tf32",
               ("int8", "int8"): "s8"}
@@ -2354,9 +2359,9 @@ def main() -> int:
         row["max_registers"] = max([row["max_registers"], *src_regs])
         row["spill_store_bytes"] += sum(int(m) for m in re.findall(
             r"(\d+) bytes spill stores", src_log))
-        # per object: the forward parts 0-1 are the FMA route, 2-7 the TF32
-        # route (bf16 x bf16, f32 x int8, bf16 x int8), 8-10 the s8 route
-        # (A copies of 16, 4, 1 bytes)
+        # per object: the forward parts 0-1 are the FMA route, 2-3 the bf16
+        # route (bf16 x bf16), 4-7 the TF32 route (f32 x int8, bf16 x
+        # int8), 8-10 the s8 route (A copies of 16, 4, 1 bytes)
         head = src_log.split("\n", 1)[0]
         unit = " ".join(head.split("(")[0].split())
         detail["ptxas"].setdefault("units", {})[unit] = {
@@ -2433,6 +2438,14 @@ def main() -> int:
         x3, wk, kw, _ = args
         kw = {k: v for k, v in kw.items() if k not in TILE_KWARGS}
         return KERNELS[op][2](x3, wk, **kw)
+
+    def run_plain64(op, args):
+        """The plain version summed in float64 (the operands' values
+        exact there)."""
+        x3, wk, kw, _ = args
+        kw = {k: v for k, v in kw.items() if k not in TILE_KWARGS}
+        return KERNELS[op][2](x3.double(), wk.double(),
+                              **dict(kw, out_dtype=torch.float64))
 
     def fwd_launches():
         """Both forward wrappers' launches so far, by (x, w, route,
@@ -2675,6 +2688,73 @@ def main() -> int:
             del got, again, ref, args
     torch.cuda.empty_cache()
 
+    # bf16 x bf16 with f32 output against float64 of the same bf16
+    # operands, at W8_TOL: the bf16 route keeps its f32 sums in the mma's
+    # registers, whose truncation grows with the reduction's depth; depths
+    # 864 (V-Net merge4's 27 x 32), 3,456 (enc5's 27 x 128) and 4,096
+    # (DCGAN deconv1's deepest phase, 4 x 1,024), unsplit and split, each
+    # launch run twice for the same bits
+    bf16_deep_cases = [
+        ("bf16:d864:unsplit", "conv", (13, 11, 9), 32, (3, 3, 3, 32, 32),
+         1, 1, 1, 2, 1, False),
+        ("bf16:d864:split", "conv", (13, 11, 9), 32, (3, 3, 3, 32, 32),
+         1, 1, 1, 2, 3, True),
+        ("bf16:d3456:unsplit", "conv", (16, 16, 8), 128,
+         (3, 3, 3, 128, 256), 2, 1, 1, 4, 1, False),
+        ("bf16:d3456:planner", "conv", (16, 16, 8), 128,
+         (3, 3, 3, 128, 256), 2, 1, 1, 4, None, True),
+        ("bf16:d4096:unsplit", "deconv", (4, 4), 1024, (3, 3, 1024, 512),
+         2, dpad2, 1, 4, 1, False),
+        ("bf16:d4096:planner", "deconv", (4, 4), 1024, (3, 3, 1024, 512),
+         2, dpad2, 1, 4, None, True),
+    ]
+    detail["bf16_f32_checks"] = []
+    for (tag, op, sp, cin, ws, st, pad, g, batch, n_split,
+         must_split) in bf16_deep_cases:
+        force[0] = None if n_split is None else forced(n_split)
+        _, _, _, (x3, wk, kw, rest) = operands(
+            op, sp, cin, ws, torch.bfloat16, st, pad, groups=g, scale=True,
+            activation="leaky_relu", alpha=0.1, batch=batch)
+        kw = dict(kw, out_dtype=torch.float32)
+        split_log.clear()
+        before = fwd_launches()
+        got = KERNELS[op][1](x3, wk, **kw)
+        again = KERNELS[op][1](x3, wk, **kw)
+        codes = launches_since(before)
+        torch.cuda.synchronize()
+        force[0] = None
+        ref = run_plain64(op, (x3, wk, kw, rest))
+        err = float((got.double() - ref).abs().max())
+        mag = float(ref.abs().max())
+        rel = err / mag if mag else err
+        row = {"check": tag, "op": op, "pair": "bfloat16/bfloat16",
+               "route": PAIR_ROUTE[("bfloat16", "bfloat16")],
+               "out": "float32", "shape": list(got.shape),
+               "depth": math.prod(ws[:-2]) * ws[-2] if op == "conv" else
+               math.prod(-(-k // st) for k in ws[:-2]) * ws[-2],
+               "splits": split_log[0], "block_co": kw["block_co"],
+               "repeat_equal": bool(torch.equal(got, again)),
+               "max_abs_err": err, "rel_err": rel, "tol": W8_TOL}
+        print(json.dumps(row))
+        detail["bf16_f32_checks"].append(row)
+        check(codes == {launch_key("bfloat16", "bfloat16"): 2},
+              f"{tag}: launches by operands and route {codes}")
+        check(len(split_log) == 2 and split_log[0] == split_log[1],
+              f"{tag}: launches split {split_log}")
+        check((split_log[0] > 1) == must_split,
+              f"{tag}: {split_log[0]} slices")
+        check(row["repeat_equal"], f"{tag}: a repeated launch gave other "
+              f"bits")
+        check(got.shape == ref.shape and got.dtype == torch.float32,
+              f"{tag}: {got.shape} {got.dtype} vs plain {ref.shape}")
+        check(rel <= W8_TOL, f"{tag}: relative error {rel:.3g} above "
+              f"{W8_TOL}")
+        del x3, wk, kw, got, again, ref
+    check(sorted({r_["depth"] for r_ in detail["bf16_f32_checks"]})
+          == [864, 3456, 4096], "bf16 f32-output depths "
+          f"{[r_['depth'] for r_ in detail['bf16_f32_checks']]}")
+    torch.cuda.empty_cache()
+
     # -- 3q. int8 operands against their plain versions ----------------------
     # (x, w) operand pairs: int8 weights beside f32 activations (w:int8),
     # int8 activations and weights (w:int8+a:int8), int8 weights beside
@@ -2719,12 +2799,6 @@ def main() -> int:
                           layer.padding, layer.dilation, layer.groups,
                           bias=epi.bias, activation=epi.activation,
                           alpha=epi.alpha, batch=batch)
-
-    def run_plain64(op, args):
-        x3, wk, kw, _ = args
-        kw = {k: v for k, v in kw.items() if k not in TILE_KWARGS}
-        return KERNELS[op][2](x3.double(), wk.double(),
-                              **dict(kw, out_dtype=torch.float64))
 
     # every distinct geometry of the quantized serving path (batch 4)
     q_layers = distinct([("dcgan", l, BATCH) for l in dcgan_layers]
@@ -4635,9 +4709,9 @@ def main() -> int:
         return row
 
     # every main-path forward shape in f32 (the FMA route), then again in
-    # bf16 (the TF32 route, one pass; cuDNN in bf16 beside it), standing
-    # in for the path in bf16; each bound at the card's rate for the
-    # operands' type
+    # bf16 (the bf16 route, igemm_bf16_kernel's mma.sync m16n8k16; cuDNN
+    # in bf16 beside it), standing in for the path in bf16; each bound at
+    # the card's rate for the operands' type
     print(json.dumps({"bound_peaks_tf32": {
         "tf32_flops": PEAK_TF32,
         "source": "H100 SXM data sheet, dense TF32 tensor cores"}}))
@@ -4774,8 +4848,8 @@ def main() -> int:
             list(layer.dilation), transposed, [0] * r, layer.groups, mask)
 
     # backward kernels at every training geometry (batch 64 / 4), f32;
-    # then dx again in bf16 (a forward kernel on the TF32 route, one
-    # pass), standing in for the path's dx in bf16
+    # then dx again in bf16 (a forward kernel on the bf16 route,
+    # igemm_bf16_kernel), standing in for the path's dx in bf16
     detail["backward_layers"] = []
     for dtype, grads in ((torch.float32, ("dw", "dx")),
                          (torch.bfloat16, ("dx",))):
@@ -5363,13 +5437,16 @@ def main() -> int:
     # the block each route runs on
     ROUTE_BLOCKS = {
         "fma": "f32 FMAs on the CUDA cores (igemm_kernel)",
+        "bf16": "bf16 tensor cores (igemm_bf16_kernel: mma.sync m16n8k16, "
+                "A by ldmatrix.x4, B by ldmatrix.x4.trans, f32 sums)",
         "tf32": "TF32 tensor cores (igemm_tf32_kernel: mma.sync m16n8k8, "
                 "int8 and bf16 operands exact, f32 activations split hi + "
                 "lo in two passes)",
         "s8": "s8 tensor cores (igemm_s8_kernel: mma.sync m16n8k32, "
               "exact s32 sums, K-major weights)"}
     # every forward launch of the run on its pair's route: none of the
-    # TF32 route's pairs on igemm_kernel, and each pair launched
+    # TF32 route's pairs on igemm_kernel, no bf16 x bf16 launch on
+    # igemm_tf32_kernel, and each pair launched
     run_routes = fwd_launches()
     detail["launches_by_route"] = {"/".join(map(str, k_)): v_
                                    for k_, v_ in sorted(run_routes.items())}

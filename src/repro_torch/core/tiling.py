@@ -6,12 +6,15 @@ are implicit GEMMs whose block stages the gathered input and the weights
 through a ring of shared-memory stages (64 bytes of each row's (tap,
 channel) pairs per stage: 16 f32, 32 bf16 or 64 int8 pairs).  The operand
 pair picks the block's route (``operand_route``): f32 x f32 runs IEEE f32
-FMAs on the CUDA cores (``"fma"``, ``KERNEL_TILES``); the pairs whose
-weights are exact in TF32 (f32 x int8, bf16 x int8, bf16 x bf16) run on
-the TF32 tensor cores (``"tf32"``, ``TF32_KERNEL_TILES``, B's stage rows
-padded: ``tf32_b_pitch``); int8 x int8 on the int8 tensor cores
-(``"s8"``, ``S8_KERNEL_TILES``, B's stages K-major, ``[block_co][64 +
-16]`` bytes).  What a layer decides is the output-channel tile
+FMAs on the CUDA cores (``"fma"``, ``KERNEL_TILES``); bf16 x bf16 runs
+``mma.sync`` m16n8k16 on the bf16 tensor cores (``"bf16"``,
+``BF16_KERNEL_TILES``, B's stage rows N-major at ``bf16_b_pitch``, read
+transposed by ``ldmatrix``), bound by its gathers, not by the tensor
+cores; int8 weights beside f32 or bf16 activations run on the TF32
+tensor cores (``"tf32"``, ``TF32_KERNEL_TILES``, B's stage rows padded:
+``tf32_b_pitch``); int8 x int8 on the int8 tensor cores (``"s8"``,
+``S8_KERNEL_TILES``, B's stages K-major, ``[block_co][64 + 16]``
+bytes).  What a layer decides is the output-channel tile
 ``block_co`` (16, 32, 64 or 128, the smallest that covers the layer's
 per-group output channels), which with the route fixes the block's rows,
 threads and stages; what the budget bounds is the dynamic shared memory
@@ -152,9 +155,17 @@ TF32_KERNEL_TILES = {t.block_co: t for t in (
     MmaKernelTile(256, 32, 8, 1, 64, 2, 2),
     MmaKernelTile(128, 64, 4, 2, 64, 4, 2),
     MmaKernelTile(128, 128, 4, 4, 64, 4, 1))}
+# block_co -> tile of the bf16 route; keep in step with csrc/igemm.cuh
+# (Bf16Tile16 ... Bf16Tile128): the TF32 route's rows, warps, stages and
+# residency
+BF16_KERNEL_TILES = {t.block_co: t for t in (
+    MmaKernelTile(256, 16, 8, 1, 64, 2, 3),
+    MmaKernelTile(256, 32, 8, 1, 64, 2, 2),
+    MmaKernelTile(128, 64, 4, 2, 64, 4, 2),
+    MmaKernelTile(128, 128, 4, 4, 64, 4, 1))}
 # the routes' tile tables (operand_route's names)
 ROUTE_TILES = {"fma": KERNEL_TILES, "tf32": TF32_KERNEL_TILES,
-               "s8": S8_KERNEL_TILES}
+               "s8": S8_KERNEL_TILES, "bf16": BF16_KERNEL_TILES}
 # the pad after each staged row of the gathered operand (bytes), and after
 # each K-major weight row of the int8 route's B stage
 A_PAD_BYTES = 16
@@ -206,16 +217,19 @@ class DeconvTilePlan:
 def operand_route(in_dtype_bytes: int, w_dtype_bytes: int | None) -> str:
     """The forward block's route for an operand pair, by its widths
     (``w_dtype_bytes`` None: the activations' width): ``"fma"`` for f32 x
-    f32 (IEEE FMAs on the CUDA cores), ``"s8"`` for int8 x int8 (the int8
-    tensor cores, exact s32 sums) and ``"tf32"`` for the pairs whose
-    weights are exact in TF32, f32 x int8, bf16 x int8 and bf16 x bf16
-    (the TF32 tensor cores; f32 activations split hi + lo, two passes).
+    f32 (IEEE FMAs on the CUDA cores), ``"bf16"`` for bf16 x bf16 (the
+    bf16 tensor cores, f32 sums), ``"s8"`` for int8 x int8 (the int8
+    tensor cores, exact s32 sums) and ``"tf32"`` for int8 weights beside
+    f32 or bf16 activations (the TF32 tensor cores, where int8 and bf16
+    values are exact; f32 activations split hi + lo, two passes).
     Widths of no pair the kernels take plan as ``"fma"`` (the wrappers
     refuse such operands)."""
     w_bytes = in_dtype_bytes if w_dtype_bytes is None else w_dtype_bytes
     if (in_dtype_bytes, w_bytes) == (1, 1):
         return "s8"
-    if (in_dtype_bytes, w_bytes) in ((4, 1), (2, 1), (2, 2)):
+    if (in_dtype_bytes, w_bytes) == (2, 2):
+        return "bf16"
+    if (in_dtype_bytes, w_bytes) in ((4, 1), (2, 1)):
         return "tf32"
     return "fma"
 
@@ -236,6 +250,17 @@ def tf32_b_pitch(in_dtype_bytes: int, b_row_bytes: int) -> int:
     return pitch
 
 
+def bf16_b_pitch(block_co: int) -> int:
+    """Bytes between two staged weight rows of the bf16 route: ``2 x
+    block_co + 16``, an odd multiple of 16, so that the eight pair rows
+    one ``ldmatrix.trans`` matrix reads start in eight distinct 16-byte
+    bank groups.  Keep in step with csrc/igemm.cuh::bf16_b_pitch."""
+    if block_co % 16:
+        raise ValueError(f"the bf16 route reads B in k16 x n16 blocks; "
+                         f"block_co={block_co} is not a multiple of 16")
+    return 2 * block_co + 16
+
+
 def step_byte_model(*, in_dtype_bytes: int = 4,
                     w_dtype_bytes: int | None = None):
     """``step_bytes(block_m, block_ci, block_co, stages)``: dynamic shared
@@ -244,10 +269,10 @@ def step_byte_model(*, in_dtype_bytes: int = 4,
     row and the B stage at the weight width, four int32 coordinates per
     row and four per tap of the ``MAX_TAPS``-entry tap table.  B's stage
     is, per ``operand_route``: ``[block_ci][block_co]`` (fma); ``[block_ci]
-    [tf32_b_pitch]`` bytes (tf32, whose f32 C tile ``[block_m][block_co +
-    4]`` takes the rings' place after the last stage, so the larger of the
-    two counts); or K-major, ``[block_co][block_ci + B_PAD_BYTES]``
-    (s8)."""
+    [tf32_b_pitch]`` bytes (tf32) or ``[block_ci][bf16_b_pitch]`` bytes
+    (bf16), each route's f32 C tile ``[block_m][block_co + 4]`` taking the
+    rings' place after the last stage, so the larger of the two counts;
+    or K-major, ``[block_co][block_ci + B_PAD_BYTES]`` (s8)."""
     w_bytes = in_dtype_bytes if w_dtype_bytes is None else w_dtype_bytes
     route = operand_route(in_dtype_bytes, w_dtype_bytes)
 
@@ -256,10 +281,11 @@ def step_byte_model(*, in_dtype_bytes: int = 4,
         a_stage = block_m * (block_ci * in_dtype_bytes + A_PAD_BYTES)
         if route == "s8":
             ring = stages * (a_stage + block_co * (block_ci + B_PAD_BYTES))
-        elif route == "tf32":
-            ring = max(stages * (a_stage + block_ci * tf32_b_pitch(
-                in_dtype_bytes, block_co * w_bytes)),
-                block_m * (block_co + 4) * 4)
+        elif route in ("tf32", "bf16"):
+            pitch = (bf16_b_pitch(block_co) if route == "bf16" else
+                     tf32_b_pitch(in_dtype_bytes, block_co * w_bytes))
+            ring = max(stages * (a_stage + block_ci * pitch),
+                       block_m * (block_co + 4) * 4)
         else:
             ring = stages * (a_stage + block_ci * block_co * w_bytes)
         return ring + 4 * block_m * 4 + 4 * MAX_TAPS * 4
@@ -386,12 +412,13 @@ def launch_split(plan: DeconvTilePlan, rows: int, depth: int, cout: int,
 # -- the autotuner's design space and cost -------------------------------------
 
 # H100 SXM data-sheet roofs (dense), per route: IEEE f32 FMAs on the CUDA
-# cores, TF32 and int8 on the tensor cores, and HBM3.  Nominal constants,
-# not measurements: ``repro_torch.tune.LatencyModel.calibrate`` replaces
-# the f32 roof and the bandwidth with the ``repro_torch.obs`` probes.  The
-# overheads only have to separate a plan of many waves or two launches
-# from one of few, not predict microseconds.
-NOMINAL_ROUTE_FLOPS = {"fma": 67e12, "tf32": 494.7e12, "s8": 1979e12}
+# cores, TF32, bf16 and int8 on the tensor cores, and HBM3.  Nominal
+# constants, not measurements: ``repro_torch.tune.LatencyModel.calibrate``
+# replaces the f32 roof and the bandwidth with the ``repro_torch.obs``
+# probes.  The overheads only have to separate a plan of many waves or two
+# launches from one of few, not predict microseconds.
+NOMINAL_ROUTE_FLOPS = {"fma": 67e12, "tf32": 494.7e12, "s8": 1979e12,
+                       "bf16": 989e12}
 NOMINAL_MEM_BPS = 3.35e12
 NOMINAL_WAVE_OVERHEAD_S = 2e-6
 NOMINAL_LAUNCH_OVERHEAD_S = 5e-6

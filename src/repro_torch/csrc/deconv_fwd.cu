@@ -28,15 +28,16 @@
 // Quantized operands, as the TPU kernel takes them: int8 weights beside
 // f32 or bf16 activations, or int8 activations and weights.  The kernel
 // reads them from global memory as int8 and stages them as int8.  Beside
-// float activations (and for bf16 x bf16) it runs on the TF32 tensor
-// cores: int8 and bf16 values are exact in TF32, f32 activations go in as
-// hi + lo in two products, so the sums keep the reference's f32
-// cast-then-dot accuracy.  int8 activations beside int8 weights run on
-// the int8 tensor cores (mma.sync s8, exact s32 sums, the weights
-// K-major).  Both tensor-core routes are bound by their gathers
-// (igemm.cuh).  Either way the per-cout dequant scale (the activations'
-// per-tensor scale folded in) multiplies the finished sum first thing in
-// the epilogue.
+// float activations it runs on the TF32 tensor cores: int8 and bf16
+// values are exact in TF32, f32 activations go in as hi + lo in two
+// products, so the sums keep the reference's f32 cast-then-dot accuracy.
+// int8 activations beside int8 weights run on the int8 tensor cores
+// (mma.sync s8, exact s32 sums, the weights K-major).  bf16 x bf16 runs on
+// the bf16 tensor cores (mma.sync m16n8k16, f32 sums: the products of
+// bf16 values are exact, as in the reference's bf16 dot with f32 sums).
+// The tensor-core routes are bound by their gathers (igemm.cuh).  Either
+// way the per-cout dequant scale (the activations' per-tensor scale
+// folded in) multiplies the finished sum first thing in the epilogue.
 #include "igemm.cuh"
 
 // This source is compiled once per variant (-DREPRO_PART=0..10, see
@@ -66,8 +67,9 @@ int repro_deconv_part10(const repro::FwdArgs& a);
 // in_dtype / w_dtype: x's and the weights' DType; the pair must be one
 // igemm.cuh::pair_index knows.  copy picks the copy widths
 // (igemm.cuh::variant_part): 16-byte copies of both operands or not for
-// the FMA and TF32 routes, A's bytes per copy (16, 4 or 1) for int8 x
-// int8, whose weights come K-major.  launched (int[2], or null) receives
+// the FMA and TF32 routes, a bit per operand for the bf16 route (A: 1,
+// B: 2), A's bytes per copy (16, 4 or 1) for int8 x int8, whose weights
+// come K-major.  launched (int[2], or null) receives
 // the kernel launched and its passes (igemm.cuh::Launched).
 extern "C" int repro_deconv_fwd(const void* x, const void* w_taps,
                                 const int* taps, const float* scale,
@@ -80,7 +82,7 @@ extern "C" int repro_deconv_fwd(const void* x, const void* w_taps,
   const int pair = repro::pair_index(in_dtype, w_dtype);
   if (pair < 0 || !repro::fwd_args(a, x, w_taps, taps, scale, bias, y, work,
                                     geom, act, alpha, out_dtype, block_co,
-                                    launched, stream))
+                                    copy, launched, stream))
     return static_cast<int>(cudaErrorInvalidValue);
   using Part = int (*)(const repro::FwdArgs&);
   static const Part parts[repro::FWD_PARTS] = {

@@ -54,13 +54,17 @@
 // activations (A, type TA) f32, bf16 or int8, the weights (B, type TB) the
 // same type or int8.  A stage holds 64 bytes of each row's pairs at A's
 // width (16 f32, 32 bf16 or 64 int8 pairs).  The operand pair picks one of
-// three routes (the planner's tiling.py::operand_route):
+// four routes (the planner's tiling.py::operand_route):
 //
 //   * f32 x f32 (igemm_kernel, the "fma" route): IEEE f32 FMAs on the CUDA
 //     cores, as described above.
-//   * f32 x int8, bf16 x int8 and bf16 x bf16 (igemm_tf32_kernel, "tf32"):
-//     mma.sync m16n8k8 on the TF32 tensor cores, f32 sums.  Every int8
-//     (|q| <= 127) and bf16 value is exact in TF32, so the weights and bf16
+//   * bf16 x bf16 (igemm_bf16_kernel, "bf16"): mma.sync m16n8k16 on the
+//     bf16 tensor cores, f32 sums in the mma's registers (the products of
+//     bf16 values are exact, as in the reference's bf16 dot with f32
+//     sums); below.
+//   * f32 x int8 and bf16 x int8 (igemm_tf32_kernel, "tf32"): mma.sync
+//     m16n8k8 on the TF32 tensor cores, f32 sums.  Every int8 (|q| <=
+//     127) and bf16 value is exact in TF32, so the weights and bf16
 //     activations go in unsplit: int8 lanes become f32 exactly in registers
 //     (the sign-flipped byte as the low mantissa byte of 2^23, minus 2^23 +
 //     128: a byte permute and an add), bf16 ones by a shift.  An f32
@@ -89,12 +93,33 @@
 // fragment reads of a warp hit distinct banks.  Each warp owns a 32-row x
 // 16- or 32-channel tile; its n8 fragment j takes the channels n * NT + j
 // (n the fragment column, NT the warp's fragments), so a lane reads its
-// NT weights of a row in one 2- to 8-byte load.  The finished sums go
+// NT weights of a row in one 2- or 4-byte load.  The finished sums go
 // through shared memory (the rings, free after the last stage) to the
 // epilogue, as the s8 route's s32 sums do.  What bounds the route:
 // the gathers, as on the s8 route, at four times its bytes for f32
 // activations (V-Net merge4 under int8 weights stages 14.5 GB of A in
 // 4.27 ms, PERF.md).
+//
+// The bf16 route keeps the same gather, ring, tables, masks, crop, split
+// and C-tile epilogue, with the TF32 route's tiles, and takes away the
+// instructions around the products: a k16 step is one mma.sync m16n8k16
+// bf16 per fragment (on the TF32 tensor cores it took two m16n8k8);
+// A is read with ldmatrix.x4 from the 80-byte-pitch rows, whose lane
+// words (rows lane % 16 at byte (lane / 16) * 16 of a 32-byte chunk) are
+// the m16n8k16 A fragment in natural k order, with no shift or mask; B is
+// staged N-major as the weights lie, its rows 2 BN + 16 bytes apart (an
+// odd multiple of 16: bf16_b_pitch), and read with ldmatrix.x4.trans, one
+// instruction for two n8 fragments of a k16 step, channels in natural
+// order.  No operand is converted in the main loop.  The f32 sums stay in
+// the mma's registers across the reduction (their truncation read under
+// 6e-6 of max |y| of float64 at 4,096 pairs).  A's 16-byte copies go
+// through L1 (.ca) and take their width apart from B's, as on the s8
+// route, so a layer of 1-3 output channels still gathers its input 16
+// bytes a copy.  What bounds the route: its gathers (each input element
+// read once per tap, from L1 or L2: V-Net merge4 1.51 ms of device time
+// against a 0.12 ms byte bound), and the wrapper's host time on the
+// short launches; at 989 TFLOP/s the products take a small share of
+// either.
 //
 // int8 activations beside int8 weights take a route of their own, on the
 // int8 tensor cores (igemm_s8_kernel): mma.sync m16n8k32 s8 x s8 with s32
@@ -787,14 +812,16 @@ __global__ void igemm_reduce(const TP* __restrict__ partial, Epi ep,
 // -- the tensor-core routes: what both share --------------------------------
 
 // BM rows x BN output channels per block, WM x WN warps of (BM/WM) x
-// (BN/WN) sums each (m16n8 fragments, four sums a thread each), 64 bytes
-// of each row's pairs per stage, ST stages, MINB blocks an SM keeps
-// resident (the register cap).  Keep in step with
-// repro_torch/core/tiling.py::S8_KERNEL_TILES and TF32_KERNEL_TILES.
-template <int BM_, int BN_, int WM_, int WN_, int ST_, int MINB_>
+// (BN/WN) sums each (m16n8 fragments, four sums a thread each), KB bytes
+// of each row's pairs per stage (64 on the TF32 and s8 routes), ST
+// stages, MINB blocks an SM keeps resident (the register cap).  Keep in
+// step with repro_torch/core/tiling.py::S8_KERNEL_TILES,
+// TF32_KERNEL_TILES and BF16_KERNEL_TILES.
+template <int BM_, int BN_, int WM_, int WN_, int ST_, int MINB_,
+          int KB_ = 64>
 struct MmaTile {
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
-  static constexpr int ST = ST_, MINB = MINB_, KB = 64;
+  static constexpr int ST = ST_, MINB = MINB_, KB = KB_;
   static constexpr int THREADS = 32 * WM * WN;
   static constexpr int WTM = BM / WM, WTN = BN / WN;   // a warp's tile
   static constexpr int MT = WTM / 16, NT = WTN / 8;    // its fragments
@@ -904,7 +931,7 @@ __device__ __forceinline__ void store_tile(const TC* ctile, const Geom& g,
   }
 }
 
-// -- the TF32 route: f32 x int8, bf16 x int8, bf16 x bf16 -------------------
+// -- the TF32 route: f32 x int8, bf16 x int8 ---------------------------------
 
 // The bytes between two staged B rows of BN weights of TB: the least
 // multiple of 16 with (4 / sizeof(TA)) x pitch = 32 (mod 64), so that
@@ -989,8 +1016,8 @@ __device__ __forceinline__ float flipped_s8(unsigned u, int k) {
          8388736.f;
 }
 
-// x is TA (f32 or bf16), w is TB (int8 or bf16), the plain [taps * Cig,
-// Co] slab the FMA route takes (the deconv's phase-major).  VEC: 16-byte
+// x is TA (f32 or bf16), w is TB (int8), the plain [taps * Cig, Co] slab
+// the FMA route takes (the deconv's phase-major).  VEC: 16-byte
 // copies of both operands, else one element a copy.  With partial !=
 // nullptr the block stores its slice's raw f32 sums at partial[((slice *
 // phases + p) * rows + m) * Co + c].
@@ -1017,6 +1044,7 @@ igemm_tf32_kernel(const TA* __restrict__ x, const TB* __restrict__ w,
   constexpr bool SPLIT = tf32_passes<TA>() == 2;
   constexpr int CPITCH = TL::CPITCH;
   static_assert(sizeof(TA) == 4 || sizeof(TA) == 2, "f32 or bf16 A");
+  static_assert(sizeof(TB) == 1, "int8 B (bf16 x bf16: the bf16 route)");
   static_assert(BN % VB == 0 && BP % 16 == 0, "B copies");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1183,6 +1211,222 @@ igemm_tf32_kernel(const TA* __restrict__ x, const TB* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < NT; ++j) dst[j] = acc[i][j][2 * h + e];
       }
+  __syncthreads();
+  store_tile<float, TL, DECONV>(ctile, g, b, ep, y, out_bf16, partial);
+}
+
+// -- the bf16 route: bf16 x bf16 on the bf16 tensor cores --------------------
+
+// The bf16 route's tiles: the TF32 route's rows, warps, stages and
+// residency, 64 bytes (32 pairs) of each row a stage.  128 bytes a stage
+// (two stages) timed 3-15 % faster on V-Net's merge layers but 1.8-2.5x
+// slower on its shallow scalar-copy layers (enc1, head), 31 % slower over
+// the V-Net batch (scripts/bf16_levers.py, PERF.md).
+using Bf16Tile16 = MmaTile<256, 16, 8, 1, 2, 3, 64>;
+using Bf16Tile32 = MmaTile<256, 32, 8, 1, 2, 2, 64>;
+using Bf16Tile64 = MmaTile<128, 64, 4, 2, 4, 2, 64>;
+using Bf16Tile128 = MmaTile<128, 128, 4, 4, 4, 1, 64>;
+// A's 16-byte copies allocate in L1 (.ca): neighbouring rows' taps re-read
+// the same input; on V-Net merge4 1.53 against 1.86 ms for .cg, the
+// batch 9 % faster
+constexpr bool BF16_A_L1 = true;
+// the bf16 route's copy argument (the C entries' copy): a bit per operand
+// that takes 16-byte copies (8 channels), each on its own
+constexpr int BF16_COPY_A16 = 1, BF16_COPY_B16 = 2;
+
+// The bytes between two staged B rows of BN bf16 weights: 2 BN + 16, an
+// odd multiple of 16 (BN is a multiple of 16), so that the eight rows an
+// ldmatrix.trans matrix reads start in eight distinct 16-byte bank
+// groups.  Keep in step with tiling.py::bf16_b_pitch.
+template <int BN>
+__host__ __device__ constexpr int bf16_b_pitch() {
+  static_assert(BN % 16 == 0, "whole k16 x n16 ldmatrix.x4.trans reads");
+  return 2 * BN + 16;
+}
+
+// Dynamic shared memory of one block: the A ring [ST][BM][KB + APAD]
+// bytes and the B ring [ST][KB / 2][bf16_b_pitch] bytes, or the f32 C
+// tile [BM][BN + 4] where that is larger (it takes the rings' place after
+// the last stage), then the row table and the tap table.  Keep in step
+// with tiling.py::step_byte_model.
+template <class TL>
+__host__ __device__ constexpr int bf16_ring_bytes() {
+  const int ring = TL::ST * (TL::BM * (TL::KB + APAD) +
+                             TL::KB / 2 * bf16_b_pitch<TL::BN>());
+  const int ctile = TL::BM * TL::CPITCH * 4;
+  return ring > ctile ? ring : ctile;
+}
+template <class TL>
+__host__ __device__ constexpr int bf16_smem_bytes() {
+  return bf16_ring_bytes<TL>() + 16 * TL::BM + 16 * MAX_TAPS;
+}
+
+// Four 8 x 16-byte matrices from shared memory, each transposed: lanes
+// 8q..8q+7 give the row addresses of matrix q, and each lane receives the
+// 2-byte elements (row 2 (lane % 4), column lane / 4) and (row 2 (lane %
+// 4) + 1, column lane / 4) of each matrix, the first in the low half.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned& r0, unsigned& r1,
+                                                  unsigned& r2, unsigned& r3,
+                                                  unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// d += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x and w are bf16, w the plain [taps * Cig, Co] slab the FMA route takes
+// (the deconv's phase-major).  VA16 / VB16: 16-byte copies (8 channels)
+// of A / of B, each operand on its own, else one element a copy.  With
+// partial != nullptr the block stores its slice's raw f32 sums at
+// partial[((slice * phases + p) * rows + m) * Co + c].
+template <class TL, bool VA16, bool VB16, bool DECONV>
+__global__ void __launch_bounds__(TL::THREADS, TL::MINB)
+igemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ w,
+                  const int* __restrict__ taps, Epi ep,
+                  void* __restrict__ y, int out_bf16,
+                  float* __restrict__ partial, Geom g) {
+  using T = __nv_bfloat16;
+  constexpr int BM = TL::BM, BN = TL::BN, THREADS = TL::THREADS;
+  constexpr int STAGES = TL::ST, MT = TL::MT, NT = TL::NT;
+  constexpr int BK = TL::KB / 2;                  // pairs per stage
+  constexpr int APB = TL::KB + APAD;              // bytes per staged A row
+  constexpr int APITCH = APB / 2;
+  constexpr int BP = bf16_b_pitch<BN>();          // bytes per staged B row
+  constexpr int VA = VA16 ? 8 : 1;                // A elements per copy
+  constexpr int VB = VB16 ? 8 : 1;                // B elements per copy
+  constexpr int B_CH = BN / VB;                   // copies per B row
+  constexpr int B_COPIES = BK * B_CH;             // copies per B stage
+  constexpr int A_UNROLL = VA16 ? BM / (THREADS / (BK / VA)) : 4;
+  static_assert(BK % 16 == 0 && NT % 2 == 0, "whole k16 steps, n8 pairs");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* As = reinterpret_cast<T*>(smem);                  // [ST][BM][APITCH]
+  unsigned char* Bs = smem + STAGES * BM * APB;        // [ST][BK][BP] bytes
+  int4* rowtab = reinterpret_cast<int4*>(smem + bf16_ring_bytes<TL>());
+  int4* taptab = rowtab + BM;
+
+  const int tid = threadIdx.x;
+  const BlockPos b = block_pos<DECONV, BM, BN>(g, taps);
+  const int Cig = g.Ci / g.G, Cog = g.Co / g.G;
+  const int nst = b.ke > b.kb ? (b.ke - b.kb + BK - 1) / BK : 0;
+  const int64_t co_base = (int64_t)b.grp * Cog;
+  const int64_t w_row0 = (int64_t)b.tap0 * Cig;
+  fill_tables<DECONV, BM, THREADS>(g, b, rowtab, taptab);   // (a barrier)
+  AGather<T, VA, BM, THREADS, BK, APITCH, A_UNROLL, DECONV, BF16_A_L1> ga(
+      g, b);
+
+  auto copy_b = [&](unsigned char* bdst, int k0, int e) {
+    const int k = e / B_CH, c = (e - k * B_CH) * VB;
+    const int co = b.co0 + c;
+    const bool ok = k0 + k < b.ke && co < Cog;
+    const T* src = ok ? w + (w_row0 + k0 + k) * g.Co + co_base + co : w;
+    copy_async<VB * 2>(bdst + k * BP + c * 2, src, ok);
+  };
+  auto load_stage = [&](int slot, int k0) {
+    ga.load(As + slot * BM * APITCH, k0, x, g, b, rowtab, taptab);
+    // B: BK rows x BN channels of the slab, at the padded pitch
+    unsigned char* bdst = Bs + slot * BK * BP;
+    if constexpr (VB16) {
+#pragma unroll
+      for (int e0 = 0; e0 < B_COPIES; e0 += THREADS)
+        if (B_COPIES % THREADS == 0 || e0 + tid < B_COPIES)
+          copy_b(bdst, k0, e0 + tid);
+    } else {
+#pragma unroll 4
+      for (int e0 = 0; e0 < B_COPIES; e0 += THREADS)
+        if (B_COPIES % THREADS == 0 || e0 + tid < B_COPIES)
+          copy_b(bdst, k0, e0 + tid);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][j][u] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) load_stage(s, b.kb + s * BK);
+    copy_commit();
+  }
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % TL::WM, wn = warp / TL::WM;
+  // this lane's ldmatrix row address in slot 0.  A (x4: rows 0-7 / 8-15
+  // of a fragment at k 0 / 8): row lane % 16, byte (lane / 16) * 16 of a
+  // 32-byte chunk, which is the m16n8k16 A fragment as it stands.  B (x4,
+  // transposed: fragments j, j + 1 at k 0-7 / 8-15): pair row lane % 16,
+  // channels wn * WTN + (lane / 16) * 8 ..
+  const unsigned a_lane =
+      static_cast<unsigned>(__cvta_generic_to_shared(As)) +
+      (wm * TL::WTM + (lane & 15)) * APB + (lane >> 4) * 16;
+  const unsigned b_lane =
+      static_cast<unsigned>(__cvta_generic_to_shared(Bs)) +
+      (lane & 15) * BP + (wn * TL::WTN + (lane >> 4) * 8) * 2;
+  for (int st = 0; st < nst; ++st) {
+    copy_wait<STAGES - 2>();   // stage st has landed (this thread's copies)
+    __syncthreads();           // ... everyone's; slot st-1 is free again
+    const int nxt = st + STAGES - 1;
+    if (nxt < nst) load_stage(nxt % STAGES, b.kb + nxt * BK);
+    copy_commit();
+    const int slot = st % STAGES;
+    const unsigned a_s = a_lane + slot * BM * APB;
+    const unsigned b_s = b_lane + slot * BK * BP;
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      unsigned bf[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; j += 2)
+        ldmatrix_x4_trans(bf[j][0], bf[j][1], bf[j + 1][0], bf[j + 1][1],
+                          b_s + ks * 16 * BP + j * 16);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        unsigned af[4];
+        ldmatrix_x4(af[0], af[1], af[2], af[3],
+                    a_s + i * 16 * APB + ks * 32);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mma_bf16(acc[i][j], af, bf[j][0], bf[j][1]);
+      }
+    }
+  }
+  copy_wait<0>();
+
+  // the f32 tile through shared memory (the rings are free once every
+  // warp is past its last stage): fragment (i, j) holds rows lane / 4 (+ 8)
+  // of the warp's i-th 16 and channels 2 * (lane % 4) + {0, 1} of its j-th 8
+  constexpr int CPITCH = TL::CPITCH;
+  float* ctile = reinterpret_cast<float*>(smem);  // [BM][CPITCH]
+  __syncthreads();
+  {
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              ctile + (wm * TL::WTM + i * 16 + gid + h * 8) * CPITCH +
+              wn * TL::WTN + j * 8 + tig * 2) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  }
   __syncthreads();
   store_tile<float, TL, DECONV>(ctile, g, b, ep, y, out_bf16, partial);
 }
@@ -1389,7 +1633,12 @@ inline dim3 grid_of(const Geom& g, int BM, int BN, bool deconv) {
 // The kernel a C call launched, as its launched[2] out-parameter reports
 // it: launched[0] is the kernel, launched[1] the products a k8 step runs
 // per fragment (the TF32 route's passes, else 1).
-enum Launched { LAUNCHED_FMA = 0, LAUNCHED_TF32 = 1, LAUNCHED_S8 = 2 };
+enum Launched {
+  LAUNCHED_FMA = 0,    // igemm_kernel
+  LAUNCHED_TF32 = 1,   // igemm_tf32_kernel
+  LAUNCHED_S8 = 2,     // igemm_s8_kernel
+  LAUNCHED_BF16 = 3,   // igemm_bf16_kernel
+};
 
 // One forward launch's arguments, as the C entry points receive them.
 struct FwdArgs {
@@ -1402,6 +1651,7 @@ struct FwdArgs {
   float* work;
   Geom g;
   int block_co;
+  int copy;         // the C entry's copy argument (variant_part)
   int* launched;    // [2], or null
   cudaStream_t stream;
 };
@@ -1457,6 +1707,26 @@ cudaError_t launch_tf32(const FwdArgs& a) {
   return finish<float, DECONV>(a, a.work, LAUNCHED_TF32, tf32_passes<TA>());
 }
 
+// The bf16 route; k_per_split is a multiple of a k16 step (a slice's
+// last stage may end short: its pairs past the slice are zero-filled).
+template <class TL, bool VA16, bool VB16, bool DECONV>
+cudaError_t launch_bf16(const FwdArgs& a) {
+  const Geom& g = a.g;
+  if (g.splits < 1 || g.k_per_split < 1 || g.k_per_split % 16 ||
+      (g.splits > 1 && !a.work))
+    return cudaErrorInvalidValue;
+  constexpr int smem = bf16_smem_bytes<TL>();
+  auto kernel = igemm_bf16_kernel<TL, VA16, VB16, DECONV>;
+  static bool smem_set[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid_of(g, TL::BM, TL::BN, DECONV), TL::THREADS, smem,
+           a.stream>>>(static_cast<const __nv_bfloat16*>(a.x),
+                       static_cast<const __nv_bfloat16*>(a.w), a.taps, a.ep,
+                       a.y, a.out_bf16, g.splits > 1 ? a.work : nullptr, g);
+  return finish<float, DECONV>(a, a.work, LAUNCHED_BF16, 1);
+}
+
 // The int8 route; work holds the slices' s32 sums (the f32 workspace's
 // bytes), and k_per_split is a multiple of 16 (B's copies).
 template <class TL, int VA, bool DECONV>
@@ -1501,6 +1771,23 @@ cudaError_t launch_tf32_typed(const FwdArgs& a) {
   return cudaErrorInvalidValue;
 }
 
+template <class TL, bool VA16, bool DECONV>
+cudaError_t launch_bf16_b(const FwdArgs& a) {
+  return a.copy & BF16_COPY_B16 ? launch_bf16<TL, VA16, true, DECONV>(a)
+                                : launch_bf16<TL, VA16, false, DECONV>(a);
+}
+
+template <bool VA16, bool DECONV>
+cudaError_t launch_bf16_typed(const FwdArgs& a) {
+  switch (a.block_co) {
+    case 16: return launch_bf16_b<Bf16Tile16, VA16, DECONV>(a);
+    case 32: return launch_bf16_b<Bf16Tile32, VA16, DECONV>(a);
+    case 64: return launch_bf16_b<Bf16Tile64, VA16, DECONV>(a);
+    case 128: return launch_bf16_b<Bf16Tile128, VA16, DECONV>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int VA, bool DECONV>
 cudaError_t launch_s8_typed(const FwdArgs& a) {
   switch (a.block_co) {
@@ -1517,8 +1804,8 @@ cudaError_t launch_s8_typed(const FwdArgs& a) {
 inline bool fwd_args(FwdArgs& a, const void* x, const void* w,
                      const int* taps, const float* scale, const float* bias,
                      void* y, float* work, const int* geom, int act,
-                     float alpha, int out_dtype, int block_co, int* launched,
-                     void* stream) {
+                     float alpha, int out_dtype, int block_co, int copy,
+                     int* launched, void* stream) {
   if (launched) launched[0] = launched[1] = -1;
   if (out_dtype != DT_F32 && out_dtype != DT_BF16) return false;
   int* dst = reinterpret_cast<int*>(&a.g);
@@ -1531,23 +1818,22 @@ inline bool fwd_args(FwdArgs& a, const void* x, const void* w,
   a.out_bf16 = out_dtype == DT_BF16;
   a.work = work;
   a.block_co = block_co;
+  a.copy = copy;
   a.launched = launched;
   a.stream = static_cast<cudaStream_t>(stream);
   return true;
 }
 
 // The (x, w) operand pairs the kernels take, in part order: f32 x f32 (the
-// FMA route, pair 0), the pairs whose weights are exact in TF32 (the TF32
-// route: bf16 x bf16, f32 x int8, bf16 x int8, pairs 1-3, their types
-// below), then int8 x int8 (the s8 route); the pairs
-// repro_torch.quant.Precision and bf16 training produce.
+// FMA route, pair 0), bf16 x bf16 (the bf16 route, pair 1), the pairs of
+// int8 weights beside float activations (the TF32 route: f32 x int8,
+// bf16 x int8, pairs 2-3, their types below), then int8 x int8 (the s8
+// route); the pairs repro_torch.quant.Precision and bf16 training
+// produce.
 template <int PAIR> struct PairTypes;
-template <> struct PairTypes<1> {
-  using A = __nv_bfloat16;
-  using B = __nv_bfloat16;
-};
 template <> struct PairTypes<2> { using A = float; using B = int8_t; };
 template <> struct PairTypes<3> { using A = __nv_bfloat16; using B = int8_t; };
+constexpr int BF16_PAIR = 1;
 constexpr int S8_PAIR = 4;
 constexpr int FWD_PARTS = 11;
 
@@ -1563,11 +1849,14 @@ constexpr int pair_index(int x_dtype, int w_dtype) {
 
 // The variant of one launch.  The C entry points compile the eleven
 // variants as eleven objects (build.py passes -DREPRO_PART=0..10) so that
-// nvcc builds them in parallel: per pair 0-3 and copy width (copy != 0:
-// 16-byte copies of both operands), parts 0-1 the FMA route (f32 x f32)
-// and 2-7 the TF32 route; parts 8-10 the s8 route, per A copy width
-// (copy = 16, 4 or 1 bytes).
+// nvcc builds them in parallel: per pair 0-3 and copy width, parts 0-1
+// the FMA route (f32 x f32) and 4-7 the TF32 route (f32 x int8, bf16 x
+// int8; copy != 0: 16-byte copies of both operands), 2-3 the bf16 route
+// (bf16 x bf16) per A copy width (copy's BF16_COPY_A16 bit; B's width,
+// the BF16_COPY_B16 bit, is chosen inside the part); parts 8-10 the s8
+// route, per A copy width (copy = 16, 4 or 1 bytes).
 constexpr int variant_part(int pair, int copy) {
+  if (pair == BF16_PAIR) return 2 + (copy & BF16_COPY_A16 ? 0 : 1);
   if (pair < S8_PAIR) return 2 * pair + (copy ? 0 : 1);
   return 8 + (copy == 16 ? 0 : copy == 4 ? 1 : 2);
 }
@@ -1577,6 +1866,8 @@ int run_part(const FwdArgs& a) {
   cudaError_t err;
   if constexpr (PART < 2) {
     err = launch_fma_typed<PART % 2 == 0, DECONV>(a);
+  } else if constexpr (PART < 4) {
+    err = launch_bf16_typed<PART % 2 == 0, DECONV>(a);
   } else if constexpr (PART < 8) {
     using P = PairTypes<PART / 2>;
     err = launch_tf32_typed<typename P::A, typename P::B, PART % 2 == 0,

@@ -35,9 +35,9 @@ SOURCES = ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu")
 HEADERS = ("igemm.cuh",)
 # each source compiles once per variant of its kernels (-DREPRO_PART=k),
 # so the variants build in parallel: the forward sources per (x, w)
-# operand pair x copy width, f32/f32 on the FMA route (parts 0-1), then
-# bf16/bf16, f32/int8 and bf16/int8 on the TF32 route (2-7), then
-# int8/int8 (the s8 route) per A copy width (8-10;
+# operand pair x copy width, f32/f32 on the FMA route (parts 0-1),
+# bf16/bf16 on the bf16 route (2-3), f32/int8 and bf16/int8 on the TF32
+# route (4-7), then int8/int8 (the s8 route) per A copy width (8-10;
 # igemm.cuh::variant_part); the dw source per operand type x A's x B's
 # copy width
 PARTS = {"deconv_fwd.cu": 11, "conv_fwd.cu": 11, "deconv_dw.cu": 8}
@@ -181,7 +181,9 @@ def check_operands(x, w, scale, bias, out_dtype, *, co: int,
 
 def forward_route(x, w, depth: int) -> str:
     """The route of a forward launch of ``x`` and ``w``
-    (``tiling.operand_route``: ``"fma"``, ``"tf32"`` or ``"s8"``).  The
+    (``tiling.operand_route``, one of four: ``"fma"`` for f32 x f32,
+    ``"bf16"`` for bf16 x bf16, ``"tf32"`` for int8 weights beside f32 or
+    bf16 activations, ``"s8"`` for int8 x int8).  The
     int8 x int8 route takes its weights K-major (4-D,
     ``common.kmajor_weights``, 16-byte aligned for its copies) and no
     other route does; its reduction of ``depth`` pairs must fit
@@ -199,15 +201,17 @@ def forward_route(x, w, depth: int) -> str:
 
 
 # the kernels a forward C entry reports in its ``launched`` out-parameter
-# (igemm.cuh::Launched), by their routes' names
-LAUNCHED_ROUTES = ("fma", "tf32", "s8")
+# (igemm.cuh::Launched), by their routes' names: igemm_kernel,
+# igemm_tf32_kernel, igemm_s8_kernel, igemm_bf16_kernel
+LAUNCHED_ROUTES = ("fma", "tf32", "s8", "bf16")
 
 
 def launched_buffer() -> ctypes.Array:
     """The forward C entries' ``launched`` out-parameter: the kernel the
-    call launched (an index of ``LAUNCHED_ROUTES``) and the products a k8
-    step of it runs per fragment (the TF32 route's passes, else 1); -1
-    until a kernel has launched."""
+    call launched (an index of ``LAUNCHED_ROUTES``: f32 FMAs on the CUDA
+    cores, the TF32 route, the s8 route, the bf16 route's ``mma.sync``
+    m16n8k16) and the products a k8 step of it runs per fragment (the
+    TF32 route's passes, else 1); -1 until a kernel has launched."""
     return (ctypes.c_int * 2)(-1, -1)
 
 
@@ -282,10 +286,15 @@ def a_copy_bytes(x, cig: int) -> int:
 
 def copy_variant(x, w, cig: int, cog: int) -> int:
     """The forward C entry's ``copy`` argument (igemm.cuh::variant_part):
-    A's bytes per copy on the s8 route, else (the FMA and TF32 routes)
-    whether both operands take 16-byte copies."""
-    if operand_route(x.element_size(), w.element_size()) == "s8":
+    A's bytes per copy on the s8 route; on the bf16 route a bit per
+    operand that takes 16-byte copies, each on its own (1: x, 2: w;
+    ``_vector_ok``); else (the FMA and TF32 routes) whether both operands
+    take 16-byte copies."""
+    route = operand_route(x.element_size(), w.element_size())
+    if route == "s8":
         return a_copy_bytes(x, cig)
+    if route == "bf16":
+        return int(_vector_ok(x, cig)) | 2 * int(_vector_ok(w, cog))
     return int(vector_copies(x, w, cig, cog))
 
 

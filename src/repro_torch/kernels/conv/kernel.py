@@ -3,10 +3,11 @@
 It replaces the JAX package's TPU kernel ``conv_pallas_3d``.  Each CUDA
 block owns a tile of output positions and a block of output channels and
 sums every tap on the route of its operand pair (``build.forward_route``:
-f32 FMAs for f32 x f32; the TF32 tensor cores for f32 x int8, bf16 x int8
-and bf16 x bf16; exact s32 sums on the int8 tensor cores for int8 x int8,
-the weights K-major), reading the input through zero-filling copies in
-place of a host-side pad; see the note at the top of the source.  Per
+f32 FMAs for f32 x f32; f32 sums on the bf16 tensor cores for bf16 x
+bf16; the TF32 tensor cores for f32 x int8 and bf16 x int8; exact s32
+sums on the int8 tensor cores for int8 x int8, the weights K-major),
+reading the input through zero-filling copies in place of a host-side
+pad; see the note at the top of the source.  Per
 launch the wrapper picks the copy widths (``build.copy_variant``) and the
 split of the reduction (``tiling.launch_split``) from the real shapes; a
 split launch runs a second pass that sums the slices, and still counts

@@ -5,9 +5,10 @@ package's TPU kernel ``deconv_pallas_3d``.  The kernel gathers: each CUDA
 block owns one output phase, a tile of phase positions and a block of
 output channels, and sums the taps of its phase on the route of its
 operand pair (``build.forward_route``): f32 FMAs for f32 x f32, f32 sums
-on the TF32 tensor cores for f32 x int8 (activations split hi + lo),
-bf16 x int8 and bf16 x bf16, exact s32 sums on the int8 tensor cores for
-int8 x int8 (the weights K-major); see the note at the top of the
+on the bf16 tensor cores for bf16 x bf16, on the TF32 tensor cores for
+f32 x int8 (activations split hi + lo) and bf16 x int8, exact s32 sums
+on the int8 tensor cores for int8 x int8 (the weights K-major); see the
+note at the top of the
 source.  Per launch the wrapper picks the copy widths
 (``build.copy_variant``) and the split of the reduction
 (``tiling.launch_split``, over the deepest phase) from the real shapes; a

@@ -78,11 +78,12 @@ class LayerGeometry:
 @dataclasses.dataclass(frozen=True)
 class LatencyModel:
     """Roofline-with-overheads scorer for candidate plans, in seconds:
-    ``peak_flops`` is the f32 (``"fma"``) route's roof, ``tf32_flops`` and
-    ``int8_ops`` the tensor-core routes'."""
+    ``peak_flops`` is the f32 (``"fma"``) route's roof, ``tf32_flops``,
+    ``bf16_flops`` and ``int8_ops`` the tensor-core routes'."""
     peak_flops: float = _tiling.NOMINAL_ROUTE_FLOPS["fma"]
     tf32_flops: float = _tiling.NOMINAL_ROUTE_FLOPS["tf32"]
     int8_ops: float = _tiling.NOMINAL_ROUTE_FLOPS["s8"]
+    bf16_flops: float = _tiling.NOMINAL_ROUTE_FLOPS["bf16"]
     mem_bps: float = _tiling.NOMINAL_MEM_BPS
     wave_overhead_s: float = _tiling.NOMINAL_WAVE_OVERHEAD_S
     launch_overhead_s: float = _tiling.NOMINAL_LAUNCH_OVERHEAD_S
@@ -103,7 +104,7 @@ class LatencyModel:
     @property
     def route_flops(self) -> dict:
         return {"fma": self.peak_flops, "tf32": self.tf32_flops,
-                "s8": self.int8_ops}
+                "s8": self.int8_ops, "bf16": self.bf16_flops}
 
     def layer_seconds(self, plan: _tiling.DeconvTilePlan,
                       geom: LayerGeometry, *, batch: int = 1) -> float:

@@ -1,8 +1,9 @@
 """The TF32 route of the forward kernels, on the CPU.
 
-f32 x int8 (``Precision(weight_quant="int8")``), bf16 x int8 and bf16 x
-bf16 launches of the deconv and conv kernels run on the TF32 tensor cores
-(``csrc/igemm.cuh::igemm_tf32_kernel``): the int8 and bf16 operands are
+f32 x int8 (``Precision(weight_quant="int8")``) and bf16 x int8 launches
+of the deconv and conv kernels run on the TF32 tensor cores
+(``csrc/igemm.cuh::igemm_tf32_kernel``; bf16 x bf16 takes the bf16
+route, ``tests/test_torch_bf16_route.py``): the int8 and bf16 operands are
 exact in TF32, f32 activations go in as ``hi = rna_tf32(x)`` and ``lo =
 rna_tf32(x - hi)``, two ``mma.m16n8k8`` products a k8 step.  The kernel
 runs only on the card (``chip_smoke.py``); here: the route's arithmetic
@@ -209,7 +210,7 @@ def test_route_matches_the_jax_int8_kernel(cin, cout):
 # -- which pair takes which route ---------------------------------------------
 
 @pytest.mark.parametrize("x_bytes,w_bytes,route", [
-    (4, 1, "tf32"), (2, 1, "tf32"), (2, 2, "tf32"), (2, None, "tf32"),
+    (4, 1, "tf32"), (2, 1, "tf32"), (2, 2, "bf16"), (2, None, "bf16"),
     (4, 4, "fma"), (4, None, "fma"), (1, 1, "s8"), (1, None, "s8"),
     (1, 4, "fma"), (8, 8, "fma"),          # no pair the kernels take
 ])
@@ -219,7 +220,7 @@ def test_operand_route_names_each_pair(x_bytes, w_bytes, route):
 
 @pytest.mark.parametrize("x_dtype,w_dtype,kmajor,route", [
     (F32, I8, False, "tf32"), (BF16, I8, False, "tf32"),
-    (BF16, BF16, False, "tf32"), (F32, F32, False, "fma"),
+    (BF16, BF16, False, "bf16"), (F32, F32, False, "fma"),
     (I8, I8, True, "s8"),
 ])
 def test_forward_route_of_the_wrappers_operands(x_dtype, w_dtype, kmajor,

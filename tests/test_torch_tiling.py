@@ -1,11 +1,11 @@
 """The kernels' planner (``repro_torch.core.tiling``).
 
 Forward: the tile per per-group channel width, the modelled shared memory
-of every instantiated tile of the FMA route (f32), the TF32 route (bf16
-and int8 weights, B's rows padded) and the int8 x int8 route (B's stage
-K-major), the split of the reduction (``split_reduction`` /
-``launch_split``, on each route's residency), the
-block counts the schedule report gives with the splits counted, and the
+of every instantiated tile of the FMA route (f32), the bf16 and TF32
+routes (bf16 x bf16; int8 weights beside float activations; B's rows
+padded) and the int8 x int8 route (B's stage K-major), the split of the
+reduction (``split_reduction`` / ``launch_split``, on each route's
+residency), the block counts the schedule report gives with the splits counted, and the
 int8 route's A copy width, chosen apart from B's.  dw: the tile per layer
 shape, the ring's shared memory, the split filling a wave, slices covering
 the rows and the copy width per operand.  Pure Python: no kernel runs.
@@ -47,9 +47,9 @@ def test_tile_per_group_channel_width(cog, block_co, threads):
 @pytest.mark.parametrize("nbytes", [4, 2])
 def test_every_tile_fits_the_budget(block_co, nbytes):
     plan = tiling.plan_uniform_tiles(64, block_co, in_dtype_bytes=nbytes)
-    # f32 x f32 plans on the FMA route's tiles, bf16 x bf16 on the TF32
+    # f32 x f32 plans on the FMA route's tiles, bf16 x bf16 on the bf16
     # route's
-    route = {4: "fma", 2: "tf32"}[nbytes]
+    route = {4: "fma", 2: "bf16"}[nbytes]
     assert tiling.operand_route(nbytes, None) == route
     tile = tiling.ROUTE_TILES[route][block_co]
     # a stage holds k_bytes of each row's pairs at either width
@@ -59,7 +59,7 @@ def test_every_tile_fits_the_budget(block_co, nbytes):
         ring = a_ring + tile.stages * tile.k_bytes * block_co
     else:       # B rows padded; the f32 C tile takes the rings' place
         ring = max(a_ring + tile.stages * plan.block_ci
-                   * tiling.tf32_b_pitch(2, 2 * block_co),
+                   * tiling.bf16_b_pitch(block_co),
                    tile.block_m * (block_co + 4) * 4)
     assert plan.step_smem_bytes == (
         ring + 16 * tile.block_m + 16 * tiling.MAX_TAPS)
@@ -171,18 +171,23 @@ def test_s8_launch_split_on_its_own_residency():
 @pytest.mark.parametrize("block_co", sorted(tiling.TF32_KERNEL_TILES))
 @pytest.mark.parametrize("x_bytes,w_bytes", [(4, 1), (2, 1), (2, 2)])
 def test_tf32_tiles_fit_at_their_residency(block_co, x_bytes, w_bytes):
-    """The TF32 route's tiles: 64 bytes of pairs a stage, B's rows at the
-    padded pitch, the f32 C tile in the rings' place after the last stage
-    (the larger of the two counts); each fits the budget at the residency
-    its __launch_bounds__ is built for (one to three blocks an SM), and
-    the planner counts that residency."""
+    """The TF32 route's tiles (and the bf16 route's, which bf16 x bf16
+    takes): 64 bytes of pairs a stage, B's rows at the padded pitch, the
+    f32 C tile in the rings' place after the last stage (the larger of
+    the two counts); each fits the budget at the residency its
+    __launch_bounds__ is built for (one to three blocks an SM), and the
+    planner counts that residency."""
     plan = tiling.plan_uniform_tiles(64, block_co, in_dtype_bytes=x_bytes,
                                      w_dtype_bytes=w_bytes)
-    tile = tiling.TF32_KERNEL_TILES[block_co]
+    route = tiling.operand_route(x_bytes, w_bytes)
+    assert route == ("bf16" if (x_bytes, w_bytes) == (2, 2) else "tf32")
+    tile = tiling.ROUTE_TILES[route][block_co]
     assert (plan.block_m, plan.block_ci, plan.threads, plan.stages) == (
-        tile.block_m, 64 // x_bytes, tile.threads, tile.stages)
-    pitch = tiling.tf32_b_pitch(x_bytes, block_co * w_bytes)
-    ring = max(tile.stages * (tile.block_m * (64 + tiling.A_PAD_BYTES)
+        tile.block_m, tile.k_bytes // x_bytes, tile.threads, tile.stages)
+    pitch = (tiling.bf16_b_pitch(block_co) if route == "bf16" else
+             tiling.tf32_b_pitch(x_bytes, block_co * w_bytes))
+    ring = max(tile.stages * (tile.block_m * (tile.k_bytes
+                                              + tiling.A_PAD_BYTES)
                               + plan.block_ci * pitch),
                tile.block_m * (block_co + 4) * 4)
     assert plan.step_smem_bytes == (ring + 16 * tile.block_m

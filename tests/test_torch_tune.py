@@ -131,6 +131,7 @@ def test_every_candidate_fits_the_budget(route):
 @pytest.mark.parametrize("route", sorted(WIDTHS))
 def test_the_design_space_is_the_routes_tiles_times_the_policies(route):
     g = _widths(GEOM3, route)
+    assert g.route == route        # bf16 x bf16 plans on the bf16 route
     cands = tune.candidate_plans(g)
     table = tiling.ROUTE_TILES[g.route]
     assert {(p.block_co, p.split) for p in cands} == {
@@ -221,8 +222,9 @@ def test_calibrate_takes_the_probes_or_their_overrides(monkeypatch):
     assert model.peak_flops == pytest.approx(123.0e9)
     assert model.mem_bps == pytest.approx(45.0e9)
     nominal = tune.LatencyModel()
-    assert (model.tf32_flops, model.int8_ops) == (nominal.tf32_flops,
-                                                  nominal.int8_ops)
+    assert (model.tf32_flops, model.int8_ops, model.bf16_flops) == (
+        nominal.tf32_flops, nominal.int8_ops, nominal.bf16_flops)
+    assert model.route_flops["bf16"] == tiling.NOMINAL_ROUTE_FLOPS["bf16"]
     assert nominal.peak_flops == 67e12 and nominal.mem_bps == 3.35e12
     monkeypatch.delenv("REPRO_PEAK_GFLOPS")
     monkeypatch.delenv("REPRO_MEM_GBPS")
