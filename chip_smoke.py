@@ -25,7 +25,12 @@ Phases, any failure of which exits non-zero before the result line:
      splits; and bf16 x bf16 with f32 output at reduction depths 864,
      3,456 and 4,096, unsplit and split, run twice for the same bits and
      held against float64 of the same bf16 operands (within 5e-5 of max
-     |y|); then the backward: dw and both dx routes at every training
+     |y|); and bf16 x bf16 launches that stage each box's input
+     footprint once (igemm_bf16_halo_kernel), where the planner chooses
+     it and forced where it keeps the gather (stride-2 phases of 1-8
+     taps, ragged boxes, groups of 8 channels, dilation 2, 2-D), against
+     the plain version and, with f32 output, float64, each launch's
+     reported staging the planner's; then the backward: dw and both dx routes at every training
      geometry (DCGAN generator and discriminator at batch 64, V-Net at
      batch 4, 3D-GAN's at batch 32), f32 and bf16 operands, against the
      plain versions summed in float64,
@@ -47,9 +52,10 @@ Phases, any failure of which exits non-zero before the result line:
      launch's record names the kernel the C entry reports it launched,
      and its passes (f32 x f32: igemm_kernel, the CUDA cores' FMAs; bf16
      x bf16: igemm_bf16_kernel, mma.sync m16n8k16 on the bf16 tensor
-     cores; f32 x int8: igemm_tf32_kernel in two passes; bf16 x int8:
-     igemm_tf32_kernel in one; int8 x int8: igemm_s8_kernel), checked per
-     launch and over the run;
+     cores, or igemm_bf16_halo_kernel; f32 x int8: igemm_tf32_kernel in
+     two passes; bf16 x int8: igemm_tf32_kernel in one; int8 x int8:
+     igemm_s8_kernel), checked per launch and over the run, with the run's
+     launches by staging (both stagings must run);
   4. serve — a ``DcnnServer`` answers 8 DCGAN seeds and 4 V-Net volumes at
      full width through the kernels (launch counts checked per batch), and
      one request of each model is held against the port's CPU run;
@@ -2755,6 +2761,126 @@ def main() -> int:
           f"{[r_['depth'] for r_ in detail['bf16_f32_checks']]}")
     torch.cuda.empty_cache()
 
+    # bf16 x bf16 launches that stage each box's input footprint once
+    # (igemm_bf16_halo_kernel, tiling.plan_halo): each case run twice for
+    # the same bits, held against the plain version at TOL and, with f32
+    # output, against float64 at W8_TOL; the staging each launch reports
+    # must be the planner's (the wrappers raise otherwise).  A case names
+    # the staging the planner must choose ("halo", "gather"), or a box
+    # to force a halo where the planner keeps the gather (its
+    # cost model: stride-2 layers), so that those footprints' arithmetic
+    # (phases of 1-8 taps, residue classes, ragged boxes) runs on the card
+    # too; the planner's own choice is recorded beside it.
+    # (tag, op, in_spatial, cin, w_shape, stride, padding, dilation,
+    #  groups, batch, staging)
+    halo_cases = [
+        ("halo:deconv:taps1-8:forced", "deconv", (17, 15, 13), 32,
+         (3, 3, 3, 32, 16), 2, dpad3, 1, 1, 2, ((4, 8, 8),)),
+        ("halo:vnet:enc2:s2:forced", "conv", VNET_SPATIAL, 16,
+         (3, 3, 3, 16, 32), 2, 1, 1, 1, 1, ((2, 8, 16),)),
+        ("halo:vnet:merge4:b1", "conv", VNET_SPATIAL, 32,
+         (3, 3, 3, 32, 16), 1, 1, 1, 1, 1, "halo"),
+        ("halo:vnet:merge4:dx", "deconv", (64, 64, 32), 16,
+         (3, 3, 3, 16, 32), 1, 1, 1, 1, 2, "halo"),
+        ("halo:dcgan:deconv3:2d:forced", "deconv", (16, 16), 256,
+         (3, 3, 256, 128), 2, dpad2, 1, 1, 16, ((8, 1, 16),)),
+        ("halo:2d:s1", "conv", (128, 128), 32, (3, 3, 32, 16), 1, 1, 1, 1,
+         8, "halo"),
+        ("halo:ragged:forced", "conv", (13, 11, 19), 16, (3, 3, 3, 16, 24),
+         1, 1, 1, 1, 3, ((3, 4, 8),)),
+        ("halo:groups2:cig8", "conv", (40, 36, 30), 16, (3, 3, 3, 8, 32), 1,
+         1, 1, 2, 2, "halo"),
+        ("halo:dil2", "conv", (44, 40, 36), 32, (3, 3, 3, 32, 16), 1, 2, 2,
+         1, 2, "halo"),
+        ("halo:deconv:dil2:forced", "deconv", (11, 9, 10), 16,
+         (3, 3, 3, 16, 16), 2, 1, 2, 1, 2, ((4, 4, 8),)),
+        ("gather:ci1", "conv", (64, 64, 32), 1, (3, 3, 3, 1, 16), 1, 1, 1,
+         1, 2, "gather"),
+    ]
+    PLANNED = {"deconv": dk.planned_halo, "conv": ck.planned_halo}
+    real_plan_halo = tiling.plan_halo
+
+    def stagings():
+        out = {}
+        for mod in (dk, ck):
+            for k_, v_ in mod.staging_launches.items():
+                out[k_] = out.get(k_, 0) + v_
+        return out
+
+    def forced_halo(op, x3, kw, box):
+        """The halo staging of ``box`` (cut to the grid) for this
+        launch."""
+        grid = (dref.phase_rows(tuple(x3.shape[1:4]), kw["kernel"],
+                                kw["stride"], kw["dilation"], kw["crop_lo"],
+                                kw["out_spatial"])
+                if op == "deconv" else kw["out_spatial"])
+        box = tuple(min(b_, p_) for b_, p_ in zip(box, grid))
+        return tiling.halo_for_box(op, box, kw["kernel"], kw["stride"],
+                                   kw["dilation"], kw["block_co"], grid)
+
+    detail["halo_checks"] = []
+    t_halo = time.perf_counter()
+    for (tag, op, sp, cin, ws, st, pad, dil, g, batch,
+         want) in halo_cases:
+        _, _, _, (x3, wk, kw, rest) = operands(
+            op, sp, cin, ws, torch.bfloat16, st, pad, dilation=dil, groups=g,
+            scale=True, activation="leaky_relu", alpha=0.1, batch=batch)
+        planner = PLANNED[op](x3, wk, **kw)
+        if isinstance(want, tuple):        # a halo launch is unsplit
+            pinned = forced_halo(op, x3, kw, *want)
+            tiling.plan_halo = lambda *a_, h_=pinned, **k_: h_
+            force[0] = forced(1)
+        halo = PLANNED[op](x3, wk, **kw)
+        staging = "halo" if halo is not None else "gather"
+        row = {"check": tag, "op": op, "staging": staging,
+               "forced": isinstance(want, tuple),
+               "planner": "halo" if planner is not None else "gather",
+               "halo": None if halo is None else list(halo.fields()),
+               "block_co": kw["block_co"]}
+        for out_dtype in (torch.bfloat16, torch.float32):
+            okw = dict(kw, out_dtype=out_dtype)
+            before = stagings()
+            got = KERNELS[op][1](x3, wk, **okw)
+            again = KERNELS[op][1](x3, wk, **okw)
+            torch.cuda.synchronize()
+            seen = {k_: v_ - before.get(k_, 0)
+                    for k_, v_ in stagings().items()
+                    if v_ != before.get(k_, 0)}
+            if out_dtype == torch.bfloat16:
+                ref = run_plain(op, (x3, wk, okw, rest))
+                tol = TOL["bfloat16"]
+            else:
+                ref = run_plain64(op, (x3, wk, okw, rest))
+                tol = W8_TOL
+            err = float((got.double() - ref.double()).abs().max())
+            mag = float(ref.double().abs().max())
+            rel = err / mag if mag else err
+            oname = str(out_dtype).split(".")[-1]
+            row[oname] = {"max_abs_err": err, "rel_err": rel, "tol": tol,
+                          "repeat_equal": bool(torch.equal(got, again)),
+                          "launches": {"/".join(k_): v_
+                                       for k_, v_ in seen.items()}}
+            check(seen == {("bfloat16", "bfloat16", "bf16", staging): 2},
+                  f"{tag}/{oname}: launches by staging {seen}, the planner "
+                  f"chose {staging}")
+            check(row[oname]["repeat_equal"], f"{tag}/{oname}: a repeated "
+                  f"launch gave other bits")
+            check(got.shape == ref.shape and got.dtype == out_dtype,
+                  f"{tag}/{oname}: {got.shape} {got.dtype} vs plain "
+                  f"{ref.shape}")
+            check(rel <= tol, f"{tag}/{oname}: relative error {rel:.3g} "
+                  f"above {tol}")
+            del got, again, ref
+        tiling.plan_halo, force[0] = real_plan_halo, None
+        print(json.dumps(row))
+        detail["halo_checks"].append(row)
+        check(staging == ("halo" if isinstance(want, tuple) else want),
+              f"{tag}: the planner chose {staging}, not {want}")
+        del x3, wk, kw, rest
+    detail["halo_checks_s"] = time.perf_counter() - t_halo
+    print(json.dumps({"halo_checks_s": detail["halo_checks_s"]}))
+    torch.cuda.empty_cache()
+
     # -- 3q. int8 operands against their plain versions ----------------------
     # (x, w) operand pairs: int8 weights beside f32 activations (w:int8),
     # int8 activations and weights (w:int8+a:int8), int8 weights beside
@@ -5438,7 +5564,9 @@ def main() -> int:
     ROUTE_BLOCKS = {
         "fma": "f32 FMAs on the CUDA cores (igemm_kernel)",
         "bf16": "bf16 tensor cores (igemm_bf16_kernel: mma.sync m16n8k16, "
-                "A by ldmatrix.x4, B by ldmatrix.x4.trans, f32 sums)",
+                "A by ldmatrix.x4, B by ldmatrix.x4.trans, f32 sums; "
+                "igemm_bf16_halo_kernel where tiling.plan_halo stages "
+                "each box's input footprint once a chunk)",
         "tf32": "TF32 tensor cores (igemm_tf32_kernel: mma.sync m16n8k8, "
                 "int8 and bf16 operands exact, f32 activations split hi + "
                 "lo in two passes)",
@@ -5452,6 +5580,22 @@ def main() -> int:
                                    for k_, v_ in sorted(run_routes.items())}
     print(json.dumps({"launches_by_route": detail["launches_by_route"]}))
     check_routes("the run", run_routes)
+    # the run's launches by how they staged A: every bf16 x bf16 launch
+    # reported the staging the planner chose (the wrappers raise on any
+    # other), and both stagings ran; the other routes always gather
+    run_stagings = stagings()
+    detail["launches_by_staging"] = {"/".join(k_): v_ for k_, v_ in
+                                     sorted(run_stagings.items())}
+    print(json.dumps({"launches_by_staging":
+                      detail["launches_by_staging"]}))
+    for how in ("gather", "halo"):
+        check(run_stagings.get(("bfloat16", "bfloat16", "bf16", how), 0) > 0,
+              f"no bf16 x bf16 launch staged by {how} in the run")
+    check(all(k_[3] == "gather" for k_ in run_stagings if k_[2] != "bf16"),
+          f"a launch off the bf16 route staged a halo: {run_stagings}")
+    check(sum(run_stagings.values()) == sum(run_routes.values()),
+          f"launches by staging {sum(run_stagings.values())} vs by route "
+          f"{sum(run_routes.values())}")
     for pair in PAIR_ROUTE:
         check(run_routes.get(launch_key(*pair), 0) > 0,
               f"{pair}: no launch on {launch_key(*pair)[2:]} in the run")

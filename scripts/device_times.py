@@ -10,15 +10,21 @@ events around back-to-back wrapper calls time the wrapper's host work
 there, which varies from run to run by more than the kernels differ.
 This reads the kernels' own device time instead: every conv and deconv
 layer of the DCGAN generator and discriminator (batch 32, a
-data-parallel rank's, and 64, the trainer's) and of V-Net (batch 4),
-its forward and its dx launch in ``--dtype``, 20 launches each under
-``torch.profiler`` (CUPTI), each launch's device time the sum of its
-``igemm`` kernels' (the main pass and, when split, the slices' sum),
-beside CUDA events around the same 20 launches.  Each tree runs in its
+data-parallel rank's, and 64, the trainer's), of V-Net (batch 4) and of
+the 3D-GAN's train graphs (batch 32), its forward and its dx launch in
+``--dtype``, 20 launches each under ``torch.profiler`` (CUPTI), each
+launch's device time the sum of its ``igemm`` kernels' (the main pass
+and, when split, the slices' sum), beside CUDA events around the same
+20 launches, how the launch staged A (``staging``: ``gather`` or
+``halo``, as the wrapper's ``staging_launches`` recorded it; a tree
+without that record gathers), and for the forward the device time of
+one cuDNN call of the same layer (``cudnn_ms``: channels-last, the
+deconv uncropped, as chip_smoke.py's yardstick).  Each tree runs in its
 own process, the trees in the order given, then reversed.  Prints the
-card's name and power limit, one JSON line per tree and turn (per-layer
-times under ``--json``) and, last, the sums per tree and turn.  Exits
-non-zero without a card, or when the profiler records no device time.
+card's name and power limit, each tree's per-layer rows on its first
+turn, one JSON line per tree and turn (everything under ``--json``)
+and, last, the sums per tree and turn.  Exits non-zero without a card,
+or when the profiler records no device time.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ def child(src: Path, dtype_name: str) -> int:
     from repro_torch.kernels.deconv import ops as dops
     from repro_torch.launch import steps as ST
 
+    F = torch.nn.functional
     dev = torch.device("cuda")
     dtype = getattr(torch, dtype_name)
     engine = UniformEngine(device=dev)
@@ -61,6 +68,52 @@ def child(src: Path, dtype_name: str) -> int:
              for l in graph.layers for b in (32, 64)]
     cells += [("vnet", l, 4)
               for l in ST.train_graphs(get_config("v-net"))["vnet"].layers]
+    cells += [(f"3d_gan.{g}", l, get_config("3d_gan").dcnn_batch)
+              for g, graph in ST.train_graphs(get_config("3d_gan")).items()
+              for l in graph.layers]
+
+    def device_ms(fn, match):
+        """Device time of one call of ``fn``: kernels whose name holds
+        ``match`` (all when None) over CALLS calls, under the profiler."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(CALLS):
+                fn()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        us = 0.0
+        for evt in prof.key_averages():      # kernels, not their launches
+            if getattr(evt, "device_type", cuda) == cuda and (
+                    match is None or match in evt.key):
+                us += getattr(evt, "device_time_total",
+                              getattr(evt, "cuda_time_total", 0.0))
+        return us / 1e3 / CALLS
+
+    def cudnn_call(layer, x, w):
+        """One cuDNN call of the layer's forward, channels-last (the
+        deconv uncropped), layouts permuted outside the timed calls."""
+        r = layer.rank
+        fmt = torch.channels_last if r == 2 else torch.channels_last_3d
+        xl = x.permute(0, r + 1, *range(1, r + 1))
+        if layer.op == "deconv":
+            wl = w.permute(r, r + 1, *range(r)).contiguous(memory_format=fmt)
+            fn = F.conv_transpose2d if r == 2 else F.conv_transpose3d
+            return lambda: fn(xl, wl, stride=layer.stride,
+                              dilation=layer.dilation, groups=layer.groups)
+        wl = w.permute(r + 1, r, *range(r)).contiguous(memory_format=fmt)
+        fn = F.conv2d if r == 2 else F.conv3d
+        pad = tuple(lo for lo, _ in layer.padding)
+        return lambda: fn(xl, wl, stride=layer.stride, padding=pad,
+                          dilation=layer.dilation, groups=layer.groups)
+
+    def staged():
+        out = {}
+        for mod in (ck, dk):
+            for key, n in getattr(mod, "staging_launches", {}).items():
+                out[key[3]] = out.get(key[3], 0) + n
+        return out
+
     rows = []
     for model, layer, batch in cells:
         if layer.empty:
@@ -83,17 +136,13 @@ def child(src: Path, dtype_name: str) -> int:
         dx_kernel = dk.deconv_dx if layer.op == "deconv" else dk.deconv_fwd
         for which, fn in (("fwd", lambda: fwd_kernel(x3, wk, **kw)),
                           ("dx", lambda: dx_kernel(a, b, **dkw))):
+            before = staged()
             fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(CALLS):
-                    fn()
-                torch.cuda.synchronize()
-            dev_us = 0.0
-            for evt in prof.key_averages():
-                if "igemm" in evt.key:
-                    dev_us += getattr(evt, "device_time_total",
-                                      getattr(evt, "cuda_time_total", 0.0))
+            how = [k for k, n in staged().items() if n != before.get(k, 0)]
+            dev_ms = device_ms(fn, "igemm")
+            cudnn_ms = None
+            if which == "fwd" and layer.groups == 1:
+                cudnn_ms = device_ms(cudnn_call(layer, x, w), None)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -102,8 +151,10 @@ def child(src: Path, dtype_name: str) -> int:
             e1.record()
             e1.synchronize()
             rows.append({"model": model, "layer": layer.name, "batch": batch,
-                         "grad": which, "device_ms": dev_us / 1e3 / CALLS,
-                         "event_ms": e0.elapsed_time(e1) / CALLS})
+                         "grad": which, "device_ms": dev_ms,
+                         "event_ms": e0.elapsed_time(e1) / CALLS,
+                         "staging": how[0] if len(how) == 1 else "gather",
+                         "cudnn_ms": cudnn_ms})
         del x, w, dy, x3, wk, a, b
     torch.cuda.empty_cache()
     print(json.dumps({"rows": rows}))
@@ -150,8 +201,15 @@ def main() -> int:
             s[0] += r["device_ms"]
             s[1] += r["event_ms"]
         run = {"src": str(src), "sums_device_event_ms": sums}
+        if str(src) not in [r["src"] for r in runs]:
+            for r in rows[0]:
+                cud = ("" if r["cudnn_ms"] is None
+                       else f" cudnn {r['cudnn_ms']:.4f}")
+                print(f"  {r['model']}:{r['layer']}:b{r['batch']}:"
+                      f"{r['grad']} {r['staging']} {r['device_ms']:.4f}"
+                      f"{cud}")
         print(json.dumps(run), flush=True)
-        runs.append(dict(run, rows=rows[0]))
+        runs.append(dict(run, src=str(src), rows=rows[0]))
     cli.json.parent.mkdir(parents=True, exist_ok=True)
     cli.json.write_text(json.dumps({"card": card, "dtype": cli.dtype,
                                     "runs": runs}, indent=1))

@@ -21,9 +21,12 @@ threads and stages; what the budget bounds is the dynamic shared memory
 of one block, counted at the operands' true widths, against the 227 KB an
 sm_90 block may use.  Per launch, ``launch_split`` cuts the reduction
 into slices when the output alone gives the card less than a wave of
-blocks, unless the plan's split policy is ``"off"``.  Plans differ from
-the TPU's by design: there is no leading-dim tile and no halo, because no
-block carries anything to another.
+blocks, unless the plan's split policy is ``"off"``, and ``plan_halo``
+decides whether a bf16 x bf16 launch stages each box of rows' input
+footprint once a chunk of channels (``igemm_bf16_halo_kernel``), and
+with which box.  Plans differ from the TPU's by design: there is no
+leading-dim tile and no carried halo, because no block carries anything
+to another (a halo-staged block loads its own footprint).
 
 The autotuner's design space and cost live here too, beside the planner
 they extend: ``candidate_tile_plans`` (every tile of the route x both
@@ -272,12 +275,21 @@ def step_byte_model(*, in_dtype_bytes: int = 4,
     [tf32_b_pitch]`` bytes (tf32) or ``[block_ci][bf16_b_pitch]`` bytes
     (bf16), each route's f32 C tile ``[block_m][block_co + 4]`` taking the
     rings' place after the last stage, so the larger of the two counts;
-    or K-major, ``[block_co][block_ci + B_PAD_BYTES]`` (s8)."""
+    or K-major, ``[block_co][block_ci + B_PAD_BYTES]`` (s8).  A bf16
+    launch that stages a halo (``halo``, a ``HaloPlan``) holds
+    ``halo_smem_bytes`` instead: its stages hold the footprint's slots and
+    every tap's B rows of a chunk."""
     w_bytes = in_dtype_bytes if w_dtype_bytes is None else w_dtype_bytes
     route = operand_route(in_dtype_bytes, w_dtype_bytes)
 
     def step_bytes(block_m: int, block_ci: int, block_co: int,
-                   stages: int) -> int:
+                   stages: int, *, halo: HaloPlan | None = None) -> int:
+        if halo is not None:
+            if route != "bf16":
+                raise ValueError(f"only the bf16 route stages a halo, not "
+                                 f"the {route} route")
+            return halo_smem_bytes(block_m, block_co, halo.slots,
+                                   halo.steps)
         a_stage = block_m * (block_ci * in_dtype_bytes + A_PAD_BYTES)
         if route == "s8":
             ring = stages * (a_stage + block_co * (block_ci + B_PAD_BYTES))
@@ -407,6 +419,269 @@ def launch_split(plan: DeconvTilePlan, rows: int, depth: int, cout: int,
         return split_reduction(1 << 30, depth, 1)
     return split_reduction(grid_blocks(plan, rows, cout, groups, phases),
                            depth, SMS * resident_blocks(plan), phases)
+
+
+# -- the bf16 route's halo staging (csrc/igemm.cuh::igemm_bf16_halo_kernel) --
+#
+# A halo-staged block owns a box of the position grid (bd x bh x bw
+# positions of one batch item, at most the tile's block_m) and stages, a
+# chunk of ``cc`` input channels at a time, the box's whole input
+# footprint once, beside every tap's ``cc`` rows of B; each tap's k16
+# steps then read A from the footprint at the row's slot plus the tap's
+# offset.  ``plan_halo`` decides per launch whether it applies and picks
+# the chunk, the box and the footprint's padded pitches.
+
+# chunks in flight, the input channels a stage holds (one 16-byte copy of
+# A a slot; a k16 step spans two taps) and the bytes a staged slot takes;
+# 8 channels timed faster than 16 and more stages no faster (PERF.md)
+HALO_STAGES = 2
+HALO_CHANNELS = 8
+HALO_PITCH = 16
+# the C entries' halo argument: int[HALO_FIELDS] (igemm.cuh::Halo)
+HALO_FIELDS = 7
+# plan_halo's model, in 16-byte copies or ldmatrix row reads of 8
+# channels: a block's setup costs SETUP a footprint slot (once per phase,
+# whatever its channels), and a halo must model under GAIN of the
+# gather's cost (on an H100 the launches modeled at 0.55-0.68 timed
+# 0.52-0.87 of the gather's device time, those at 0.78-0.80 timed
+# 0.89-1.12: PERF.md)
+HALO_SETUP_COST = 2
+HALO_GAIN = 0.75
+
+
+def halo_steps(taps: int) -> int:
+    """k16 steps a halo stage runs for ``taps`` taps of 8 channels (two
+    taps a step; a missing last tap's B rows are zero)."""
+    return -(-taps // 2)
+
+
+def halo_smem_bytes(block_m: int, block_co: int, slots: int,
+                    steps: int) -> int:
+    """Dynamic shared memory of one halo-staged block: ``HALO_STAGES``
+    stages of ``slots`` footprint slots at ``HALO_PITCH`` and ``steps`` x
+    16 rows of B at ``bf16_b_pitch``, or the f32 C tile ``[block_m]
+    [block_co + 4]`` where that is larger, then an 8-byte output offset a
+    row, a 4-byte slot table entry a slot and the ``MAX_TAPS``-entry tap
+    table.  Keep in step with csrc/igemm.cuh::halo_smem_bytes."""
+    stage = slots * HALO_PITCH + steps * 16 * bf16_b_pitch(block_co)
+    return (max(HALO_STAGES * stage, block_m * (block_co + 4) * 4)
+            + 4 * slots + 4 * MAX_TAPS + 8 * block_m)
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloPlan:
+    """One launch's halo staging: the ``box`` (bd, bh, bw) a block owns,
+    the footprint's ``extent`` per dim (slots the kernel stages along it;
+    the conv's stride-s residue classes one after another), its lines
+    ``lh`` x ``lw`` slots apart per plane and ``lw`` apart per line
+    (padded: ``halo_row_slots``), ``slots`` a stage (the zero slot last),
+    ``steps`` k16 steps a stage, the block's ``smem_bytes``, and the
+    ``boxes`` a batch item takes (per phase, group and channel tile)."""
+    box: tuple[int, int, int]
+    extent: tuple[int, int, int]
+    lh: int
+    lw: int
+    slots: int
+    steps: int
+    smem_bytes: int
+    boxes: int
+
+    def fields(self) -> tuple[int, ...]:
+        """The C entries' ``halo`` argument, igemm.cuh::Halo's order."""
+        return (*self.box, self.lh, self.lw, self.slots, self.steps)
+
+
+def halo_extent(mode: str, box, kernel, stride, dilation) -> tuple:
+    """Slots of a box's footprint along each dim: the conv's ``s x e``
+    (``step = gcd(S, dil)``, ``s = S / step``, ``e = ceil(f_end / s)``,
+    ``f_end = (b - 1) s + (K - 1) dil / step + 1``), the deconv's ``b + M
+    - 1`` (``M`` the most taps a phase has along the dim).  As
+    igemm.cuh's conv_dim / deconv_dim count them (the deconv per phase:
+    at most this)."""
+    out = []
+    for b, k, s, d in zip(box, kernel, stride, dilation):
+        if mode == "deconv":
+            out.append(b + ((k - 1) * d) // s)
+        else:
+            ss, dl = s // math.gcd(s, d), d // math.gcd(s, d)
+            f_end = (b - 1) * ss + (k - 1) * dl + 1
+            out.append(ss * -(-f_end // ss))
+    return tuple(out)
+
+
+def halo_row_slots(box, lh: int, lw: int, rows: int):
+    """Each of a tile's ``rows`` rows' footprint slot, as the kernel's
+    lanes compute it: row r = (rd bh + rh) bw + rw of the box at ``(rd lh
+    + rh) lw + rw``; rows past the box at slot 0 (not stored)."""
+    import numpy as np
+    bd, bh, bw = box
+    r = np.arange(rows)
+    rw, rh, rd = r % bw, (r // bw) % bh, r // (bw * bh)
+    return np.where(r < bd * bh * bw, (rd * lh + rh) * lw + rw, 0)
+
+
+def halo_banks_ok(box, lh: int, lw: int, rows: int) -> bool:
+    """Whether every aligned eight of the box's rows (an ldmatrix matrix's
+    rows) take slots that differ mod 8, which at 16 bytes a slot puts
+    them on eight distinct bank groups whatever the tap's offset."""
+    return bool(_bank_table(tuple(box), rows)[lh * lw % 8, lw % 8])
+
+
+@functools.lru_cache(maxsize=4096)
+def _bank_table(box, rows: int):
+    """``halo_banks_ok`` for every plane pitch mod 8 (first index) and line
+    pitch mod 8 (second): a row's slot mod 8 depends on no more."""
+    import numpy as np
+    bd, bh, bw = box
+    n = min(rows, bd * bh * bw)
+    r = np.arange(-(-n // 8) * 8)
+    rw, rh, rd = r % bw, (r // bw) % bh, r // (bw * bh)
+    pp, pl = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+    banks = (rd * pp[..., None] + rh * pl[..., None] + rw) % 8
+    banks = np.where(r < n, banks, 8 + r % 8)      # past the box: distinct
+    grp = np.sort(banks.reshape(8, 8, -1, 8), axis=-1)
+    return (np.diff(grp, axis=-1) != 0).all(axis=(-1, -2))
+
+
+def _halo_pitches(box, extent, rows):
+    """The least ``(lh, lw)`` at or above the footprint's extent (each
+    within 7 more) that passes ``halo_banks_ok``, fewest slots first; None
+    when no padding does."""
+    table = _bank_table(tuple(box), rows)
+    best = None
+    for dw_ in range(8):
+        lw = extent[2] + dw_
+        for dh_ in range(8 if box[0] > 1 else 1):
+            lh = extent[1] + dh_
+            size = extent[0] * lh * lw
+            if (best is None or size < best[0]) and table[lh * lw % 8,
+                                                          lw % 8]:
+                best = (size, lh, lw)
+    return None if best is None else best[1:]
+
+
+def _box_sides(extent: int, most: int) -> list[int]:
+    """Box sides worth trying along a grid dim of ``extent`` positions: the
+    least side of each count of boxes, ``ceil(extent / k)``, at most
+    ``most``."""
+    return sorted({-(-extent // k) for k in range(1, extent + 1)
+                   if -(-extent // k) <= most})
+
+
+def halo_taps(mode: str, kernel, stride, dilation) -> int:
+    """Taps of a launch's deepest reduction: the conv's every kernel
+    element, the deconv's deepest phase."""
+    if mode == "deconv":
+        return math.prod(phase_geometry(kernel, stride, dilation))
+    return math.prod(kernel)
+
+
+def halo_for_box(mode: str, box, kernel, stride, dilation, block_co: int,
+                 grid=None) -> HaloPlan | None:
+    """The halo staging of ``box``: the footprint's extent, its least
+    bank-safe pitches (``_halo_pitches``; None when there are none),
+    slots, steps and shared memory, and (with ``grid``) the boxes per
+    batch item."""
+    tile = BF16_KERNEL_TILES[block_co]
+    extent = halo_extent(mode, box, kernel, stride, dilation)
+    pitches = _halo_pitches(box, extent, tile.block_m)
+    if pitches is None:
+        return None
+    lh, lw = pitches
+    slots = extent[0] * lh * lw + 1
+    steps = halo_steps(halo_taps(mode, kernel, stride, dilation))
+    boxes = (math.prod(-(-p // b) for p, b in zip(grid, box))
+             if grid is not None else 0)
+    return HaloPlan(box=tuple(box), extent=extent, lh=lh, lw=lw,
+                    slots=slots, steps=steps,
+                    smem_bytes=halo_smem_bytes(tile.block_m, block_co,
+                                               slots, steps),
+                    boxes=boxes)
+
+
+def halo_fits(halo: HaloPlan, block_co: int) -> bool:
+    """Whether the two stages fit ``SMEM_BUDGET`` at the residency of the
+    bf16 tile (``min_blocks`` blocks an SM, as its gather keeps)."""
+    tile = BF16_KERNEL_TILES[block_co]
+    return (halo.smem_bytes <= SMEM_BUDGET and tile.min_blocks * (
+        halo.smem_bytes + SMEM_RESERVED_PER_BLOCK) <= SMEM_PER_SM)
+
+
+def halo_cost(halo: HaloPlan, mode: str, kernel, stride, cig: int,
+              block_m: int, batch: int) -> float:
+    """``plan_halo``'s model of a halo launch per group and channel tile,
+    in 16-byte copies or ldmatrix row reads of 8 channels: each of the
+    ``batch`` items' boxes reads ``block_m`` rows x every tap (each of the
+    deconv's taps lies in one phase) and, per phase, copies its padded
+    footprint and sets it up (``HALO_SETUP_COST`` a slot, once for all
+    channels)."""
+    phases = math.prod(stride) if mode == "deconv" else 1
+    chunks = cig // HALO_CHANNELS
+    return batch * halo.boxes * chunks * (
+        block_m * math.prod(kernel)
+        + phases * halo.slots * (1 + HALO_SETUP_COST / chunks))
+
+
+def gather_cost(grid, kernel, cig: int, block_m: int, batch: int) -> float:
+    """The gather's cost in ``halo_cost``'s units: each row tile (the
+    batch folded into the rows) copies and reads ``block_m`` rows x every
+    tap, 8 channels at a time."""
+    return (-(-batch * math.prod(grid) // block_m) * 2
+            * (cig // HALO_CHANNELS) * block_m * math.prod(kernel))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_halo(plan: DeconvTilePlan, mode: str, grid, kernel, stride,
+              dilation, cig: int, splits: int, batch: int, *,
+              in_dtype_bytes: int = 2,
+              w_dtype_bytes: int | None = None) -> HaloPlan | None:
+    """The halo staging of one forward launch, or None to keep the gather.
+
+    It applies when all hold: the pair is bf16 x bf16 (``operand_route``);
+    ``cig`` (Cin/G) is a multiple of 8, so a slot's chunk is one 16-byte
+    copy; the layer has more than one tap (the deconv: its deepest phase),
+    at most ``MAX_TAPS``; the launch is unsplit (``splits`` from
+    ``launch_split``); two stages fit ``SMEM_BUDGET`` at the tile's
+    residency (``halo_fits``); and the halo's modeled cost is under
+    ``HALO_GAIN`` of the gather's (``halo_cost``, ``gather_cost``: a few
+    taps a phase, as a stride-2 deconv's, a stride-2 conv's large
+    footprint, or grids so small that boxes leave most of their rows
+    empty keep the gather).  ``grid`` is the launch's position grid (the
+    deconv's phase positions, the conv's output positions) of each of
+    ``batch`` items, ``kernel``/``stride``/``dilation`` its 3-D
+    geometry.
+
+    Among boxes of at most ``block_m`` positions (``_box_sides`` along each
+    dim, w a multiple of 8 or the grid's whole w, the widest that fits
+    beside each d x h) it takes the least modeled cost."""
+    if operand_route(in_dtype_bytes, w_dtype_bytes) != "bf16":
+        return None
+    kernel, stride = tuple(kernel), tuple(stride)
+    dilation, grid = tuple(dilation), tuple(grid)
+    taps = halo_taps(mode, kernel, stride, dilation)
+    if (splits != 1 or cig % HALO_CHANNELS or taps <= 1 or taps > MAX_TAPS
+            or min(grid) < 1):
+        return None
+    bm = BF16_KERNEL_TILES[plan.block_co].block_m
+    best = None
+    for bd in _box_sides(grid[0], bm):
+        for bh in _box_sides(grid[1], bm // bd):
+            sides = [b for b in _box_sides(grid[2], bm // (bd * bh))
+                     if b % 8 == 0 or b == grid[2]]
+            if not sides:
+                continue
+            halo = halo_for_box(mode, (bd, bh, sides[-1]), kernel, stride,
+                                dilation, plan.block_co, grid)
+            if halo is None or not halo_fits(halo, plan.block_co):
+                continue
+            key = (halo_cost(halo, mode, kernel, stride, cig, bm, batch),
+                   halo.box)
+            if best is None or key < best[0]:
+                best = (key, halo)
+    if best is None or best[0][0] >= HALO_GAIN * gather_cost(
+            grid, kernel, cig, bm, batch):
+        return None
+    return best[1]
 
 
 # -- the autotuner's design space and cost -------------------------------------

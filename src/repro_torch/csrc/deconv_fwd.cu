@@ -35,15 +35,17 @@
 // (mma.sync s8, exact s32 sums, the weights K-major).  bf16 x bf16 runs on
 // the bf16 tensor cores (mma.sync m16n8k16, f32 sums: the products of
 // bf16 values are exact, as in the reference's bf16 dot with f32 sums).
-// The tensor-core routes are bound by their gathers (igemm.cuh).  Either
+// The tensor-core routes are bound by their gathers (igemm.cuh), except
+// where bf16 x bf16 stages each box of rows' input footprint once a chunk
+// of channels (igemm_bf16_halo_kernel, the planner's choice).  Either
 // way the per-cout dequant scale (the activations' per-tensor scale
 // folded in) multiplies the finished sum first thing in the epilogue.
 #include "igemm.cuh"
 
-// This source is compiled once per variant (-DREPRO_PART=0..10, see
+// This source is compiled once per variant (-DREPRO_PART=0..11, see
 // igemm.cuh::variant_part); part 0 also holds the C entry point.
 #ifndef REPRO_PART
-#error "build with -DREPRO_PART=0..10"
+#error "build with -DREPRO_PART=0..11"
 #endif
 #define REPRO_CAT2(a, b) a##b
 #define REPRO_CAT(a, b) REPRO_CAT2(a, b)
@@ -63,26 +65,30 @@ int repro_deconv_part7(const repro::FwdArgs& a);
 int repro_deconv_part8(const repro::FwdArgs& a);
 int repro_deconv_part9(const repro::FwdArgs& a);
 int repro_deconv_part10(const repro::FwdArgs& a);
+int repro_deconv_part11(const repro::FwdArgs& a);
 
 // in_dtype / w_dtype: x's and the weights' DType; the pair must be one
 // igemm.cuh::pair_index knows.  copy picks the copy widths
 // (igemm.cuh::variant_part): 16-byte copies of both operands or not for
 // the FMA and TF32 routes, a bit per operand for the bf16 route (A: 1,
 // B: 2), A's bytes per copy (16, 4 or 1) for int8 x int8, whose weights
-// come K-major.  launched (int[2], or null) receives
-// the kernel launched and its passes (igemm.cuh::Launched).
+// come K-major.  halo (int[HALO_FIELDS], or null) is the bf16 route's
+// halo staging the planner chose (igemm.cuh::Halo; null: the gather).
+// launched (int[3], or null) receives the kernel launched, its passes
+// and its staging (igemm.cuh::Launched, Staging).
 extern "C" int repro_deconv_fwd(const void* x, const void* w_taps,
                                 const int* taps, const float* scale,
                                 const float* bias, void* y, float* work,
                                 const int* geom, int act, float alpha,
                                 int in_dtype, int w_dtype, int out_dtype,
                                 int block_co, int copy,
-                                int* launched, void* stream) {
+                                const int* halo, int* launched,
+                                void* stream) {
   repro::FwdArgs a;
   const int pair = repro::pair_index(in_dtype, w_dtype);
   if (pair < 0 || !repro::fwd_args(a, x, w_taps, taps, scale, bias, y, work,
                                     geom, act, alpha, out_dtype, block_co,
-                                    copy, launched, stream))
+                                    copy, halo, launched, stream))
     return static_cast<int>(cudaErrorInvalidValue);
   using Part = int (*)(const repro::FwdArgs&);
   static const Part parts[repro::FWD_PARTS] = {
@@ -97,7 +103,10 @@ extern "C" int repro_deconv_fwd(const void* x, const void* w_taps,
       repro_deconv_part8,
       repro_deconv_part9,
       repro_deconv_part10,
+      repro_deconv_part11,
   };
-  return parts[repro::variant_part(pair, copy)](a);
+  const int part = repro::variant_part(pair, copy, halo != nullptr);
+  if (part < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return parts[part](a);
 }
 #endif

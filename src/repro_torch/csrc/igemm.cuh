@@ -48,7 +48,8 @@
 // What still bounds it: the gathers re-read each input element once per
 // tap from L2 (27 times on a 3x3x3 layer), and a 16-channel group reuses
 // each staged input element only 16 times; the narrow merge layers reach
-// about 40 % of the f32 peak.
+// about 40 % of the f32 peak.  (The bf16 x bf16 route stages each input
+// element once per block instead where it can: igemm_bf16_halo_kernel.)
 //
 // No block waits on another.  Operands are staged in their own type: the
 // activations (A, type TA) f32, bf16 or int8, the weights (B, type TB) the
@@ -102,8 +103,10 @@
 //
 // The bf16 route keeps the same gather, ring, tables, masks, crop, split
 // and C-tile epilogue, with the TF32 route's tiles, and takes away the
-// instructions around the products: a k16 step is one mma.sync m16n8k16
-// bf16 per fragment (on the TF32 tensor cores it took two m16n8k8);
+// instructions around the products (it keeps the gather only where the
+// halo staging below does not apply): a k16 step is one mma.sync
+// m16n8k16 bf16 per fragment (on the TF32 tensor cores it took two
+// m16n8k8);
 // A is read with ldmatrix.x4 from the 80-byte-pitch rows, whose lane
 // words (rows lane % 16 at byte (lane / 16) * 16 of a 32-byte chunk) are
 // the m16n8k16 A fragment in natural k order, with no shift or mask; B is
@@ -115,11 +118,28 @@
 // 6e-6 of max |y| of float64 at 4,096 pairs).  A's 16-byte copies go
 // through L1 (.ca) and take their width apart from B's, as on the s8
 // route, so a layer of 1-3 output channels still gathers its input 16
-// bytes a copy.  What bounds the route: its gathers (each input element
-// read once per tap, from L1 or L2: V-Net merge4 1.51 ms of device time
-// against a 0.12 ms byte bound), and the wrapper's host time on the
-// short launches; at 989 TFLOP/s the products take a small share of
-// either.
+// bytes a copy.  The gather reads each input element once per tap, from
+// L1 or L2 (V-Net merge4 1.52 ms of device time against a 0.12 ms byte
+// bound), so where the planner allows it (tiling.py::plan_halo: a
+// bf16 x bf16 launch, unsplit, Cin/G a multiple of 8, more than one
+// tap, two stages within the shared memory of the tile's residency, and
+// a modeled cost well under the gather's) the route stages A another way
+// (igemm_bf16_halo_kernel): a block owns a box of the position grid, and
+// a stage holds 8 input channels of the box's whole input footprint,
+// each input element staged once, beside every tap's rows of B for
+// those channels; each lane's ldmatrix reads its row's footprint slot
+// plus the tap's offset, with no copy per tap (merge4 0.785 ms, cuDNN's
+// 1.000).  The rest keep the gather: Cin/G not a multiple of 8 (V-Net
+// enc1, DCGAN's 3-channel discriminator conv1), one tap (the 1x1x1
+// head), split launches, and the launches whose footprint saves too
+// little (stride-2 deconvs, whose phases hold 1-8 of 27 taps; stride-2
+// convs, whose footprint holds eight input positions a row; grids too
+// small to fill a box's rows).  What bounds the halo kernel: its k16
+// steps, the ldmatrix reads of A (as many bytes as the gather's) and
+// the products beside them (without them merge4 took 0.435 of its 0.79
+// ms: scripts/halo_levers.py, PERF.md), then a block's copies, setup
+// and epilogue, which run one after another (0.04-0.07 ms each); the
+// wrappers' host time still bounds the short launches.
 //
 // int8 activations beside int8 weights take a route of their own, on the
 // int8 tensor cores (igemm_s8_kernel): mma.sync m16n8k32 s8 x s8 with s32
@@ -153,7 +173,8 @@
 // merge layer's reduction in tens of microseconds, so the gathers bound
 // it (each input element read once per tap, from L1 or L2: merge4 0.92 ms
 // against a 0.12 ms byte bound), then the output's bytes.  wgmma, TMA and
-// staging the input tile once with its halo are what it leaves.
+// staging the input tile once with its halo (as the bf16 route's
+// igemm_bf16_halo_kernel does) are what it leaves.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -420,6 +441,46 @@ __device__ __forceinline__ BlockPos block_pos(const Geom& g,
   }
   b.kb = b.slice * g.k_per_split;
   b.ke = min(b.ntaps * Cig, b.kb + g.k_per_split);
+  return b;
+}
+
+// A halo-staged launch's staging (igemm_bf16_halo_kernel), as the planner
+// packs it (tiling.py::HaloPlan.fields): a stage holds 8 input channels
+// of the box's footprint, slots positions, the footprint's planes lh x lw
+// slots apart and its lines lw apart (each at least the footprint's
+// extent, padded so that every aligned eight rows of the box take slots
+// that differ mod 8), the last slot zero; steps k16 steps of B a stage.
+struct Halo {
+  int bd, bh, bw;      // the box a block owns
+  int lh, lw;          // lines a plane, slots a line
+  int slots;           // slots a stage (planes x lh x lw + the zero slot)
+  int steps;           // k16 steps a stage (the deepest phase's)
+};
+constexpr int HALO_FIELDS = 7;
+static_assert(sizeof(Halo) == HALO_FIELDS * sizeof(int), "Halo is packed");
+
+// A halo-staged block's place: BlockPos's group, channels and phase, and
+// the box: batch item n, origin (od0, oh0, ow0) on the position grid (the
+// deconv's phase positions q, the conv's output positions o), fewer of
+// its positions inside the grid at the grid's edges.
+struct BoxPos : BlockPos {
+  int n, od0, oh0, ow0;
+};
+
+// blockIdx: x = box (batch item, then boxes along d, h, w, w fastest), y
+// = group x channel tile, z = phase.
+template <bool DECONV, int BN>
+__device__ __forceinline__ BoxPos box_pos(const Geom& g, const int* taps,
+                                          const Halo& h) {
+  BoxPos b;
+  static_cast<BlockPos&>(b) = block_pos<DECONV, 1, BN>(g, taps);
+  const int nbd = (g.Pd + h.bd - 1) / h.bd, nbh = (g.Ph + h.bh - 1) / h.bh,
+            nbw = (g.Pw + h.bw - 1) / h.bw;
+  int t = blockIdx.x;
+  b.ow0 = (t % nbw) * h.bw; t /= nbw;
+  b.oh0 = (t % nbh) * h.bh; t /= nbh;
+  b.od0 = (t % nbd) * h.bd;
+  b.n = t / nbd;
   return b;
 }
 
@@ -1431,6 +1492,393 @@ igemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   store_tile<float, TL, DECONV>(ctile, g, b, ep, y, out_bf16, partial);
 }
 
+// -- the bf16 route's halo staging -------------------------------------------
+//
+// A block owns a box of the position grid (bd x bh x bw positions of one
+// batch item, at most BM; its tile's rows are the box's positions, w
+// fastest) and runs the reduction chunk-major: for each chunk of 8 input
+// channels, one stage holds the box's whole input footprint at those
+// channels (each input element copied once, zero outside the input) and
+// every tap's 8 rows of B; then the taps' k16 steps, two taps a step (an
+// ldmatrix.x4 takes each 8 x 16-byte matrix's row addresses apart: lanes
+// 0-15 read the first tap's slots, lanes 16-31 the second's; a missing
+// last tap reads the zero slot beside zero B rows), read A straight from
+// the footprint.  Along each dim, footprint slot p stands for input
+// coordinate org + step * (p / e + s * (p % e)): the conv's input at
+// stride S and dilation dil, step = gcd(S, dil), lies in s = S / step
+// residue classes of e slots each, one class after another, so that a
+// tap's reads of consecutive rows are consecutive slots (the deconv's
+// taps read x[q - m]: s = 1, org = q0 - the phase's largest m).  A row's
+// slot is pos(r) = (rd * lh + rh) * lw + rw, a tap's offset off(t) the
+// same sum of its per-dim offsets, and the lane's ldmatrix address
+// (pos(r) + off(t)) * HALO_PITCH: the planner pads lh and lw so that
+// every aligned eight rows' slots differ mod 8, and a slot is 16 bytes,
+// so each 8 x 16-byte matrix reads eight distinct bank groups whatever
+// the tap.  Two chunks are in flight.  8 channels a chunk timed faster
+// than 16 (more blocks an SM, shorter stages) on V-Net merge2-4, and more
+// stages than two no faster (PERF.md).
+
+constexpr int HALO_STAGES = 2;      // chunks in flight
+constexpr int HALO_CHANNELS = 8;    // input channels a stage holds
+constexpr int HALO_PITCH = 16;      // bytes a staged slot (8 bf16)
+constexpr int HALO_SLOT_ZERO = -1;  // a slot outside the input: zero-filled
+constexpr int HALO_SLOT_NONE = -2;  // a pad slot no row reads: not copied
+
+// One stage: slots footprint slots of A, then steps x 16 rows of B at
+// bf16_b_pitch; a block holds HALO_STAGES of them (or the f32 C tile
+// where that is larger: it takes the stages' place after the last chunk),
+// then its row table (each row's output offset), slot table (each slot's
+// input position, or HALO_SLOT_*) and tap table (each tap's slot
+// offset).  Keep in step with tiling.py::halo_smem_bytes.
+template <class TL>
+__host__ __device__ constexpr int halo_stage_bytes(int slots, int steps) {
+  return slots * HALO_PITCH + steps * 16 * bf16_b_pitch<TL::BN>();
+}
+template <class TL>
+__host__ __device__ constexpr int halo_smem_bytes(int slots, int steps) {
+  const int ring = HALO_STAGES * halo_stage_bytes<TL>(slots, steps);
+  const int ctile = TL::BM * TL::CPITCH * 4;
+  return (ring > ctile ? ring : ctile) + 4 * slots + 4 * MAX_TAPS +
+         8 * TL::BM;
+}
+
+// One dim of a block's footprint (above): slot p is input coordinate org
+// + step * f, f = p / e + s * (p % e), when p / e < s and f < f_end.
+struct HaloDim {
+  int org, step, s, e, f_end, dil;   // dil: the conv's dilation / step
+  // slot p's input coordinate, HALO_SLOT_ZERO outside [0, extent) or
+  // HALO_SLOT_NONE for a slot no row reads
+  __device__ __forceinline__ int coord(int p, int extent) const {
+    const int rho = p / e;
+    const int f = rho + s * (p - rho * e);
+    const int c = org + step * f;
+    if (rho >= s || f >= f_end) return HALO_SLOT_NONE;
+    return (unsigned)c < (unsigned)extent ? c : HALO_SLOT_ZERO;
+  }
+  // the conv's kernel element k: its slot offset
+  __device__ __forceinline__ int conv_off(int k) const {
+    const int kk = k * dil;
+    return (kk % s) * e + kk / s;
+  }
+};
+
+// The conv's dim: output box [o0, o0 + bx), kernel K, stride S, dilation
+// dil, pad lo.
+__device__ __forceinline__ HaloDim conv_dim(int o0, int bx, int K, int S,
+                                            int dil, int lo) {
+  int a = S, c = dil;
+  while (c) {
+    const int t = a % c;
+    a = c;
+    c = t;
+  }
+  HaloDim d;
+  d.step = a;
+  d.s = S / a;
+  d.dil = dil / a;
+  d.f_end = (bx - 1) * d.s + (K - 1) * d.dil + 1;
+  d.e = (d.f_end + d.s - 1) / d.s;
+  d.org = o0 * S - lo;
+  return d;
+}
+
+// The deconv's dim: phase box [q0, q0 + bx), the phase's taps m in [mlo,
+// mhi]; a tap's slot offset is mhi - m.
+__device__ __forceinline__ HaloDim deconv_dim(int q0, int bx, int mlo,
+                                              int mhi) {
+  HaloDim d;
+  d.step = d.s = d.dil = 1;
+  d.f_end = d.e = bx + mhi - mlo;
+  d.org = q0 - mhi;
+  return d;
+}
+
+// The finished BM x BN tile of f32 sums in shared memory, ctile[r *
+// CPITCH + c], after a barrier, stored as store_tile stores one slice's
+// (four channels of a row a thread, the epilogue, one store of four
+// where aligned), each row at its output offset rowoff[r] (< 0: not
+// stored).
+template <class TL>
+__device__ __forceinline__ void store_box_tile(const float* ctile,
+                                               const int64_t* rowoff,
+                                               const Geom& g,
+                                               const BoxPos& b, const Epi& ep,
+                                               void* y, int out_bf16) {
+  constexpr int BM = TL::BM, BN = TL::BN, THREADS = TL::THREADS;
+  const int Cog = g.Co / g.G;
+  const int64_t co_base = (int64_t)b.grp * Cog;
+  const bool vec_out =
+      g.Co % 4 == 0 && Cog % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(y) % (out_bf16 ? 8 : 16) == 0;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < BM * (BN / 4); e += THREADS) {
+    const int r = e / (BN / 4), c = b.co0 + (e - r * (BN / 4)) * 4;
+    const int64_t row = rowoff[r];
+    if (row < 0 || c >= Cog) continue;
+    const float4 s4 =
+        *reinterpret_cast<const float4*>(ctile + r * TL::CPITCH + c - b.co0);
+    const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    const int64_t out = row + co_base + c;
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)         // (scale/bias hold Co values)
+      v[u] = c + u < Cog ? epilogue(sv[u], ep, (int)co_base + c + u) : 0.f;
+    if (vec_out && c + 3 < Cog) {
+      if (out_bf16) {         // four bf16 in one 8-byte store
+        __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+        __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+        uint2 pk;
+        pk.x = *reinterpret_cast<unsigned*>(&lo);
+        pk.y = *reinterpret_cast<unsigned*>(&hi);
+        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(y) + out) = pk;
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(y) + out) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c + u < Cog) store_out(y, out_bf16, out + u, v[u]);
+    }
+  }
+}
+
+// x and w as igemm_bf16_kernel takes them, Cin/G a multiple of 8 (A's
+// copies are 16 bytes); VB16: 16-byte copies of B.  One slice (unsplit),
+// so the epilogue and the store follow the last chunk.
+template <class TL, bool VB16, bool DECONV>
+__global__ void __launch_bounds__(TL::THREADS, TL::MINB)
+igemm_bf16_halo_kernel(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ w,
+                       const int* __restrict__ taps, Epi ep,
+                       void* __restrict__ y, int out_bf16, Geom g, Halo h) {
+  using T = __nv_bfloat16;
+  constexpr int BM = TL::BM, BN = TL::BN, THREADS = TL::THREADS;
+  constexpr int MT = TL::MT, NT = TL::NT, CC = HALO_CHANNELS;
+  constexpr int BP = bf16_b_pitch<BN>();          // bytes per staged B row
+  constexpr int VB = VB16 ? 8 : 1;                // B elements per copy
+  constexpr int B_CH = BN / VB;                   // copies per B row
+  static_assert(NT % 2 == 0, "n8 pairs");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int stage = halo_stage_bytes<TL>(h.slots, h.steps);
+  const int ring = HALO_STAGES * stage > BM * TL::CPITCH * 4
+                       ? HALO_STAGES * stage
+                       : BM * TL::CPITCH * 4;
+  int64_t* rowoff = reinterpret_cast<int64_t*>(smem + ring);  // [BM]
+  int* slotpos = reinterpret_cast<int*>(rowoff + BM);          // [slots]
+  int* tapoff = slotpos + h.slots;                             // [MAX_TAPS]
+  // the footprint's per-dim coordinates, in stage 1 until chunk 1 loads
+  const int planes = (h.slots - 1) / (h.lh * h.lw);
+  int* dimpos = reinterpret_cast<int*>(smem + stage);  // [planes + lh + lw]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const BoxPos b = box_pos<DECONV, BN>(g, taps, h);
+  const int Cig = g.Ci / g.G, Cog = g.Co / g.G;
+  const int64_t co_base = (int64_t)b.grp * Cog;
+  const int64_t w_row0 = (int64_t)b.tap0 * Cig;
+  const int64_t ci_base = (int64_t)b.grp * Cig;
+  const int steps = (b.ntaps * CC + 15) / 16;     // two taps a k16 step
+  const int chunks = b.ntaps > 0 ? Cig / CC : 0;
+
+  // B's rows of a chunk: every tap's 8 channels (a missing last tap's
+  // zero); chunk 0's go out before the tables are built
+  auto load_b = [&](int s, int chunk) {
+    unsigned char* b_dst = smem + s * stage + h.slots * HALO_PITCH;
+    const int copies = steps * 16 * B_CH;
+#pragma unroll 4
+    for (int e = tid; e < copies; e += THREADS) {
+      const int k = e / B_CH, c = (e - k * B_CH) * VB;
+      const int t = k / CC, ci = k - t * CC;
+      const int co = b.co0 + c;
+      const bool ok = t < b.ntaps && co < Cog;
+      const T* src =
+          ok ? w + (w_row0 + (int64_t)t * Cig + chunk * CC + ci) * g.Co +
+                   co_base + co
+             : w;
+      copy_async<VB * 2>(b_dst + k * BP + c * 2, src, ok);
+    }
+  };
+  // A's slots of a chunk: each once, 8 channels in one 16-byte copy
+  auto load_a = [&](int s, int chunk) {
+    unsigned char* a_dst = smem + s * stage;
+    const int64_t coff = ci_base + chunk * CC;
+    for (int i = tid; i < h.slots; i += THREADS) {
+      const int pos = slotpos[i];
+      if (pos == HALO_SLOT_NONE) continue;
+      copy_async<16, BF16_A_L1>(
+          a_dst + i * HALO_PITCH,
+          pos >= 0 ? x + (int64_t)pos * g.Ci + coff : x, pos >= 0);
+    }
+  };
+  if (chunks > 0) load_b(0, 0);
+
+  // the footprint's dims
+  HaloDim dd, dh, dw;
+  int mhi[3] = {0, 0, 0};
+  if (DECONV) {
+    int mlo[3] = {1 << 29, 1 << 29, 1 << 29};
+    for (int t = 0; t < b.ntaps; ++t)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int m = b.tapm[3 * (b.tap0 + t) + j];
+        mlo[j] = min(mlo[j], m);
+        mhi[j] = max(mhi[j], m);
+      }
+    if (b.ntaps == 0) mlo[0] = mlo[1] = mlo[2] = 0;
+    dd = deconv_dim(b.od0, h.bd, mlo[0], mhi[0]);
+    dh = deconv_dim(b.oh0, h.bh, mlo[1], mhi[1]);
+    dw = deconv_dim(b.ow0, h.bw, mlo[2], mhi[2]);
+  } else {
+    dd = conv_dim(b.od0, h.bd, g.Kd, g.Sd, g.dd, g.lod);
+    dh = conv_dim(b.oh0, h.bh, g.Kh, g.Sh, g.dh, g.loh);
+    dw = conv_dim(b.ow0, h.bw, g.Kw, g.Sw, g.dw, g.low);
+  }
+  // each dim's coordinates, each tap's slot offset, each row's output
+  // offset (row r = (rd * bh + rh) * bw + rw of the box)
+  for (int k = tid; k < planes + h.lh + h.lw; k += THREADS)
+    dimpos[k] = k < planes ? dd.coord(k, g.D)
+                : k < planes + h.lh ? dh.coord(k - planes, g.H)
+                                    : dw.coord(k - planes - h.lh, g.W);
+  for (int t = tid; t < b.ntaps; t += THREADS) {
+    int od, oh, ow;
+    if (DECONV) {
+      const int* mm = b.tapm + 3 * (b.tap0 + t);
+      od = mhi[0] - mm[0]; oh = mhi[1] - mm[1]; ow = mhi[2] - mm[2];
+    } else {
+      const int kw = t % g.Kw, kh = (t / g.Kw) % g.Kh, kd = t / (g.Kw * g.Kh);
+      od = dd.conv_off(kd); oh = dh.conv_off(kh); ow = dw.conv_off(kw);
+    }
+    tapoff[t] = (od * h.lh + oh) * h.lw + ow;
+  }
+  const int box_rows = h.bd * h.bh * h.bw;
+  for (int r = tid; r < BM; r += THREADS) {
+    const int rw = r % h.bw, rh = (r / h.bw) % h.bh, rd = r / (h.bw * h.bh);
+    int od = b.od0 + rd, oh = b.oh0 + rh, ow = b.ow0 + rw;
+    bool ok = r < box_rows && od < g.Pd && oh < g.Ph && ow < g.Pw;
+    if (DECONV) {
+      od = od * g.Sd + b.pd - g.lod;
+      oh = oh * g.Sh + b.ph - g.loh;
+      ow = ow * g.Sw + b.pw - g.low;
+      ok = ok && (unsigned)od < (unsigned)g.Od &&
+           (unsigned)oh < (unsigned)g.Oh && (unsigned)ow < (unsigned)g.Ow;
+    }
+    rowoff[r] = ok ? ((((int64_t)b.n * g.Od + od) * g.Oh + oh) * g.Ow + ow) *
+                         g.Co
+                   : -1;
+  }
+  __syncthreads();
+  // each slot's input position (every chunk copies the same slots), the
+  // last slot zero: a thread's slots tid, tid + THREADS, ... stepped
+  // through (plane, line, column) without a division each
+  {
+    const int plane = h.lh * h.lw;
+    int pd = tid / plane, ph = (tid % plane) / h.lw, pw = tid % h.lw;
+    const int sd = THREADS / plane, sh = (THREADS % plane) / h.lw,
+              sw = THREADS % h.lw;
+    for (int i = tid; i < h.slots; i += THREADS) {
+      int v = HALO_SLOT_ZERO;
+      if (i < h.slots - 1) {
+        const int cd = dimpos[pd], ch = dimpos[planes + ph],
+                  cw = dimpos[planes + h.lh + pw];
+        if (cd == HALO_SLOT_NONE || ch == HALO_SLOT_NONE ||
+            cw == HALO_SLOT_NONE)
+          v = HALO_SLOT_NONE;
+        else if (cd >= 0 && ch >= 0 && cw >= 0)
+          v = ((b.n * g.D + cd) * g.H + ch) * g.W + cw;
+      }
+      slotpos[i] = v;
+      pw += sw;
+      if (pw >= h.lw) { pw -= h.lw; ++ph; }
+      ph += sh;
+      if (ph >= h.lh) { ph -= h.lh; ++pd; }
+      pd += sd;
+    }
+  }
+  __syncthreads();
+  if (chunks > 0) load_a(0, 0);
+  copy_commit();
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][j][u] = 0.f;
+
+  const int wm = warp % TL::WM, wn = warp / TL::WM;
+  // this lane's A rows: row r = wm * WTM + i * 16 + lane % 16 of the box
+  // at slot pos(r) (rows past the box read slot 0; their sums are not
+  // stored); lanes 16-31 read the step's second tap (matrices 2-3, its k
+  // 8-15)
+  int rslot[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int r = wm * TL::WTM + i * 16 + (lane & 15);
+    const int rw = r % h.bw, rh = (r / h.bw) % h.bh, rd = r / (h.bw * h.bh);
+    rslot[i] = r < box_rows ? (rd * h.lh + rh) * h.lw + rw : 0;
+  }
+  const unsigned s_base = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const unsigned zero_slot = s_base + (h.slots - 1) * HALO_PITCH;
+  const unsigned b_lane = s_base + h.slots * HALO_PITCH + (lane & 15) * BP +
+                          (wn * TL::WTN + (lane >> 4) * 8) * 2;
+  const int half = lane >> 4;
+  for (int ch = 0; ch < chunks; ++ch) {
+    copy_wait<0>();            // chunk ch has landed (this thread's copies)
+    __syncthreads();           // ... everyone's; the other stage is free
+    if (ch + 1 < chunks) {
+      load_b((ch + 1) % HALO_STAGES, ch + 1);
+      load_a((ch + 1) % HALO_STAGES, ch + 1);
+    }
+    copy_commit();
+    const unsigned st = (ch % HALO_STAGES) * stage;
+#pragma unroll 2
+    for (int ks = 0; ks < steps; ++ks) {
+      unsigned bf[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; j += 2)
+        ldmatrix_x4_trans(bf[j][0], bf[j][1], bf[j + 1][0], bf[j + 1][1],
+                          b_lane + st + ks * 16 * BP + j * 16);
+      const int t = 2 * ks + half;
+      const bool real = t < b.ntaps;
+      const int off = real ? tapoff[t] : 0;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        unsigned af[4];
+        ldmatrix_x4(af[0], af[1], af[2], af[3],
+                    real ? s_base + st + (rslot[i] + off) * HALO_PITCH
+                         : zero_slot + st);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mma_bf16(acc[i][j], af, bf[j][0], bf[j][1]);
+      }
+    }
+  }
+  copy_wait<0>();
+
+  // the f32 tile through shared memory, as igemm_bf16_kernel's
+  constexpr int CPITCH = TL::CPITCH;
+  float* ctile = reinterpret_cast<float*>(smem);  // [BM][CPITCH]
+  __syncthreads();
+  {
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(
+              ctile + (wm * TL::WTM + i * 16 + gid + hh * 8) * CPITCH +
+              wn * TL::WTN + j * 8 + tig * 2) =
+              make_float2(acc[i][j][2 * hh], acc[i][j][2 * hh + 1]);
+  }
+  __syncthreads();
+  store_box_tile<TL>(ctile, rowoff, g, b, ep, y, out_bf16);
+}
+
 // -- the int8 x int8 route: s8 tensor cores ----------------------------------
 
 constexpr int BPAD = 16;         // pad after each staged K-major B row
@@ -1593,6 +2041,9 @@ igemm_s8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 // -- launches ----------------------------------------------------------------
 
 constexpr int MAX_DEVICES = 64;
+// the most dynamic shared memory an sm_90 block may use (227 KB): the
+// halo kernels' limit, set once, since their stages' size is the launch's
+constexpr int HALO_SMEM_MAX = 232448;
 
 // Raise a kernel's dynamic shared-memory limit once per device (the call
 // costs more host time than a small layer's whole launch); set holds the
@@ -1630,14 +2081,28 @@ inline dim3 grid_of(const Geom& g, int BM, int BN, bool deconv) {
               phases * g.splits);
 }
 
-// The kernel a C call launched, as its launched[2] out-parameter reports
-// it: launched[0] is the kernel, launched[1] the products a k8 step runs
-// per fragment (the TF32 route's passes, else 1).
+// A halo-staged launch's grid: x counts the boxes (box_pos), one slice.
+inline dim3 grid_of(const Geom& g, const Halo& h, int BN, bool deconv) {
+  const int phases = deconv ? g.Sd * g.Sh * g.Sw : 1;
+  const int Cog = g.Co / g.G;
+  const int boxes = g.N * ((g.Pd + h.bd - 1) / h.bd) *
+                    ((g.Ph + h.bh - 1) / h.bh) * ((g.Pw + h.bw - 1) / h.bw);
+  return dim3(boxes, g.G * ((Cog + BN - 1) / BN), phases);
+}
+
+// The kernel a C call launched, as its launched[3] out-parameter reports
+// it: launched[0] is the kernel's route, launched[1] the products a k8
+// step runs per fragment (the TF32 route's passes, else 1), launched[2]
+// how it staged A (Staging).
 enum Launched {
   LAUNCHED_FMA = 0,    // igemm_kernel
   LAUNCHED_TF32 = 1,   // igemm_tf32_kernel
   LAUNCHED_S8 = 2,     // igemm_s8_kernel
-  LAUNCHED_BF16 = 3,   // igemm_bf16_kernel
+  LAUNCHED_BF16 = 3,   // igemm_bf16_kernel, igemm_bf16_halo_kernel
+};
+enum Staging {
+  STAGING_GATHER = 0,  // A gathered per (row, tap) into the ring
+  STAGING_HALO = 1,    // each box's footprint once a chunk
 };
 
 // One forward launch's arguments, as the C entry points receive them.
@@ -1652,19 +2117,22 @@ struct FwdArgs {
   Geom g;
   int block_co;
   int copy;         // the C entry's copy argument (variant_part)
-  int* launched;    // [2], or null
+  const Halo* halo; // the halo staging the planner chose, or null
+  int* launched;    // [3], or null
   cudaStream_t stream;
 };
 
 // Record in a.launched what was launched; then, for a split launch, the
 // slices' sum (TP: the workspace's f32 or s32 sums).
 template <typename TP, bool DECONV>
-cudaError_t finish(const FwdArgs& a, TP* work, int kernel, int passes) {
+cudaError_t finish(const FwdArgs& a, TP* work, int kernel, int passes,
+                   int staging = STAGING_GATHER) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (a.launched) {
     a.launched[0] = kernel;
     a.launched[1] = passes;
+    a.launched[2] = staging;
   }
   if (a.g.splits == 1) return cudaSuccess;
   return launch_reduce<TP, DECONV>(work, a.ep, a.y, a.out_bf16, a.g,
@@ -1725,6 +2193,39 @@ cudaError_t launch_bf16(const FwdArgs& a) {
                        static_cast<const __nv_bfloat16*>(a.w), a.taps, a.ep,
                        a.y, a.out_bf16, g.splits > 1 ? a.work : nullptr, g);
   return finish<float, DECONV>(a, a.work, LAUNCHED_BF16, 1);
+}
+
+// The bf16 route's halo staging; one slice, Cin/G a multiple of 8, the
+// deepest phase's taps in the tap table and in a.halo's steps.
+template <class TL, bool VB16, bool DECONV>
+cudaError_t launch_bf16_halo(const FwdArgs& a) {
+  const Geom& g = a.g;
+  const Halo& h = *a.halo;
+  int deepest = 1;
+  if (DECONV)
+    deepest = ((g.Kd - 1) * g.dd / g.Sd + 1) * ((g.Kh - 1) * g.dh / g.Sh + 1) *
+              ((g.Kw - 1) * g.dw / g.Sw + 1);
+  else
+    deepest = g.Kd * g.Kh * g.Kw;
+  if (g.splits != 1 || (g.Ci / g.G) % HALO_CHANNELS || h.bd < 1 ||
+      h.bh < 1 || h.bw < 1 || h.bd * h.bh * h.bw > TL::BM || h.lh < 1 ||
+      h.lw < 1 || h.slots < 2 || (h.slots - 1) % (h.lh * h.lw) ||
+      deepest > MAX_TAPS || h.steps < (deepest * HALO_CHANNELS + 15) / 16)
+    return cudaErrorInvalidValue;
+  const int smem = halo_smem_bytes<TL>(h.slots, h.steps);
+  if (smem > HALO_SMEM_MAX ||
+      (h.slots - 1) / (h.lh * h.lw) + h.lh + h.lw >
+          halo_stage_bytes<TL>(h.slots, h.steps) / 4)
+    return cudaErrorInvalidValue;
+  auto kernel = igemm_bf16_halo_kernel<TL, VB16, DECONV>;
+  static bool smem_set[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kernel, HALO_SMEM_MAX, smem_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid_of(g, h, TL::BN, DECONV), TL::THREADS, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x),
+      static_cast<const __nv_bfloat16*>(a.w), a.taps, a.ep, a.y, a.out_bf16,
+      g, h);
+  return finish<float, DECONV>(a, a.work, LAUNCHED_BF16, 1, STAGING_HALO);
 }
 
 // The int8 route; work holds the slices' s32 sums (the f32 workspace's
@@ -1788,6 +2289,24 @@ cudaError_t launch_bf16_typed(const FwdArgs& a) {
   return cudaErrorInvalidValue;
 }
 
+template <class TL, bool DECONV>
+cudaError_t launch_bf16_halo_b(const FwdArgs& a) {
+  return a.copy & BF16_COPY_B16 ? launch_bf16_halo<TL, true, DECONV>(a)
+                                : launch_bf16_halo<TL, false, DECONV>(a);
+}
+
+template <bool DECONV>
+cudaError_t launch_bf16_halo_typed(const FwdArgs& a) {
+  if (!a.halo) return cudaErrorInvalidValue;
+  switch (a.block_co) {
+    case 16: return launch_bf16_halo_b<Bf16Tile16, DECONV>(a);
+    case 32: return launch_bf16_halo_b<Bf16Tile32, DECONV>(a);
+    case 64: return launch_bf16_halo_b<Bf16Tile64, DECONV>(a);
+    case 128: return launch_bf16_halo_b<Bf16Tile128, DECONV>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int VA, bool DECONV>
 cudaError_t launch_s8_typed(const FwdArgs& a) {
   switch (a.block_co) {
@@ -1805,8 +2324,8 @@ inline bool fwd_args(FwdArgs& a, const void* x, const void* w,
                      const int* taps, const float* scale, const float* bias,
                      void* y, float* work, const int* geom, int act,
                      float alpha, int out_dtype, int block_co, int copy,
-                     int* launched, void* stream) {
-  if (launched) launched[0] = launched[1] = -1;
+                     const int* halo, int* launched, void* stream) {
+  if (launched) launched[0] = launched[1] = launched[2] = -1;
   if (out_dtype != DT_F32 && out_dtype != DT_BF16) return false;
   int* dst = reinterpret_cast<int*>(&a.g);
   for (int i = 0; i < GEOM_FIELDS; ++i) dst[i] = geom[i];
@@ -1819,6 +2338,7 @@ inline bool fwd_args(FwdArgs& a, const void* x, const void* w,
   a.work = work;
   a.block_co = block_co;
   a.copy = copy;
+  a.halo = reinterpret_cast<const Halo*>(halo);
   a.launched = launched;
   a.stream = static_cast<cudaStream_t>(stream);
   return true;
@@ -1835,7 +2355,8 @@ template <> struct PairTypes<2> { using A = float; using B = int8_t; };
 template <> struct PairTypes<3> { using A = __nv_bfloat16; using B = int8_t; };
 constexpr int BF16_PAIR = 1;
 constexpr int S8_PAIR = 4;
-constexpr int FWD_PARTS = 11;
+constexpr int HALO_PART = 11;
+constexpr int FWD_PARTS = 12;
 
 // The pair's index, or -1 for a pair the kernels do not take.
 constexpr int pair_index(int x_dtype, int w_dtype) {
@@ -1847,15 +2368,19 @@ constexpr int pair_index(int x_dtype, int w_dtype) {
   return -1;
 }
 
-// The variant of one launch.  The C entry points compile the eleven
-// variants as eleven objects (build.py passes -DREPRO_PART=0..10) so that
+// The variant of one launch.  The C entry points compile the twelve
+// variants as twelve objects (build.py passes -DREPRO_PART=0..11) so that
 // nvcc builds them in parallel: per pair 0-3 and copy width, parts 0-1
 // the FMA route (f32 x f32) and 4-7 the TF32 route (f32 x int8, bf16 x
 // int8; copy != 0: 16-byte copies of both operands), 2-3 the bf16 route
 // (bf16 x bf16) per A copy width (copy's BF16_COPY_A16 bit; B's width,
 // the BF16_COPY_B16 bit, is chosen inside the part); parts 8-10 the s8
-// route, per A copy width (copy = 16, 4 or 1 bytes).
-constexpr int variant_part(int pair, int copy) {
+// route, per A copy width (copy = 16, 4 or 1 bytes); part 11 the bf16
+// route's halo staging (halo: the planner's Halo, 16-byte copies of A),
+// B's width chosen inside.  -1: no variant takes it.
+constexpr int variant_part(int pair, int copy, bool halo = false) {
+  if (halo)
+    return pair == BF16_PAIR && (copy & BF16_COPY_A16) ? HALO_PART : -1;
   if (pair == BF16_PAIR) return 2 + (copy & BF16_COPY_A16 ? 0 : 1);
   if (pair < S8_PAIR) return 2 * pair + (copy ? 0 : 1);
   return 8 + (copy == 16 ? 0 : copy == 4 ? 1 : 2);
@@ -1872,8 +2397,10 @@ int run_part(const FwdArgs& a) {
     using P = PairTypes<PART / 2>;
     err = launch_tf32_typed<typename P::A, typename P::B, PART % 2 == 0,
                             DECONV>(a);
-  } else {
+  } else if constexpr (PART < HALO_PART) {
     err = launch_s8_typed<PART == 8 ? 16 : PART == 9 ? 4 : 1, DECONV>(a);
+  } else {
+    err = launch_bf16_halo_typed<DECONV>(a);
   }
   return static_cast<int>(err);
 }

@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.tiling import operand_route
+from repro_torch.core.tiling import HALO_FIELDS, operand_route
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
@@ -37,10 +37,10 @@ HEADERS = ("igemm.cuh",)
 # so the variants build in parallel: the forward sources per (x, w)
 # operand pair x copy width, f32/f32 on the FMA route (parts 0-1),
 # bf16/bf16 on the bf16 route (2-3), f32/int8 and bf16/int8 on the TF32
-# route (4-7), then int8/int8 (the s8 route) per A copy width (8-10;
-# igemm.cuh::variant_part); the dw source per operand type x A's x B's
-# copy width
-PARTS = {"deconv_fwd.cu": 11, "conv_fwd.cu": 11, "deconv_dw.cu": 8}
+# route (4-7), then int8/int8 (the s8 route) per A copy width (8-10),
+# then the bf16 route's halo staging (11; igemm.cuh::variant_part); the
+# dw source per operand type x A's x B's copy width
+PARTS = {"deconv_fwd.cu": 12, "conv_fwd.cu": 12, "deconv_dw.cu": 8}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -202,30 +202,59 @@ def forward_route(x, w, depth: int) -> str:
 
 # the kernels a forward C entry reports in its ``launched`` out-parameter
 # (igemm.cuh::Launched), by their routes' names: igemm_kernel,
-# igemm_tf32_kernel, igemm_s8_kernel, igemm_bf16_kernel
+# igemm_tf32_kernel, igemm_s8_kernel, igemm_bf16_kernel (and
+# igemm_bf16_halo_kernel); and how the kernel staged A (igemm.cuh::Staging)
 LAUNCHED_ROUTES = ("fma", "tf32", "s8", "bf16")
+STAGINGS = ("gather", "halo")
 
 
 def launched_buffer() -> ctypes.Array:
     """The forward C entries' ``launched`` out-parameter: the kernel the
     call launched (an index of ``LAUNCHED_ROUTES``: f32 FMAs on the CUDA
     cores, the TF32 route, the s8 route, the bf16 route's ``mma.sync``
-    m16n8k16) and the products a k8 step of it runs per fragment (the
-    TF32 route's passes, else 1); -1 until a kernel has launched."""
-    return (ctypes.c_int * 2)(-1, -1)
+    m16n8k16), the products a k8 step of it runs per fragment (the TF32
+    route's passes, else 1) and how it staged A (an index of
+    ``STAGINGS``: gathered per row and tap, or a box's footprint once);
+    -1 until a kernel has launched."""
+    return (ctypes.c_int * 3)(-1, -1, -1)
 
 
-def record_operands(record: dict, x, w, launched) -> None:
+def halo_array(halo) -> ctypes.Array | None:
+    """The forward C entries' ``halo`` argument: the planner's
+    ``tiling.HaloPlan`` as igemm.cuh's ``Halo`` (``HALO_FIELDS`` ints), or
+    None (a null pointer: the gather)."""
+    if halo is None:
+        return None
+    fields = halo.fields()
+    if len(fields) != HALO_FIELDS:
+        raise ValueError(f"bad halo staging {fields}")
+    return (ctypes.c_int * HALO_FIELDS)(*fields)
+
+
+def record_operands(record: dict, x, w, launched, *,
+                    staging: dict | None = None, halo: bool = False) -> None:
     """Count one launch in ``record`` (a wrapper's ``operand_launches``)
     under its ``(x, w)`` operand type names and the route and passes the
     C entry reported in ``launched`` (``launched_buffer``); RuntimeError
-    when it reported no kernel."""
+    when it reported no kernel.  With ``staging`` (a wrapper's
+    ``staging_launches``) count it there too under ``(x, w, route,
+    staging)``, the staging the C entry reported, which must be the halo
+    staging when the planner chose it (``halo``) and the gather when not:
+    RuntimeError otherwise (nothing falls back)."""
     kernel, passes = launched[0], launched[1]
     if not 0 <= kernel < len(LAUNCHED_ROUTES) or passes < 1:
         raise RuntimeError(f"the forward entry reported no launch "
                            f"({kernel}, {passes})")
     key = (_name(x.dtype), _name(w.dtype), LAUNCHED_ROUTES[kernel], passes)
     record[key] = record.get(key, 0) + 1
+    if staging is None:
+        return
+    if len(launched) <= 2 or launched[2] != int(halo):
+        got = launched[2] if len(launched) > 2 else None
+        raise RuntimeError(f"the forward entry reported staging {got}; the "
+                           f"planner chose {STAGINGS[int(halo)]}")
+    key = key[:3] + (STAGINGS[launched[2]],)
+    staging[key] = staging.get(key, 0) + 1
 
 
 def default_out_dtype(x) -> torch.dtype:
@@ -284,6 +313,10 @@ def a_copy_bytes(x, cig: int) -> int:
     return 1
 
 
+# the bf16 route's copy bits (igemm.cuh BF16_COPY_A16, BF16_COPY_B16)
+BF16_COPY_A16, BF16_COPY_B16 = 1, 2
+
+
 def copy_variant(x, w, cig: int, cog: int) -> int:
     """The forward C entry's ``copy`` argument (igemm.cuh::variant_part):
     A's bytes per copy on the s8 route; on the bf16 route a bit per
@@ -294,7 +327,8 @@ def copy_variant(x, w, cig: int, cog: int) -> int:
     if route == "s8":
         return a_copy_bytes(x, cig)
     if route == "bf16":
-        return int(_vector_ok(x, cig)) | 2 * int(_vector_ok(w, cog))
+        return (BF16_COPY_A16 * int(_vector_ok(x, cig))
+                | BF16_COPY_B16 * int(_vector_ok(w, cog)))
     return int(vector_copies(x, w, cig, cog))
 
 
@@ -342,11 +376,11 @@ def library() -> ctypes.CDLL:
     ints = ctypes.POINTER(ctypes.c_int)
     lib.repro_deconv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, ints, _I,
                                      ctypes.c_float, _I, _I, _I, _I, _I,
-                                     ints, _P]
+                                     ints, ints, _P]
     lib.repro_deconv_fwd.restype = _I
     lib.repro_conv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, ints, _I,
                                    ctypes.c_float, _I, _I, _I, _I, _I, ints,
-                                   _P]
+                                   ints, _P]
     lib.repro_conv_fwd.restype = _I
     lib.repro_deconv_dw.argtypes = [_P, _P, _P, _P, ints, _I, _I, _I, _I,
                                     _I, _I, _I, _P]

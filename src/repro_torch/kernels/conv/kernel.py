@@ -15,7 +15,10 @@ once.  ``launches`` counts the calls that launched the kernel, and
 nothing else; ``operand_launches`` records each launch once more by its
 ``(x, w)`` operand types and the kernel and passes the C entry reports it
 launched (``build.record_operands``), e.g. ``("int8", "int8", "s8", 1)``
-under int8 activations.
+under int8 activations, and ``staging_launches`` by how it staged A
+(``"gather"`` or ``"halo"``: ``tiling.plan_halo`` picks the bf16 x bf16
+launches that stage each box of output positions' input footprint once;
+a report other than the planner's choice raises).
 
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises; on a ``meta`` tensor (the dry
@@ -37,6 +40,7 @@ from repro_torch.kernels.conv import ref as _ref
 
 launches = 0
 operand_launches: dict[tuple[str, str, str, int], int] = {}
+staging_launches: dict[tuple[str, str, str, str], int] = {}
 
 
 def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
@@ -98,14 +102,10 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
                                  out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no conv kernel for device {x.device}")
-    plan = _tiling.plan_uniform_tiles(ci, co, mode="conv",
-                                      block_co=block_co, groups=groups,
-                                      in_dtype_bytes=x.element_size(),
-                                      w_dtype_bytes=w.element_size(),
-                                      split=split)
+    splits, per, copy, halo = _launch_plan(
+        x, w, co, kernel, stride, dilation, groups, out_spatial, block_co,
+        split, route)
     rows = n * math.prod(out_spatial)
-    splits, per = _tiling.launch_split(
-        plan, rows, math.prod(kernel) * (ci // groups), co, groups)
     lib = _build.library()
     y = torch.empty((n, *out_spatial, co), dtype=out_dtype, device=x.device)
     work = _build.split_workspace(splits, rows * co, x.device, route)
@@ -118,11 +118,47 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
         _build.ptr(bias32), _build.ptr(y), _build.ptr(work), geom,
         _common.ACTIVATION_CODES[activation], float(alpha),
         _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[w.dtype],
-        _build.DTYPE_CODES[out_dtype], block_co,
-        _build.copy_variant(x, w, ci // groups, co // groups),
-        launched, _build.stream_of(x))
+        _build.DTYPE_CODES[out_dtype], block_co, copy,
+        _build.halo_array(halo), launched, _build.stream_of(x))
     if err:
         raise RuntimeError(f"conv kernel launch failed (cudaError {err})")
     launches += 1
-    _build.record_operands(operand_launches, x, w, launched)
+    _build.record_operands(operand_launches, x, w, launched,
+                           staging=staging_launches, halo=halo is not None)
     return y
+
+
+def _launch_plan(x, w, co, kernel, stride, dilation, groups, out_spatial,
+                 block_co, split, route):
+    """A card launch's slices, pairs a slice, copy widths
+    (``build.copy_variant``) and halo staging (``tiling.plan_halo``, for
+    bf16 x bf16 with 16-byte copies of x; else None: the gather)."""
+    n, ci = x.shape[0], x.shape[-1]
+    plan = _tiling.plan_uniform_tiles(ci, co, mode="conv",
+                                      block_co=block_co, groups=groups,
+                                      in_dtype_bytes=x.element_size(),
+                                      w_dtype_bytes=w.element_size(),
+                                      split=split)
+    rows = n * math.prod(out_spatial)
+    splits, per = _tiling.launch_split(
+        plan, rows, math.prod(kernel) * (ci // groups), co, groups)
+    copy = _build.copy_variant(x, w, ci // groups, co // groups)
+    halo = None
+    if route == "bf16" and copy & _build.BF16_COPY_A16:
+        halo = _tiling.plan_halo(plan, "conv", out_spatial, kernel, stride,
+                                 dilation, ci // groups, splits, n)
+    return splits, per, copy, halo
+
+
+def planned_halo(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
+                 dilation=(1, 1, 1), groups: int = 1, out_spatial,
+                 block_co: int = 64, split: str = "auto", **_epilogue):
+    """The halo staging (``tiling.HaloPlan``) that ``conv_fwd(x, w, ...)``
+    with these arguments takes on the card, or None where it gathers;
+    from shapes, types and x's alignment alone (``meta`` tensors will
+    do), launching nothing."""
+    co = w.shape[-1] if w.dim() == 3 else w.shape[1] * w.shape[2]
+    route = _tiling.operand_route(x.element_size(), w.element_size())
+    return _launch_plan(x, w, co, tuple(kernel), tuple(stride),
+                        tuple(dilation), groups, tuple(out_spatial),
+                        block_co, split, route)[3]

@@ -26,7 +26,11 @@ wrapper that launched its kernel on the card, and nothing else (a
 ``operand_launches`` records each ``deconv_fwd`` launch once more by its
 ``(x, w)`` operand types and the kernel and passes the C entry reports it
 launched (``build.record_operands``), e.g. ``("float32", "int8", "tf32",
-2)`` for int8 weights.
+2)`` for int8 weights, and ``staging_launches`` by how it staged A, e.g.
+``("bfloat16", "bfloat16", "bf16", "halo")``: a bf16 x bf16 launch stages
+each box of rows' input footprint once where ``tiling.plan_halo`` says
+so (x 16-byte aligned), else gathers; a report other than the planner's
+choice raises.
 On a CPU tensor each wrapper runs the plain version (``ref.py``); on a
 CUDA tensor it launches the kernel or raises; on a ``meta`` tensor (the
 dry run) it returns the kernel's output shape and dtype on ``meta`` and
@@ -53,6 +57,7 @@ launches = 0
 dw_launches = 0
 dx_launches = 0
 operand_launches: dict[tuple[str, str, str, int], int] = {}
+staging_launches: dict[tuple[str, str, str, str], int] = {}
 
 
 def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
@@ -123,17 +128,10 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
             (n, *out_spatial, co), out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no deconv kernel for device {x.device}")
-    plan = _tiling.plan_uniform_tiles(ci, co, mode="deconv",
-                                      block_co=block_co, groups=groups,
-                                      in_dtype_bytes=x.element_size(),
-                                      w_dtype_bytes=w_taps.element_size(),
-                                      split=split)
-    q = _ref.phase_rows((d, h, wd), kernel, stride, dilation, crop_lo,
-                        out_spatial)
+    q, splits, per, copy, halo = _launch_plan(
+        x, w_taps, co, kernel, stride, dilation, groups, crop_lo,
+        out_spatial, block_co, split, route)
     rows, phases = n * math.prod(q), math.prod(stride)
-    depth = math.prod(_common.phase_geometry(kernel, stride, dilation)) * (
-        ci // groups)
-    splits, per = _tiling.launch_split(plan, rows, depth, co, groups, phases)
     lib = _build.library()
     taps = _common.tap_table(kernel, stride, dilation, x.device)
     y = torch.empty((n, *out_spatial, co), dtype=out_dtype, device=x.device)
@@ -149,14 +147,61 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
         _build.ptr(work), geom, _common.ACTIVATION_CODES[activation],
         float(alpha), _build.DTYPE_CODES[x.dtype],
         _build.DTYPE_CODES[w_taps.dtype], _build.DTYPE_CODES[out_dtype],
-        block_co,
-        _build.copy_variant(x, w_taps, ci // groups, co // groups),
-        launched, _build.stream_of(x))
+        block_co, copy, _build.halo_array(halo), launched,
+        _build.stream_of(x))
     if err:
         raise RuntimeError(f"deconv kernel launch failed (cudaError {err})")
     launches += 1
-    _build.record_operands(operand_launches, x, w_taps, launched)
+    _build.record_operands(operand_launches, x, w_taps, launched,
+                           staging=staging_launches, halo=halo is not None)
     return y
+
+
+def _launch_plan(x, w_taps, co, kernel, stride, dilation, groups, crop_lo,
+                 out_spatial, block_co, split, route):
+    """A card launch's phase grid q, slices, pairs a slice, copy widths
+    (``build.copy_variant``) and halo staging (``tiling.plan_halo``, for
+    bf16 x bf16 with 16-byte copies of x; else None: the gather)."""
+    n, d, h, wd, ci = x.shape
+    plan = _tiling.plan_uniform_tiles(ci, co, mode="deconv",
+                                      block_co=block_co, groups=groups,
+                                      in_dtype_bytes=x.element_size(),
+                                      w_dtype_bytes=w_taps.element_size(),
+                                      split=split)
+    q = _ref.phase_rows((d, h, wd), kernel, stride, dilation, crop_lo,
+                        out_spatial)
+    rows, phases = n * math.prod(q), math.prod(stride)
+    depth = math.prod(_common.phase_geometry(kernel, stride, dilation)) * (
+        ci // groups)
+    splits, per = _tiling.launch_split(plan, rows, depth, co, groups, phases)
+    copy = _build.copy_variant(x, w_taps, ci // groups, co // groups)
+    halo = None
+    if route == "bf16" and copy & _build.BF16_COPY_A16:
+        halo = _tiling.plan_halo(plan, "deconv", q, kernel, stride, dilation,
+                                 ci // groups, splits, n)
+    return q, splits, per, copy, halo
+
+
+def planned_halo(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
+                 dilation=(1, 1, 1), groups: int = 1, crop_lo=(0, 0, 0),
+                 out_spatial=None, block_co: int = 64, split: str = "auto",
+                 **_epilogue):
+    """The halo staging (``tiling.HaloPlan``) that ``deconv_fwd(x, w_taps,
+    ...)`` with these arguments takes on the card, or None where it
+    gathers; from shapes, types and x's alignment alone (``meta`` tensors
+    will do), launching nothing."""
+    kernel, stride = tuple(kernel), tuple(stride)
+    dilation, crop_lo = tuple(dilation), tuple(crop_lo)
+    co = (w_taps.shape[1] * w_taps.shape[2] if w_taps.dim() == 4
+          else w_taps.shape[-1])
+    if out_spatial is None:
+        full = deconv_output_shape(tuple(x.shape[1:4]), kernel, stride, 0,
+                                   dilation)
+        out_spatial = tuple(f - lo for f, lo in zip(full, crop_lo))
+    route = _tiling.operand_route(x.element_size(), w_taps.element_size())
+    return _launch_plan(x, w_taps, co, kernel, stride, dilation, groups,
+                        crop_lo, tuple(out_spatial), block_co, split,
+                        route)[4]
 
 
 def deconv_dw(a: torch.Tensor, b: torch.Tensor, *, kernel, stride,
