@@ -64,6 +64,7 @@ from repro_torch.core.functional import (  # noqa: F401 (re-export)
     insertion_sparsity,
     pop_pallas_knobs,
 )
+from repro_torch import obs as _obs
 from repro_torch import tree as _tree
 from repro_torch.kernels import common as _kcommon
 from repro_torch.sharding import mesh as _mesh
@@ -138,8 +139,11 @@ class EngineConfig:
     ``strict_vmem`` turns an over-budget plan into a ``VmemBudgetError``
     (on every method: a schedule plans its layers whatever the method).
     ``telemetry`` (a ``repro_torch.obs.Telemetry``) records plan-cache and
-    compile instruments, and makes ``compile_network`` time each call of
-    its callable (``obs.instrument_apply``).  ``tuned_plans`` (a
+    compile instruments and ``compile_network``'s ``compile`` and
+    ``apply`` spans, and makes it count and time the host's dispatch of
+    each call of its callable (``obs.instrument_apply``); the finer spans
+    join them only while a profiler records (``obs.profiled``), and
+    without it every span goes to a profile's recorder.  ``tuned_plans`` (a
     ``repro_torch.tune.TunedPlanCache``) is the autotuner's output: on a
     plan-cache miss of a forward geometry the engine takes its entry
     before the heuristic, unless the entry's shared memory exceeds this
@@ -741,10 +745,24 @@ def _run_layer(engine: UniformEngine, layer, entry, h: torch.Tensor):
                   w_scale=None if s is None else s.to(h.device))
 
 
+def _node_span(tel, graph, nd, ins) -> "_obs.Span":
+    """The ``node`` span of one node of a walk (a layer, or a merge of a
+    graph), named ``repro_torch.node.<node>`` in a profile."""
+    if isinstance(nd, _networks.MergeNode):
+        sp, cout = graph.node_shape(nd.name)
+        fields = dict(op=nd.kind, in_spatial=sp, out_spatial=sp,
+                      cin=sum(t.shape[-1] for t in ins), cout=cout)
+    else:
+        fields = dict(op=nd.op, in_spatial=nd.in_spatial,
+                      out_spatial=nd.out_spatial, cin=nd.cin, cout=nd.cout)
+    return tel.span("node", nd.name, dtype=_dtype_name(ins[0].dtype),
+                    **fields)
+
+
 def _graph_apply_fn(graph: _networks.UniformGraph, engine: UniformEngine):
     """The compiled DAG walk: one engine call per layer node (epilogue
     fused), one concat/add per merge node, intermediates dropped as soon
-    as their last consumer has run."""
+    as their last consumer has run; each node in its ``node`` span."""
     last_use: dict[str, str] = {}
     for name in graph.order:
         for p in graph.edges[name]:
@@ -758,22 +776,25 @@ def _graph_apply_fn(graph: _networks.UniformGraph, engine: UniformEngine):
         missing = [n for n in layer_names if n not in ws]
         if missing:
             raise ScheduleError(f"graph weights missing entries for {missing}")
+        tel = _obs.profiled(engine.config.telemetry)
         vals: dict[str, torch.Tensor] = {graph.INPUT: x.to(engine.device)}
         for name in graph.order:
             nd = graph.nodes[name]
             ins = [vals[p] for p in graph.edges[name]]
-            if isinstance(nd, _networks.MergeNode):
-                if nd.kind == "concat":
-                    vals[name] = torch.cat(ins, dim=-1)
+            with (_obs.NO_SPAN if tel is None
+                  else _node_span(tel, graph, nd, ins)):
+                if isinstance(nd, _networks.MergeNode):
+                    if nd.kind == "concat":
+                        vals[name] = torch.cat(ins, dim=-1)
+                    else:
+                        out = ins[0]
+                        for v in ins[1:]:
+                            out = out + v
+                        vals[name] = out
                 else:
-                    out = ins[0]
-                    for v in ins[1:]:
-                        out = out + v
-                    vals[name] = out
-            else:
-                h = ins[0]
-                out = _run_layer(engine, nd, ws[name], h)
-                vals[name] = out.to(h.dtype) if keep_dtype else out
+                    h = ins[0]
+                    out = _run_layer(engine, nd, ws[name], h)
+                    vals[name] = out.to(h.dtype) if keep_dtype else out
             for p in graph.edges[name]:
                 if last_use[p] == name and p != graph.output:
                     vals.pop(p, None)
@@ -992,12 +1013,28 @@ def compile_network(layers: Sequence[_networks.UniformLayer]
     every node.  The report's rows are then per rank, at the per-rank
     batch.
 
-    With telemetry ``apply`` comes wrapped in ``obs.instrument_apply``:
-    each call is timed into ``engine_dispatch_seconds`` and counted.
+    Its ``compile`` span (and ``engine_compiles_total``) and the
+    ``apply`` span of each call (``obs.instrument_apply``) go to
+    ``obs.active``: the engine's telemetry, which also times each call's
+    host dispatch into ``engine_dispatch_seconds`` and counts it, else a
+    profile's recorder.  A ``node`` span per node of an unsharded walk goes
+    to ``obs.profiled``, only while a profiler records.
     """
     engine = engine if isinstance(engine, UniformEngine) else as_engine(engine)
-    tel = engine.config.telemetry
-    t0 = time.perf_counter()
+    tel = _obs.active(engine.config.telemetry)
+    if tel is None:
+        apply, report, tag = _compile(layers, engine, batch, dtype)
+    else:
+        with tel.span("compile", batch=batch) as span:
+            apply, report, tag = _compile(layers, engine, batch, dtype)
+            span.set(schedule=tag, nodes=len(report.layers))
+        tel.counter("engine_compiles_total", schedule=tag).inc()
+    return _obs.instrument_apply(apply, engine.config.telemetry,
+                                 tag), report
+
+
+def _compile(layers, engine: UniformEngine, batch: int, dtype: torch.dtype):
+    """``compile_network``'s work: ``(apply, report, schedule tag)``."""
     if isinstance(layers, _networks.UniformGraph):
         graph = layers
         tag = f"graph:{graph.output}"
@@ -1009,43 +1046,38 @@ def compile_network(layers: Sequence[_networks.UniformLayer]
                                     layers=_graph_rows(graph, engine, batch,
                                                        dtype))
             apply = _graph_apply_fn(graph, engine)
-    else:
-        chain = tuple(layers)
-        if not chain:
-            raise ScheduleError("compile_network needs at least one layer")
-        for prev, nxt in zip(chain, chain[1:]):
-            if prev.out_spatial != nxt.in_spatial or prev.cout != nxt.cin:
-                raise ScheduleError(
-                    f"layer chain breaks at {prev.name} -> {nxt.name}: "
-                    f"{prev.out_spatial}x{prev.cout} != "
-                    f"{nxt.in_spatial}x{nxt.cin}")
-        tag = f"chain:{chain[0].name}x{len(chain)}"
-        if engine.config.mesh is not None:
-            apply, report = _compile_sharded(chain, engine, batch, dtype)
-        else:
-            report = ScheduleReport(
-                engine=engine.config, batch=batch,
-                layers=tuple(_schedule_layer(l, engine, batch, dtype)
-                             for l in chain))
+        return apply, report, tag
+    chain = tuple(layers)
+    if not chain:
+        raise ScheduleError("compile_network needs at least one layer")
+    for prev, nxt in zip(chain, chain[1:]):
+        if prev.out_spatial != nxt.in_spatial or prev.cout != nxt.cin:
+            raise ScheduleError(
+                f"layer chain breaks at {prev.name} -> {nxt.name}: "
+                f"{prev.out_spatial}x{prev.cout} != "
+                f"{nxt.in_spatial}x{nxt.cin}")
+    tag = f"chain:{chain[0].name}x{len(chain)}"
+    if engine.config.mesh is not None:
+        apply, report = _compile_sharded(chain, engine, batch, dtype)
+        return apply, report, tag
+    report = ScheduleReport(
+        engine=engine.config, batch=batch,
+        layers=tuple(_schedule_layer(l, engine, batch, dtype)
+                     for l in chain))
 
-            def apply(ws, x):
-                if len(ws) != len(chain):
-                    raise ScheduleError(f"expected {len(chain)} weight "
-                                        f"entries, got {len(ws)}")
-                h = x.to(engine.device)
-                for layer, entry in zip(chain, ws):
-                    h = _run_layer(engine, layer, entry, h)
-                return h
-    if tel is not None:
-        from repro_torch.obs.report import instrument_apply  # opt-in only
-        dt = time.perf_counter() - t0
-        tel.registry.histogram("engine_compile_seconds",
-                               schedule=tag).observe(dt)
-        tel.tracer.event("compile", schedule=tag,
-                         method=engine.config.method, batch=batch,
-                         layers=len(report.layers), duration_s=dt)
-        apply = instrument_apply(apply, tel, tag)
-    return apply, report
+    def apply(ws, x):
+        if len(ws) != len(chain):
+            raise ScheduleError(f"expected {len(chain)} weight "
+                                f"entries, got {len(ws)}")
+        tel = _obs.profiled(engine.config.telemetry)
+        h = x.to(engine.device)
+        for layer, entry in zip(chain, ws):
+            with (_obs.NO_SPAN if tel is None
+                  else _node_span(tel, None, layer, [h])):
+                h = _run_layer(engine, layer, entry, h)
+        return h
+
+    return apply, report, tag
 
 
 def init_network_weights(layers: Sequence[_networks.UniformLayer]

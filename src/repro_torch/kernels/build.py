@@ -232,7 +232,8 @@ def halo_array(halo) -> ctypes.Array | None:
 
 
 def record_operands(record: dict, x, w, launched, *,
-                    staging: dict | None = None, halo: bool = False) -> None:
+                    staging: dict | None = None,
+                    halo: bool = False) -> tuple:
     """Count one launch in ``record`` (a wrapper's ``operand_launches``)
     under its ``(x, w)`` operand type names and the route and passes the
     C entry reported in ``launched`` (``launched_buffer``); RuntimeError
@@ -240,7 +241,8 @@ def record_operands(record: dict, x, w, launched, *,
     ``staging_launches``) count it there too under ``(x, w, route,
     staging)``, the staging the C entry reported, which must be the halo
     staging when the planner chose it (``halo``) and the gather when not:
-    RuntimeError otherwise (nothing falls back)."""
+    RuntimeError otherwise (nothing falls back).  Returns the launch's
+    ``(x, w, route, passes)``, its staging appended where counted."""
     kernel, passes = launched[0], launched[1]
     if not 0 <= kernel < len(LAUNCHED_ROUTES) or passes < 1:
         raise RuntimeError(f"the forward entry reported no launch "
@@ -248,13 +250,14 @@ def record_operands(record: dict, x, w, launched, *,
     key = (_name(x.dtype), _name(w.dtype), LAUNCHED_ROUTES[kernel], passes)
     record[key] = record.get(key, 0) + 1
     if staging is None:
-        return
+        return key
     if len(launched) <= 2 or launched[2] != int(halo):
         got = launched[2] if len(launched) > 2 else None
         raise RuntimeError(f"the forward entry reported staging {got}; the "
                            f"planner chose {STAGINGS[int(halo)]}")
-    key = key[:3] + (STAGINGS[launched[2]],)
-    staging[key] = staging.get(key, 0) + 1
+    staged = key[:3] + (STAGINGS[launched[2]],)
+    staging[staged] = staging.get(staged, 0) + 1
+    return key + staged[3:]
 
 
 def default_out_dtype(x) -> torch.dtype:

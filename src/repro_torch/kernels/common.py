@@ -13,7 +13,9 @@ and conv kernels and their plain versions cannot drift:
     taps contiguously, so one phase's weights are ONE [taps*Cin, Cout]
     matrix for the deconv kernel's implicit GEMM,
   * ``activation_grad_from_output`` and ``regroup_for_dx`` — what the two
-    ops' backward passes share.
+    ops' backward passes share,
+  * ``relayout`` — each weight re-layout of the ops, in its ``relayout``
+    span and counted in ``weight_relayouts_total``.
 
 Everything here is pure Python or plain tensor code.
 
@@ -30,6 +32,7 @@ import math
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core.functional import _canon
 
 # the hand-kernel wrappers, as their tallies name them
@@ -343,6 +346,24 @@ def regroup_for_dx(w_flat, groups):
             .reshape(taps, cog, groups * cig).contiguous())
 
 
+def relayout(engine, op: str, kernel3, stride3, layout, w, *args):
+    """``layout(w, *args)``: one re-layout of an ``op``'s (``"conv"`` or
+    ``"deconv"``) weights (``phase_major_weights``, ``kmajor_weights``,
+    ``regroup_for_dx``).  Where ``obs.active`` finds a recorder for the
+    engine it counts one in ``weight_relayouts_total{op}``, and while a
+    profiler records it runs in a ``relayout`` span of the layer's
+    kernel, stride and dtype."""
+    tel = _obs.active(engine.config.telemetry)
+    if tel is None:
+        return layout(w, *args)
+    tel.counter("weight_relayouts_total", op=op).inc()
+    if not _obs.profiler_recording():
+        return layout(w, *args)
+    with tel.span("relayout", layout.__name__, op=op, kernel=kernel3,
+                  stride=stride3, dtype=str(w.dtype).split(".")[-1]):
+        return layout(w, *args)
+
+
 # -- Host-side canonicalisation shared by both ops layers --------------------
 
 def lift_tuple3(vals, rank, fill=1):
@@ -484,7 +505,7 @@ def op_forward(ctx, forward, x, w, b, w_scale, *args):
     return y
 
 
-def op_backward(ctx, dy, backward_args, dx_kernel, dw_kernel):
+def op_backward(ctx, op: str, dy, backward_args, dx_kernel, dw_kernel):
     """The backward both ops' autograd ``Function``s run: peel the fused
     epilogue, contract with the dequantized weights, launch dx only when
     x wants a gradient and dw when w or the scale does, then fold the
@@ -493,8 +514,20 @@ def op_backward(ctx, dy, backward_args, dx_kernel, dw_kernel):
     the launches that follow; ``ctx`` holds ``(x, w, bias, w_scale, y)``
     and the op's non-tensor arguments.  Returns the Function's gradients
     (x, w, bias, w_scale, then None for the seven non-tensor
-    arguments)."""
+    arguments).  Where ``obs.profiled`` finds a recorder for the engine
+    it runs in a ``node_backward`` span of the ``op`` and its shapes."""
     x, w, b, w_scale, y = ctx.saved_tensors
+    engine = ctx.args[-1]
+    tel = _obs.profiled(engine.config.telemetry)
+    with (_obs.NO_SPAN if tel is None
+          else tel.span("node_backward", op, x=tuple(x.shape),
+                        w=tuple(w.shape), dy=tuple(dy.shape))):
+        return _op_backward(ctx, dy, backward_args, dx_kernel, dw_kernel,
+                            x, w, b, w_scale, y)
+
+
+def _op_backward(ctx, dy, backward_args, dx_kernel, dw_kernel, x, w, b,
+                 w_scale, y):
     stride, padding, dilation, groups, activation, alpha, engine = ctx.args
     need_x, need_w, need_b, need_s = ctx.needs_input_grad[:4]
     check_float_backward(x)

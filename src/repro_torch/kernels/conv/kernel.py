@@ -20,6 +20,9 @@ under int8 activations, and ``staging_launches`` by how it staged A
 launches that stage each box of output positions' input footprint once;
 a report other than the planner's choice raises).
 
+While a profiler records (``obs.profiled``), the call of the C entry
+runs in a ``launch`` span with the launch's plan and its
+``build.record_operands`` key.
 On a CPU tensor the wrapper runs the plain version (``ref.py``); on a CUDA
 tensor it launches the kernel or raises; on a ``meta`` tensor (the dry
 run) it returns the output's shape and dtype on ``meta`` and adds the
@@ -33,6 +36,7 @@ import math
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core import tiling as _tiling
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import common as _common
@@ -113,18 +117,26 @@ def conv_fwd(x: torch.Tensor, w: torch.Tensor, *, kernel, stride,
                               *dilation, *out_spatial, *out_spatial,
                               *pad_lo, splits, per))
     launched = _build.launched_buffer()
-    err = lib.repro_conv_fwd(
-        _build.ptr(x), _build.ptr(w), _build.ptr(scale32),
-        _build.ptr(bias32), _build.ptr(y), _build.ptr(work), geom,
-        _common.ACTIVATION_CODES[activation], float(alpha),
-        _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[w.dtype],
-        _build.DTYPE_CODES[out_dtype], block_co, copy,
-        _build.halo_array(halo), launched, _build.stream_of(x))
-    if err:
-        raise RuntimeError(f"conv kernel launch failed (cudaError {err})")
-    launches += 1
-    _build.record_operands(operand_launches, x, w, launched,
-                           staging=staging_launches, halo=halo is not None)
+    tel = _obs.profiled(None)
+    with (_obs.NO_SPAN if tel is None
+          else tel.span("launch", "conv_fwd", block_co=block_co,
+                        split=split)) as span:
+        err = lib.repro_conv_fwd(
+            _build.ptr(x), _build.ptr(w), _build.ptr(scale32),
+            _build.ptr(bias32), _build.ptr(y), _build.ptr(work), geom,
+            _common.ACTIVATION_CODES[activation], float(alpha),
+            _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[w.dtype],
+            _build.DTYPE_CODES[out_dtype], block_co, copy,
+            _build.halo_array(halo), launched, _build.stream_of(x))
+        if err:
+            raise RuntimeError(f"conv kernel launch failed (cudaError "
+                               f"{err})")
+        launches += 1
+        key = _build.record_operands(operand_launches, x, w, launched,
+                                     staging=staging_launches,
+                                     halo=halo is not None)
+        if span is not None:
+            span.set(operands=key)
     return y
 
 

@@ -6,7 +6,8 @@ masked loads read zeros there, so nothing is padded on the host), the
 fused epilogue and the output-dtype rule.  The kernel reads taps in
 kernel-element order, so the weights go in as a reshape of
 ``[*K, Cin/G, Cout]``, no gather (int8 weights beside int8 activations
-K-major, ``common.kmajor_weights``).  Every call runs against a
+K-major, ``common.kmajor_weights``; each re-layout, forward and backward,
+through ``common.relayout``).  Every call runs against a
 ``repro_torch.core.engine.UniformEngine`` whose geometry-keyed plan cache
 picks the kernel's channel tile once per layer geometry.
 
@@ -63,7 +64,9 @@ def conv_kernel_args(x, w, stride=1, padding=0, *, dilation=1,
                        w_dtype_bytes=w3.element_size())
     # the int8 x int8 route reads its weights K-major (one phase)
     if x3.dtype == w3.dtype == torch.int8:
-        w_flat = _common.kmajor_weights(w3, kernel3, (1, 1, 1), dil3, groups)
+        w_flat = _common.relayout(engine, "conv", kernel3, stride3,
+                                  _common.kmajor_weights, w3, kernel3,
+                                  (1, 1, 1), dil3, groups)
     else:
         w_flat = w3.reshape(-1, *w3.shape[3:]).contiguous()
     kwargs = dict(kernel=kernel3, stride=stride3, dilation=dil3,
@@ -94,7 +97,7 @@ class _ConvFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        return _common.op_backward(ctx, dy, conv_backward_args,
+        return _common.op_backward(ctx, "conv", dy, conv_backward_args,
                                    _dk.deconv_fwd, _dk.deconv_dw)
 
 
@@ -132,11 +135,13 @@ def conv_backward_args(x, w, dy, stride=1, padding=0, *, dilation=1,
         # producing all of Ci (weights phase-major, as that kernel reads
         # them), cropped by the pad to x's extent: rows no tap reads get
         # zero
-        w_dx = _common.regroup_for_dx(w3.reshape(-1, ci // groups, co),
-                                      groups)
-        w_dx = _common.phase_major_weights(
-            w_dx.reshape(*kernel3, co // groups, ci), kernel3, stride3,
-            dil3).to(dy3.dtype)
+        w_dx = _common.relayout(engine, "conv", kernel3, stride3,
+                                _common.regroup_for_dx,
+                                w3.reshape(-1, ci // groups, co), groups)
+        w_dx = _common.relayout(engine, "conv", kernel3, stride3,
+                                _common.phase_major_weights,
+                                w_dx.reshape(*kernel3, co // groups, ci),
+                                kernel3, stride3, dil3).to(dy3.dtype)
         dx_args = (dy3, w_dx, dict(geometry, crop_lo=pad_lo,
                                     out_spatial=tuple(x3.shape[1:4]),
                                     out_dtype=x.dtype,

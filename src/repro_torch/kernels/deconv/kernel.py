@@ -31,6 +31,9 @@ launched (``build.record_operands``), e.g. ``("float32", "int8", "tf32",
 each box of rows' input footprint once where ``tiling.plan_halo`` says
 so (x 16-byte aligned), else gathers; a report other than the planner's
 choice raises.
+While a profiler records (``obs.profiled``), each wrapper's call of
+its C entry runs in a ``launch`` span with the launch's plan and, for the
+forward, its ``build.record_operands`` key.
 On a CPU tensor each wrapper runs the plain version (``ref.py``); on a
 CUDA tensor it launches the kernel or raises; on a ``meta`` tensor (the
 dry run) it returns the kernel's output shape and dtype on ``meta`` and
@@ -46,6 +49,7 @@ import math
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core import tiling as _tiling
 from repro_torch.core.functional import deconv_macs, deconv_output_shape
 from repro_torch.core.tiling import DW_KERNEL_TILES, split_rows
@@ -141,19 +145,27 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
                               *dilation, *q, *out_spatial, *crop_lo, splits,
                               per))
     launched = _build.launched_buffer()
-    err = lib.repro_deconv_fwd(
-        _build.ptr(x), _build.ptr(w_taps), _build.ptr(taps),
-        _build.ptr(scale32), _build.ptr(bias32), _build.ptr(y),
-        _build.ptr(work), geom, _common.ACTIVATION_CODES[activation],
-        float(alpha), _build.DTYPE_CODES[x.dtype],
-        _build.DTYPE_CODES[w_taps.dtype], _build.DTYPE_CODES[out_dtype],
-        block_co, copy, _build.halo_array(halo), launched,
-        _build.stream_of(x))
-    if err:
-        raise RuntimeError(f"deconv kernel launch failed (cudaError {err})")
-    launches += 1
-    _build.record_operands(operand_launches, x, w_taps, launched,
-                           staging=staging_launches, halo=halo is not None)
+    tel = _obs.profiled(None)
+    with (_obs.NO_SPAN if tel is None
+          else tel.span("launch", "deconv_fwd", block_co=block_co,
+                        split=split)) as span:
+        err = lib.repro_deconv_fwd(
+            _build.ptr(x), _build.ptr(w_taps), _build.ptr(taps),
+            _build.ptr(scale32), _build.ptr(bias32), _build.ptr(y),
+            _build.ptr(work), geom, _common.ACTIVATION_CODES[activation],
+            float(alpha), _build.DTYPE_CODES[x.dtype],
+            _build.DTYPE_CODES[w_taps.dtype], _build.DTYPE_CODES[out_dtype],
+            block_co, copy, _build.halo_array(halo), launched,
+            _build.stream_of(x))
+        if err:
+            raise RuntimeError(f"deconv kernel launch failed (cudaError "
+                               f"{err})")
+        launches += 1
+        key = _build.record_operands(operand_launches, x, w_taps, launched,
+                                     staging=staging_launches,
+                                     halo=halo is not None)
+        if span is not None:
+            span.set(operands=key)
     return y
 
 
@@ -267,14 +279,18 @@ def deconv_dw(a: torch.Tensor, b: torch.Tensor, *, kernel, stride,
                               int(bool(transpose))), fields=24)
     vec_a, vec_b = _build.dw_vector_copies(a, b, ac // groups, bc // groups)
     lib = _build.library()
-    err = lib.repro_deconv_dw(
-        _build.ptr(a), _build.ptr(b), _build.ptr(out), _build.ptr(work),
-        geom, splits, block_a, block_c, _build.DTYPE_CODES[a.dtype],
-        _build.DTYPE_CODES[out_dtype], int(vec_a), int(vec_b),
-        _build.stream_of(a))
-    if err:
-        raise RuntimeError(f"dw kernel launch failed (cudaError {err})")
-    dw_launches += 1
+    tel = _obs.profiled(None)
+    with (_obs.NO_SPAN if tel is None
+          else tel.span("launch", "deconv_dw", block_a=block_a,
+                        block_c=block_c, splits=splits)):
+        err = lib.repro_deconv_dw(
+            _build.ptr(a), _build.ptr(b), _build.ptr(out), _build.ptr(work),
+            geom, splits, block_a, block_c, _build.DTYPE_CODES[a.dtype],
+            _build.DTYPE_CODES[out_dtype], int(vec_a), int(vec_b),
+            _build.stream_of(a))
+        if err:
+            raise RuntimeError(f"dw kernel launch failed (cudaError {err})")
+        dw_launches += 1
     return out
 
 

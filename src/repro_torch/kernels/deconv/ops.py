@@ -68,9 +68,13 @@ def deconv_kernel_args(x, w, stride, padding=0, *, dilation=1,
     # the int8 x int8 route reads its weights K-major; the others the
     # phase-major slabs
     if x3.dtype == w3.dtype == torch.int8:
-        w_taps = _common.kmajor_weights(w3, kernel3, stride3, dil3, groups)
+        w_taps = _common.relayout(engine, "deconv", kernel3, stride3,
+                                  _common.kmajor_weights, w3, kernel3,
+                                  stride3, dil3, groups)
     else:
-        w_taps = _common.phase_major_weights(w3, kernel3, stride3, dil3)
+        w_taps = _common.relayout(engine, "deconv", kernel3, stride3,
+                                  _common.phase_major_weights, w3, kernel3,
+                                  stride3, dil3)
     kwargs = dict(kernel=kernel3, stride=stride3, dilation=dil3,
                   groups=groups, crop_lo=tuple(lo for lo, _ in pads3),
                   out_spatial=out3, scale=_common.scale_vector(w_scale, co),
@@ -99,8 +103,9 @@ class _DeconvFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        return _common.op_backward(ctx, dy, deconv_backward_args,
-                                   _k.deconv_dx, _k.deconv_dw)
+        return _common.op_backward(ctx, "deconv", dy,
+                                   deconv_backward_args, _k.deconv_dx,
+                                   _k.deconv_dw)
 
 
 def deconv_backward_args(x, w, dy, stride, padding=0, *, dilation=1,
@@ -134,8 +139,10 @@ def deconv_backward_args(x, w, dy, stride, padding=0, *, dilation=1,
     if dx:
         # the conv kernel contracting Co within each group, the crop's lo
         # its pad, over x's extent
-        w_dx = _common.regroup_for_dx(w3.reshape(-1, ci // groups, co),
-                                      groups).to(dy3.dtype)
+        w_dx = _common.relayout(engine, "deconv", kernel3, stride3,
+                                _common.regroup_for_dx,
+                                w3.reshape(-1, ci // groups, co),
+                                groups).to(dy3.dtype)
         dx_args = (dy3, w_dx, dict(geometry, pad_lo=crop_lo,
                                     out_spatial=tuple(x3.shape[1:4]),
                                     out_dtype=x.dtype,

@@ -51,10 +51,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 from typing import Any, Callable
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch import tree as _tree
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import networks
@@ -353,22 +355,38 @@ def _gan_update(params, opt_state, grads, opt: AdamWConfig, metrics):
 
 
 def make_vnet_train_step(cfg: ModelConfig, opt: AdamWConfig, engine=None):
-    """One V-Net step: dice + cross-entropy, its gradient, AdamW."""
+    """One V-Net step: dice + cross-entropy, its gradient, AdamW.  Where
+    ``obs.profiled`` finds a recorder for the engine, the step's phases run
+    in the spans ``forward``, ``loss``, ``backward`` and ``update``, each
+    with ``step``, the step's number among the recorded ones."""
     engine = D._engine(engine)
+    recorded = itertools.count()
 
     def train_step(params, opt_state, batch):
-        loss, grads = _vnet_grads(params, cfg, batch, engine)
-        new_p, new_s = adamw_update(grads, opt_state, params, opt)
+        tel = _obs.profiled(engine.config.telemetry)
+        step = None if tel is None else next(recorded)
+        loss, grads = _vnet_grads(params, cfg, batch, engine, tel, step)
+        with (_obs.NO_SPAN if tel is None
+              else tel.span("update", step=step)):
+            new_p, new_s = adamw_update(grads, opt_state, params, opt)
         return new_p, new_s, {"loss": loss}
     return train_step
 
 
-def _vnet_grads(params, cfg: ModelConfig, batch, engine):
+def _vnet_grads(params, cfg: ModelConfig, batch, engine, tel=None,
+                step=None):
+    """The loss and its gradients; with ``tel`` (a recorder) in the spans
+    ``forward``, ``loss`` and ``backward`` of ``step``."""
     with torch.enable_grad():
         p = _wanting_grad(params)
-        logits = D.vnet_forward(p["vnet"], cfg, batch["vol"], engine)
-        loss = D.dice_loss(logits, batch["labels"])
-        grads = _grads(loss, p)
+        with (_obs.NO_SPAN if tel is None
+              else tel.span("forward", step=step)):
+            logits = D.vnet_forward(p["vnet"], cfg, batch["vol"], engine)
+        with _obs.NO_SPAN if tel is None else tel.span("loss", step=step):
+            loss = D.dice_loss(logits, batch["labels"])
+        with (_obs.NO_SPAN if tel is None
+              else tel.span("backward", step=step)):
+            grads = _grads(loss, p)
     return loss.detach(), grads
 
 

@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import networks
 from repro_torch.core.engine import UniformEngine, as_engine, compile_network
@@ -114,15 +115,18 @@ def generator_forward(params, cfg: ModelConfig, z, engine=None):
 
     The deconv stack runs as ONE compiled graph on the engine, each
     layer's bias add and relu/tanh fused into its kernel's epilogue; only
-    the dense z-projection precedes the graph."""
+    the dense z-projection (its ``project`` span) precedes the graph."""
     engine = _engine(engine)
     graph = _generator_graph(cfg.dcnn, cfg.dcnn_reduced)
     glayers = graph.layers
     first = glayers[0]
-    h = torch.matmul(z, params["proj"].to(z.dtype))
-    h = h.reshape(h.shape[0], *first.in_spatial, first.cin)
-    h = torch.relu(h)
-    h = constrain(h, "batch", *([None] * (first.rank + 1)))
+    tel = _obs.profiled(engine.config.telemetry)
+    with (_obs.NO_SPAN if tel is None
+          else tel.span("project", batch=z.shape[0])):
+        h = torch.matmul(z, params["proj"].to(z.dtype))
+        h = h.reshape(h.shape[0], *first.in_spatial, first.cin)
+        h = torch.relu(h)
+        h = constrain(h, "batch", *([None] * (first.rank + 1)))
     apply, _ = compile_network(graph, engine, batch=h.shape[0])
     ws = {l.name: dict(p) for l, p in zip(glayers, params["deconvs"])}
     return apply(ws, h)

@@ -21,11 +21,11 @@ on the host.  ``machine_mem_gbps()`` is the bandwidth roof the same way
 (``REPRO_MEM_GBPS``, else a copy of a buffer far larger than the card's
 L2).
 
-Also here: ``instrument_apply``, the timer ``compile_network`` wraps its
-callable with when the engine carries telemetry.  It passes straight
-through while a CUDA graph is being captured (nothing may synchronize
-then), and otherwise times the call to the end of its device work; it
-adds no kernel launch.
+Also here: ``instrument_apply``, the ``apply`` span ``compile_network``
+wraps its callable in.  It passes straight through while a CUDA graph is
+being captured, and otherwise, with the engine's telemetry, times the
+host's dispatch of the call, without waiting for the device; it adds no
+kernel launch.
 """
 
 from __future__ import annotations
@@ -182,61 +182,48 @@ def machine_mem_gbps(*, force: bool = False, device="cuda") -> float:
 # Host-side dispatch instrumentation.
 # ---------------------------------------------------------------------------
 
-def _sync_outputs(y) -> None:
-    """Wait for the device work behind every CUDA tensor in ``y``."""
-    for d in {t.device for t in tree.leaves(y)
-              if torch.is_tensor(t) and t.is_cuda}:
-        torch.cuda.synchronize(d)
-
-
 def _capturing() -> bool:
     return torch.cuda.is_available() and \
         torch.cuda.is_current_stream_capturing()
 
 
 def instrument_apply(apply: Callable, telemetry, tag: str) -> Callable:
-    """Wrap a compiled ``apply`` with dispatch timing.
+    """Wrap a compiled ``apply`` in its ``apply`` span.
 
-    While a CUDA graph is being captured the wrapper is a pure
-    pass-through.  Otherwise it times the call to the end of its device
-    work and records the ``engine_dispatch_seconds`` histogram and the
-    ``engine_dispatches_total`` counter, labelled by schedule tag.  It
-    launches nothing of its own.
+    The span goes to ``obs.active(telemetry)``: ``telemetry`` (the
+    engine's) when given, else a profile's recorder while one records;
+    with neither, and while a CUDA graph is being captured, the wrapper is
+    a pure pass-through.  With ``telemetry`` each call also records its
+    host duration into the ``engine_dispatch_seconds`` histogram and one
+    into the ``engine_dispatches_total`` counter, labelled by schedule tag,
+    and the wrapper carries ``telemetry_tag`` and ``__wrapped__``.  It
+    never waits for the device, so the duration is the host's dispatch
+    alone and a caller's batches in flight stay in flight; it launches
+    nothing of its own.
     """
-    hist = telemetry.registry.histogram("engine_dispatch_seconds",
-                                        schedule=tag)
-    count = telemetry.registry.counter("engine_dispatches_total",
-                                       schedule=tag)
+    from repro_torch import obs
 
-    @functools.wraps(apply)
+    hist = count = None
+    if telemetry is not None:
+        hist = telemetry.registry.histogram("engine_dispatch_seconds",
+                                            schedule=tag)
+        count = telemetry.registry.counter("engine_dispatches_total",
+                                           schedule=tag)
+
     def timed(ws, x):
-        if _capturing():
+        tel = obs.active(telemetry)
+        if tel is None or _capturing():
             return apply(ws, x)
-        t0 = time.perf_counter()
-        y = apply(ws, x)
-        _sync_outputs(y)
-        hist.observe(time.perf_counter() - t0)
-        count.inc()
+        with tel.span("apply", schedule=tag) as span:
+            y = apply(ws, x)
+        if hist is not None:
+            hist.observe(span.duration_s)
+            count.inc()
         return y
 
-    timed.telemetry_tag = tag
-    timed.__wrapped__ = apply
-    return timed
-
-
-def timed_call(fn: Callable, telemetry, name: str, **labels) -> Callable:
-    """Generic timing wrapper: call ``fn``, wait for its outputs' device
-    work, record the seconds into the histogram ``name`` with
-    ``labels``."""
-    hist = telemetry.registry.histogram(name, **labels)
-
-    def timed(*args, **kwargs):
-        t0 = time.perf_counter()
-        y = fn(*args, **kwargs)
-        _sync_outputs(y)
-        hist.observe(time.perf_counter() - t0)
-        return y
-
+    if telemetry is not None:
+        functools.update_wrapper(timed, apply)
+        timed.telemetry_tag = tag
     return timed
 
 

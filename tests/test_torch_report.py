@@ -4,9 +4,10 @@ package's ``repro.obs.report``.
 ``measure_network`` lists the same rows (names, ops, valid MACs, in
 schedule order) as the reference on the same chain and V-Net graph fed
 the same numpy weights and input; its rows carry the Hopper schedule's
-columns; ``instrument_apply`` passes through and counts dispatches, and a
-telemetry-free ``compile_network`` returns the bare callable; the peak
-probes honour their environment overrides.
+columns; ``instrument_apply`` passes through, counts dispatches and times
+each one as its ``apply`` span's host duration, and a telemetry-free
+``compile_network`` returns a callable that records nothing outside a
+profile; the peak probes honour their environment overrides.
 """
 
 import json
@@ -165,9 +166,17 @@ def test_instrumented_apply_passes_through_and_counts():
                                 schedule=tag).value == calls
         assert tel.registry.get("engine_dispatch_seconds",
                                 schedule=tag).count == calls
-    assert tel.registry.get("engine_compile_seconds", schedule=tag).count \
-        == 1
-    assert tel.tracer.events("compile")
+    # each dispatch is its apply span's host duration, with no wait
+    applies = tel.tracer.events("apply")
+    assert [a["schedule"] for a in applies] == [tag] * 3
+    assert sorted(tel.registry.get("engine_dispatch_seconds",
+                                   schedule=tag).samples()) == sorted(
+        a["duration_s"] for a in applies)
+    assert not hasattr(treport, "_sync_outputs")
+    assert tel.registry.get("engine_compiles_total",
+                            schedule=tag).value == 1
+    (compile_,) = tel.tracer.events("compile")
+    assert compile_["schedule"] == tag and compile_["nodes"] == len(chain)
     assert report.kernel_launches == len(chain)
 
 
@@ -184,23 +193,24 @@ def test_instrumented_apply_is_a_pass_through_while_capturing(monkeypatch):
                             schedule=inst.telemetry_tag).value == 0
     assert tel.registry.get("engine_dispatch_seconds",
                             schedule=inst.telemetry_tag).count == 0
+    assert not tel.tracer.events("apply")
 
 
-def test_compile_network_without_telemetry_returns_the_bare_apply():
+def test_compile_network_without_telemetry_returns_the_bare_apply(
+        monkeypatch):
     assert EngineConfig().telemetry is None
+
+    def refuse(*a, **k):
+        raise AssertionError("recorded outside a profile")
+
+    monkeypatch.setattr(obs, "profiling_telemetry", refuse)
     for kind in sorted(NETS):
         fn, _ = compile_network(NETS[kind](tnet), UniformEngine(**CPU))
         assert not hasattr(fn, "telemetry_tag")
         assert not hasattr(fn, "__wrapped__")
-
-
-def test_timed_call_records_the_histogram():
-    tel = obs.Telemetry.create()
-    fn = obs.timed_call(lambda a, b: a @ b, tel, "matmul_seconds",
-                        shape="4x4")
-    a = torch.ones(4, 4)
-    torch.testing.assert_close(fn(a, a), a @ a)
-    assert tel.registry.get("matmul_seconds", shape="4x4").count == 1
+        _, ws, x = _inputs(kind, tnet, batch=1)
+        fn(weights_from_numpy(ws, "cpu", network=NETS[kind](tnet)),
+           torch.from_numpy(x))
 
 
 def test_peak_env_overrides(monkeypatch):
