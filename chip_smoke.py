@@ -686,6 +686,94 @@ def zero_launch_counts(dk, ck) -> None:
     dk.launches = ck.launches = dk.dw_launches = dk.dx_launches = 0
 
 
+# kernel 1's TMA + wgmma route (csrc/deconv_wgmma.cu): launches the planner
+# (tiling.plan_wgmma) gives it, (tag, x [N, D, H, W, Ci], kernel, stride,
+# Co, crop_lo, out_spatial, groups, dilation): DCGAN's deconv1-3 at batch
+# 64 (one tile a unit) and 1,024 (every phase of a box a unit), V-Net's
+# up1-3 at batch 8, a ragged grid cropped in front, a conv's dx geometry
+# (crop 1, a window past the Eq. (1) extent), two groups, and a dilation
+# that leaves phases without taps
+WGMMA_CASES = [
+    ("dcgan.deconv1.b64", (64, 4, 1, 4, 1024), (3, 1, 3), (2, 1, 2), 512,
+     (0, 0, 0), (8, 1, 8), 1, (1, 1, 1)),
+    ("dcgan.deconv2.b64", (64, 8, 1, 8, 512), (3, 1, 3), (2, 1, 2), 256,
+     (0, 0, 0), (16, 1, 16), 1, (1, 1, 1)),
+    ("dcgan.deconv3.b64", (64, 16, 1, 16, 256), (3, 1, 3), (2, 1, 2), 128,
+     (0, 0, 0), (32, 1, 32), 1, (1, 1, 1)),
+    ("dcgan.deconv1.b1024", (1024, 4, 1, 4, 1024), (3, 1, 3), (2, 1, 2),
+     512, (0, 0, 0), (8, 1, 8), 1, (1, 1, 1)),
+    ("dcgan.deconv2.b1024", (1024, 8, 1, 8, 512), (3, 1, 3), (2, 1, 2),
+     256, (0, 0, 0), (16, 1, 16), 1, (1, 1, 1)),
+    ("dcgan.deconv3.b1024", (1024, 16, 1, 16, 256), (3, 1, 3), (2, 1, 2),
+     128, (0, 0, 0), (32, 1, 32), 1, (1, 1, 1)),
+    ("vnet.up1.b8", (8, 8, 8, 4, 256), (3, 3, 3), (2, 2, 2), 128,
+     (0, 0, 0), (16, 16, 8), 1, (1, 1, 1)),
+    ("vnet.up2.b8", (8, 16, 16, 8, 128), (3, 3, 3), (2, 2, 2), 64,
+     (0, 0, 0), (32, 32, 16), 1, (1, 1, 1)),
+    ("vnet.up3.b8", (8, 32, 32, 16, 64), (3, 3, 3), (2, 2, 2), 32,
+     (0, 0, 0), (64, 64, 32), 1, (1, 1, 1)),
+    ("ragged.crop1", (256, 5, 1, 7, 128), (3, 1, 3), (2, 1, 2), 48,
+     (1, 0, 1), (8, 1, 12), 1, (1, 1, 1)),
+    ("dx.crop1.window", (6, 9, 10, 11, 64), (3, 3, 3), (2, 2, 2), 32,
+     (1, 1, 1), (19, 20, 22), 1, (1, 1, 1)),
+    ("groups2", (64, 6, 1, 6, 256), (3, 1, 3), (2, 1, 2), 128, (0, 0, 0),
+     (12, 1, 12), 2, (1, 1, 1)),
+    ("dil2.empty_phases", (512, 6, 1, 5, 64), (3, 1, 3), (2, 1, 2), 16,
+     (0, 0, 0), (15, 1, 13), 1, (2, 1, 2)),
+]
+WGMMA_ACTS = ("none", "relu", "leaky_relu", "tanh")
+
+
+def wgmma_case(case, dev) -> dict:
+    """One case of ``WGMMA_CASES`` on the card: ``deconv_fwd`` with bias,
+    scale and an activation, in bf16 (gate ``TOL["bfloat16"]``) and f32
+    output (``W8_TOL``) against float64 of the same bf16 operands (the
+    plain version), each run twice; ``ok`` where both outputs are within
+    their gates, repeat bit for bit and report the wgmma staging."""
+    import torch
+
+    from repro_torch.kernels.deconv import kernel as dk
+    from repro_torch.kernels.deconv import ref as dref
+    tag, xs, k, s, co, crop, out, groups, dil = case
+    gen = torch.Generator(device=dev).manual_seed(len(tag))
+    ci = xs[-1]
+    x = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((math.prod(k), ci // groups, co), generator=gen,
+                     device=dev)
+         / math.sqrt(math.prod(k) * ci / groups / 4)).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(co, generator=gen, device=dev)
+    scale = 1 + 0.1 * torch.rand(co, generator=gen, device=dev)
+    kw = dict(kernel=k, stride=s, dilation=dil, groups=groups, crop_lo=crop,
+              out_spatial=out)
+    plan = dk.planned_wgmma(x, w, **kw)
+    row = {"check": tag, "plan": None if plan is None else list(plan.fields()),
+           "ok": plan is not None}
+    key = ("bfloat16", "bfloat16", "bf16", "wgmma")
+    for i, (out_dtype, tol) in enumerate(((torch.bfloat16, TOL["bfloat16"]),
+                                          (torch.float32, W8_TOL))):
+        act = WGMMA_ACTS[(len(tag) + i) % len(WGMMA_ACTS)]
+        ekw = dict(kw, scale=scale, bias=bias, activation=act, alpha=0.1,
+                   out_dtype=out_dtype)
+        before = dk.staging_launches.get(key, 0)
+        got = dk.deconv_fwd(x, w, **ekw)
+        again = dk.deconv_fwd(x, w, **ekw)
+        torch.cuda.synchronize()
+        ref = dref.deconv_fwd_plain(
+            x.double(), w.double(), scale=scale.double(), bias=bias.double(),
+            activation=act, alpha=0.1, out_dtype=torch.float64, **kw)
+        err = float((got.double() - ref).abs().max())
+        mag = float(ref.abs().max())
+        res = {"activation": act, "max_abs_err": err,
+               "rel_err": err / mag if mag else err, "tol": tol,
+               "repeat_equal": bool(torch.equal(got, again)),
+               "wgmma_launches": dk.staging_launches.get(key, 0) - before}
+        row[str(out_dtype).split(".")[-1]] = res
+        row["ok"] = (row["ok"] and res["rel_err"] <= tol
+                     and res["repeat_equal"] and res["wgmma_launches"] == 2)
+        del got, again, ref
+    return row
+
+
 class RankRun:
     """One rank's runs of the sharded path: each wrapper's launch count
     set to 0 just before a run and read just after, its calls recorded by
@@ -2699,7 +2787,9 @@ def main() -> int:
     # registers, whose truncation grows with the reduction's depth; depths
     # 864 (V-Net merge4's 27 x 32), 3,456 (enc5's 27 x 128) and 4,096
     # (DCGAN deconv1's deepest phase, 4 x 1,024), unsplit and split, each
-    # launch run twice for the same bits
+    # launch run twice for the same bits; the unsplit deconv on the gather
+    # (the wgmma route made to decline) and on the wgmma route, its sums in
+    # wgmma's registers
     bf16_deep_cases = [
         ("bf16:d864:unsplit", "conv", (13, 11, 9), 32, (3, 3, 3, 32, 32),
          1, 1, 1, 2, 1, False),
@@ -2711,6 +2801,8 @@ def main() -> int:
          (3, 3, 3, 128, 256), 2, 1, 1, 4, None, True),
         ("bf16:d4096:unsplit", "deconv", (4, 4), 1024, (3, 3, 1024, 512),
          2, dpad2, 1, 4, 1, False),
+        ("bf16:d4096:wgmma", "deconv", (4, 4), 1024, (3, 3, 1024, 512),
+         2, dpad2, 1, 4, 1, False),
         ("bf16:d4096:planner", "deconv", (4, 4), 1024, (3, 3, 1024, 512),
          2, dpad2, 1, 4, None, True),
     ]
@@ -2718,6 +2810,9 @@ def main() -> int:
     for (tag, op, sp, cin, ws, st, pad, g, batch, n_split,
          must_split) in bf16_deep_cases:
         force[0] = None if n_split is None else forced(n_split)
+        real_wgmma = tiling.plan_wgmma
+        if tag == "bf16:d4096:unsplit":
+            tiling.plan_wgmma = lambda *a_, **k_: None
         _, _, _, (x3, wk, kw, rest) = operands(
             op, sp, cin, ws, torch.bfloat16, st, pad, groups=g, scale=True,
             activation="leaky_relu", alpha=0.1, batch=batch)
@@ -2729,6 +2824,7 @@ def main() -> int:
         codes = launches_since(before)
         torch.cuda.synchronize()
         force[0] = None
+        tiling.plan_wgmma = real_wgmma
         ref = run_plain64(op, (x3, wk, kw, rest))
         err = float((got.double() - ref).abs().max())
         mag = float(ref.abs().max())
@@ -2799,6 +2895,7 @@ def main() -> int:
     ]
     PLANNED = {"deconv": dk.planned_halo, "conv": ck.planned_halo}
     real_plan_halo = tiling.plan_halo
+    real_plan_wgmma = tiling.plan_wgmma
 
     def stagings():
         out = {}
@@ -2826,15 +2923,20 @@ def main() -> int:
             op, sp, cin, ws, torch.bfloat16, st, pad, dilation=dil, groups=g,
             scale=True, activation="leaky_relu", alpha=0.1, batch=batch)
         planner = PLANNED[op](x3, wk, **kw)
+        if planner is None and op == "deconv" and dk.planned_wgmma(
+                x3, wk, **kw) is not None:
+            planner = "wgmma"
         if isinstance(want, tuple):        # a halo launch is unsplit
             pinned = forced_halo(op, x3, kw, *want)
             tiling.plan_halo = lambda *a_, h_=pinned, **k_: h_
+            tiling.plan_wgmma = lambda *a_, **k_: None
             force[0] = forced(1)
         halo = PLANNED[op](x3, wk, **kw)
         staging = "halo" if halo is not None else "gather"
         row = {"check": tag, "op": op, "staging": staging,
                "forced": isinstance(want, tuple),
-               "planner": "halo" if planner is not None else "gather",
+               "planner": (planner if isinstance(planner, str) else
+                           "halo" if planner is not None else "gather"),
                "halo": None if halo is None else list(halo.fields()),
                "block_co": kw["block_co"]}
         for out_dtype in (torch.bfloat16, torch.float32):
@@ -2872,6 +2974,7 @@ def main() -> int:
                   f"above {tol}")
             del got, again, ref
         tiling.plan_halo, force[0] = real_plan_halo, None
+        tiling.plan_wgmma = real_plan_wgmma
         print(json.dumps(row))
         detail["halo_checks"].append(row)
         check(staging == ("halo" if isinstance(want, tuple) else want),
@@ -2880,6 +2983,23 @@ def main() -> int:
     detail["halo_checks_s"] = time.perf_counter() - t_halo
     print(json.dumps({"halo_checks_s": detail["halo_checks_s"]}))
     torch.cuda.empty_cache()
+
+    # -- 3w. kernel 1's TMA + wgmma route ------------------------------------
+    # (csrc/deconv_wgmma.cu, tiling.plan_wgmma): every case of WGMMA_CASES
+    # run twice for the same bits, in bf16 and f32 output, against float64
+    # of the same bf16 operands; each launch reports the wgmma staging (the
+    # wrapper raises on any other)
+    phase("wgmma route")
+    t_wg = time.perf_counter()
+    detail["wgmma_checks"] = []
+    for case in WGMMA_CASES:
+        row = wgmma_case(case, dev)
+        print(json.dumps(row))
+        detail["wgmma_checks"].append(row)
+        check(row["ok"], f"{row['check']}: the wgmma route {row}")
+        torch.cuda.empty_cache()
+    detail["wgmma_checks_s"] = time.perf_counter() - t_wg
+    print(json.dumps({"wgmma_checks_s": detail["wgmma_checks_s"]}))
 
     # -- 3q. int8 operands against their plain versions ----------------------
     # (x, w) operand pairs: int8 weights beside f32 activations (w:int8),
@@ -5566,7 +5686,9 @@ def main() -> int:
         "bf16": "bf16 tensor cores (igemm_bf16_kernel: mma.sync m16n8k16, "
                 "A by ldmatrix.x4, B by ldmatrix.x4.trans, f32 sums; "
                 "igemm_bf16_halo_kernel where tiling.plan_halo stages "
-                "each box's input footprint once a chunk)",
+                "each box's input footprint once a chunk; "
+                "igemm_bf16_wgmma_kernel, TMA boxes and wgmma, where "
+                "tiling.plan_wgmma gives a deep stride-2 deconv the route)",
         "tf32": "TF32 tensor cores (igemm_tf32_kernel: mma.sync m16n8k8, "
                 "int8 and bf16 operands exact, f32 activations split hi + "
                 "lo in two passes)",
@@ -5588,7 +5710,7 @@ def main() -> int:
                                      sorted(run_stagings.items())}
     print(json.dumps({"launches_by_staging":
                       detail["launches_by_staging"]}))
-    for how in ("gather", "halo"):
+    for how in ("gather", "halo", "wgmma"):
         check(run_stagings.get(("bfloat16", "bfloat16", "bf16", how), 0) > 0,
               f"no bf16 x bf16 launch staged by {how} in the run")
     check(all(k_[3] == "gather" for k_ in run_stagings if k_[2] != "bf16"),

@@ -5,10 +5,11 @@
 
 Builds variants of the forward kernels from edited copies of
 ``src/repro_torch/csrc`` under ``build/halo_levers/<variant>/`` (one
-library each, the two forward sources' twelve parts), each with one part
-of ``igemm_bf16_halo_kernel``'s work removed: its k16 steps (``no_mma``),
-A's or B's copies (``no_afill``, ``no_bfill``), the epilogue's stores
-(``no_store``), the slot table's setup (``no_setup``); the results of
+library each: the two forward sources' twelve parts and the wgmma
+staging's object), each with one part of ``igemm_bf16_halo_kernel``'s
+work removed: its k16 steps (``no_mma``), A's or B's copies
+(``no_afill``, ``no_bfill``), the epilogue's stores (``no_store``), the
+slot table's setup (``no_setup``); the results of
 those are wrong, only their time counts.  Each variant runs in its own
 process (one library a process) and times, under ``torch.profiler``, the
 device time of the halo-staged launches of V-Net merge4, merge3, merge2
@@ -80,6 +81,12 @@ def build_variants(nvcc: str, flags) -> None:
                     [nvcc, *flags, f"-DREPRO_PART={k}", "-c",
                      str(d / f"{src}.cu"), "-o", str(d / f"{src}_{k}.o")],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        # the forward entry calls the wgmma staging's object
+        shutil.copy(CSRC / "deconv_wgmma.cu", d / "deconv_wgmma.cu")
+        procs.append((name, subprocess.Popen(
+            [nvcc, *flags, "-c", str(d / "deconv_wgmma.cu"), "-o",
+             str(d / "deconv_wgmma.o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     for name, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode:
@@ -88,7 +95,8 @@ def build_variants(nvcc: str, flags) -> None:
         d = OUT / name
         subprocess.run([nvcc, "-shared", "-o", str(d / "lib.so"),
                         *(str(d / f"{src}_{k}.o") for src in SOURCES
-                          for k in range(12))], check=True)
+                          for k in range(12)), str(d / "deconv_wgmma.o")],
+                       check=True)
 
 
 def child(name: str) -> int:
@@ -112,7 +120,7 @@ def child(name: str) -> int:
                                    ints, P]
     lib.repro_deconv_fwd.argtypes = [P, P, P, P, P, P, P, ints, I,
                                      ctypes.c_float, I, I, I, I, I, ints,
-                                     ints, P]
+                                     ints, ints, P]
     lib.repro_conv_fwd.restype = lib.repro_deconv_fwd.restype = I
     build.library = lambda: lib
 

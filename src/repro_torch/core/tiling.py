@@ -58,7 +58,7 @@ import functools
 import math
 
 from repro_torch.core import networks
-from repro_torch.kernels.common import phase_geometry
+from repro_torch.kernels.common import phase_geometry, phase_taps
 
 # the most shared memory one sm_90 block may use (227 KB)
 SMEM_BUDGET = 232448
@@ -682,6 +682,168 @@ def plan_halo(plan: DeconvTilePlan, mode: str, grid, kernel, stride,
             grid, kernel, cig, bm, batch):
         return None
     return best[1]
+
+
+# -- the bf16 route's TMA + wgmma staging (csrc/deconv_wgmma.cu) ---------------
+#
+# A stride-2 (or wider) bf16 x bf16 deconv with deep channels runs
+# ``igemm_bf16_wgmma_kernel``: a tile is one phase x ``WGMMA_ROWS``
+# positions of that phase's cropped grid (one TMA box over x viewed as
+# [N, D, H, W, Cin]) x ``block_co`` output channels; a stage is one tap x
+# ``WGMMA_CHANNELS`` input channels of A (the box's origin minus the tap's
+# offset, zero-filled outside x by the TMA) beside the tap's rows of the
+# phase-major weight slab (``WGMMA_B_COLS``-column boxes); one producer
+# warp keeps ``wgmma_stages`` stages in flight, two consumer warpgroups
+# run wgmma m64nNk16 on them.  ``plan_wgmma`` decides per launch whether
+# it applies and picks the box.
+
+# positions a tile (one box: two warpgroups of 64 rows; each side of a
+# box is at most these, within TMA's 256 elements a dim), the input
+# channels a stage (128 bytes a row, the 128-byte swizzle) and the output
+# channels a B box (128 bytes a row)
+WGMMA_ROWS = 128
+WGMMA_CHANNELS = 64
+WGMMA_B_COLS = 64
+# the output-channel tiles (wgmma N) and the stages a block keeps of each:
+# two blocks an SM; keep in step with csrc/deconv_wgmma.cu (wg::stages)
+WGMMA_STAGES = {64: 4, 128: 3}
+# the phases a launch may have (the plan's order table) and the forward C
+# entry's wgmma argument: int[WGMMA_FIELDS] (csrc/deconv_wgmma.cu::WgmmaPlan)
+WGMMA_MAX_PHASES = 8
+WGMMA_FIELDS = 14 + WGMMA_MAX_PHASES
+# the blocks an SM keeps
+WGMMA_MIN_BLOCKS = 2
+# a work unit runs every phase of its box where the units fill the
+# persistent blocks' rounds at least this evenly, else one tile
+WGMMA_UNIT_FILL = 0.9
+
+
+def wgmma_stage_bytes(block_co: int) -> int:
+    """One stage: the A box (``WGMMA_ROWS`` rows of 128 bytes) and
+    ``block_co / WGMMA_B_COLS`` B boxes of ``WGMMA_CHANNELS`` rows of 128
+    bytes.  Keep in step with csrc/deconv_wgmma.cu::wg::stage_bytes."""
+    return (WGMMA_ROWS * 128
+            + block_co // WGMMA_B_COLS * WGMMA_CHANNELS * 128)
+
+
+def wgmma_smem_bytes(block_co: int) -> int:
+    """Dynamic shared memory of one block: its stages, 1,024 bytes to
+    align them to the swizzle's 1,024-byte pattern, and a full and an
+    empty ``mbarrier`` (8 bytes each) a stage.  Keep in step with
+    csrc/deconv_wgmma.cu::wg::smem_bytes."""
+    stages = WGMMA_STAGES[block_co]
+    return stages * wgmma_stage_bytes(block_co) + 1024 + 16 * stages
+
+
+def wgmma_block_co(cog: int) -> int:
+    """The output-channel tile of a launch of ``cog`` (Cout/G) channels:
+    64 up to 64, else 128."""
+    return 64 if cog <= 64 else 128
+
+
+@dataclasses.dataclass(frozen=True)
+class WgmmaPlan:
+    """One launch's wgmma staging: the TMA ``box`` (bn, bd, bh, bw) of
+    ``WGMMA_ROWS`` positions, the cropped phase grid's ``origin`` and
+    ``grid`` (positions q per dim for which some phase lands inside the
+    output, ``cropped_grid``), the ``block_co`` tile, the phases in launch
+    ``order`` (deepest first), the phases a work unit runs (``group``: 1,
+    or all of them: ``wgmma_group``), the ``boxes`` a phase and channel
+    tile take (the batch included), the block's ``smem_bytes`` and the
+    launch's ``tiles`` (phases x boxes x channel tiles)."""
+    box: tuple[int, int, int, int]
+    origin: tuple[int, int, int]
+    grid: tuple[int, int, int]
+    block_co: int
+    order: tuple[int, ...]
+    group: int
+    boxes: int
+    smem_bytes: int
+    tiles: int
+
+    def fields(self) -> tuple[int, ...]:
+        """The forward C entry's ``wgmma`` argument, in the order of
+        deconv_wgmma.cu::WgmmaPlan (the order table padded with -1)."""
+        pad = (-1,) * (WGMMA_MAX_PHASES - len(self.order))
+        return (*self.box, *self.origin, *self.grid, self.block_co,
+                WGMMA_STAGES[self.block_co], len(self.order), self.group,
+                *self.order, *pad)
+
+
+def cropped_grid(stride, crop_lo, out_spatial) -> tuple[tuple, tuple]:
+    """``(origin, extent)`` per dim of the phase positions q whose output
+    ``q S + p - lo`` lands in ``[0, out)`` for some phase p: ``q`` from
+    ``lo // S`` up to ``ceil((lo + out) / S)``.  Every other position of
+    the Eq. (1) grid is cropped away in every phase."""
+    lo_q = tuple(lo // s for lo, s in zip(crop_lo, stride))
+    hi_q = tuple(-(-(lo + o) // s)
+                 for lo, o, s in zip(crop_lo, out_spatial, stride))
+    return lo_q, tuple(h - l for h, l in zip(hi_q, lo_q))
+
+
+def wgmma_group(units: int, phases: int) -> int:
+    """The phases a work unit runs: all ``phases`` where the ``units`` (a
+    box and channel tile each) fill the persistent blocks (``SMS`` x
+    ``WGMMA_MIN_BLOCKS``) round after round at least ``WGMMA_UNIT_FILL``
+    evenly, else 1 (a tile a block)."""
+    blocks = SMS * WGMMA_MIN_BLOCKS
+    rounds = -(-units // blocks)
+    return phases if units >= rounds * blocks * WGMMA_UNIT_FILL else 1
+
+
+def wgmma_box(grid, batch: int) -> tuple[int, int, int, int]:
+    """The TMA box (bn, bd, bh, bw) of ``WGMMA_ROWS`` positions, each side
+    a power of two, that tiles ``batch`` items of ``grid`` in the fewest
+    boxes (the widest w, then h, then d of those)."""
+    rows = WGMMA_ROWS.bit_length() - 1
+    best = None
+    for ew in range(rows + 1):
+        for eh in range(rows + 1 - ew):
+            for ed in range(rows + 1 - ew - eh):
+                box = (1 << (rows - ew - eh - ed), 1 << ed, 1 << eh, 1 << ew)
+                boxes = math.prod(-(-e // b) for e, b in
+                                  zip((batch, *grid), box))
+                key = (boxes, -box[3], -box[2], -box[1])
+                if best is None or key < best[0]:
+                    best = (key, box)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_wgmma(kernel, stride, dilation, crop_lo, out_spatial, cig: int,
+               cog: int, groups: int, splits: int, batch: int, *,
+               aligned: bool = True) -> WgmmaPlan | None:
+    """The wgmma staging of one bf16 x bf16 deconv launch (the caller
+    asks for no other pair), or None to keep the gather or the halo
+    staging.
+
+    It applies when all hold: the deconv has more than one phase
+    (``prod(stride) > 1``), at most ``WGMMA_MAX_PHASES``; ``cig`` (Cin/G)
+    is a multiple of ``WGMMA_CHANNELS`` and ``cog`` (Cout/G) of 16; x and
+    the weights are 16-byte aligned (``aligned``; the wrapper's output
+    always is) and contiguous (the wrapper's check); the launch is one
+    that ``launch_split`` leaves unsplit (``splits``).  Its box
+    (``wgmma_box``) always fits TMA's limits.  The cropped grid
+    (``cropped_grid``) may reach past the ``I + M - 1`` phase grid (a
+    conv's dx): those rows read zeros."""
+    kernel, stride = tuple(kernel), tuple(stride)
+    dilation, crop_lo = tuple(dilation), tuple(crop_lo)
+    phases = math.prod(stride)
+    if (not aligned or splits != 1 or not 1 < phases <= WGMMA_MAX_PHASES
+            or cig % WGMMA_CHANNELS or cog % 16 or min(out_spatial) < 1):
+        return None
+    origin, grid = cropped_grid(stride, crop_lo, tuple(out_spatial))
+    box = wgmma_box(grid, batch)
+    depth = {p: len(t) for p, _, t in
+             phase_taps(kernel, stride, dilation)}
+    order = tuple(sorted(range(phases), key=lambda p: -depth.get(p, 0)))
+    block_co = wgmma_block_co(cog)
+    boxes = math.prod(-(-e // b) for e, b in zip((batch, *grid), box))
+    chans = groups * -(-cog // block_co)
+    return WgmmaPlan(box=box, origin=origin, grid=grid, block_co=block_co,
+                     order=order, group=wgmma_group(boxes * chans, phases),
+                     boxes=boxes, smem_bytes=wgmma_smem_bytes(block_co),
+                     tiles=boxes * phases * chans)
 
 
 # -- the autotuner's design space and cost -------------------------------------

@@ -66,6 +66,11 @@ int repro_deconv_part8(const repro::FwdArgs& a);
 int repro_deconv_part9(const repro::FwdArgs& a);
 int repro_deconv_part10(const repro::FwdArgs& a);
 int repro_deconv_part11(const repro::FwdArgs& a);
+int repro_deconv_wgmma(const void* x, const void* w_taps, const int* taps,
+                       const float* scale, const float* bias, void* y,
+                       const int* geom, const int* plan, int act,
+                       float alpha, int out_dtype, int* launched,
+                       void* stream);
 
 // in_dtype / w_dtype: x's and the weights' DType; the pair must be one
 // igemm.cuh::pair_index knows.  copy picks the copy widths
@@ -74,6 +79,10 @@ int repro_deconv_part11(const repro::FwdArgs& a);
 // B: 2), A's bytes per copy (16, 4 or 1) for int8 x int8, whose weights
 // come K-major.  halo (int[HALO_FIELDS], or null) is the bf16 route's
 // halo staging the planner chose (igemm.cuh::Halo; null: the gather).
+// wgmma (int[wg::FIELDS], or null) is the bf16 route's TMA + wgmma
+// staging the planner chose (deconv_wgmma.cu::WgmmaPlan): the launch then
+// runs deconv_wgmma.cu's kernel, with bf16 x and weights, no halo, no
+// split (work, block_co and copy unused).
 // launched (int[3], or null) receives the kernel launched, its passes
 // and its staging (igemm.cuh::Launched, Staging).
 extern "C" int repro_deconv_fwd(const void* x, const void* w_taps,
@@ -82,8 +91,14 @@ extern "C" int repro_deconv_fwd(const void* x, const void* w_taps,
                                 const int* geom, int act, float alpha,
                                 int in_dtype, int w_dtype, int out_dtype,
                                 int block_co, int copy,
-                                const int* halo, int* launched,
-                                void* stream) {
+                                const int* halo, const int* wgmma,
+                                int* launched, void* stream) {
+  if (wgmma) {
+    if (halo || in_dtype != repro::DT_BF16 || w_dtype != repro::DT_BF16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return repro_deconv_wgmma(x, w_taps, taps, scale, bias, y, geom, wgmma,
+                              act, alpha, out_dtype, launched, stream);
+  }
   repro::FwdArgs a;
   const int pair = repro::pair_index(in_dtype, w_dtype);
   if (pair < 0 || !repro::fwd_args(a, x, w_taps, taps, scale, bias, y, work,

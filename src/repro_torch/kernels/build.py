@@ -26,12 +26,13 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.tiling import HALO_FIELDS, operand_route
+from repro_torch.core.tiling import HALO_FIELDS, WGMMA_FIELDS, operand_route
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu")
+SOURCES = ("deconv_fwd.cu", "conv_fwd.cu", "deconv_dw.cu",
+           "deconv_wgmma.cu")
 HEADERS = ("igemm.cuh",)
 # each source compiles once per variant of its kernels (-DREPRO_PART=k),
 # so the variants build in parallel: the forward sources per (x, w)
@@ -39,7 +40,9 @@ HEADERS = ("igemm.cuh",)
 # bf16/bf16 on the bf16 route (2-3), f32/int8 and bf16/int8 on the TF32
 # route (4-7), then int8/int8 (the s8 route) per A copy width (8-10),
 # then the bf16 route's halo staging (11; igemm.cuh::variant_part); the
-# dw source per operand type x A's x B's copy width
+# dw source per operand type x A's x B's copy width; the bf16 route's
+# wgmma staging (deconv_wgmma.cu, which deconv_fwd.cu's entry calls) is
+# one object of its own
 PARTS = {"deconv_fwd.cu": 12, "conv_fwd.cu": 12, "deconv_dw.cu": 8}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -203,9 +206,11 @@ def forward_route(x, w, depth: int) -> str:
 # the kernels a forward C entry reports in its ``launched`` out-parameter
 # (igemm.cuh::Launched), by their routes' names: igemm_kernel,
 # igemm_tf32_kernel, igemm_s8_kernel, igemm_bf16_kernel (and
-# igemm_bf16_halo_kernel); and how the kernel staged A (igemm.cuh::Staging)
+# igemm_bf16_halo_kernel, deconv_wgmma.cu's igemm_bf16_wgmma_kernel); and
+# how the kernel staged A (igemm.cuh::Staging, deconv_wgmma.cu's
+# wg::STAGING)
 LAUNCHED_ROUTES = ("fma", "tf32", "s8", "bf16")
-STAGINGS = ("gather", "halo")
+STAGINGS = ("gather", "halo", "wgmma")
 
 
 def launched_buffer() -> ctypes.Array:
@@ -214,8 +219,8 @@ def launched_buffer() -> ctypes.Array:
     cores, the TF32 route, the s8 route, the bf16 route's ``mma.sync``
     m16n8k16), the products a k8 step of it runs per fragment (the TF32
     route's passes, else 1) and how it staged A (an index of
-    ``STAGINGS``: gathered per row and tap, or a box's footprint once);
-    -1 until a kernel has launched."""
+    ``STAGINGS``: gathered per row and tap, a box's footprint once, or
+    TMA boxes for wgmma); -1 until a kernel has launched."""
     return (ctypes.c_int * 3)(-1, -1, -1)
 
 
@@ -233,16 +238,17 @@ def halo_array(halo) -> ctypes.Array | None:
 
 def record_operands(record: dict, x, w, launched, *,
                     staging: dict | None = None,
-                    halo: bool = False) -> tuple:
+                    halo: bool = False, wgmma: bool = False) -> tuple:
     """Count one launch in ``record`` (a wrapper's ``operand_launches``)
     under its ``(x, w)`` operand type names and the route and passes the
     C entry reported in ``launched`` (``launched_buffer``); RuntimeError
     when it reported no kernel.  With ``staging`` (a wrapper's
     ``staging_launches``) count it there too under ``(x, w, route,
-    staging)``, the staging the C entry reported, which must be the halo
-    staging when the planner chose it (``halo``) and the gather when not:
-    RuntimeError otherwise (nothing falls back).  Returns the launch's
-    ``(x, w, route, passes)``, its staging appended where counted."""
+    staging)``, the staging the C entry reported, which must be the wgmma
+    staging when the planner chose it (``wgmma``), the halo staging when
+    it chose that (``halo``) and the gather when neither: RuntimeError
+    otherwise (nothing falls back).  Returns the launch's ``(x, w, route,
+    passes)``, its staging appended where counted."""
     kernel, passes = launched[0], launched[1]
     if not 0 <= kernel < len(LAUNCHED_ROUTES) or passes < 1:
         raise RuntimeError(f"the forward entry reported no launch "
@@ -251,13 +257,26 @@ def record_operands(record: dict, x, w, launched, *,
     record[key] = record.get(key, 0) + 1
     if staging is None:
         return key
-    if len(launched) <= 2 or launched[2] != int(halo):
+    planned = STAGINGS.index("wgmma") if wgmma else int(halo)
+    if len(launched) <= 2 or launched[2] != planned:
         got = launched[2] if len(launched) > 2 else None
         raise RuntimeError(f"the forward entry reported staging {got}; the "
-                           f"planner chose {STAGINGS[int(halo)]}")
+                           f"planner chose {STAGINGS[planned]}")
     staged = key[:3] + (STAGINGS[launched[2]],)
     staging[staged] = staging.get(staged, 0) + 1
     return key + staged[3:]
+
+
+def wgmma_array(plan) -> ctypes.Array | None:
+    """The forward entry's ``wgmma`` argument: the planner's
+    ``tiling.WgmmaPlan`` as deconv_wgmma.cu's ``WgmmaPlan``
+    (``WGMMA_FIELDS`` ints), or None (null: no wgmma staging)."""
+    if plan is None:
+        return None
+    fields = plan.fields()
+    if len(fields) != WGMMA_FIELDS:
+        raise ValueError(f"bad wgmma staging {fields}")
+    return (ctypes.c_int * WGMMA_FIELDS)(*fields)
 
 
 def default_out_dtype(x) -> torch.dtype:
@@ -379,7 +398,7 @@ def library() -> ctypes.CDLL:
     ints = ctypes.POINTER(ctypes.c_int)
     lib.repro_deconv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, ints, _I,
                                      ctypes.c_float, _I, _I, _I, _I, _I,
-                                     ints, ints, _P]
+                                     ints, ints, ints, _P]
     lib.repro_deconv_fwd.restype = _I
     lib.repro_conv_fwd.argtypes = [_P, _P, _P, _P, _P, _P, ints, _I,
                                    ctypes.c_float, _I, _I, _I, _I, _I, ints,

@@ -27,13 +27,16 @@ wrapper that launched its kernel on the card, and nothing else (a
 ``(x, w)`` operand types and the kernel and passes the C entry reports it
 launched (``build.record_operands``), e.g. ``("float32", "int8", "tf32",
 2)`` for int8 weights, and ``staging_launches`` by how it staged A, e.g.
-``("bfloat16", "bfloat16", "bf16", "halo")``: a bf16 x bf16 launch stages
-each box of rows' input footprint once where ``tiling.plan_halo`` says
-so (x 16-byte aligned), else gathers; a report other than the planner's
-choice raises.
+``("bfloat16", "bfloat16", "bf16", "halo")``: a bf16 x bf16 launch runs
+``csrc/deconv_wgmma.cu`` (TMA boxes of the cropped phase grid, wgmma)
+where ``tiling.plan_wgmma`` says so (deep channels, stride 2, unsplit,
+aligned), else stages each box of rows' input footprint once where
+``tiling.plan_halo`` says so (x 16-byte aligned), else gathers; a report
+other than the planner's choice raises.
 While a profiler records (``obs.profiled``), each wrapper's call of
 its C entry runs in a ``launch`` span with the launch's plan and, for the
-forward, its ``build.record_operands`` key.
+forward, its ``build.record_operands`` key, and each wgmma launch counts
+one in the profiling recorder's ``wgmma_launches_total{op="deconv"}``.
 On a CPU tensor each wrapper runs the plain version (``ref.py``); on a
 CUDA tensor it launches the kernel or raises; on a ``meta`` tensor (the
 dry run) it returns the kernel's output shape and dtype on ``meta`` and
@@ -87,7 +90,6 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
     ``block_co`` picks the kernel's output-channel tile and ``split`` the
     reduction's policy (the plan's, ``tiling.SPLIT_POLICIES``).
     """
-    global launches
     kernel, stride = tuple(kernel), tuple(stride)
     dilation, crop_lo = tuple(dilation), tuple(crop_lo)
     if x.dim() != 5 or w_taps.dim() not in (3, 4):
@@ -132,18 +134,30 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
             (n, *out_spatial, co), out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no deconv kernel for device {x.device}")
-    q, splits, per, copy, halo = _launch_plan(
+    q, splits, per, copy, halo, wg = _launch_plan(
         x, w_taps, co, kernel, stride, dilation, groups, crop_lo,
         out_spatial, block_co, split, route)
     rows, phases = n * math.prod(q), math.prod(stride)
-    lib = _build.library()
     taps = _common.tap_table(kernel, stride, dilation, x.device)
     y = torch.empty((n, *out_spatial, co), dtype=out_dtype, device=x.device)
     work = _build.split_workspace(splits, phases * rows * co, x.device,
                                   route)
-    geom = _build.geom_array((n, d, h, wd, ci, co, groups, *kernel, *stride,
-                              *dilation, *q, *out_spatial, *crop_lo, splits,
-                              per))
+    geom = (n, d, h, wd, ci, co, groups, *kernel, *stride, *dilation, *q,
+            *out_spatial, *crop_lo, splits, per)
+    return _launch(_build.library(), x, w_taps, taps, scale32, bias32, y,
+                   work, geom, activation, alpha, block_co, split, copy,
+                   halo, wg)
+
+
+def _launch(lib, x, w_taps, taps, scale32, bias32, y, work, geom,
+            activation, alpha, block_co, split, copy, halo, wg):
+    """One call of the C entry ``repro_deconv_fwd`` into ``y`` with the
+    planner's halo (``tiling.HaloPlan``) or wgmma (``tiling.WgmmaPlan``)
+    staging, either or both None; recorded in ``operand_launches`` and
+    ``staging_launches``.  While a profiler records (``obs.profiled``) it
+    runs in a ``launch`` span, and a wgmma launch counts one in the
+    profiling recorder's ``wgmma_launches_total{op="deconv"}``."""
+    global launches
     launched = _build.launched_buffer()
     tel = _obs.profiled(None)
     with (_obs.NO_SPAN if tel is None
@@ -152,10 +166,11 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
         err = lib.repro_deconv_fwd(
             _build.ptr(x), _build.ptr(w_taps), _build.ptr(taps),
             _build.ptr(scale32), _build.ptr(bias32), _build.ptr(y),
-            _build.ptr(work), geom, _common.ACTIVATION_CODES[activation],
-            float(alpha), _build.DTYPE_CODES[x.dtype],
-            _build.DTYPE_CODES[w_taps.dtype], _build.DTYPE_CODES[out_dtype],
-            block_co, copy, _build.halo_array(halo), launched,
+            _build.ptr(work), _build.geom_array(geom),
+            _common.ACTIVATION_CODES[activation], float(alpha),
+            _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[w_taps.dtype],
+            _build.DTYPE_CODES[y.dtype], block_co, copy,
+            _build.halo_array(halo), _build.wgmma_array(wg), launched,
             _build.stream_of(x))
         if err:
             raise RuntimeError(f"deconv kernel launch failed (cudaError "
@@ -163,17 +178,22 @@ def deconv_fwd(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
         launches += 1
         key = _build.record_operands(operand_launches, x, w_taps, launched,
                                      staging=staging_launches,
-                                     halo=halo is not None)
+                                     halo=halo is not None,
+                                     wgmma=wg is not None)
         if span is not None:
             span.set(operands=key)
+    if wg is not None and tel is not None:
+        tel.counter("wgmma_launches_total", op="deconv").inc()
     return y
 
 
 def _launch_plan(x, w_taps, co, kernel, stride, dilation, groups, crop_lo,
                  out_spatial, block_co, split, route):
     """A card launch's phase grid q, slices, pairs a slice, copy widths
-    (``build.copy_variant``) and halo staging (``tiling.plan_halo``, for
-    bf16 x bf16 with 16-byte copies of x; else None: the gather)."""
+    (``build.copy_variant``), halo staging (``tiling.plan_halo``, for
+    bf16 x bf16 with 16-byte copies of x; else None: the gather) and
+    wgmma staging (``tiling.plan_wgmma``, which the planner tries first;
+    where it gives one the halo staging is None)."""
     n, d, h, wd, ci = x.shape
     plan = _tiling.plan_uniform_tiles(ci, co, mode="deconv",
                                       block_co=block_co, groups=groups,
@@ -187,11 +207,16 @@ def _launch_plan(x, w_taps, co, kernel, stride, dilation, groups, crop_lo,
         ci // groups)
     splits, per = _tiling.launch_split(plan, rows, depth, co, groups, phases)
     copy = _build.copy_variant(x, w_taps, ci // groups, co // groups)
-    halo = None
-    if route == "bf16" and copy & _build.BF16_COPY_A16:
+    halo = wg = None
+    if route == "bf16":
+        wg = _tiling.plan_wgmma(
+            kernel, stride, dilation, crop_lo, tuple(out_spatial),
+            ci // groups, co // groups, groups, splits, n,
+            aligned=x.data_ptr() % 16 == 0 and w_taps.data_ptr() % 16 == 0)
+    if wg is None and route == "bf16" and copy & _build.BF16_COPY_A16:
         halo = _tiling.plan_halo(plan, "deconv", q, kernel, stride, dilation,
                                  ci // groups, splits, n)
-    return q, splits, per, copy, halo
+    return q, splits, per, copy, halo, wg
 
 
 def planned_halo(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
@@ -200,8 +225,28 @@ def planned_halo(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
                  **_epilogue):
     """The halo staging (``tiling.HaloPlan``) that ``deconv_fwd(x, w_taps,
     ...)`` with these arguments takes on the card, or None where it
-    gathers; from shapes, types and x's alignment alone (``meta`` tensors
-    will do), launching nothing."""
+    gathers or takes the wgmma route (``planned_wgmma``); from shapes,
+    types and x's alignment alone (``meta`` tensors will do), launching
+    nothing."""
+    return _planned(x, w_taps, kernel, stride, dilation, groups, crop_lo,
+                    out_spatial, block_co, split)[4]
+
+
+def planned_wgmma(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
+                  dilation=(1, 1, 1), groups: int = 1, crop_lo=(0, 0, 0),
+                  out_spatial=None, block_co: int = 64, split: str = "auto",
+                  **_epilogue):
+    """The wgmma staging (``tiling.WgmmaPlan``) that ``deconv_fwd(x,
+    w_taps, ...)`` with these arguments takes on the card, or None where
+    it gathers or stages a halo; as ``planned_halo``, launching
+    nothing."""
+    return _planned(x, w_taps, kernel, stride, dilation, groups, crop_lo,
+                    out_spatial, block_co, split)[5]
+
+
+def _planned(x, w_taps, kernel, stride, dilation, groups, crop_lo,
+             out_spatial, block_co, split):
+    """``_launch_plan`` of ``deconv_fwd``'s arguments."""
     kernel, stride = tuple(kernel), tuple(stride)
     dilation, crop_lo = tuple(dilation), tuple(crop_lo)
     co = (w_taps.shape[1] * w_taps.shape[2] if w_taps.dim() == 4
@@ -212,8 +257,7 @@ def planned_halo(x: torch.Tensor, w_taps: torch.Tensor, *, kernel, stride,
         out_spatial = tuple(f - lo for f, lo in zip(full, crop_lo))
     route = _tiling.operand_route(x.element_size(), w_taps.element_size())
     return _launch_plan(x, w_taps, co, kernel, stride, dilation, groups,
-                        crop_lo, tuple(out_spatial), block_co, split,
-                        route)[4]
+                        crop_lo, tuple(out_spatial), block_co, split, route)
 
 
 def deconv_dw(a: torch.Tensor, b: torch.Tensor, *, kernel, stride,

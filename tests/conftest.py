@@ -8,3 +8,9 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA GPU; skips without one (run "
+        "them with `pytest -m card` on the card)")
